@@ -1,0 +1,42 @@
+"""Device resolution and counted host reads.
+
+Every entry point of the port takes ``device=None``, which means the card
+(``"cuda"``).  There is no silent fallback: asking for the card on a
+machine without one raises, and the CPU runs only when a caller names it.
+
+The BFS and the hash-table probe loops run from the host, so they read a
+few device scalars per level.  Each such read goes through
+:func:`host_read`, which counts it in :data:`host_reads` so a run can
+report its host reads per wave.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+__all__ = ["resolve_device", "host_read", "host_reads"]
+
+DeviceLike = Union[str, torch.device, None]
+
+#: Host reads of device values made by the port since import (a plain
+#: integer; callers reset it to 0 before the run they measure).
+host_reads = 0
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda``; raise when the card is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain versions on the CPU")
+    return dev
+
+
+def host_read(x: torch.Tensor) -> int:
+    """One counted device-to-host read of a scalar (bool or int)."""
+    global host_reads
+    host_reads += 1
+    return int(x.item())

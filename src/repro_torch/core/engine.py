@@ -1,0 +1,375 @@
+"""Breadth-first exploration of an SNP system's computation tree, and
+batched traces.
+
+The port of ``repro.core.engine``.  :func:`explore` implements the paper's
+Algorithm 1: each level expands the frontier through a step backend,
+hashes every successor, dedups it against the visited set, and compacts
+the new configurations into the next frontier and the archive.  The
+reference runs the whole BFS as one ``lax.while_loop``; here the level
+loop runs from the host and reads one device scalar per level (the number
+of new configurations, which both ends the loop and sizes the archive
+append), plus the hash table's probe-loop reads.  Every read is counted
+in :data:`repro_torch.core.device.host_reads`.
+
+Overflow conditions are reported, never silently dropped:
+
+* ``branch_overflow``   — some config had Ψ > T (only its first T branches
+  were explored);
+* ``frontier_overflow`` — more than F new configs in one level; the excess
+  are not marked visited, so they regenerate later;
+* ``visited_overflow``  — the visited set is full (same soundness).
+
+Archives, flags and traces equal the reference's row for row, in
+discovery order, for both dedup modes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, NamedTuple, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from .backend import BackendLike, get_backend
+from .device import DeviceLike, host_read, resolve_device
+from .hashing import SENTINEL, config_hash
+from .hashtable import first_occurrence, insert_unique, lookup, make_table
+from .matrix import CompiledSNP, compile_system, is_compiled
+
+__all__ = ["ExploreResult", "TraceOut", "explore", "resolve_dedup",
+           "successor_set", "emission_gaps", "run_trace", "run_traces"]
+
+
+def _resolve_comp(system, device: DeviceLike) -> CompiledSNP:
+    """The dense encoding on the resolved device (``None`` = the card)."""
+    dev = resolve_device(device)
+    if is_compiled(system):
+        return system.to(dev)
+    return compile_system(system, device=dev)
+
+
+@dataclass(frozen=True)
+class ExploreResult:
+    configs: np.ndarray         # (n_discovered, m) in discovery order
+    num_discovered: int
+    steps: int
+    exhausted: bool             # tree fully explored (no overflow, frontier drained)
+    branch_overflow: bool
+    frontier_overflow: bool
+    visited_overflow: bool
+
+    def as_strings(self) -> List[str]:
+        """Configs in the paper's ``allGenCk`` 'a-b-c' string format."""
+        return ["-".join(str(int(v)) for v in row) for row in self.configs]
+
+
+def resolve_dedup(dedup: str, *, frontier_cap: int, visited_cap: int,
+                  max_branches: int) -> str:
+    """``"auto"`` -> ``"hash"`` once the visited capacity dominates the wave
+    (``visited_cap >= max(16384, 8·frontier_cap·max_branches)``), else
+    ``"sort"`` — the reference's rule, kept so both packages pick the same
+    mode (the two give identical archives outside visited overflow)."""
+    if dedup == "auto":
+        wave = frontier_cap * max_branches
+        return "hash" if visited_cap >= max(16384, 8 * wave) else "sort"
+    if dedup not in ("hash", "sort"):
+        raise ValueError(f"unknown dedup mode {dedup!r}")
+    return dedup
+
+
+# Sort dedup orders keys by (hi, lo) as unsigned 32-bit lanes; one int64
+# key (hi - 2^31)·2^32 + lo orders the same way and cannot overflow.
+_SORT_BIAS = 1 << 31
+_SENTINEL_KEY = (SENTINEL - _SORT_BIAS) * (1 << 32) + SENTINEL
+
+
+def _sort_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    return (hi - _SORT_BIAS) * (1 << 32) + lo
+
+
+def _sort_dedup_verdict(visited_key: torch.Tensor, key: torch.Tensor,
+                        cand_valid: torch.Tensor) -> torch.Tensor:
+    """New-mask of the candidates (first occurrence of an unseen key) from
+    one sort of visited keys and candidates.  The reference sorts
+    ``(hi, lo, is_cand)`` stably; two stable sorts — by ``is_cand``, then
+    by key — give the same order, so among equal keys visited entries
+    come first and candidates keep index order (the lowest index wins)."""
+    V, K = visited_key.shape[0], key.shape[0]
+    dev = key.device
+    all_key = torch.cat([visited_key, key])
+    is_cand = torch.cat([torch.zeros(V, dtype=torch.uint8, device=dev),
+                         cand_valid.to(torch.uint8)])
+    order = torch.sort(is_cand, stable=True).indices
+    order = order[torch.sort(all_key[order], stable=True).indices]
+    s_key = all_key[order]
+    eq_prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                         s_key[1:] == s_key[:-1]])
+    new_sorted = (is_cand[order] == 1) & ~eq_prev
+    # back to candidate order through the inverse permutation
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(V + K, device=dev)
+    return new_sorted[inv[V:]]
+
+
+def explore(
+    system,
+    *,
+    max_steps: int = 64,
+    frontier_cap: int = 256,
+    visited_cap: int = 4096,
+    max_branches: int = 64,
+    init: Optional[Sequence[int]] = None,
+    backend: BackendLike = None,
+    device: DeviceLike = None,
+    dedup: str = "auto",
+) -> ExploreResult:
+    """BFS-explore the computation tree (paper Algorithm 1) until the
+    frontier drains or ``max_steps`` levels.
+
+    ``backend`` selects the transition (``"cuda"`` — the default — or
+    ``"ref"``); ``device`` where it runs (``None`` = the card, which must
+    be present).  ``dedup="hash"`` keeps the device-resident
+    open-addressing table, ``"sort"`` re-sorts the visited keys with each
+    wave, ``"auto"`` applies :func:`resolve_dedup`."""
+    dedup = resolve_dedup(dedup, frontier_cap=frontier_cap,
+                          visited_cap=visited_cap, max_branches=max_branches)
+    be = get_backend(backend)
+    comp = _resolve_comp(system, device)
+    dev = comp.device
+    F, V, T = frontier_cap, visited_cap, max_branches
+    m = comp.num_neurons
+    c0 = comp.init_config if init is None else \
+        torch.as_tensor(list(init), dtype=torch.int32, device=dev)
+
+    frontier = torch.zeros((F, m), dtype=torch.int32, device=dev)
+    frontier[0] = c0
+    archive = torch.zeros((V, m), dtype=torch.int32, device=dev)
+    archive[0] = c0
+    archive_n = 1
+    hi0, lo0 = config_hash(c0)
+    ones = torch.ones(1, dtype=torch.bool, device=dev)
+    if dedup == "hash":
+        table, _, _ = insert_unique(
+            make_table(V, dev), hi0[None], lo0[None], ones,
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    else:
+        visited_key = torch.full((V,), _SENTINEL_KEY, dtype=torch.int64,
+                                 device=dev)
+        visited_key[0] = _sort_key(hi0, lo0)
+        visited_n = 1
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    branch_ovf = frontier_ovf = visited_ovf = false
+    take = torch.arange(F, device=dev)
+
+    step, frontier_n = 0, 1
+    while step < max_steps and frontier_n > 0:
+        live = take < frontier_n
+        out = be.expand(frontier, comp, T)
+        cand = out.configs.reshape(F * T, m)
+        cand_valid = (out.valid & live[:, None]).reshape(F * T)
+        branch_ovf = branch_ovf | (out.overflow & live).any()
+
+        hi, lo = config_hash(cand)
+        hi = torch.where(cand_valid, hi, SENTINEL)
+        lo = torch.where(cand_valid, lo, SENTINEL)
+        if dedup == "hash":
+            found, _ = lookup(table, hi, lo, cand_valid)
+            first, probe_ovf = first_occurrence(hi, lo, cand_valid)
+            new_mask = cand_valid & first & ~found
+        else:
+            new_mask = _sort_dedup_verdict(visited_key, _sort_key(hi, lo),
+                                           cand_valid)
+
+        n_new = new_mask.sum()
+        # new candidates first, in index order (stable), then the rest
+        sel = torch.sort((~new_mask).to(torch.uint8),
+                         stable=True).indices[:F]
+        n_ins = host_read(n_new.clamp(max=F))   # the one read per level
+        next_frontier = cand[sel]
+        ins_mask = take < n_ins
+        frontier_ovf = frontier_ovf | (n_new > F)
+
+        if dedup == "hash":
+            # insert the selected prefix only (payload = archive row), so
+            # excess discoveries are not marked visited and regenerate
+            full = table.count + n_ins > V
+            table, _, ovf_i = insert_unique(
+                table, hi[sel], lo[sel], ins_mask,
+                (archive_n + take).to(torch.int32))
+            visited_ovf = visited_ovf | probe_ovf | ovf_i | full
+        else:
+            # visited merge: entries beyond capacity fall off the sorted tail
+            ins_key = torch.where(ins_mask, _sort_key(hi[sel], lo[sel]),
+                                  _SENTINEL_KEY)
+            visited_key = torch.sort(torch.cat([visited_key, ins_key])
+                                     ).values[:V]
+            visited_ovf = visited_ovf | (visited_n + n_ins > V)
+            visited_n = min(visited_n + n_ins, V)
+
+        # archive append in discovery order (rows past V are dropped)
+        k = min(n_ins, V - archive_n)
+        archive[archive_n:archive_n + k] = next_frontier[:k]
+        archive_n += k
+        frontier, frontier_n = next_frontier, n_ins
+        step += 1
+
+    b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
+        [branch_ovf, frontier_ovf, visited_ovf]).tolist())
+    return ExploreResult(
+        configs=archive[:archive_n].cpu().numpy(),
+        num_discovered=archive_n,
+        steps=step,
+        exhausted=frontier_n == 0 and not (b_ovf or f_ovf or v_ovf),
+        branch_overflow=b_ovf, frontier_overflow=f_ovf,
+        visited_overflow=v_ovf,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Small-system utilities (host-driven, used by tests and the paper repro)
+# ---------------------------------------------------------------------------
+
+
+def _successors(comp: CompiledSNP, configs: Sequence[Tuple[int, ...]],
+                max_branches: int, be) -> List[List[Tuple[tuple, int]]]:
+    """Distinct (successor, emission) pairs of each config, in branch
+    order, from one batched expand; raises on branch overflow."""
+    if not configs:
+        return []
+    c = torch.as_tensor(list(configs), dtype=torch.int32, device=comp.device)
+    out = be.expand(c, comp, max_branches)
+    if bool(out.overflow.any()):
+        raise ValueError("branch overflow; raise max_branches")
+    cfgs = out.configs.cpu().numpy()
+    valid = out.valid.cpu().numpy()
+    emis = out.emissions.cpu().numpy()
+    result = []
+    for b in range(len(configs)):
+        seen: Set = set()
+        pairs = []
+        for i in np.nonzero(valid[b])[0]:
+            key = (tuple(int(v) for v in cfgs[b, i]), int(emis[b, i]))
+            if key not in seen:
+                seen.add(key)
+                pairs.append(key)
+        result.append(pairs)
+    return result
+
+
+def successor_set(system, config: Sequence[int], max_branches: int = 64,
+                  backend: BackendLike = None,
+                  device: DeviceLike = None) -> List[Tuple[tuple, int]]:
+    """Distinct (successor, emission) pairs of one configuration."""
+    comp = _resolve_comp(system, device)
+    return _successors(comp, [tuple(config)], max_branches,
+                       get_backend(backend))[0]
+
+
+def emission_gaps(system, *, max_time: int, max_gap: int,
+                  max_branches: int = 64, backend: BackendLike = None,
+                  device: DeviceLike = None) -> Set[int]:
+    """All gaps between the first two environment emissions, over every
+    computation path of length <= ``max_time``.
+
+    The number computed by an SNP generator is exactly this gap (paper
+    §2.1); for the paper's Π in exact mode it must be {2, 3, ...} ∩ bound.
+    BFS over *augmented* states (config, elapsed since the first emission)
+    keeps the search polynomial.  Each time step expands all of its
+    states in one batched call (the reference expands them one by one;
+    the sets are the same)."""
+    comp = _resolve_comp(system, device)
+    be = get_backend(backend)
+    init = tuple(int(v) for v in comp.init_config.cpu().tolist())
+    # phase A: no emission yet; phase B: (config, elapsed) since 1st emission
+    phase_a: set = {init}
+    phase_b: set = set()
+    gaps: Set[int] = set()
+    for _ in range(max_time):
+        a_list = sorted(phase_a)
+        b_list = sorted((c, e) for c, e in phase_b if e + 1 <= max_gap)
+        succ = _successors(comp, a_list + [c for c, _ in b_list],
+                           max_branches, be)
+        new_a: set = set()
+        new_b: set = set()
+        for pairs in succ[:len(a_list)]:
+            for nxt, emis in pairs:
+                if emis > 0:
+                    new_b.add((nxt, 0))
+                else:
+                    new_a.add(nxt)
+        for (_, elapsed), pairs in zip(b_list, succ[len(a_list):]):
+            for nxt, emis in pairs:
+                if emis > 0:
+                    gaps.add(elapsed + 1)
+                else:
+                    new_b.add((nxt, elapsed + 1))
+        phase_a, phase_b = new_a, new_b
+        if not phase_a and not phase_b:
+            break
+    return gaps
+
+
+# ---------------------------------------------------------------------------
+# Traces: B independent trajectories stepped together
+# ---------------------------------------------------------------------------
+
+
+class TraceOut(NamedTuple):
+    """:func:`run_traces` output.  ``branch_overflow[b, t]`` flags that
+    trace b had more than ``max_branches`` successors at step t."""
+
+    configs: torch.Tensor          # (B, steps, m) int32
+    emissions: torch.Tensor        # (B, steps) int32
+    alive: torch.Tensor            # (B, steps) bool
+    branch_overflow: torch.Tensor  # (B, steps) bool
+
+
+def run_traces(system, *, steps: int, seeds, policy: str = "first",
+               max_branches: int = 64, backend: BackendLike = None,
+               device: DeviceLike = None) -> TraceOut:
+    """Batched trajectories: ``B = len(seeds)`` paths stepped together, one
+    expand per step for the whole batch.  ``policy="first"`` follows
+    branch 0 at every step, so every seed gives the same path.
+
+    ``policy="random"`` is not ported yet: the reference draws branches
+    from JAX's threefry generator, and matching its traces bit for bit
+    needs a port of threefry2x32 (ROADMAP.md, queue 1, "Random traces")."""
+    if policy not in ("first", "random"):
+        raise ValueError(f"unknown policy {policy!r}")
+    if policy == "random":
+        raise NotImplementedError(
+            "run_traces(policy='random') needs the threefry2x32 port "
+            "(ROADMAP.md, queue 1, 'Random traces (threefry2x32)')")
+    seeds = np.asarray(seeds)
+    if seeds.ndim != 1:
+        raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
+    be = get_backend(backend)
+    comp = _resolve_comp(system, device)
+    B, m, dev = int(seeds.shape[0]), comp.num_neurons, comp.device
+    res = TraceOut(
+        torch.empty((B, steps, m), dtype=torch.int32, device=dev),
+        torch.empty((B, steps), dtype=torch.int32, device=dev),
+        torch.empty((B, steps), dtype=torch.bool, device=dev),
+        torch.empty((B, steps), dtype=torch.bool, device=dev))
+    cfgs = comp.init_config.expand(B, m)
+    for s in range(steps):
+        out = be.expand(cfgs, comp, max_branches)      # (B, T, m)
+        has = out.valid.any(-1)
+        cfgs = torch.where(has[:, None], out.configs[:, 0], cfgs)
+        res.configs[:, s] = cfgs
+        res.emissions[:, s] = torch.where(has, out.emissions[:, 0], 0)
+        res.alive[:, s] = has
+        res.branch_overflow[:, s] = out.overflow & has
+    return res
+
+
+def run_trace(system, *, steps: int, policy: str = "first", seed: int = 0,
+              max_branches: int = 64, backend: BackendLike = None,
+              device: DeviceLike = None) -> TraceOut:
+    """One trajectory: a B=1 :func:`run_traces` batch, so the single and
+    batched paths cannot drift apart."""
+    out = run_traces(system, steps=steps, seeds=[seed], policy=policy,
+                     max_branches=max_branches, backend=backend,
+                     device=device)
+    return TraceOut(*(x[0] for x in out))

@@ -1,0 +1,64 @@
+"""The port stands alone: no file under ``src/repro_torch/`` imports JAX or
+the reference package ``repro``, none imports ``triton`` at module level,
+and importing the port loads neither JAX nor ``repro``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+FILES = sorted((SRC / "repro_torch").rglob("*.py"))
+
+
+def _imports(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+        return [node.module]
+    return []
+
+
+def _top(name):
+    return name.split(".")[0]
+
+
+def test_port_has_modules():
+    names = {p.relative_to(SRC).as_posix() for p in FILES}
+    for want in ("repro_torch/core/engine.py",
+                 "repro_torch/kernels/snp_step/ops.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
+                         .as_posix())
+def test_no_jax_repro_or_module_level_triton(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        for name in _imports(node):
+            assert _top(name) not in ("jax", "jaxlib", "repro"), \
+                f"{path.name} imports {name}"
+    for node in tree.body:
+        for name in _imports(node):
+            assert _top(name) != "triton", \
+                f"{path.name} imports triton at module level"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels\n"
+        "import repro_torch.kernels.snp_step.ops, chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n")
+    root = SRC.parent
+    env = {**os.environ, "PYTHONPATH": f"{SRC}:{root}"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

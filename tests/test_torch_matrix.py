@@ -1,0 +1,93 @@
+"""The port's dense ``compile_system`` against the reference encoding,
+field for field, and ``convert.compiled_from_arrays`` on a reference
+``CompiledSNP``."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import conftest  # noqa: E402
+from repro.core import compile_system as jcompile  # noqa: E402
+from repro.core.generators import scaled_pi, with_delays  # noqa: E402
+from repro_torch.core import CompiledSNP  # noqa: E402
+from repro_torch.core import compile_system as pcompile  # noqa: E402
+from repro_torch.core.convert import (compiled_from_arrays,  # noqa: E402
+                                      system_from_spec)
+
+SYSTEMS = {**{k: s for k, (s, _) in conftest.EQUIV_SYSTEMS.items()},
+           "pi-x5": scaled_pi(5)}
+
+
+def _port(system):
+    return system_from_spec(dataclasses.asdict(system))
+
+
+def _fields(comp):
+    return {k: np.asarray(v) for k, v in comp._asdict().items()
+            if v is not None and k != "rule_order"}
+
+
+def _assert_same_encoding(port, ref):
+    ref_f = _fields(ref)
+    for k in CompiledSNP._fields:
+        if k == "rule_order":
+            assert port.rule_order == tuple(ref.rule_order)
+            continue
+        got = getattr(port, k).numpy()
+        assert got.dtype == ref_f[k].dtype, k
+        np.testing.assert_array_equal(got, ref_f[k], err_msg=k)
+    # the reference's rule->neuron one-hot is what the port gathers by
+    onehot = np.zeros_like(ref_f["neuron_onehot"])
+    onehot[np.arange(port.num_rules), port.rule_neuron.numpy()] = 1
+    np.testing.assert_array_equal(onehot, ref_f["neuron_onehot"])
+
+
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_compile_system_matches_reference(name):
+    system = SYSTEMS[name]
+    ref = jcompile(system)
+    port = pcompile(_port(system), device="cpu")
+    _assert_same_encoding(port, ref)
+    assert (port.num_rules, port.num_neurons) == (ref.num_rules,
+                                                  ref.num_neurons)
+
+
+@pytest.mark.parametrize("name", ["paper-pi", "power-law-40", "pi-x5"])
+def test_compiled_from_arrays_carries_reference_encoding(name):
+    ref = jcompile(SYSTEMS[name])
+    fields = {k: (v if k == "rule_order" or v is None else np.asarray(v))
+              for k, v in ref._asdict().items()}
+    port = compiled_from_arrays(fields, device="cpu")
+    _assert_same_encoding(port, ref)
+    assert port.device == torch.device("cpu")
+
+
+def test_compiled_from_arrays_refuses_delayed_and_unknown_fields():
+    ref = jcompile(SYSTEMS["paper-pi"])
+    fields = {k: (v if k == "rule_order" else np.asarray(v))
+              for k, v in ref._asdict().items() if v is not None}
+    with pytest.raises(ValueError, match="delay"):
+        compiled_from_arrays({**fields, "delay": np.zeros(5, np.int32)},
+                             device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        compiled_from_arrays({**fields, "bogus": np.zeros(1)}, device="cpu")
+
+
+def test_delayed_systems_refused_like_the_reference():
+    delayed = with_delays(SYSTEMS["nd-chain-4"], 1)
+    with pytest.raises(ValueError, match="delay"):
+        jcompile(delayed)
+    with pytest.raises(ValueError, match="delay"):
+        pcompile(_port(delayed), device="cpu")
+    # delay 0 everywhere compiles exactly like the undelayed system
+    zero = with_delays(SYSTEMS["nd-chain-4"], 0)
+    _assert_same_encoding(pcompile(_port(zero), device="cpu"), jcompile(zero))
+
+
+def test_encoding_moves_between_devices_without_copying_twice():
+    comp = pcompile(_port(SYSTEMS["paper-pi"]), device="cpu")
+    assert comp.to("cpu") is comp
+    assert comp.to(torch.device("cpu")).M.device.type == "cpu"
