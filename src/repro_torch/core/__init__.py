@@ -2,34 +2,47 @@
 
 * :class:`SNPSystem`, :class:`Rule`, :func:`paper_pi` — the specification
   (copies of the reference's, :mod:`.system`, :mod:`.generators`);
-* :func:`compile_system` — the dense ``M_Π`` encoding (:mod:`.matrix`);
-* :mod:`.semantics` — applicability, branch decode, ``C' = C + S·M``;
-* :mod:`.backend` — the ``"ref"`` and ``"cuda"`` step backends;
+* :func:`compile_system`, :func:`compile_system_sparse` — the dense
+  ``M_Π`` and the ELL/hybrid encodings (:mod:`.matrix`), chosen by a
+  :class:`SystemPlan` (:mod:`.plan`);
+* :mod:`.semantics` — applicability, branch decode, ``C' = C + S·M``, and
+  the same step on the sparse encoding;
+* :mod:`.backend` — the ``"ref"``, ``"cuda"``, ``"sparse"`` and
+  ``"sparse_cuda"`` step backends;
+* :mod:`.prng` — JAX's threefry2x32 keys, for random traces;
 * :func:`explore`, :func:`successor_set`, :func:`emission_gaps`,
   :func:`run_traces`, :func:`run_trace` — the entry points
   (:mod:`.engine`), which run on the card unless ``device`` names another.
 """
 
-from .backend import CudaBackend, RefBackend, StepBackend, get_backend
+from .backend import (CudaBackend, RefBackend, SparseBackend,
+                      SparseCudaBackend, StepBackend, get_backend,
+                      resolve_entry)
 from .convert import compiled_from_arrays, system_from_spec
 from .engine import (ExploreResult, TraceOut, emission_gaps, explore,
                      resolve_dedup, run_trace, run_traces, successor_set)
 from .hashtable import (HashTable, first_occurrence, insert_if_absent,
                         insert_unique, lookup, make_table, table_slots)
-from .matrix import CompiledSNP, compile_system, is_compiled
+from .matrix import (CompiledSNP, CompiledSparseSNP, compile_system,
+                     compile_system_sparse, is_compiled)
+from .plan import SystemPlan, auto_hub_threshold
 from .semantics import (applicability, branch_info, next_configs,
-                        spiking_vectors)
+                        packed_rule_table, sparse_branch_info,
+                        sparse_next_configs, spiking_vectors)
 from .system import Rule, SNPSystem, paper_pi
 
 __all__ = [
     "SNPSystem", "Rule", "paper_pi",
-    "CompiledSNP", "compile_system", "is_compiled",
+    "CompiledSNP", "CompiledSparseSNP", "compile_system",
+    "compile_system_sparse", "is_compiled",
+    "SystemPlan", "auto_hub_threshold",
     "system_from_spec", "compiled_from_arrays",
     "HashTable", "make_table", "table_slots", "lookup", "first_occurrence",
     "insert_unique", "insert_if_absent",
     "applicability", "branch_info", "next_configs", "spiking_vectors",
-    "StepBackend", "RefBackend", "CudaBackend",
-    "get_backend",
+    "sparse_branch_info", "packed_rule_table", "sparse_next_configs",
+    "StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
+    "SparseCudaBackend", "get_backend", "resolve_entry",
     "explore", "resolve_dedup", "ExploreResult", "TraceOut", "successor_set",
     "emission_gaps", "run_trace", "run_traces",
 ]

@@ -1,38 +1,55 @@
 """Step backends: one transition API behind every consumer.
 
-The port of ``repro.core.backend``'s protocol and registry, with the two
-backends ported so far:
+The port of ``repro.core.backend``'s protocol, lowering template and
+registry, with four backends, each the counterpart of one reference
+backend (:data:`REFERENCE_NAME`):
 
-* :class:`RefBackend` (``"ref"``) — the plain PyTorch semantics
-  (:func:`~repro_torch.core.semantics.next_configs`) on any device; the
-  reference's ``"ref"``.
-* :class:`CudaBackend` (``"cuda"``) — the hand-written dense step kernel
-  through :func:`repro_torch.kernels.snp_step.ops.snp_step`; the
-  counterpart of the reference's ``"pallas"``.  On CPU tensors the
-  wrapper runs the kernel's plain version.
+* :class:`RefBackend` (``"ref"``) — the plain dense semantics
+  (:func:`~repro_torch.core.semantics.next_configs`);
+* :class:`CudaBackend` (``"cuda"``, ↔ ``"pallas"``) — the hand-written
+  dense step kernel through :func:`repro_torch.kernels.snp_step.ops.snp_step`;
+* :class:`SparseBackend` (``"sparse"``) — the plain sparse semantics
+  (:func:`~repro_torch.core.semantics.sparse_next_configs`) on the
+  ELL/hybrid encoding;
+* :class:`SparseCudaBackend` (``"sparse_cuda"``, ↔ ``"sparse_pallas"``) —
+  the hand-written sparse step kernel (ELL body, and the COO stage for a
+  hybrid encoding) through
+  :func:`repro_torch.kernels.snp_step.sparse_ops.snp_step_sparse`.
 
-:data:`REFERENCE_NAME` writes the pairing down for the parity tests.
-``backend=None`` resolves to ``"cuda"`` (the planner is not ported yet).
-All backends agree bit for bit on the valid entries of a :class:`StepOut`.
+On CPU tensors the kernel backends' wrappers run the kernels' plain
+versions.  All backends agree bit for bit on the valid entries of a
+:class:`StepOut`.
+
+Each backend owns its lowering: ``supported_encodings()`` lists the plan
+encodings its step realizes (first = native, what ``encoding="auto"``
+resolves to), ``lower(compiled, plan)`` checks a built encoding, and
+``compile(system, plan, device)`` is the shared template
+:func:`_registry_compile`.  A plan a backend cannot honour raises; it is
+never reinterpreted.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Protocol, Union, runtime_checkable
+from typing import Dict, Optional, Protocol, Tuple, Union, runtime_checkable
 
 import torch
 
-from .matrix import CompiledSNP
-from .semantics import StepOut, next_configs
+from .device import DeviceLike
+from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
+                     check_coo_metadata, compile_system,
+                     compile_system_sparse)
+from .plan import SystemPlan
+from .semantics import StepOut, next_configs, sparse_next_configs
+from .system import SNPSystem
 
-__all__ = ["StepBackend", "RefBackend", "CudaBackend", "REFERENCE_NAME",
-           "DEFAULT_BACKEND", "get_backend"]
-
-DEFAULT_BACKEND = "cuda"
+__all__ = ["StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
+           "SparseCudaBackend", "REFERENCE_NAME", "get_backend",
+           "resolve_entry"]
 
 #: port backend name -> the reference backend it must match bit for bit
-REFERENCE_NAME = {"ref": "ref", "cuda": "pallas"}
+REFERENCE_NAME = {"ref": "ref", "cuda": "pallas", "sparse": "sparse",
+                  "sparse_cuda": "sparse_pallas"}
 
 
 @runtime_checkable
@@ -43,25 +60,107 @@ class StepBackend(Protocol):
 
     name: str
 
-    def expand(self, configs: torch.Tensor, comp: CompiledSNP,
+    def supported_encodings(self) -> Tuple[str, ...]:
+        ...
+
+    def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
+        ...
+
+    def compile(self, system: SNPSystem, plan: Optional[SystemPlan] = None,
+                device: DeviceLike = None) -> CompiledAny:
+        ...
+
+    def expand(self, configs: torch.Tensor, comp: CompiledAny,
                max_branches: int) -> StepOut:
         ...
 
 
+def _registry_compile(backend: StepBackend, system: SNPSystem,
+                      plan: Optional[SystemPlan],
+                      device: DeviceLike) -> CompiledAny:
+    """The ``compile`` every backend delegates to: resolve the plan's
+    encoding against ``supported_encodings()``, build it on ``device``
+    (``None`` = the card), hand it to ``lower``."""
+    plan = SystemPlan() if plan is None else plan
+    sup = backend.supported_encodings()
+    enc = sup[0] if plan.encoding == "auto" else plan.encoding
+    if enc not in sup:
+        raise ValueError(
+            f"backend {backend.name!r} cannot realize plan encoding "
+            f"{plan.encoding!r} (supported: {sup}); pick a matching backend "
+            f"or drop the plan")
+    if enc == "dense":
+        built = compile_system(system, device=device)
+    else:
+        built = compile_system_sparse(
+            system, hub_threshold=plan.resolved_hub_threshold(system),
+            device=device)
+    return backend.lower(built, plan)
+
+
+def _require(comp, cls, backend_name: str):
+    if not isinstance(comp, cls):
+        raise TypeError(
+            f"backend {backend_name!r} needs a {cls.__name__} (use "
+            f"backend.compile), got {type(comp).__name__}")
+    return comp
+
+
+def _flat_expand(step, configs, comp, max_branches) -> StepOut:
+    """Run a kernel wrapper ``step`` on the flattened batch and restore
+    the leading dims (``spiking`` is ``None``, as for the reference's
+    Pallas backends)."""
+    batch, m = configs.shape[:-1], configs.shape[-1]
+    out, valid, emis, overflow = step(configs.reshape(-1, m), comp,
+                                      max_branches=max_branches)
+    T = max_branches
+    return StepOut(configs=out.reshape(*batch, T, m),
+                   valid=valid.reshape(*batch, T),
+                   emissions=emis.reshape(*batch, T),
+                   overflow=overflow.reshape(batch), spiking=None)
+
+
 @dataclass(frozen=True)
-class RefBackend:
-    """Plain PyTorch reference semantics (the port's oracle)."""
+class _Dense:
+    def supported_encodings(self) -> Tuple[str, ...]:
+        return ("dense",)
+
+    def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
+        return compiled
+
+    def compile(self, system: SNPSystem, plan: Optional[SystemPlan] = None,
+                device: DeviceLike = None) -> CompiledAny:
+        return _registry_compile(self, system, plan, device)
+
+
+@dataclass(frozen=True)
+class _Sparse(_Dense):
+    def supported_encodings(self) -> Tuple[str, ...]:
+        return ("ell", "hybrid")
+
+    def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
+        # Only a hand-built encoding can lack the COO metadata the step's
+        # tail stage reads: refuse it here, never downgrade.
+        if isinstance(compiled, CompiledSparseSNP):
+            check_coo_metadata(compiled, self.name)
+        return compiled
+
+
+@dataclass(frozen=True)
+class RefBackend(_Dense):
+    """Plain PyTorch dense semantics (the port's oracle)."""
 
     name: str = "ref"
 
     def expand(self, configs, comp, max_branches):
-        return next_configs(configs, comp, max_branches)
+        return next_configs(configs, _require(comp, CompiledSNP, self.name),
+                            max_branches)
 
 
 @dataclass(frozen=True)
-class CudaBackend:
-    """The hand-written dense step kernel (decode + S·M + C in one launch);
-    ``StepOut.spiking`` is ``None``, as for the reference's ``"pallas"``."""
+class CudaBackend(_Dense):
+    """The hand-written dense step kernel (decode + S·M + C in one
+    launch)."""
 
     name: str = "cuda"
 
@@ -69,28 +168,48 @@ class CudaBackend:
         # Imported here: the kernels package imports core.semantics, and
         # core's __init__ imports this module.
         from ..kernels.snp_step.ops import snp_step
+        return _flat_expand(snp_step, configs,
+                            _require(comp, CompiledSNP, self.name),
+                            max_branches)
 
-        batch, m = configs.shape[:-1], configs.shape[-1]
-        out, valid, emis, overflow = snp_step(
-            configs.reshape(-1, m), comp, max_branches=max_branches)
-        T = max_branches
-        return StepOut(configs=out.reshape(*batch, T, m),
-                       valid=valid.reshape(*batch, T),
-                       emissions=emis.reshape(*batch, T),
-                       overflow=overflow.reshape(batch), spiking=None)
+
+@dataclass(frozen=True)
+class SparseBackend(_Sparse):
+    """Plain PyTorch sparse semantics: digit decode, fired-rule lookup and
+    a gather over the in-adjacency, ``O(B·T·m·degree)``."""
+
+    name: str = "sparse"
+
+    def expand(self, configs, comp, max_branches):
+        return sparse_next_configs(
+            configs, _require(comp, CompiledSparseSNP, self.name),
+            max_branches)
+
+
+@dataclass(frozen=True)
+class SparseCudaBackend(_Sparse):
+    """The hand-written sparse step kernel: the ELL body, with the COO
+    segment-sum stage for a hybrid encoding."""
+
+    name: str = "sparse_cuda"
+
+    def expand(self, configs, comp, max_branches):
+        from ..kernels.snp_step.sparse_ops import snp_step_sparse
+        return _flat_expand(snp_step_sparse, configs,
+                            _require(comp, CompiledSparseSNP, self.name),
+                            max_branches)
 
 
 _REGISTRY: Dict[str, StepBackend] = {"ref": RefBackend(),
-                                     "cuda": CudaBackend()}
+                                     "cuda": CudaBackend(),
+                                     "sparse": SparseBackend(),
+                                     "sparse_cuda": SparseCudaBackend()}
 
 BackendLike = Union[str, StepBackend, None]
 
 
-def get_backend(name: BackendLike = None) -> StepBackend:
-    """Resolve a backend by name (``None`` -> ``"cuda"``), or pass an
-    instance through."""
-    if name is None:
-        name = DEFAULT_BACKEND
+def get_backend(name: BackendLike) -> StepBackend:
+    """Resolve a backend by registry name, or pass an instance through."""
     if isinstance(name, str):
         try:
             return _REGISTRY[name]
@@ -100,3 +219,17 @@ def get_backend(name: BackendLike = None) -> StepBackend:
     if isinstance(name, StepBackend):
         return name
     raise TypeError(f"expected backend name or StepBackend, got {type(name)}")
+
+
+def resolve_entry(system, backend: BackendLike,
+                  plan: Optional[SystemPlan]) -> StepBackend:
+    """The backend an entry point runs: the one named, else
+    ``"sparse_cuda"`` for a sparse encoding or an ``"ell"``/``"hybrid"``
+    plan, else ``"cuda"``.  (The reference's query planner is not ported,
+    so nothing is measured or looked up.)"""
+    if backend is not None:
+        return get_backend(backend)
+    if isinstance(system, CompiledSparseSNP) or (
+            plan is not None and plan.encoding in ("ell", "hybrid")):
+        return get_backend("sparse_cuda")
+    return get_backend("cuda")

@@ -2,9 +2,11 @@
 
 * :func:`system_from_spec` rebuilds an :class:`SNPSystem` from
   ``dataclasses.asdict`` of a reference ``repro.core.system.SNPSystem``;
-* :func:`compiled_from_arrays` rebuilds a :class:`CompiledSNP` from the
-  fields of a reference ``repro.core.matrix.CompiledSNP`` given as numpy
-  arrays (``{k: np.asarray(v) for k, v in comp._asdict().items()}``).
+* :func:`compiled_from_arrays` rebuilds a :class:`CompiledSNP` or a
+  :class:`CompiledSparseSNP` from the fields of a reference
+  ``repro.core.matrix.CompiledSNP`` / ``CompiledSparseSNP`` given as numpy
+  arrays (``{k: np.asarray(v) for k, v in comp._asdict().items()}``; the
+  sparse encoding is recognised by its ``in_idx`` field).
 
 Both take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
@@ -18,16 +20,19 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .matrix import CompiledSNP
+from .matrix import CompiledAny, CompiledSNP, CompiledSparseSNP
 from .system import Rule, SNPSystem
 
 __all__ = ["system_from_spec", "compiled_from_arrays"]
 
-# Fields of the reference encoding the port does not carry: the rule→neuron
-# one-hot (the port gathers through rule_neuron) and the delayed tier's
-# extension, which must be absent (None) since delays are not ported.
-_DERIVED = ("neuron_onehot",)
-_DELAY_FIELDS = ("delay", "adjacency", "out_neuron")
+# Fields of the reference encodings the port does not carry: the dense
+# rule→neuron one-hot (the port gathers through rule_neuron), the COO
+# tail's per-entry targets (coo_bounds/hub_slot hold them) and the
+# delayed tier's extension, which must be absent (None) since delays are
+# not ported.
+_DERIVED = {CompiledSNP: ("neuron_onehot",), CompiledSparseSNP: ("coo_dst",)}
+_DELAY_FIELDS = {CompiledSNP: ("delay", "adjacency", "out_neuron"),
+                 CompiledSparseSNP: ("delay",)}
 
 _DTYPES = {"covering": torch.bool}
 
@@ -49,25 +54,29 @@ def system_from_spec(spec: Mapping[str, Any]) -> SNPSystem:
 
 
 def compiled_from_arrays(fields: Mapping[str, Any],
-                         device: DeviceLike = None) -> CompiledSNP:
-    """A :class:`CompiledSNP` on ``device`` from a reference encoding's
-    fields as numpy arrays (``rule_order`` may stay a tuple)."""
+                         device: DeviceLike = None) -> CompiledAny:
+    """A :class:`CompiledSNP` or :class:`CompiledSparseSNP` on ``device``
+    from a reference encoding's fields as numpy arrays (``rule_order`` may
+    stay a tuple; a hand-built sparse encoding may lack ``coo_bounds`` and
+    ``hub_slot``, which then stay ``None``)."""
     dev = resolve_device(device)
-    for k in _DELAY_FIELDS:
+    cls = CompiledSparseSNP if "in_idx" in fields else CompiledSNP
+    for k in _DELAY_FIELDS[cls]:
         if fields.get(k) is not None:
             raise ValueError(
                 f"field {k!r} is set: a delayed encoding cannot be carried "
                 "across (the delayed tier is not ported yet)")
-    known = set(CompiledSNP._fields) | set(_DERIVED) | set(_DELAY_FIELDS)
+    known = set(cls._fields) | set(_DERIVED[cls]) | set(_DELAY_FIELDS[cls])
     unknown = set(fields) - known
     if unknown:
         raise ValueError(f"unknown encoding fields {sorted(unknown)}")
     out = {}
-    for k in CompiledSNP._fields:
+    for k in cls._fields:
+        v = fields.get(k)
         if k == "rule_order":
-            out[k] = tuple(int(i) for i in fields[k])
-            continue
-        dtype = _DTYPES.get(k, torch.int32)
-        arr = np.array(fields[k], copy=True)   # writable, contiguous
-        out[k] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
-    return CompiledSNP(**out)
+            out[k] = tuple(int(i) for i in v)
+        elif v is not None:
+            arr = np.array(v, copy=True)   # writable, contiguous
+            out[k] = torch.from_numpy(arr).to(
+                device=dev, dtype=_DTYPES.get(k, torch.int32))
+    return cls(**out)

@@ -19,8 +19,13 @@ Overflow conditions are reported, never silently dropped:
   are not marked visited, so they regenerate later;
 * ``visited_overflow``  — the visited set is full (same soundness).
 
-Archives, flags and traces equal the reference's row for row, in
-discovery order, for both dedup modes.
+The transition is a step backend (:mod:`.backend`): ``"cuda"`` and
+``"ref"`` on the dense encoding, ``"sparse_cuda"`` and ``"sparse"`` on
+the ELL or hybrid one.  An :class:`SNPSystem` is lowered by the backend's
+own ``compile`` under ``plan`` (:class:`~.plan.SystemPlan`); a compiled
+encoding passes through the backend's ``lower`` check.  Archives, flags
+and traces equal the reference's row for row, in discovery order, for both
+dedup modes and every backend.
 """
 
 from __future__ import annotations
@@ -31,22 +36,29 @@ from typing import List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from .backend import BackendLike, get_backend
+from . import prng
+from .backend import BackendLike, StepBackend, resolve_entry
 from .device import DeviceLike, host_read, resolve_device
-from .hashing import SENTINEL, config_hash
+from .hashing import M32, SENTINEL, config_hash
 from .hashtable import first_occurrence, insert_unique, lookup, make_table
-from .matrix import CompiledSNP, compile_system, is_compiled
+from .matrix import CompiledAny, is_compiled
+from .plan import SystemPlan
 
 __all__ = ["ExploreResult", "TraceOut", "explore", "resolve_dedup",
            "successor_set", "emission_gaps", "run_trace", "run_traces"]
 
 
-def _resolve_comp(system, device: DeviceLike) -> CompiledSNP:
-    """The dense encoding on the resolved device (``None`` = the card)."""
+def _resolve_comp(system, be: StepBackend, plan: Optional[SystemPlan],
+                  device: DeviceLike) -> CompiledAny:
+    """The encoding ``be`` steps, on the resolved device (``None`` = the
+    card): a compiled encoding passes through ``be.lower`` (which refuses
+    one its step cannot realize), a system is lowered by ``be.compile``
+    under ``plan``."""
     dev = resolve_device(device)
     if is_compiled(system):
-        return system.to(dev)
-    return compile_system(system, device=dev)
+        return be.lower(system.to(dev), SystemPlan() if plan is None
+                        else plan)
+    return be.compile(system, plan, device=dev)
 
 
 @dataclass(frozen=True)
@@ -121,21 +133,24 @@ def explore(
     max_branches: int = 64,
     init: Optional[Sequence[int]] = None,
     backend: BackendLike = None,
+    plan: Optional[SystemPlan] = None,
     device: DeviceLike = None,
     dedup: str = "auto",
 ) -> ExploreResult:
     """BFS-explore the computation tree (paper Algorithm 1) until the
     frontier drains or ``max_steps`` levels.
 
-    ``backend`` selects the transition (``"cuda"`` — the default — or
-    ``"ref"``); ``device`` where it runs (``None`` = the card, which must
-    be present).  ``dedup="hash"`` keeps the device-resident
-    open-addressing table, ``"sort"`` re-sorts the visited keys with each
-    wave, ``"auto"`` applies :func:`resolve_dedup`."""
+    ``backend`` selects the transition (``"cuda"``, ``"ref"``,
+    ``"sparse_cuda"``, ``"sparse"``; ``None`` applies
+    :func:`~.backend.resolve_entry`), ``plan`` the encoding it lowers to,
+    ``device`` where it runs (``None`` = the card, which must be
+    present).  ``dedup="hash"`` keeps the device-resident open-addressing
+    table, ``"sort"`` re-sorts the visited keys with each wave, ``"auto"``
+    applies :func:`resolve_dedup`."""
     dedup = resolve_dedup(dedup, frontier_cap=frontier_cap,
                           visited_cap=visited_cap, max_branches=max_branches)
-    be = get_backend(backend)
-    comp = _resolve_comp(system, device)
+    be = resolve_entry(system, backend, plan)
+    comp = _resolve_comp(system, be, plan, device)
     dev = comp.device
     F, V, T = frontier_cap, visited_cap, max_branches
     m = comp.num_neurons
@@ -231,7 +246,7 @@ def explore(
 # ---------------------------------------------------------------------------
 
 
-def _successors(comp: CompiledSNP, configs: Sequence[Tuple[int, ...]],
+def _successors(comp: CompiledAny, configs: Sequence[Tuple[int, ...]],
                 max_branches: int, be) -> List[List[Tuple[tuple, int]]]:
     """Distinct (successor, emission) pairs of each config, in branch
     order, from one batched expand; raises on branch overflow."""
@@ -259,15 +274,17 @@ def _successors(comp: CompiledSNP, configs: Sequence[Tuple[int, ...]],
 
 def successor_set(system, config: Sequence[int], max_branches: int = 64,
                   backend: BackendLike = None,
+                  plan: Optional[SystemPlan] = None,
                   device: DeviceLike = None) -> List[Tuple[tuple, int]]:
     """Distinct (successor, emission) pairs of one configuration."""
-    comp = _resolve_comp(system, device)
-    return _successors(comp, [tuple(config)], max_branches,
-                       get_backend(backend))[0]
+    be = resolve_entry(system, backend, plan)
+    comp = _resolve_comp(system, be, plan, device)
+    return _successors(comp, [tuple(config)], max_branches, be)[0]
 
 
 def emission_gaps(system, *, max_time: int, max_gap: int,
                   max_branches: int = 64, backend: BackendLike = None,
+                  plan: Optional[SystemPlan] = None,
                   device: DeviceLike = None) -> Set[int]:
     """All gaps between the first two environment emissions, over every
     computation path of length <= ``max_time``.
@@ -278,8 +295,8 @@ def emission_gaps(system, *, max_time: int, max_gap: int,
     keeps the search polynomial.  Each time step expands all of its
     states in one batched call (the reference expands them one by one;
     the sets are the same)."""
-    comp = _resolve_comp(system, device)
-    be = get_backend(backend)
+    be = resolve_entry(system, backend, plan)
+    comp = _resolve_comp(system, be, plan, device)
     init = tuple(int(v) for v in comp.init_config.cpu().tolist())
     # phase A: no emission yet; phase B: (config, elapsed) since 1st emission
     phase_a: set = {init}
@@ -327,38 +344,45 @@ class TraceOut(NamedTuple):
 
 def run_traces(system, *, steps: int, seeds, policy: str = "first",
                max_branches: int = 64, backend: BackendLike = None,
+               plan: Optional[SystemPlan] = None,
                device: DeviceLike = None) -> TraceOut:
     """Batched trajectories: ``B = len(seeds)`` paths stepped together, one
     expand per step for the whole batch.  ``policy="first"`` follows
     branch 0 at every step, so every seed gives the same path.
-
-    ``policy="random"`` is not ported yet: the reference draws branches
-    from JAX's threefry generator, and matching its traces bit for bit
-    needs a port of threefry2x32 (ROADMAP.md, queue 1, "Random traces")."""
+    ``policy="random"`` follows a uniformly drawn valid branch: each trace
+    carries the key ``PRNGKey(seed)`` (seeds as uint32) and, every step,
+    splits it and draws ``randint(subkey, (), 0, max(n_valid, 1))``, as
+    the reference's scan does, so row b equals the reference's trace of
+    ``seeds[b]`` bit for bit (:mod:`.prng`)."""
     if policy not in ("first", "random"):
         raise ValueError(f"unknown policy {policy!r}")
-    if policy == "random":
-        raise NotImplementedError(
-            "run_traces(policy='random') needs the threefry2x32 port "
-            "(ROADMAP.md, queue 1, 'Random traces (threefry2x32)')")
     seeds = np.asarray(seeds)
     if seeds.ndim != 1:
         raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
-    be = get_backend(backend)
-    comp = _resolve_comp(system, device)
+    be = resolve_entry(system, backend, plan)
+    comp = _resolve_comp(system, be, plan, device)
     B, m, dev = int(seeds.shape[0]), comp.num_neurons, comp.device
     res = TraceOut(
         torch.empty((B, steps, m), dtype=torch.int32, device=dev),
         torch.empty((B, steps), dtype=torch.int32, device=dev),
         torch.empty((B, steps), dtype=torch.bool, device=dev),
         torch.empty((B, steps), dtype=torch.bool, device=dev))
+    keys = prng.PRNGKey(torch.from_numpy(
+        seeds.astype(np.int64) & M32).to(dev))
+    rows = torch.arange(B, device=dev)
     cfgs = comp.init_config.expand(B, m)
     for s in range(steps):
         out = be.expand(cfgs, comp, max_branches)      # (B, T, m)
-        has = out.valid.any(-1)
-        cfgs = torch.where(has[:, None], out.configs[:, 0], cfgs)
+        n_valid = out.valid.sum(-1)
+        if policy == "random":
+            keys, subs = prng.split(keys)
+            idx = prng.randint(subs, n_valid.clamp(min=1))
+        else:
+            idx = torch.zeros(B, dtype=torch.int64, device=dev)
+        has = n_valid > 0
+        cfgs = torch.where(has[:, None], out.configs[rows, idx], cfgs)
         res.configs[:, s] = cfgs
-        res.emissions[:, s] = torch.where(has, out.emissions[:, 0], 0)
+        res.emissions[:, s] = torch.where(has, out.emissions[rows, idx], 0)
         res.alive[:, s] = has
         res.branch_overflow[:, s] = out.overflow & has
     return res
@@ -366,10 +390,11 @@ def run_traces(system, *, steps: int, seeds, policy: str = "first",
 
 def run_trace(system, *, steps: int, policy: str = "first", seed: int = 0,
               max_branches: int = 64, backend: BackendLike = None,
+              plan: Optional[SystemPlan] = None,
               device: DeviceLike = None) -> TraceOut:
     """One trajectory: a B=1 :func:`run_traces` batch, so the single and
     batched paths cannot drift apart."""
     out = run_traces(system, steps=steps, seeds=[seed], policy=policy,
-                     max_branches=max_branches, backend=backend,
+                     max_branches=max_branches, backend=backend, plan=plan,
                      device=device)
     return TraceOut(*(x[0] for x in out))

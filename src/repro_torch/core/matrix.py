@@ -1,27 +1,49 @@
-"""Dense matrix encoding of an SNP system (paper §2.2) as torch tensors.
+"""Matrix encodings of an SNP system (paper §2.2) as torch tensors.
 
-The port of ``repro.core.matrix``'s dense lowering: rules are **sorted by
-owning neuron** (stable), ``M_Π`` is built by vectorized numpy adjacency
-indexing, and the arrays move to the requested device once.  Only the
-paper's delay-free semantics is ported: a system with a delayed rule
-raises, as the reference does under ``semantics="no_delays"``.
+The port of ``repro.core.matrix``.  Both lowerings sort rules **by owning
+neuron** (stable), build their arrays by vectorized numpy adjacency
+indexing, and move them to the requested device once:
+
+* :func:`compile_system` — the paper's dense ``M_Π``
+  (:class:`CompiledSNP`), ``O(n·m)``;
+* :func:`compile_system_sparse` — the ELL/segment encoding
+  (:class:`CompiledSparseSNP`): ELL rows of ``M_Π``, per-neuron rule
+  segments, the ELL in-adjacency of the synapse graph and, with a hub
+  threshold (the hybrid plan), a COO tail of the hub neurons'
+  in-synapses.  Nothing ``O(n·m)``.
+
+Only the paper's delay-free semantics is ported: a system with a delayed
+rule raises, as the reference does under ``semantics="no_delays"``.
 
 The reference's ``neuron_onehot`` (the ``(n, m)`` rule→neuron incidence)
 is not carried: on the TPU it turned the per-rule gather into a matmul,
-while the port gathers through ``rule_neuron`` directly.
+while the port gathers through ``rule_neuron`` directly.  Nor is its
+``coo_dst``: the COO tail's targets are read through ``coo_bounds`` and
+``hub_slot``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .system import SNPSystem
+from .system import Rule, SNPSystem
 
-__all__ = ["CompiledSNP", "compile_system", "is_compiled"]
+__all__ = ["CompiledSNP", "CompiledSparseSNP", "CompiledAny",
+           "check_coo_metadata", "compile_system", "compile_system_sparse",
+           "is_compiled"]
+
+
+def _to_device(comp, device):
+    """``comp`` (a NamedTuple of tensors) on ``device``, or itself when
+    already there."""
+    if comp.device == torch.device(device):
+        return comp
+    return type(comp)(*(x.to(device) if isinstance(x, torch.Tensor) else x
+                        for x in comp))
 
 
 class CompiledSNP(NamedTuple):
@@ -53,14 +75,96 @@ class CompiledSNP(NamedTuple):
 
     def to(self, device: torch.device) -> "CompiledSNP":
         """The same encoding on ``device`` (``self`` when already there)."""
-        if self.M.device == torch.device(device):
-            return self
-        return CompiledSNP(*(x.to(device) if isinstance(x, torch.Tensor)
-                             else x for x in self))
+        return _to_device(self, device)
+
+
+class CompiledSparseSNP(NamedTuple):
+    """ELL/segment encoding of an SNP system; no ``O(n·m)`` tensor.
+
+    Shapes: ``m`` neurons, ``n`` rules (sorted by neuron), ``K`` =
+    ``max_nnz_per_rule``, ``R`` = ``max_rules_per_neuron``, ``Kin`` = the
+    ELL in-degree width (>= 1), ``Ec`` COO tail entries over ``Hn`` hubs.
+    Index padding points at the out-of-range id (neuron ``m``), which every
+    consumer reads as a zero slot."""
+
+    rule_neuron: torch.Tensor   # (n,)  int32
+    consume: torch.Tensor       # (n,)  int32
+    produce: torch.Tensor       # (n,)  int32
+    regex_base: torch.Tensor    # (n,)  int32
+    regex_period: torch.Tensor  # (n,)  int32
+    covering: torch.Tensor      # (n,)  bool
+    env_produce: torch.Tensor   # (n,)  int32
+    init_config: torch.Tensor   # (m,)  int32
+    out_neuron: torch.Tensor    # ()    int32 — output neuron, or m if none
+    rule_order: Tuple[int, ...]
+    seg_start: torch.Tensor     # (m,)  int32 — first rule of each neuron
+    seg_count: torch.Tensor     # (m,)  int32 — rules owned by each neuron
+    rule_slots: torch.Tensor    # (R,)  int32 == arange(R)
+    ell_col: torch.Tensor       # (n, K) int32 — target neuron, pad m
+    ell_val: torch.Tensor       # (n, K) int32 — value, pad 0
+    ell_nnz: torch.Tensor       # (n,)  int32 — real row lengths
+    in_idx: torch.Tensor        # (m, Kin) int32 — in-neighbours, pad m
+    coo_src: torch.Tensor       # (Ec,) int32 — tail in-neighbour
+    # The tail is sorted by (target, source), so each hub's entries are
+    # one contiguous run: hub h owns coo_bounds[h]:coo_bounds[h+1], and
+    # hub_slot maps a neuron to its hub or to Hn (none).  The reference's
+    # per-entry target coo_dst is not carried: these two hold it.  None
+    # only on a hand-built encoding, which the sparse backends refuse
+    # (check_coo_metadata).
+    coo_bounds: Optional[torch.Tensor] = None  # (Hn+1,) int32
+    hub_slot: Optional[torch.Tensor] = None    # (m,) int32
+
+    @property
+    def num_rules(self) -> int:
+        return self.rule_neuron.shape[0]
+
+    @property
+    def num_neurons(self) -> int:
+        return self.seg_start.shape[0]
+
+    @property
+    def max_nnz_per_rule(self) -> int:
+        return self.ell_col.shape[1]
+
+    @property
+    def max_rules_per_neuron(self) -> int:
+        return self.rule_slots.shape[0]
+
+    @property
+    def max_in_degree(self) -> int:
+        return self.in_idx.shape[1]
+
+    @property
+    def is_hybrid(self) -> bool:
+        """True when the in-adjacency carries a COO tail."""
+        return self.coo_src.shape[0] > 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.in_idx.device
+
+    def to(self, device: torch.device) -> "CompiledSparseSNP":
+        """The same encoding on ``device`` (``self`` when already there)."""
+        return _to_device(self, device)
+
+
+CompiledAny = Union[CompiledSNP, CompiledSparseSNP]
+
+
+def check_coo_metadata(comp: CompiledSparseSNP, who: str) -> None:
+    """Raise unless a hybrid encoding carries the COO tail's per-hub runs
+    (``coo_bounds``/``hub_slot``) that the sparse step reads."""
+    if comp.is_hybrid and (comp.coo_bounds is None or comp.hub_slot is None):
+        raise ValueError(
+            f"{who}: this hybrid ELL+COO encoding lacks the COO segment "
+            "metadata (coo_bounds/hub_slot) the step's tail stage reads; "
+            "lower the system through compile_system_sparse / "
+            "backend.compile")
 
 
 def is_compiled(obj) -> bool:
-    return isinstance(obj, CompiledSNP)
+    """True for either compiled encoding."""
+    return isinstance(obj, (CompiledSNP, CompiledSparseSNP))
 
 
 def _ragged_arange(counts: np.ndarray) -> np.ndarray:
@@ -73,59 +177,167 @@ def _ragged_arange(counts: np.ndarray) -> np.ndarray:
     return np.arange(total) - np.repeat(starts, counts)
 
 
-def compile_system(system: SNPSystem, *,
-                   device: DeviceLike = None) -> CompiledSNP:
-    """Dense lowering (paper eq. 1) onto ``device`` (``None`` = the card)."""
+class _Lowered(NamedTuple):
+    """Neuron-sorted rule arrays and the synapse adjacency, all numpy."""
+
+    order: Tuple[int, ...]
+    rules: List[Rule]
+    neuron: np.ndarray        # (n,) i32
+    consume: np.ndarray       # (n,) i32
+    produce: np.ndarray       # (n,) i32
+    regex_base: np.ndarray
+    regex_period: np.ndarray
+    covering: np.ndarray      # (n,) bool
+    env_produce: np.ndarray   # (n,) i32
+    src: np.ndarray           # (E,) i32 — synapse sources, sorted (src, dst)
+    dst: np.ndarray           # (E,) i32
+    out_deg: np.ndarray       # (m,) i64
+    out_start: np.ndarray     # (m,) i64 — CSR row starts into src/dst
+
+
+def _lower(system: SNPSystem) -> _Lowered:
     if system.max_delay > 0:
         raise ValueError(
             f"system {system.name!r} has rules with delay > 0; the port "
             "runs only the paper's delay-free semantics (the delayed tier "
             "is not ported yet)")
-    dev = resolve_device(device)
     m, n = system.num_neurons, system.num_rules
     if n == 0:
         raise ValueError("system has no rules")
-
     # Stable sort rules by neuron, remembering the original total order so
     # spiking vectors can be reported in the paper's ordering.
     neuron0 = np.fromiter((r.neuron for r in system.rules), np.int64, n)
     order = np.argsort(neuron0, kind="stable")
     rules = [system.rules[i] for i in order]
     neuron = neuron0[order].astype(np.int32)
-    consume = np.fromiter((r.consume for r in rules), np.int32, n)
     produce = np.fromiter((r.produce for r in rules), np.int32, n)
-    regex_base = np.fromiter((r.regex_base for r in rules), np.int32, n)
-    regex_period = np.fromiter((r.regex_period for r in rules), np.int32, n)
-    covering = np.fromiter((r.covering for r in rules), bool, n)
-    env_produce = np.where(neuron == system.output_neuron, produce, 0) \
-        .astype(np.int32)
-
-    # CSR view of the synapses, sorted by (src, dst).
     syn = np.asarray(system.synapses, np.int64).reshape(-1, 2)
     o = np.lexsort((syn[:, 1], syn[:, 0]))
-    dst = syn[o, 1]
-    out_deg = np.bincount(syn[o, 0], minlength=m)
-    out_start = np.cumsum(out_deg) - out_deg
+    src, dst = syn[o, 0], syn[o, 1]
+    out_deg = np.bincount(src, minlength=m)
+    return _Lowered(
+        order=tuple(int(i) for i in order), rules=rules, neuron=neuron,
+        consume=np.fromiter((r.consume for r in rules), np.int32, n),
+        produce=produce,
+        regex_base=np.fromiter((r.regex_base for r in rules), np.int32, n),
+        regex_period=np.fromiter((r.regex_period for r in rules), np.int32,
+                                 n),
+        covering=np.fromiter((r.covering for r in rules), bool, n),
+        env_produce=np.where(neuron == system.output_neuron, produce, 0)
+        .astype(np.int32),
+        src=src.astype(np.int32), dst=dst.astype(np.int32),
+        out_deg=out_deg, out_start=np.cumsum(out_deg) - out_deg)
 
-    # Rule i consumes at its own neuron and, if it produces, writes its
-    # produce into every out-neighbour column of that neuron.
-    M = np.zeros((n, m), dtype=np.int32)
-    M[np.arange(n), neuron] = -consume
-    prod_rules = np.nonzero(produce > 0)[0]
-    deg_r = out_deg[neuron[prod_rules]]
+
+def _rule_row_entries(low: _Lowered):
+    """Flat ``(rows, pos, cols, vals, prod_rules, deg_r)`` of the produce
+    entries of ``M_Π``: rule ``i`` with ``produce > 0`` writes ``produce``
+    into every out-neighbour column of its neuron, ``pos`` being the slot
+    within the row.  The consume entry is each caller's own."""
+    prod_rules = np.nonzero(low.produce > 0)[0]
+    deg_r = low.out_deg[low.neuron[prod_rules]]
     rows = np.repeat(prod_rules, deg_r)
-    flat = np.repeat(out_start[neuron[prod_rules]], deg_r) \
-        + _ragged_arange(deg_r)
-    M[rows, dst[flat]] = np.repeat(produce[prod_rules], deg_r)  # no self-synapses
+    pos = _ragged_arange(deg_r)
+    flat = np.repeat(low.out_start[low.neuron[prod_rules]], deg_r) + pos
+    cols = low.dst[flat] if rows.size else np.zeros((0,), np.int32)
+    vals = np.repeat(low.produce[prod_rules], deg_r)
+    return rows.astype(np.int64), pos, cols, vals.astype(np.int32), \
+        prod_rules, deg_r
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return CompiledSNP(
-        M=t(M), rule_neuron=t(neuron), consume=t(consume),
-        produce=t(produce), regex_base=t(regex_base),
-        regex_period=t(regex_period), covering=t(covering),
-        env_produce=t(env_produce),
-        init_config=t(np.asarray(system.initial_spikes, np.int32)),
-        rule_order=tuple(int(i) for i in order),
-    )
+def _tensors(dev: torch.device, **arrays):
+    # (np.ascontiguousarray would turn the 0-d out_neuron into shape (1,))
+    return {k: torch.from_numpy(a if a.flags.c_contiguous
+                                else np.ascontiguousarray(a)).to(dev)
+            for k, a in arrays.items()}
+
+
+def compile_system(system: SNPSystem, *,
+                   device: DeviceLike = None) -> CompiledSNP:
+    """Dense lowering (paper eq. 1) onto ``device`` (``None`` = the card)."""
+    dev = resolve_device(device)
+    low = _lower(system)
+    n, m = low.neuron.shape[0], system.num_neurons
+    M = np.zeros((n, m), dtype=np.int32)
+    M[np.arange(n), low.neuron] = -low.consume
+    rows, _, cols, vals, _, _ = _rule_row_entries(low)
+    M[rows, cols] = vals  # no collisions: self-synapses are forbidden
+    return CompiledSNP(rule_order=low.order, **_tensors(
+        dev, M=M, rule_neuron=low.neuron, consume=low.consume,
+        produce=low.produce, regex_base=low.regex_base,
+        regex_period=low.regex_period, covering=low.covering,
+        env_produce=low.env_produce,
+        init_config=np.asarray(system.initial_spikes, np.int32)))
+
+
+def compile_system_sparse(system: SNPSystem, *,
+                          hub_threshold: Optional[int] = None,
+                          device: DeviceLike = None) -> CompiledSparseSNP:
+    """Sparse lowering onto ``device`` (``None`` = the card): ELL rows of
+    ``M_Π``, per-neuron segments and the ELL in-adjacency, in
+    ``O(n·K + m·Kin)`` memory with measured widths.
+
+    ``hub_threshold=H`` selects the hybrid in-adjacency: ELL rows hold at
+    most ``H`` in-neighbours and every further in-synapse of a hub lands in
+    the COO tail, sorted by ``(dst, src)``, with its per-hub run offsets
+    ``coo_bounds`` and the neuron→hub map ``hub_slot``.  ``None`` is pure
+    ELL (an empty tail)."""
+    dev = resolve_device(device)
+    low = _lower(system)
+    m, n = system.num_neurons, low.neuron.shape[0]
+    # A fired rule is packed as produce | consume << 16 (one gather per
+    # branch and neuron), which needs these bounds.
+    if int(low.produce.max(initial=0)) >= 1 << 16 \
+            or int(low.consume.max(initial=0)) >= 1 << 15:
+        raise ValueError("sparse encoding requires produce < 2^16 and "
+                         "consume < 2^15 per rule")
+    if hub_threshold is not None and hub_threshold < 1:
+        raise ValueError(f"hub_threshold must be >= 1, got {hub_threshold}")
+
+    seg_count = np.bincount(low.neuron, minlength=m).astype(np.int32)
+    seg_start = (np.cumsum(seg_count) - seg_count).astype(np.int32)
+    R = int(max(seg_count.max(), 1))
+
+    # ELL rows of M: slot 0 is the consume entry, 1.. the produce fan-out.
+    rows, pos, cols, vals, prod_rules, deg_r = _rule_row_entries(low)
+    K = int(1 + (deg_r.max() if deg_r.size else 0))
+    ell_col = np.full((n, K), m, dtype=np.int32)
+    ell_val = np.zeros((n, K), dtype=np.int32)
+    ell_col[:, 0] = low.neuron
+    ell_val[:, 0] = -low.consume
+    ell_col[rows, 1 + pos] = cols
+    ell_val[rows, 1 + pos] = vals
+    ell_nnz = np.ones((n,), np.int32)
+    ell_nnz[prod_rules] += deg_r.astype(np.int32)
+
+    # In-adjacency sorted by (target, source); slots past the threshold
+    # spill to the COO tail, still in (target, source) order.
+    in_deg = np.bincount(low.dst, minlength=m)
+    kin_full = int(max(in_deg.max() if in_deg.size else 0, 1))
+    Kin = kin_full if hub_threshold is None else min(kin_full,
+                                                    int(hub_threshold))
+    o = np.lexsort((low.src, low.dst))
+    slot = _ragged_arange(in_deg)
+    ell_part = slot < Kin
+    in_idx = np.full((m, Kin), m, dtype=np.int32)
+    in_idx[low.dst[o][ell_part], slot[ell_part]] = low.src[o][ell_part]
+    coo_src = low.src[o][~ell_part].astype(np.int32)
+    hubs, hub_counts = np.unique(low.dst[o][~ell_part], return_counts=True)
+    hn = hubs.shape[0]
+    coo_bounds = np.zeros((hn + 1,), np.int32)
+    np.cumsum(hub_counts, out=coo_bounds[1:])
+    hub_slot = np.full((m,), hn, np.int32)
+    hub_slot[hubs] = np.arange(hn, dtype=np.int32)
+
+    return CompiledSparseSNP(rule_order=low.order, **_tensors(
+        dev, rule_neuron=low.neuron, consume=low.consume,
+        produce=low.produce, regex_base=low.regex_base,
+        regex_period=low.regex_period, covering=low.covering,
+        env_produce=low.env_produce,
+        init_config=np.asarray(system.initial_spikes, np.int32),
+        out_neuron=np.asarray(system.output_neuron
+                              if system.output_neuron >= 0 else m, np.int32),
+        seg_start=seg_start, seg_count=seg_count,
+        rule_slots=np.arange(R, dtype=np.int32), ell_col=ell_col,
+        ell_val=ell_val, ell_nnz=ell_nnz, in_idx=in_idx, coo_src=coo_src,
+        coo_bounds=coo_bounds, hub_slot=hub_slot))

@@ -1,15 +1,19 @@
 """Plain PyTorch reference semantics for batched SNP simulation.
 
-The port of ``repro.core.semantics``'s dense, delay-free half, vectorized
-over a frontier of ``B`` configurations:
+The port of ``repro.core.semantics``'s delay-free half, vectorized over
+a frontier of ``B`` configurations:
 
 * applicability mask over rules            (paper Alg. 2, step II-1)
 * mixed-radix rank-decode of every valid
   spiking vector                           (paper Alg. 2, steps II-2/II-3)
 * the affine transition ``C' = C + S·M``   (paper eq. 2)
 
-It runs on any device and is the plain version the hand-written step
-kernel (:mod:`repro_torch.kernels.snp_step`) is held against.
+and the same step on the sparse encoding (:func:`sparse_next_configs`,
+the plain ``"sparse"`` backend): per-neuron digit decode, a fired-rule
+lookup in a packed per-config table, and a gather over the in-adjacency,
+whose body is the sparse kernel's plain version.  It runs on any device
+and is the plain version the hand-written step kernels
+(:mod:`repro_torch.kernels.snp_step`) are held against.
 
 Enumeration order.  Neuron 0 is the most-significant mixed-radix digit:
 branch ``t ∈ [0, Ψ)`` decodes to ``digit_i = (t // stride_i) % k_i`` with
@@ -32,11 +36,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .matrix import CompiledSNP
+from .matrix import CompiledSNP, CompiledSparseSNP
 
 __all__ = ["applicability", "branch_info", "BranchInfo", "clamp_stride",
            "decode_spiking", "spiking_vectors", "transition", "next_configs",
-           "StepOut"]
+           "StepOut", "sparse_branch_info", "packed_rule_table",
+           "sparse_next_configs"]
 
 # Strides are clamped here before the int32 decode: saturated strides stay
 # valid int32 and decode every t < T to digit 0 (a legal choice).
@@ -89,7 +94,12 @@ def branch_info(config: torch.Tensor, comp: CompiledSNP) -> BranchInfo:
     incl = torch.cumsum(app_i, -1, dtype=torch.int32)
     k_prefix = torch.cumsum(k, -1, dtype=torch.int32) - k
     rank = incl - _gather(k_prefix, comp.rule_neuron) - 1  # valid where app
+    return _radix(app, rank, k)
 
+
+def _radix(app, rank, k) -> BranchInfo:
+    """Choices, strides and Ψ from the per-neuron applicable counts ``k``
+    — the same float32 operations for both encodings."""
     choices = k.clamp(min=1)
     cf = choices.to(torch.float32)
     suffix = torch.cumprod(cf.flip(-1), -1).flip(-1)     # Π_{j >= i}
@@ -164,3 +174,71 @@ def next_configs(config: torch.Tensor, comp: CompiledSNP,
     out, emissions = transition(config, S, comp.M, comp.env_produce)
     return StepOut(configs=out, valid=valid, emissions=emissions,
                    overflow=overflow, spiking=S)
+
+
+# ---------------------------------------------------------------------------
+# Sparse path: the same step on the ELL/segment encoding, O(B·T·m·degree)
+# ---------------------------------------------------------------------------
+
+
+def sparse_branch_info(config: torch.Tensor,
+                       comp: CompiledSparseSNP) -> BranchInfo:
+    """:func:`branch_info` on the sparse encoding, with identical outputs:
+    per-neuron applicable counts and ranks come from one inclusive cumsum
+    over the neuron-sorted rule axis, read at the segment bounds."""
+    app = applicability(config, comp)
+    incl = torch.cumsum(app.to(torch.int32), -1, dtype=torch.int32)
+    cum0 = torch.cat([torch.zeros_like(incl[..., :1]), incl], -1)
+    start = _gather(cum0, comp.seg_start)                       # (..., m)
+    k = _gather(cum0, comp.seg_start + comp.seg_count) - start
+    rank = incl - _gather(start, comp.rule_neuron) - 1
+    return _radix(app, rank, k)
+
+
+def packed_rule_table(info: BranchInfo,
+                      comp: CompiledSparseSNP) -> torch.Tensor:
+    """``tab`` (..., m, R) int32: ``produce | consume << 16`` of the d-th
+    applicable rule of neuron μ at ``[..., μ, d]``, 0 where there is none.
+    Each applicable rule lands at its neuron and its rank (``info.rank``)
+    by one scatter; the slots are distinct, and non-applicable rules go to
+    a spare column that is dropped (the copy makes the table contiguous,
+    as the kernel takes it)."""
+    m, R = comp.num_neurons, comp.rule_slots.shape[0]
+    batch = info.app.shape[:-1]
+    app = info.app.reshape(-1, info.app.shape[-1])
+    packed = comp.produce | (comp.consume << 16)                 # (n,)
+    slot = torch.where(app, comp.rule_neuron * R + info.rank.reshape(
+        app.shape), m * R).to(torch.int64)
+    tab = torch.zeros((app.shape[0], m * R + 1), dtype=torch.int32,
+                      device=app.device)
+    tab.scatter_(-1, slot, packed.expand(app.shape))
+    return tab[:, :m * R].reshape(*batch, m, R).contiguous()
+
+
+def sparse_next_configs(config: torch.Tensor, comp: CompiledSparseSNP,
+                        max_branches: int) -> StepOut:
+    """One synchronous SNP step on the sparse encoding, equal to
+    :func:`next_configs` on valid entries, without the ``(..., T, n)``
+    spiking tensor or any ``O(n·m)`` matrix:
+
+    1. the mixed-radix digit per (branch, neuron);
+    2. the fired rule's ``produce | consume << 16`` from the packed table;
+    3. ``ΔC[j] = Σ_{i ∈ in(j)} produce_fired[i] − consume_fired[j]`` over
+       the ELL in-adjacency, plus each hub's COO tail summed over its run;
+    4. the emission is the fired produce at the output neuron.
+
+    The body is the sparse step kernel's plain version
+    (:mod:`repro_torch.kernels.snp_step.sparse_ref`), so the plain backend
+    and the kernel's oracle are one function.
+    """
+    # Imported here: the kernels package imports this module.
+    from ..kernels.snp_step.sparse_ref import sparse_step
+    m = config.shape[-1]
+    batch = config.shape[:-1]
+    T = max_branches
+    out, valid, emis, overflow = sparse_step(config.reshape(-1, m), comp,
+                                             max_branches=T)
+    return StepOut(configs=out.reshape(*batch, T, m),
+                   valid=valid.reshape(*batch, T),
+                   emissions=emis.reshape(*batch, T),
+                   overflow=overflow.reshape(batch), spiking=None)

@@ -1,23 +1,25 @@
-"""Build the dense step kernel's CUDA source at first use.
+"""Build the step kernels' CUDA sources at first use.
 
-``csrc/snp_step_dense.cu`` has a plain C entry point and is compiled by
-``nvcc`` into a shared library under ``kernels/_build/`` (listed in
+Each ``csrc/*.cu`` has a plain C entry point and is compiled by ``nvcc``
+into its own shared library under ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  The wrapper loads the
-library with ``ctypes`` (no PyTorch headers: a build takes seconds, not
-minutes).
+source rebuilds and an unchanged one is reused.  The wrappers load the
+libraries with ``ctypes`` (no PyTorch headers: a build takes seconds, not
+minutes).  :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "library_path", "build"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "library_path", "build", "build_all",
+           "load_library"]
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
@@ -25,6 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # -Xptxas -v reports registers, shared memory and spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: compiler log of each source built by this process (source path -> log)
+build_logs: Dict[Path, str] = {}
+
+_loaded: Dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,18 +51,52 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
+def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:
+    """Compile every source whose library does not exist yet, one ``nvcc``
+    each, all started together.  Returns ``(library path, compiler log)``
+    per source; the log is empty for a library already built."""
+    todo = [s for s in sources if not library_path(s).exists()]
+    nvcc = _nvcc() if todo else None
+    jobs = []
+    for source in sources:
+        lib = library_path(source)
+        if source not in todo:
+            jobs.append((source, lib, None))
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((source, lib, (proc, tmp)))
+    out, failed = [], []
+    for source, lib, job in jobs:
+        if job is None:
+            out.append((lib, ""))
+            continue
+        proc, tmp = job
+        log, _ = proc.communicate()
+        build_logs[source] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source}:\n{log}")
+            continue
+        os.replace(tmp, lib)   # a reader never sees a partial library
+        out.append((lib, log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(source: Path) -> Tuple[Path, str]:
-    """Compile ``source`` unless its library exists.  Returns ``(library
-    path, compiler log)``; the log is empty for a library already built."""
-    lib = library_path(source)
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(".tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{log}")
-    os.replace(tmp, lib)   # a reader never sees a partial library
-    return lib, log
+    """:func:`build_all` of one source."""
+    return build_all([source])[0]
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if needed (once per
+    process)."""
+    lib = _loaded.get(source)
+    if lib is None:
+        path, _ = build(source)
+        lib = _loaded[source] = ctypes.CDLL(str(path))
+    return lib

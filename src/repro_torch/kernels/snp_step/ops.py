@@ -26,7 +26,7 @@ import torch
 
 from ...core.matrix import CompiledSNP
 from ...core.semantics import branch_info, clamp_stride
-from ._build import build
+from ._build import load_library
 from .ref import snp_step_dense_ref
 
 __all__ = ["snp_step", "snp_step_dense", "load_kernel", "SOURCE",
@@ -36,23 +36,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
 
 kernel_launches = 0
 plain_calls = 0
-build_log = ""
-
-_lib = None
 
 
 def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
-    global _lib, build_log
-    if _lib is None:
-        path, build_log = build(SOURCE)
-        lib = ctypes.CDLL(str(path))
-        fn = lib.snp_step_dense
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    lib = load_library(SOURCE)
+    fn = lib.snp_step_dense
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 _INPUTS = (("configs", torch.int32, 2), ("rank", torch.int32, 2),

@@ -1,0 +1,153 @@
+"""Wrapper around the hand-written sparse SNP step kernel.
+
+:func:`snp_step_sparse` runs :func:`~.sparse_ref.sparse_step`: the cheap
+``O(B·m·R)`` per-config bookkeeping (:func:`~.sparse_ref.kernel_inputs`),
+then
+
+* on a CPU tensor the plain version
+  (:func:`~.sparse_ref.snp_step_sparse_ref`);
+* on a CUDA tensor ``csrc/snp_step_sparse.cu`` — its ELL body (B2), or its
+  body with the COO stage (B3) for a hybrid encoding — or it raises.
+  There is no fallback.
+
+and masks ``valid`` with ``alive``.  Its outputs equal
+:func:`~repro_torch.core.semantics.sparse_next_configs` on every entry.
+
+Counters (plain integers, reset by callers that measure a run):
+``kernel_launches`` counts launches of the kernel, ``coo_launches`` those
+of them that ran the COO stage, ``plain_calls`` calls of the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ...core.matrix import CompiledSparseSNP
+from ._build import load_library
+from .sparse_ref import snp_step_sparse_ref, sparse_step
+
+__all__ = ["snp_step_sparse", "snp_step_sparse_cuda", "load_kernel",
+           "max_neurons", "SOURCE", "MAX_BRANCHES", "kernel_launches",
+           "coo_launches", "plain_calls"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
+
+# The f32 decode is exact only below this many branches
+# (sparse_ref.decode_digits).
+MAX_BRANCHES = 1 << 23
+
+kernel_launches = 0
+coo_launches = 0
+plain_calls = 0
+
+
+def load_kernel():
+    """Build (at first use) and load the kernel's shared library."""
+    lib = load_library(SOURCE)
+    fn = lib.snp_step_sparse
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.snp_step_sparse_max_neurons.argtypes = []
+    lib.snp_step_sparse_max_neurons.restype = ctypes.c_int
+    return lib
+
+
+def max_neurons() -> int:
+    """The largest system (neurons) the kernel takes: one row of fired
+    produce must fit a block's shared memory."""
+    return int(load_kernel().snp_step_sparse_max_neurons())
+
+
+def _check_branches(T: int) -> None:
+    if not 1 <= T < MAX_BRANCHES:
+        raise ValueError(f"max_branches must be in [1, 2^23) for the exact "
+                         f"float32 decode, got {T}")
+
+
+def _check(name, x, dtype, shape, dev):
+    if x.device != dev or dev.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
+                         f"got {x.device}")
+    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"shape {shape}, got {x.dtype} {tuple(x.shape)}")
+
+
+def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
+                         out_neuron, coo_src=None, coo_bounds=None,
+                         hub_slot=None, *, max_branches: int):
+    """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid
+    (B,T) bool, emis (B,T) int32)``, the plain version's contract.
+    ``coo_src``/``coo_bounds``/``hub_slot`` (all or none) select the COO
+    stage."""
+    global kernel_launches, coo_launches
+    dev = configs.device
+    B, m = configs.shape
+    R, Kin = tab.shape[-1], in_idx.shape[-1]
+    T = int(max_branches)
+    has_coo = coo_src is not None
+    if has_coo != (coo_bounds is not None) or has_coo != (hub_slot
+                                                         is not None):
+        raise ValueError("coo_src, coo_bounds and hub_slot come together")
+    Hn = coo_bounds.shape[0] - 1 if has_coo else 0
+    i32, f32 = torch.int32, torch.float32
+    checks = [("configs", configs, i32, (B, m)),
+              ("stride", stride, f32, (B, m)),
+              ("choices", choices, i32, (B, m)), ("psi", psi, f32, (B,)),
+              ("tab", tab, i32, (B, m, R)), ("in_idx", in_idx, i32, (m, Kin)),
+              ("out_neuron", out_neuron, i32, (1,))]
+    if has_coo:
+        checks += [("coo_src", coo_src, i32, (coo_src.shape[0],)),
+                   ("coo_bounds", coo_bounds, i32, (Hn + 1,)),
+                   ("hub_slot", hub_slot, i32, (m,))]
+    for name, x, dtype, shape in checks:
+        _check(name, x, dtype, shape, dev)
+    _check_branches(T)
+    lib = load_kernel()
+    if m > max_neurons():
+        raise ValueError(
+            f"the sparse step kernel takes at most {max_neurons()} neurons "
+            f"(one row of fired produce per block in shared memory), got "
+            f"m={m}")
+    out = torch.empty((B, T, m), dtype=i32, device=dev)
+    valid = torch.empty((B, T), dtype=torch.bool, device=dev)
+    emis = torch.empty((B, T), dtype=i32, device=dev)
+    if B == 0:
+        return out, valid, emis
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = (None if x is None else x.data_ptr() for x in (
+            configs, stride, choices, psi, tab, in_idx, out_neuron, coo_src,
+            coo_bounds, hub_slot, out, valid, emis))
+        rc = lib.snp_step_sparse(*ptrs, B, T, m, R, Kin, Hn, int(has_coo),
+                                 stream)
+    if rc != 0:
+        raise RuntimeError(f"snp_step_sparse launch failed: CUDA error {rc}")
+    kernel_launches += 1
+    coo_launches += int(has_coo)
+    return out, valid, emis
+
+
+def snp_step_sparse(configs: torch.Tensor, comp: CompiledSparseSNP, *,
+                    max_branches: int):
+    """Fused sparse successor expansion of ``configs`` (B, m):
+    ``(successors (B,T,m) int32, valid (B,T) bool, emissions (B,T) int32,
+    overflow (B,) bool)``, bit-identical to the sparse semantics, pure-ELL
+    and hybrid encodings alike."""
+    global plain_calls
+    if configs.dim() != 2:
+        raise ValueError(
+            f"configs must be (B, m), got {tuple(configs.shape)}")
+    _check_branches(max_branches)
+    if configs.device.type == "cpu":
+        plain_calls += 1
+        launch = snp_step_sparse_ref
+    else:
+        launch = snp_step_sparse_cuda
+    return sparse_step(configs, comp, max_branches=max_branches,
+                       launch=launch)

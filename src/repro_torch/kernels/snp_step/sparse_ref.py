@@ -1,0 +1,121 @@
+"""Plain PyTorch version of the sparse step kernel — the port's one plain
+body of the sparse step.
+
+* :func:`kernel_inputs` does the per-config bookkeeping (branch info and
+  the packed fired-rule table) that the kernel takes as input;
+* :func:`snp_step_sparse_ref` computes the kernel's three outputs from
+  exactly those inputs, reading the COO tail the way the kernel reads it:
+  through the per-hub runs ``coo_bounds`` and the neuron→hub map
+  ``hub_slot``;
+* :func:`sparse_step` chains the two (or the kernel in place of the plain
+  body), masks ``valid`` with ``alive`` and flags overflow.
+
+The plain ``"sparse"`` backend
+(:func:`~repro_torch.core.semantics.sparse_next_configs`) and the
+wrapper's CPU path run it; ``chip_smoke.py`` compares the kernel with it
+on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.matrix import CompiledSparseSNP, check_coo_metadata
+from ...core.semantics import packed_rule_table, sparse_branch_info
+
+__all__ = ["kernel_inputs", "snp_step_sparse_ref", "sparse_step",
+           "decode_digits", "fired_packed"]
+
+
+def decode_digits(max_branches: int, stride: torch.Tensor,
+                  choices: torch.Tensor) -> torch.Tensor:
+    """Mixed-radix digit per (branch, neuron), ``(t // stride) % choices``,
+    as (B, T, m) int32 from (B, m) float32 ``stride`` (+inf allowed) and
+    int32 ``choices``, computed in float32.
+
+    Exact: with ``j = floor(t/stride)``, a wrong floor needs the true
+    quotient within ulp(j)/2 <= 2^-23·j of an integer from below, but it
+    sits at least ``1/stride >= j/T`` away — impossible for ``T < 2^23``.
+    A +inf stride quotients to 0, the dense path's clamped-int answer.
+    The modulus is the same argument on integers below 2^23, where
+    ``c·floor(q/c)`` is exact."""
+    t = torch.arange(max_branches, device=stride.device).to(torch.float32)
+    s = stride.unsqueeze(-2)                                     # (B, 1, m)
+    c = choices.to(torch.float32).unsqueeze(-2)
+    q = torch.floor(t[:, None] / s)
+    return (q - c * torch.floor(q / c)).to(torch.int32)
+
+
+def fired_packed(digits: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """Fired-rule lookup ``tab[b, μ, digits[b, t, μ]]`` as (B, T, m): one
+    direct gather (digits are below choices <= R; slot 0 of a neuron with
+    no applicable rule is 0)."""
+    B, T, m = digits.shape
+    R = tab.shape[-1]
+    offs = torch.arange(m, device=digits.device, dtype=torch.int64) * R
+    flat = (digits.to(torch.int64) + offs).reshape(B, T * m)
+    return tab.reshape(B, m * R).gather(-1, flat).reshape(B, T, m)
+
+
+def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP):
+    """The kernel's inputs for ``configs`` (B, m) and the branch info they
+    came from: ``(args, coo, info)`` with ``coo`` the COO stage's three
+    tensors, or ``{}`` for a pure-ELL encoding."""
+    check_coo_metadata(comp, "sparse step")
+    info = sparse_branch_info(configs, comp)
+    args = (configs.contiguous(), info.stride.contiguous(),
+            info.choices.contiguous(), info.psi.contiguous(),
+            packed_rule_table(info, comp), comp.in_idx,
+            comp.out_neuron.reshape(1))
+    coo = dict(coo_src=comp.coo_src, coo_bounds=comp.coo_bounds,
+               hub_slot=comp.hub_slot) if comp.is_hybrid else {}
+    return args, coo, info
+
+
+def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
+                        out_neuron, coo_src=None, coo_bounds=None,
+                        hub_slot=None, *, max_branches: int):
+    """``(out (B,T,m) int32, valid (B,T) bool, emis (B,T) int32)`` for
+    every branch ``t < max_branches``, valid or not:
+
+    * ``out[b,t,j] = C[b,j] − consume_fired[j] + Σ_k produce_fired[in_idx[j,k]]
+      + tail[hub_slot[j]]``, with ``tail[h]`` the fired produce summed over
+      ``coo_src[coo_bounds[h]:coo_bounds[h+1]]`` (0 for ``hub_slot = Hn``);
+    * ``emis[b,t] = produce_fired[out_neuron]`` (0 when it is ``m``);
+    * ``valid[b,t] = t < psi[b]`` (not masked by ``alive``).
+
+    Padding indices (``m`` in ``in_idx``, ``Hn`` in ``hub_slot``) read a
+    zero slot; the ELL sum takes one gather per column to bound the
+    working set."""
+    B, m = configs.shape
+    T = max_branches
+    dev = configs.device
+    packed_f = fired_packed(decode_digits(T, stride, choices), tab)
+    prod_pad = torch.cat([packed_f & 0xFFFF, torch.zeros(
+        (B, T, 1), dtype=torch.int32, device=dev)], -1)          # (B,T,m+1)
+    out = configs[:, None, :] - (packed_f >> 16)
+    for k in range(in_idx.shape[1]):
+        out.add_(prod_pad.index_select(-1, in_idx[:, k]))
+    if coo_src is not None:
+        hn = coo_bounds.shape[0] - 1
+        hub_of_entry = torch.repeat_interleave(
+            torch.arange(hn, device=dev),
+            (coo_bounds[1:] - coo_bounds[:-1]).to(torch.int64))
+        tail = torch.zeros((B, T, hn + 1), dtype=torch.int32, device=dev)
+        tail.index_add_(-1, hub_of_entry, prod_pad.index_select(-1, coo_src))
+        out.add_(tail.index_select(-1, hub_slot))
+    t = torch.arange(T, device=dev).to(torch.float32)
+    emis = prod_pad.index_select(-1, out_neuron)[..., 0]
+    return out, t < psi[:, None], emis
+
+
+def sparse_step(configs: torch.Tensor, comp: CompiledSparseSNP, *,
+                max_branches: int, launch=snp_step_sparse_ref):
+    """One sparse step of ``configs`` (B, m) through ``launch`` (the plain
+    body, or the kernel's launcher, which share a contract):
+    ``(successors (B,T,m) int32, valid (B,T) bool, emissions (B,T)
+    int32, overflow (B,) bool)``."""
+    args, coo, info = kernel_inputs(configs, comp)
+    out, valid, emis = launch(*args, **coo, max_branches=max_branches)
+    return (out, valid & info.alive[:, None], emis,
+            info.psi > float(max_branches))

@@ -205,9 +205,14 @@ def test_run_traces_first_matches_reference(name):
 
 
 def test_run_traces_policies():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.run_traces(P.paper_pi(True), steps=2, seeds=[0], policy="random",
-                     device=CPU)
+    """Both policies run (random traces equal the reference per seed);
+    any other policy raises."""
+    ref = J.run_traces(J.paper_pi(True), steps=6, seeds=[0, 9],
+                       policy="random", max_branches=16, backend="ref")
+    port = P.run_traces(P.paper_pi(True), steps=6, seeds=[0, 9],
+                        policy="random", max_branches=16, device=CPU)
+    for p, j in zip(port, ref):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
     with pytest.raises(ValueError, match="policy"):
         P.run_traces(P.paper_pi(True), steps=2, seeds=[0], policy="best",
                      device=CPU)

@@ -31,8 +31,15 @@ def _top(name):
 def test_port_has_modules():
     names = {p.relative_to(SRC).as_posix() for p in FILES}
     for want in ("repro_torch/core/engine.py",
-                 "repro_torch/kernels/snp_step/ops.py"):
+                 "repro_torch/core/plan.py",
+                 "repro_torch/core/prng.py",
+                 "repro_torch/kernels/snp_step/ops.py",
+                 "repro_torch/kernels/snp_step/sparse_ops.py",
+                 "repro_torch/kernels/snp_step/sparse_ref.py"):
         assert want in names
+    csrc = SRC / "repro_torch/kernels/snp_step/csrc"
+    for want in ("snp_step_dense.cu", "snp_step_sparse.cu"):
+        assert (csrc / want).is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
@@ -54,6 +61,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.snp_step.ops, chip_smoke\n"
+        "import repro_torch.kernels.snp_step.sparse_ops\n"
+        "import repro_torch.core.plan, repro_torch.core.prng\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n")

@@ -116,18 +116,19 @@ def test_kernel_launcher_refuses_cpu_tensors():
 
 def test_cuda_backend_flattens_batch_dims_like_pallas():
     """Each port backend equals the reference backend that REFERENCE_NAME
-    pairs it with, on nd-batched configs: ``"cuda"`` <-> ``"pallas"``
-    (interpret mode), which flattens the batch dims and leaves
-    ``spiking`` empty."""
+    pairs it with, on nd-batched configs and each backend's own encoding:
+    ``"cuda"`` <-> ``"pallas"`` and ``"sparse_cuda"`` <-> ``"sparse_pallas"``
+    (interpret mode) flatten the batch dims and leave ``spiking`` empty."""
     system, T = conftest.EQUIV_SYSTEMS["random-16"]
-    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
-    jc = jcompile(system)
+    port_system = system_from_spec(dataclasses.asdict(system))
     configs = conftest.random_states(system, "no_delays", 6, seed=2
                                      ).reshape(2, 3, -1)
-    assert set(REFERENCE_NAME) == {"ref", "cuda"}
+    assert set(REFERENCE_NAME) == {"ref", "cuda", "sparse", "sparse_cuda"}
     for name, ref_name in REFERENCE_NAME.items():
-        got = get_backend(name).expand(torch.from_numpy(configs), pc, T)
-        want = jget_backend(ref_name).expand(jnp.asarray(configs), jc, T)
+        be, jbe = get_backend(name), jget_backend(ref_name)
+        pc = be.compile(port_system, device="cpu")
+        got = be.expand(torch.from_numpy(configs), pc, T)
+        want = jbe.expand(jnp.asarray(configs), jbe.compile(system), T)
         assert (got.spiking is None) == (want.spiking is None), name
         assert tuple(got.configs.shape) == (2, 3, T, system.num_neurons)
         conftest.assert_same_step(got, want)
