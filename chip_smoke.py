@@ -8,7 +8,8 @@ result line):
 
 1. card and build — the card's name and power limit, the CUDA kernels
    built from the sources in this checkout (one ``nvcc`` per source, all
-   started together, sm_90a);
+   started together, sm_90a: the dense step B1, the dense delayed step B4
+   and the sparse step B2/B3/B5);
 2. the dense kernel (B1) against its plain version on the card —
    bit-identical outputs on the paper's Π, ``nd_chain(10)`` (Ψ > T), a
    2048-neuron random system, a ragged shape, spike counts near 2^20 and
@@ -36,15 +37,38 @@ result line):
    with ``policy="first"`` and ``"random"`` identical through ``"cuda"``
    and ``"ref"``, and ``run_traces(power_law(8192), policy="random")``
    identical through ``"sparse_cuda"`` and ``"sparse"``;
-9. summary — the kernels with their launch counts, then one JSON line of
+9. the delayed kernels against their plain versions — B4 (dense) and B5
+   (the sparse kernel's ELL and COO bodies with the delay stage),
+   bit-identical on every entry at small edge shapes (delays 0–3, Ψ > T,
+   a ragged shape, a neuron reopening with 2^16 − 1 pending spikes, no
+   output neuron, spike counts near 2^20) and at the delayed
+   ``scaled_pi(682)`` and ``power_law(8192)`` waves; times of each kernel,
+   its plain version, its bound and one library call (partial yardsticks:
+   ``torch.matmul`` of ``S`` with the ``(n, 4m)`` ``W``, the accumulate
+   stage only, for B4; ``torch.sparse.mm`` of ``S`` with ``M``, the
+   delay-free product, for B5);
+10. full width, delayed, dense and ELL — ``explore(with_delays(
+   scaled_pi(682), k % 3), plan=SystemPlan(semantics="delays"))`` (state
+   rows 3m = 6138 wide, a 262,144-row archive) through ``"cuda"`` (B4),
+   ``"ref"`` and ``"sparse_cuda"`` (B5, ELL), archives and flags
+   identical;
+11. full width, delayed, hybrid — ``explore(with_delays(power_law(8192),
+   k % 3), plan=SystemPlan.for_system(..., semantics="delays"))`` through
+   ``"sparse_cuda"`` (B5, COO) and ``"sparse"``, identical, at a
+   65,536-row archive (3m-wide rows: 6.4 GB);
+12. the four delayed variants of the paper's Π, explored through all four
+   backends, identical; traces of both delayed workloads, first and
+   random policies, identical through the kernel and plain backends;
+13. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every path driven through a kernel backend has every kernel's launch
 counter set to 0 just before it and read just after; each count is
 checked and reported per path.  The main paths are the full-width
-explores: phase 5 for B1, phase 6 for B2 and phase 7 for B3; their counts
-are the kernels line's ``launches``.
+explores: phase 5 for B1, phase 6 for B2, phase 7 for B3, phase 10 for
+B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``) and phase
+11 for B5's COO body; their counts are the kernels line's ``launches``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -89,6 +113,38 @@ KERNELS = {
                      "snp_step_sparse.cu",
            "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
            "body": "_make_kernel(has_coo=True), sparse_kernel.py:155-167"},
+    "B4": {"name": "snp_step_dense_delay", "route": "cuda",
+           "source": "src/repro_torch/kernels/snp_step/csrc/"
+                     "snp_step_dense_delay.cu",
+           "replaces": "src/repro/kernels/snp_step/kernel.py:201",
+           "body": "_make_kernel(has_halo=False, has_delay=True), "
+                   "kernel.py:154-192"},
+    "B5-ELL": {"name": "snp_step_sparse_delay_ell", "route": "cuda",
+               "source": "src/repro_torch/kernels/snp_step/csrc/"
+                         "snp_step_sparse.cu",
+               "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
+               "body": "_make_kernel(has_coo=False, has_delay=True), "
+                       "sparse_kernel.py:124-135,176-186"},
+    "B5-COO": {"name": "snp_step_sparse_delay_coo", "route": "cuda",
+               "source": "src/repro_torch/kernels/snp_step/csrc/"
+                         "snp_step_sparse.cu",
+               "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
+               "body": "_make_kernel(has_coo=True, has_delay=True), "
+                       "sparse_kernel.py:124-135,155-167,176-186"},
+}
+
+# What each kernel's library_ms times (one PyTorch call, never used by the
+# port).  The delayed kernels have no single library call for their whole
+# function, so theirs time a part of it.
+LIBRARY_CALL = {
+    "B1": "torch.matmul(S, M), f32",
+    "B2": "torch.sparse.mm(S as CSR, M), f32",
+    "B3": "torch.sparse.mm(S as CSR, M), f32",
+    "B4": "partial: torch.matmul(S, W), f32, the accumulate stage only",
+    "B5-ELL": "partial: torch.sparse.mm(S as CSR, M), f32, the delay-free "
+              "product",
+    "B5-COO": "partial: torch.sparse.mm(S as CSR, M), f32, the delay-free "
+              "product",
 }
 
 # Dense M for the sparse yardstick (torch.sparse.mm) only up to this size.
@@ -127,17 +183,19 @@ def time_ms(fn, iters):
 def reset_counts():
     """Every kernel's launch counter to 0 (just before a path)."""
     from repro_torch.kernels.snp_step import ops, sparse_ops
-    ops.kernel_launches = 0
+    ops.kernel_launches = ops.delay_launches = 0
     sparse_ops.kernel_launches = sparse_ops.coo_launches = 0
+    sparse_ops.delay_launches = sparse_ops.delay_coo_launches = 0
 
 
 def read_counts():
     """Launches per kernel since :func:`reset_counts` (just after a
     path)."""
     from repro_torch.kernels.snp_step import ops, sparse_ops
-    return {"B1": ops.kernel_launches,
-            "B2": sparse_ops.kernel_launches - sparse_ops.coo_launches,
-            "B3": sparse_ops.coo_launches}
+    body = sparse_ops.body_counts()
+    return {"B1": ops.kernel_launches, "B2": body["ell"], "B3": body["coo"],
+            "B4": ops.delay_launches, "B5-ELL": body["ell_delay"],
+            "B5-COO": body["coo_delay"]}
 
 
 def check_counts(path, counts, **want):
@@ -168,14 +226,16 @@ def phase_card_and_build():
     check(torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
-    sources = [ops.SOURCE, sparse_ops.SOURCE]
+    sources = [ops.SOURCE, ops.DELAY_SOURCE, sparse_ops.SOURCE]
     _build.build_all(sources)
     ops.load_kernel()
+    ops.load_delay_kernel()
     sparse_ops.load_kernel()
     secs = time.perf_counter() - t0
     log(f"[1] built (in parallel) and loaded "
         f"{', '.join(s.name for s in sources)} in {secs:.2f} s; the sparse "
-        f"kernel takes up to {sparse_ops.max_neurons()} neurons")
+        f"kernel takes up to {sparse_ops.max_neurons()} neurons, the dense "
+        f"delayed kernel up to {ops.delay_max_neurons()}")
     for source in sources:
         for line in _build.build_logs.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "error" in line \
@@ -299,7 +359,7 @@ def phase_kernel():
     return max_err, rows
 
 
-def _sparse_bound(args, coo, T):
+def _sparse_bound(args, extra, T):
     """Least time for one sparse step call (ms), what binds, and the
     operations counted, from this call's inputs.  Bytes: each input read
     once and each output written once, over HBM bandwidth.  Operations:
@@ -307,31 +367,40 @@ def _sparse_bound(args, coo, T):
     decode (divide, floor, modulo) per neuron and branch, the ``C −
     consume`` per output entry, and one add per out-synapse of every
     neuron whose fired rule produces (counted from the decoded fired
-    produce), not the ELL padding the kernel also walks."""
+    produce), not the ELL padding the kernel also walks.  Under delays
+    (``extra`` holds ``dtab``/``cd``/``pd``) the rows are 3m wide, a
+    neuron sends when its emit-now value is nonzero (a reopening neuron's
+    pending spikes count), and the combine adds three operations per
+    neuron and branch."""
     import torch
     from repro_torch.kernels.snp_step.sparse_ref import (decode_digits,
                                                          fired_packed)
     configs, stride, choices, psi, tab, in_idx, out_neuron = args
     B, m = configs.shape
-    inputs = list(args) + list(coo.values())
+    delayed = "dtab" in extra
+    inputs = list(args) + list(extra.values())
     in_bytes = sum(x.numel() * x.element_size() for x in inputs)
-    out_bytes = 4 * B * T * m + 5 * B * T
+    out_bytes = 4 * B * T * m * (3 if delayed else 1) + 5 * B * T
     out_deg = torch.bincount(in_idx[in_idx < m].to(torch.int64),
                              minlength=m)
-    if coo:
-        out_deg += torch.bincount(coo["coo_src"].to(torch.int64),
+    if "coo_src" in extra:
+        out_deg += torch.bincount(extra["coo_src"].to(torch.int64),
                                   minlength=m)
     fired = (fired_packed(decode_digits(T, stride, choices), tab)
              & 0xFFFF) != 0                                  # (B, T, m)
+    if delayed:
+        fired |= ((extra["cd"] == 1) & (extra["pd"] != 0))[:, None, :]
     adds = int((fired.sum(dim=(0, 1), dtype=torch.int64) * out_deg).sum())
-    n_ops = 3 * B * T * m + B * T * m + adds
+    n_ops = 3 * B * T * m + B * T * m + adds \
+        + (3 * B * T * m if delayed else 0)
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     return bound + (n_ops,)
 
 
-def _sparse_library_ms(system, comp, configs, info, T, iters):
+def _sparse_library_ms(system, comp, configs, info, T, iters,
+                       semantics="no_delays"):
     """One ``torch.sparse.mm`` of the fired one-hot ``S`` (B·T × n, CSR,
     f32) with a dense f32 ``M``: the yardstick, or ``None`` where ``M``
     exceeds :data:`LIBRARY_M_BYTES`."""
@@ -342,7 +411,8 @@ def _sparse_library_ms(system, comp, configs, info, T, iters):
     if 4 * n * m > LIBRARY_M_BYTES:
         return None
     B = configs.shape[0]
-    Mf = compile_system(system, device=configs.device).M.to(torch.float32)
+    Mf = compile_system(system, semantics=semantics,
+                        device=configs.device).M.to(torch.float32)
     S = decode_spiking(info.app, info.rank, clamp_stride(info.stride),
                        info.choices, comp.rule_neuron, T)
     S = S.reshape(B * T, n).to(torch.float32).to_sparse_csr()
@@ -488,7 +558,8 @@ FULL_WIDTH = dict(max_steps=8, frontier_cap=512, max_branches=64,
                   visited_cap=262144)
 
 
-def _timed_explore(tag, label, system, backend, kernel, plan=None):
+def _timed_explore(tag, label, system, backend, kernel, plan=None,
+                   caps=FULL_WIDTH):
     """One full-width explore with its launch counts (set to 0 just
     before, read just after), wall time, host reads and peak memory."""
     import torch
@@ -500,13 +571,13 @@ def _timed_explore(tag, label, system, backend, kernel, plan=None):
     reset_counts()
     devmod.host_reads = 0
     t0 = time.perf_counter()
-    res = explore(system, backend=backend, plan=plan, **FULL_WIDTH)
+    res = explore(system, backend=backend, plan=plan, **caps)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts, reads = read_counts(), devmod.host_reads
     peak = torch.cuda.max_memory_allocated()
     waves = res.steps
-    cands = waves * FULL_WIDTH["frontier_cap"] * FULL_WIDTH["max_branches"]
+    cands = waves * caps["frontier_cap"] * caps["max_branches"]
     check_counts(f"{label} via {backend!r}", counts,
                  **({kernel: waves} if kernel else {}))
     log(f"[{tag}] {label} via {backend!r}: {waves} waves in {secs:.3f} s = "
@@ -516,7 +587,7 @@ def _timed_explore(tag, label, system, backend, kernel, plan=None):
         f"{res.visited_overflow}, launches {json.dumps(counts)}, host reads "
         f"{reads} ({reads / max(waves, 1):.1f}/wave), "
         f"max_memory_allocated {peak / 2**30:.3f} GiB")
-    return res, (counts[kernel] if kernel else 0)
+    return res, (counts[kernel] if kernel else 0), peak
 
 
 def _same_explore(a, b):
@@ -536,10 +607,10 @@ def phase_full_width():
     dedup = resolve_dedup("auto", frontier_cap=512, visited_cap=262144,
                           max_branches=64)
     check(dedup == "hash", f"dedup auto resolved to {dedup}")
-    a, launches = _timed_explore("5", "explore(scaled_pi(682))", system,
-                                 "cuda", "B1")
-    b, _ = _timed_explore("5", "explore(scaled_pi(682))", system, "ref",
-                          None)
+    a, launches, _ = _timed_explore("5", "explore(scaled_pi(682))", system,
+                                    "cuda", "B1")
+    b, _, _ = _timed_explore("5", "explore(scaled_pi(682))", system, "ref",
+                             None)
     check(_same_explore(a, b),
           "full-width archives or flags differ between 'cuda' and 'ref'")
     log(f"[5] archives identical through 'cuda' and 'ref' "
@@ -554,8 +625,8 @@ def phase_full_width_ell(dense_result):
     from repro_torch.core.generators import scaled_pi
 
     system = scaled_pi(682)
-    res, launches = _timed_explore("6", "explore(scaled_pi(682))", system,
-                                   "sparse_cuda", "B2")
+    res, launches, _ = _timed_explore("6", "explore(scaled_pi(682))",
+                                      system, "sparse_cuda", "B2")
     check(_same_explore(res, dense_result),
           "ELL full-width archive or flags differ from 'cuda' and 'ref'")
     log(f"[6] archive identical through 'sparse_cuda', 'cuda' and 'ref' "
@@ -580,10 +651,10 @@ def phase_full_width_hybrid():
         f"{plan.encoding} (hub threshold {plan.hub_threshold}), Kin="
         f"{comp.max_in_degree}, Ec={comp.coo_src.shape[0]} over {hubs} hubs, "
         f"R={comp.max_rules_per_neuron}, K={comp.max_nnz_per_rule}")
-    a, launches = _timed_explore("7", "explore(power_law(8192))", system,
-                                 "sparse_cuda", "B3", plan)
-    b, _ = _timed_explore("7", "explore(power_law(8192))", system, "sparse",
-                          None, plan)
+    a, launches, _ = _timed_explore("7", "explore(power_law(8192))",
+                                    system, "sparse_cuda", "B3", plan)
+    b, _, _ = _timed_explore("7", "explore(power_law(8192))", system,
+                             "sparse", None, plan)
     check(_same_explore(a, b), "hybrid full-width archives or flags differ "
           "between 'sparse_cuda' and 'sparse'")
     log(f"[7] archives identical through 'sparse_cuda' and 'sparse' "
@@ -599,12 +670,12 @@ def _wave_breakdown(tag, comp, archive, backends):
     too, marked ·)."""
     import torch
     from repro_torch.core import (CompiledSparseSNP, applicability,
-                                  get_backend, packed_rule_table,
+                                  get_backend, is_delayed, packed_rule_table,
                                   sparse_branch_info)
     from repro_torch.core.hashing import SENTINEL, config_hash
     from repro_torch.core.hashtable import (first_occurrence, insert_unique,
                                             lookup, make_table)
-    from repro_torch.kernels.snp_step import sparse_ops
+    from repro_torch.kernels.snp_step import ops, sparse_ops
     from repro_torch.kernels.snp_step.sparse_ref import kernel_inputs
 
     dev = comp.device
@@ -627,7 +698,7 @@ def _wave_breakdown(tag, comp, archive, backends):
         lambda: get_backend(kern).expand(frontier, comp, T))
     stages[f"expand ({plain} plain)"], _ = timed(
         lambda: get_backend(plain).expand(frontier, comp, T))
-    if isinstance(comp, CompiledSparseSNP):
+    if isinstance(comp, CompiledSparseSNP) and not is_delayed(comp):
         # the sparse expand split: its bookkeeping ops and the launch
         stages["· applicability"], _ = timed(
             lambda: applicability(frontier, comp))
@@ -635,10 +706,17 @@ def _wave_breakdown(tag, comp, archive, backends):
             lambda: sparse_branch_info(frontier, comp))
         stages["· packed_rule_table"], _ = timed(
             lambda: packed_rule_table(info, comp))
-        args, coo, _ = kernel_inputs(frontier, comp)
+    if isinstance(comp, CompiledSparseSNP):
+        stages["· kernel_inputs (all bookkeeping)"], (args, extra, _) = \
+            timed(lambda: kernel_inputs(frontier, comp))
         stages["· kernel launch"], _ = timed(
-            lambda: sparse_ops.snp_step_sparse_cuda(*args, **coo,
+            lambda: sparse_ops.snp_step_sparse_cuda(*args, **extra,
                                                     max_branches=T))
+    elif is_delayed(comp):
+        stages["· delay_inputs (all bookkeeping)"], (args, _) = timed(
+            lambda: ops.delay_inputs(frontier, comp))
+        stages["· kernel launch"], _ = timed(
+            lambda: ops.snp_step_dense_delay(*args, T))
     cand = out.configs.reshape(F * T, -1)
     valid = out.valid.reshape(-1)
     stages["config_hash"], (hi, lo) = timed(lambda: config_hash(cand))
@@ -658,9 +736,12 @@ def _wave_breakdown(tag, comp, archive, backends):
                                       for k, v in stages.items()))
 
 
-def _traces(tag, label, system, policy, backends, kernel, plan=None):
+def _traces(tag, label, system, policy, backends, kernel, plan=None,
+            last_row=True):
     """``run_traces`` through a kernel backend and its plain twin, with
-    the kernel path's launch counts; the two must be identical."""
+    the kernel path's launch counts; the two must be identical.  Random
+    traces must differ across seeds: in their last rows, or anywhere
+    (``last_row=False``, for systems that may halt in one state)."""
     import torch
     from repro_torch.core import run_traces
 
@@ -687,7 +768,8 @@ def _traces(tag, label, system, policy, backends, kernel, plan=None):
     check(all(torch.equal(x, y) for x, y in zip(a, b)),
           f"{policy} traces of {label} differ between {backends}")
     if policy == "random":
-        check(len({tuple(r[-1].tolist()) for r in a.configs[:16]}) > 1,
+        rows = [r[-1] if last_row else r for r in a.configs[:16]]
+        check(len({tuple(r.reshape(-1).tolist()) for r in rows}) > 1,
               f"random traces of {label} do not differ across seeds")
     log(f"[{tag}] {policy} traces of {label} identical through "
         f"{backends[0]!r} and {backends[1]!r}")
@@ -708,6 +790,360 @@ def phase_traces():
                           ("sparse_cuda", "sparse"), "B3",
                           SystemPlan.for_system(hubby))
     return first, rand_dense, rand_hybrid
+
+
+# ---------------------------------------------------------------------------
+# The delayed tier: B4 and B5 (phases 9–12)
+# ---------------------------------------------------------------------------
+
+TOP = (1 << 16) - 1        # the largest produce the sparse encoding takes
+
+
+def _reopen_system():
+    """Three rules at the produce bound 2^16 − 1 (n0 delayed), no output
+    neuron: a reopening n0 sends 2^16 − 1 pending spikes next to n1's
+    fired 2^16 − 1."""
+    from repro_torch.core import Rule, SNPSystem
+    return SNPSystem(
+        num_neurons=4, initial_spikes=(1, 1, 0, 0),
+        rules=(Rule(neuron=0, consume=1, produce=TOP, regex_base=1,
+                    delay=2),
+               Rule(neuron=1, consume=1, produce=TOP, regex_base=1),
+               Rule(neuron=2, consume=1, produce=1, regex_base=1,
+                    regex_period=1, delay=3)),
+        synapses=((0, 2), (0, 3), (1, 2), (1, 3), (2, 3)),
+        output_neuron=-1, name="reopen-top")
+
+
+def _dense_delay_bound(args, T):
+    """Least time for one B4 call (ms), what binds, and the operations
+    counted, from this call's inputs.  Bytes: each input read once and
+    each output (3m-wide rows) written once, over HBM bandwidth.
+    Operations: what these inputs need, over the f32/int32 datapath peak:
+    a digit decode per neuron and branch, a compare per applicable rule
+    and branch, the combine (three outputs) per neuron and branch, and
+    one add per out-synapse of every neuron whose emit-now value is
+    nonzero (counted from the decoded fired rules and the reopening
+    neurons' pending spikes)."""
+    import torch
+    from repro_torch.core.semantics import decode_spiking
+    (spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds, consume,
+     produce, delay, adj_in, out_neuron) = args
+    B, m = spikes.shape
+    n = rank.shape[-1]
+    in_bytes = sum(x.numel() * x.element_size() for x in args)
+    out_bytes = 4 * B * T * 3 * m + 5 * B * T
+    rule_neuron = torch.repeat_interleave(
+        torch.arange(m, device=spikes.device, dtype=torch.int32),
+        (rule_bounds[1:] - rule_bounds[:-1]).to(torch.int64), output_size=n)
+    S = decode_spiking(app, rank, stride, choices, rule_neuron, T)
+    sends = ((delay == 0) & (produce != 0)).to(torch.int32)
+    emits = torch.zeros((B, T, m), dtype=torch.int32, device=spikes.device)
+    emits.index_add_(-1, rule_neuron, S * sends)
+    del S
+    emits = (emits != 0) | ((cd == 1) & (pd != 0))[:, None, :]
+    out_deg = torch.bincount(adj_in[adj_in < m].to(torch.int64),
+                             minlength=m)
+    adds = int((emits.sum(dim=(0, 1), dtype=torch.int64) * out_deg).sum())
+    n_ops = 3 * B * T * m + T * int(app.sum()) + 3 * B * T * m + adds
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound + (n_ops,)
+
+
+def _delay_cases(rng, dev):
+    """(name, system, hub threshold, B, T, state rows, time it?) — the
+    phase-9 shapes, smallest first."""
+    import numpy as np
+    import torch
+    from repro_torch.core import paper_pi, with_delays
+    from repro_torch.core.generators import (nd_chain, power_law,
+                                             random_system, scaled_pi)
+
+    def states(m, B, lo=0, hi=4):
+        return torch.from_numpy(np.concatenate(
+            [rng.integers(lo, hi, (B, m)), rng.integers(0, 4, (B, m)),
+             rng.integers(0, 3, (B, m))], 1).astype(np.int32)).to(dev)
+
+    k3, k4 = (lambda k, r: k % 3), (lambda k, r: k % 4)
+    reopen = torch.tensor([
+        [0, 1, 0, 0, 1, 0, 0, 0, TOP, 0, 0, 0],   # n0 reopens, n1 fires
+        [1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0],     # every neuron open
+        [0, 0, 3, 5, 1, 0, 1, 0, TOP, 0, 7, 0],   # n0 and n2 reopen
+        [0, 1, 1, 0, 2, 0, 3, 0, TOP, 0, 1, 0],   # n0, n2 stay closed
+    ], dtype=torch.int32, device=dev)
+    return [
+        ("paper_pi d=k%4", with_delays(paper_pi(True), k4), None, 128, 16,
+         lambda m: states(m, 128, 0, 5)),
+        ("nd_chain(10) d=1", with_delays(nd_chain(10), 1), None, 16, 64,
+         lambda m: torch.cat([torch.ones((16, m), dtype=torch.int32),
+                              torch.zeros((16, 2 * m), dtype=torch.int32)],
+                             1).to(dev)),
+        ("ragged B13 T37 d=k%4",
+         with_delays(random_system(45, 3, 0.1, seed=5), k4), None, 13, 37,
+         lambda m: states(m, 13)),
+        ("random(64) h=1 d=k%3",
+         with_delays(random_system(64, 2, 0.15, seed=3), k3), 1, 24, 40,
+         lambda m: states(m, 24)),
+        ("reopen 2^16-1, no output", _reopen_system(), None, 4, 8,
+         lambda m: reopen),
+        ("reopen 2^16-1 h=1", _reopen_system(), 1, 4, 8, lambda m: reopen),
+        ("spikes~2^20 d=k%3",
+         with_delays(random_system(64, 2, 0.1, seed=2), k3), None, 32, 32,
+         lambda m: states(m, 32, 2 ** 20 - 8, 2 ** 20 + 8)),
+        ("scaled_pi(682) delayed wave", with_delays(scaled_pi(682), k3),
+         None, 512, 64, lambda m: states(m, 512, 0, 3)),
+        ("power_law(8192) delayed hybrid wave",
+         with_delays(power_law(8192, 4, seed=2), k3), "auto", 512, 64,
+         lambda m: states(m, 512)),
+    ]
+
+
+def _max_err(k, p):
+    return max(int((k[0] - p[0]).abs().max()), int((k[2] - p[2]).abs().max()))
+
+
+def phase_delay_kernels():
+    """B4 and B5 (ELL and COO bodies) == their plain versions on the card,
+    on every entry, at the phase-9 shapes; the wrappers against the
+    delayed semantics.  Returns (max |err| per kernel, timing rows keyed
+    by kernel and case)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (SystemPlan, compile_system,
+                                  compile_system_sparse,
+                                  delayed_next_configs,
+                                  delayed_weight_matrix,
+                                  sparse_delayed_next_configs)
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+    from repro_torch.kernels.snp_step.ref import snp_step_dense_delay_ref
+    from repro_torch.kernels.snp_step.sparse_ref import (kernel_inputs,
+                                                         snp_step_sparse_ref)
+
+    dev = torch.device("cuda")
+    max_err = {"B4": 0, "B5-ELL": 0, "B5-COO": 0}
+    rows = {}
+    for name, system, h, B, T, make in _delay_cases(
+            np.random.default_rng(3), dev):
+        wave = "wave" in name
+        iters = 5 if wave else 50
+        m = system.num_neurons
+        configs = make(m)
+        hybrid_wave = wave and h == "auto"
+        if h == "auto":
+            h = SystemPlan.for_system(system,
+                                      semantics="delays").hub_threshold
+        # B4 (dense) on the same state rows
+        if h is None or hybrid_wave:
+            comp = compile_system(system, semantics="delays", device=dev)
+            n = comp.num_rules
+            args, info = ops.delay_inputs(configs, comp)
+            k = ops.snp_step_dense_delay(*args, T)
+            p = snp_step_dense_delay_ref(*args, T)
+            torch.cuda.synchronize()
+            err = _max_err(k, p)
+            max_err["B4"] = max(max_err["B4"], err)
+            check(err == 0 and bool(torch.equal(k[1], p[1])),
+                  f"{name}: B4 disagrees with its plain version "
+                  f"(max |err| {err})")
+            del k, p
+            if not hybrid_wave:   # the (n, 4m) W product would be huge
+                w = ops.snp_step(configs, comp, max_branches=T)
+                ref = delayed_next_configs(configs, comp, T)
+                check(torch.equal(w[1], ref.valid)
+                      and torch.equal(w[3], ref.overflow)
+                      and torch.equal(torch.where(w[1][..., None], w[0], 0),
+                                      torch.where(ref.valid[..., None],
+                                                  ref.configs, 0))
+                      and torch.equal(torch.where(w[1], w[2], 0),
+                                      torch.where(ref.valid,
+                                                  ref.emissions, 0)),
+                      f"{name}: B4 wrapper disagrees with "
+                      "delayed_next_configs")
+                if name.startswith("nd_chain"):
+                    check(bool(w[3].all()), f"{name} should overflow T")
+                k_ms = time_ms(lambda: ops.snp_step_dense_delay(*args, T),
+                               iters)
+                p_ms = time_ms(lambda: snp_step_dense_delay_ref(*args, T),
+                               iters)
+                S = ref.spiking.reshape(B * T, n).to(torch.float32)
+                W = delayed_weight_matrix(comp)
+                l_ms = time_ms(lambda: torch.matmul(S, W), iters)
+                del S, W, ref, w
+                b_ms, b_by, b_ops = _dense_delay_bound(args, T)
+                rows[("B4", name)] = dict(
+                    B=B, T=T, n=n, m=m, ms=k_ms, plain_ms=p_ms,
+                    library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+                log(f"[9] {name:36s} B4     B={B:4d} T={T:3d} n={n:5d} "
+                    f"m={m:5d} | kernel == plain (max |err| {err}) | kernel "
+                    f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul(S,W) "
+                    f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {b_ops} "
+                    f"ops) = {k_ms / b_ms:.1f}x bound")
+            else:
+                log(f"[9] {name:36s} B4     B={B:4d} T={T:3d} n={n:5d} "
+                    f"m={m:5d} | kernel == plain (max |err| {err})")
+            del comp, args, info
+            torch.cuda.empty_cache()
+        # B5 (sparse, ELL or COO body)
+        comp = compile_system_sparse(system, hub_threshold=h,
+                                     semantics="delays", device=dev)
+        kernel = "B5-COO" if comp.is_hybrid else "B5-ELL"
+        check((h is not None) == comp.is_hybrid,
+              f"{name}: expected {'a hybrid' if h else 'an ELL'} encoding")
+        n = comp.num_rules
+        args, extra, info = kernel_inputs(configs, comp)
+        k = sparse_ops.snp_step_sparse_cuda(*args, **extra, max_branches=T)
+        p = snp_step_sparse_ref(*args, **extra, max_branches=T)
+        torch.cuda.synchronize()
+        err = _max_err(k, p)
+        max_err[kernel] = max(max_err[kernel], err)
+        check(err == 0 and bool(torch.equal(k[1], p[1])),
+              f"{name}: {kernel} disagrees with its plain version "
+              f"(max |err| {err})")
+        if name.startswith("reopen"):
+            # n0's pending 2^16 − 1 and n1's fired 2^16 − 1 meet at n3
+            check(int(k[0][0, 0, 3]) == 2 * TOP,
+                  f"{name}: the uint16 stage lost the reopening spikes")
+        del k, p
+        w = sparse_ops.snp_step_sparse(configs, comp, max_branches=T)
+        ref = sparse_delayed_next_configs(configs, comp, T)
+        check(all(torch.equal(a, b) for a, b in zip(
+            w, (ref.configs, ref.valid, ref.emissions, ref.overflow))),
+            f"{name}: {kernel} wrapper disagrees with "
+            "sparse_delayed_next_configs")
+        del w, ref
+        k_ms = time_ms(lambda: sparse_ops.snp_step_sparse_cuda(
+            *args, **extra, max_branches=T), iters)
+        p_ms = time_ms(lambda: snp_step_sparse_ref(
+            *args, **extra, max_branches=T), iters)
+        l_ms = _sparse_library_ms(system, comp, configs, info, T, iters,
+                                  semantics="delays")
+        b_ms, b_by, b_ops = _sparse_bound(args, extra, T)
+        rows[(kernel, name)] = dict(
+            B=B, T=T, n=n, m=m, Kin=comp.max_in_degree,
+            Ec=int(comp.coo_src.shape[0]), ms=k_ms, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+        lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
+        log(f"[9] {name:36s} {kernel} B={B:4d} T={T:3d} n={n:5d} m={m:5d} "
+            f"Kin={comp.max_in_degree:3d} Ec={rows[(kernel, name)]['Ec']:6d}"
+            f" | kernel == plain (max |err| {err}) | kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, sparse.mm(S,M) {lib}, bound "
+            f"{b_ms:.6f} ms ({b_by}; {b_ops} ops) = {k_ms / b_ms:.1f}x "
+            f"bound")
+        del comp, args, extra, info
+        torch.cuda.empty_cache()
+    return max_err, rows
+
+
+# The delayed hybrid explore keeps a 65,536-row archive: 8 waves fill at
+# most 1 + 8·512 rows, and 262,144 rows of 3m = 24,576 columns would
+# allocate 25.8 GB.
+DELAY_HYBRID = dict(FULL_WIDTH, visited_cap=65536)
+
+
+def phase_delay_full_width():
+    """Phase 10 (delayed scaled_pi(682) through B4, ref and B5-ELL) and
+    phase 11 (delayed power_law(8192), hybrid, through B5-COO and the
+    plain sparse backend).  Returns the launches of each main path."""
+    import torch
+    from repro_torch.core import (SystemPlan, compile_system,
+                                  compile_system_sparse, with_delays)
+    from repro_torch.core.generators import power_law, scaled_pi
+
+    k3 = (lambda k, r: k % 3)
+    system = with_delays(scaled_pi(682), k3)
+    plan = SystemPlan(semantics="delays")
+    label = "explore(scaled_pi(682) d=k%3)"
+    a, b4, _ = _timed_explore("10", label, system, "cuda", "B4", plan)
+    b, _, _ = _timed_explore("10", label, system, "ref", None, plan)
+    check(_same_explore(a, b), "delayed full-width archives or flags differ "
+          "between 'cuda' and 'ref'")
+    c, b5_ell, _ = _timed_explore("10", label, system, "sparse_cuda",
+                                  "B5-ELL", plan)
+    check(_same_explore(a, c), "delayed full-width archive or flags differ "
+          "between 'sparse_cuda' and 'cuda'/'ref'")
+    m = system.num_neurons
+    check(a.configs.shape[1] == 3 * m and bool((a.configs[:, m:] != 0).any()),
+          "delayed archive rows should be 3m wide with live countdowns")
+    log(f"[10] archives identical through 'cuda', 'ref' and 'sparse_cuda' "
+        f"({a.num_discovered} rows x {a.configs.shape[1]} columns)")
+    _wave_breakdown("10", compile_system(system, semantics="delays",
+                                         device="cuda"),
+                    a.configs, ("cuda", "ref"))
+    _wave_breakdown("10", compile_system_sparse(system, semantics="delays",
+                                                device="cuda"),
+                    a.configs, ("sparse_cuda", "sparse"))
+    del a, b, c
+    torch.cuda.empty_cache()
+
+    system = with_delays(power_law(8192, 4, seed=2), k3)
+    plan = SystemPlan.for_system(system, semantics="delays")
+    check(plan.encoding == "hybrid" and plan.semantics == "delays",
+          f"delayed power_law(8192) planned {plan}")
+    label = "explore(power_law(8192) d=k%3)"
+    a, b5_coo, peak = _timed_explore("11", label, system, "sparse_cuda",
+                                     "B5-COO", plan, DELAY_HYBRID)
+    b, _, peak_plain = _timed_explore("11", label, system, "sparse", None,
+                                      plan, DELAY_HYBRID)
+    check(_same_explore(a, b), "delayed hybrid archives or flags differ "
+          "between 'sparse_cuda' and 'sparse'")
+    check(not a.visited_overflow, "the delayed hybrid archive overflowed")
+    log(f"[11] archives identical through 'sparse_cuda' and 'sparse' "
+        f"({a.num_discovered} rows x {a.configs.shape[1]} columns); peak "
+        f"allocation {peak / 2**30:.3f} / {peak_plain / 2**30:.3f} GiB")
+    comp = compile_system_sparse(system, hub_threshold=plan.hub_threshold,
+                                 semantics="delays", device="cuda")
+    _wave_breakdown("11", comp, a.configs, ("sparse_cuda", "sparse"))
+    return b4, b5_ell, b5_coo
+
+
+def phase_delay_paper_and_traces():
+    """Phase 12: the four delayed variants of Π through all four backends
+    (identical archives, launches per kernel path), then traces of both
+    delayed workloads.  Returns {kernel: {path: launches}}."""
+    import numpy as np
+    from repro_torch.core import SystemPlan, explore, paper_pi, with_delays
+    from repro_torch.core.generators import power_law, scaled_pi
+
+    launches = {"B4": {}, "B5-ELL": {}, "B5-COO": {}}
+    variants = {"d=0": 0, "d=1": 1, "d=k%3": (lambda k, r: k % 3),
+                "d=(2,0,1,0,3)": (2, 0, 1, 0, 3)}
+    plan = SystemPlan(semantics="delays")
+    for tag, d in variants.items():
+        system = with_delays(paper_pi(), d)
+        res = {}
+        for backend, kernel in (("ref", None), ("cuda", "B4"),
+                                ("sparse", None),
+                                ("sparse_cuda", "B5-ELL")):
+            reset_counts()
+            res[backend] = explore(system, max_steps=8, plan=plan,
+                                   backend=backend)
+            counts = read_counts()
+            check_counts(f"Π {tag} via {backend!r}", counts,
+                         **({kernel: res[backend].steps} if kernel else {}))
+            if kernel:
+                launches[kernel][f"paper_pi_{tag}"] = counts[kernel]
+        check(all(np.array_equal(r.configs, res["ref"].configs)
+                  and r.exhausted == res["ref"].exhausted
+                  for r in res.values()),
+              f"delayed Π {tag}: archives differ across the backends")
+        log(f"[12] Π {tag}: {res['ref'].num_discovered} states in "
+            f"{res['ref'].steps} levels, identical through 'ref', 'cuda', "
+            f"'sparse', 'sparse_cuda'")
+    k3 = (lambda k, r: k % 3)
+    pi = with_delays(scaled_pi(682), k3)
+    for policy in ("first", "random"):
+        launches["B4"][f"traces_{policy}"] = _traces(
+            "12", "scaled_pi(682) d=k%3", pi, policy, ("cuda", "ref"), "B4",
+            plan, last_row=False)
+    hubby = with_delays(power_law(8192, 4, seed=2), k3)
+    hplan = SystemPlan.for_system(hubby, semantics="delays")
+    for policy in ("first", "random"):
+        launches["B5-COO"][f"traces_{policy}"] = _traces(
+            "12", "power_law(8192) d=k%3", hubby, policy,
+            ("sparse_cuda", "sparse"), "B5-COO", hplan, last_row=False)
+    return launches
 
 
 def main() -> int:
@@ -733,17 +1169,30 @@ def main() -> int:
         b3 = {"full_width_hybrid_explore": phase_full_width_hybrid()}
         (b1["traces_first"], b1["traces_random"],
          b3["traces_random_hybrid"]) = phase_traces()
+        delay_err, delay_rows = phase_delay_kernels()
+        b4, b5e, b5c = phase_delay_full_width()
+        delayed = phase_delay_paper_and_traces()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    delayed["B4"]["full_width_delayed_explore"] = b4
+    delayed["B5-ELL"]["full_width_delayed_ell_explore"] = b5e
+    delayed["B5-COO"]["full_width_delayed_hybrid_explore"] = b5c
     main_path = {"B1": "full_width_explore", "B2": "full_width_ell_explore",
-                 "B3": "full_width_hybrid_explore"}
-    by_path = {"B1": b1, "B2": b2, "B3": b3}
+                 "B3": "full_width_hybrid_explore",
+                 "B4": "full_width_delayed_explore",
+                 "B5-ELL": "full_width_delayed_ell_explore",
+                 "B5-COO": "full_width_delayed_hybrid_explore"}
+    by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed}
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
-             "B3": sparse_rows["power_law(8192) hybrid wave"]}
-    errs = {"B1": dense_err, **sparse_err}
+             "B3": sparse_rows["power_law(8192) hybrid wave"],
+             "B4": delay_rows[("B4", "scaled_pi(682) delayed wave")],
+             "B5-ELL": delay_rows[("B5-ELL", "scaled_pi(682) delayed wave")],
+             "B5-COO": delay_rows[("B5-COO",
+                                   "power_law(8192) delayed hybrid wave")]}
+    errs = {"B1": dense_err, **sparse_err, **delay_err}
     figures = []
     for k, meta in KERNELS.items():
         w = waves[k]
@@ -751,11 +1200,12 @@ def main() -> int:
             meta, id=k, launches=by_path[k][main_path[k]],
             launches_by_path=by_path[k], max_abs_err=errs[k], ms=w["ms"],
             plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
-            bound_by=w["bound_by"], library_ms=w["library_ms"]))
-        log(f"[9] {k} {meta['name']} ({meta['route']}): "
+            bound_by=w["bound_by"], library_ms=w["library_ms"],
+            library_call=LIBRARY_CALL[k]))
+        log(f"[13] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[9] card: {card}")
+    log(f"[13] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """The port's SNP engine: its public names so far.
 
-* :class:`SNPSystem`, :class:`Rule`, :func:`paper_pi` — the specification
-  (copies of the reference's, :mod:`.system`, :mod:`.generators`);
+* :class:`SNPSystem`, :class:`Rule`, :func:`paper_pi`, :func:`with_delays`
+  — the specification (copies of the reference's, :mod:`.system`,
+  :mod:`.generators`);
 * :func:`compile_system`, :func:`compile_system_sparse` — the dense
   ``M_Π`` and the ELL/hybrid encodings (:mod:`.matrix`), chosen by a
   :class:`SystemPlan` (:mod:`.plan`);
-* :mod:`.semantics` — applicability, branch decode, ``C' = C + S·M``, and
-  the same step on the sparse encoding;
+* :mod:`.semantics` — applicability, branch decode, ``C' = C + S·M``, the
+  same step on the sparse encoding, and the delayed tier's steps on both
+  (``SystemPlan(semantics="delays")``);
 * :mod:`.backend` — the ``"ref"``, ``"cuda"``, ``"sparse"`` and
   ``"sparse_cuda"`` step backends;
 * :mod:`.prng` — JAX's threefry2x32 keys, for random traces;
@@ -19,28 +21,36 @@ from .backend import (CudaBackend, RefBackend, SparseBackend,
                       SparseCudaBackend, StepBackend, get_backend,
                       resolve_entry)
 from .convert import compiled_from_arrays, system_from_spec
+from .generators import with_delays
 from .engine import (ExploreResult, TraceOut, emission_gaps, explore,
                      resolve_dedup, run_trace, run_traces, successor_set)
 from .hashtable import (HashTable, first_occurrence, insert_if_absent,
                         insert_unique, lookup, make_table, table_slots)
 from .matrix import (CompiledSNP, CompiledSparseSNP, compile_system,
-                     compile_system_sparse, is_compiled)
+                     compile_system_sparse, is_compiled, is_delayed)
 from .plan import SystemPlan, auto_hub_threshold
-from .semantics import (applicability, branch_info, next_configs,
+from .semantics import (applicability, branch_info, delayed_branch_info,
+                        delayed_next_configs, delayed_packed_actions,
+                        delayed_weight_matrix, next_configs,
                         packed_rule_table, sparse_branch_info,
-                        sparse_next_configs, spiking_vectors)
+                        sparse_delayed_branch_info,
+                        sparse_delayed_next_configs, sparse_next_configs,
+                        spiking_vectors, split_state)
 from .system import Rule, SNPSystem, paper_pi
 
 __all__ = [
-    "SNPSystem", "Rule", "paper_pi",
+    "SNPSystem", "Rule", "paper_pi", "with_delays",
     "CompiledSNP", "CompiledSparseSNP", "compile_system",
-    "compile_system_sparse", "is_compiled",
+    "compile_system_sparse", "is_compiled", "is_delayed",
     "SystemPlan", "auto_hub_threshold",
     "system_from_spec", "compiled_from_arrays",
     "HashTable", "make_table", "table_slots", "lookup", "first_occurrence",
     "insert_unique", "insert_if_absent",
     "applicability", "branch_info", "next_configs", "spiking_vectors",
     "sparse_branch_info", "packed_rule_table", "sparse_next_configs",
+    "split_state", "delayed_branch_info", "sparse_delayed_branch_info",
+    "delayed_weight_matrix", "delayed_packed_actions",
+    "delayed_next_configs", "sparse_delayed_next_configs",
     "StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
     "SparseCudaBackend", "get_backend", "resolve_entry",
     "explore", "resolve_dedup", "ExploreResult", "TraceOut", "successor_set",

@@ -18,14 +18,17 @@ backend (:data:`REFERENCE_NAME`):
 
 On CPU tensors the kernel backends' wrappers run the kernels' plain
 versions.  All backends agree bit for bit on the valid entries of a
-:class:`StepOut`.
+:class:`StepOut`.  Each runs both semantics tiers: ``expand`` takes the
+delayed step (``3m``-wide state rows; the kernel backends through B4 and
+B5) for an encoding compiled under ``semantics="delays"``.
 
-Each backend owns its lowering: ``supported_encodings()`` lists the plan
-encodings its step realizes (first = native, what ``encoding="auto"``
-resolves to), ``lower(compiled, plan)`` checks a built encoding, and
-``compile(system, plan, device)`` is the shared template
-:func:`_registry_compile`.  A plan a backend cannot honour raises; it is
-never reinterpreted.
+Each backend owns its lowering: ``supported_encodings(semantics)`` lists
+the plan encodings its step realizes under a semantics tier (first =
+native, what ``encoding="auto"`` resolves to), ``lower(compiled, plan)``
+checks a built encoding, and ``compile(system, plan, device)`` is the
+shared template :func:`_registry_compile`, which compiles under the
+plan's semantics.  A plan a backend cannot honour raises; it is never
+reinterpreted.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ import torch
 from .device import DeviceLike
 from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
                      check_coo_metadata, compile_system,
-                     compile_system_sparse)
+                     compile_system_sparse, is_delayed)
 from .plan import SystemPlan
-from .semantics import StepOut, next_configs, sparse_next_configs
+from .semantics import (StepOut, delayed_next_configs, next_configs,
+                        sparse_delayed_next_configs, sparse_next_configs)
 from .system import SNPSystem
 
 __all__ = ["StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
@@ -54,13 +58,15 @@ REFERENCE_NAME = {"ref": "ref", "cuda": "pallas", "sparse": "sparse",
 
 @runtime_checkable
 class StepBackend(Protocol):
-    """One synchronous SNP transition step.  ``expand(configs (..., m),
+    """One synchronous SNP transition step.  ``expand(configs (..., w),
     comp, max_branches)`` returns a :class:`StepOut` with ``configs``
-    (..., T, m), ``valid``/``emissions`` (..., T), ``overflow`` (...,)."""
+    (..., T, w), ``valid``/``emissions`` (..., T), ``overflow`` (...,);
+    ``w`` is ``comp.state_width`` (``m``, or ``3m`` under delays)."""
 
     name: str
 
-    def supported_encodings(self) -> Tuple[str, ...]:
+    def supported_encodings(self, semantics: str = "no_delays"
+                            ) -> Tuple[str, ...]:
         ...
 
     def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
@@ -79,22 +85,24 @@ def _registry_compile(backend: StepBackend, system: SNPSystem,
                       plan: Optional[SystemPlan],
                       device: DeviceLike) -> CompiledAny:
     """The ``compile`` every backend delegates to: resolve the plan's
-    encoding against ``supported_encodings()``, build it on ``device``
-    (``None`` = the card), hand it to ``lower``."""
+    encoding against ``supported_encodings()`` under the plan's semantics
+    tier, build it on ``device`` (``None`` = the card) under that tier,
+    hand it to ``lower``."""
     plan = SystemPlan() if plan is None else plan
-    sup = backend.supported_encodings()
+    sup = backend.supported_encodings(semantics=plan.semantics)
     enc = sup[0] if plan.encoding == "auto" else plan.encoding
     if enc not in sup:
         raise ValueError(
             f"backend {backend.name!r} cannot realize plan encoding "
-            f"{plan.encoding!r} (supported: {sup}); pick a matching backend "
-            f"or drop the plan")
+            f"{plan.encoding!r} under semantics={plan.semantics!r} "
+            f"(supported: {sup}); pick a matching backend or drop the plan")
     if enc == "dense":
-        built = compile_system(system, device=device)
+        built = compile_system(system, semantics=plan.semantics,
+                               device=device)
     else:
         built = compile_system_sparse(
             system, hub_threshold=plan.resolved_hub_threshold(system),
-            device=device)
+            semantics=plan.semantics, device=device)
     return backend.lower(built, plan)
 
 
@@ -110,11 +118,11 @@ def _flat_expand(step, configs, comp, max_branches) -> StepOut:
     """Run a kernel wrapper ``step`` on the flattened batch and restore
     the leading dims (``spiking`` is ``None``, as for the reference's
     Pallas backends)."""
-    batch, m = configs.shape[:-1], configs.shape[-1]
-    out, valid, emis, overflow = step(configs.reshape(-1, m), comp,
+    batch, w = configs.shape[:-1], configs.shape[-1]   # w = m, or 3m
+    out, valid, emis, overflow = step(configs.reshape(-1, w), comp,
                                       max_branches=max_branches)
     T = max_branches
-    return StepOut(configs=out.reshape(*batch, T, m),
+    return StepOut(configs=out.reshape(*batch, T, w),
                    valid=valid.reshape(*batch, T),
                    emissions=emis.reshape(*batch, T),
                    overflow=overflow.reshape(batch), spiking=None)
@@ -122,7 +130,10 @@ def _flat_expand(step, configs, comp, max_branches) -> StepOut:
 
 @dataclass(frozen=True)
 class _Dense:
-    def supported_encodings(self) -> Tuple[str, ...]:
+    def supported_encodings(self, semantics: str = "no_delays"
+                            ) -> Tuple[str, ...]:
+        # both tiers, single-device (the reference adds "sharded" for
+        # no_delays, which arrives with ROADMAP item 7)
         return ("dense",)
 
     def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
@@ -135,7 +146,8 @@ class _Dense:
 
 @dataclass(frozen=True)
 class _Sparse(_Dense):
-    def supported_encodings(self) -> Tuple[str, ...]:
+    def supported_encodings(self, semantics: str = "no_delays"
+                            ) -> Tuple[str, ...]:
         return ("ell", "hybrid")
 
     def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
@@ -153,14 +165,16 @@ class RefBackend(_Dense):
     name: str = "ref"
 
     def expand(self, configs, comp, max_branches):
-        return next_configs(configs, _require(comp, CompiledSNP, self.name),
-                            max_branches)
+        comp = _require(comp, CompiledSNP, self.name)
+        if is_delayed(comp):
+            return delayed_next_configs(configs, comp, max_branches)
+        return next_configs(configs, comp, max_branches)
 
 
 @dataclass(frozen=True)
 class CudaBackend(_Dense):
-    """The hand-written dense step kernel (decode + S·M + C in one
-    launch)."""
+    """The hand-written dense step kernels: decode + S·M + C in one launch
+    (B1), or the delayed step (B4) for a delayed encoding."""
 
     name: str = "cuda"
 
@@ -181,15 +195,17 @@ class SparseBackend(_Sparse):
     name: str = "sparse"
 
     def expand(self, configs, comp, max_branches):
-        return sparse_next_configs(
-            configs, _require(comp, CompiledSparseSNP, self.name),
-            max_branches)
+        comp = _require(comp, CompiledSparseSNP, self.name)
+        if is_delayed(comp):
+            return sparse_delayed_next_configs(configs, comp, max_branches)
+        return sparse_next_configs(configs, comp, max_branches)
 
 
 @dataclass(frozen=True)
 class SparseCudaBackend(_Sparse):
     """The hand-written sparse step kernel: the ELL body, with the COO
-    segment-sum stage for a hybrid encoding."""
+    segment-sum stage for a hybrid encoding (B2, B3), and with the delay
+    stage for a delayed encoding (B5)."""
 
     name: str = "sparse_cuda"
 

@@ -6,7 +6,8 @@
   :class:`CompiledSparseSNP` from the fields of a reference
   ``repro.core.matrix.CompiledSNP`` / ``CompiledSparseSNP`` given as numpy
   arrays (``{k: np.asarray(v) for k, v in comp._asdict().items()}``; the
-  sparse encoding is recognised by its ``in_idx`` field).
+  sparse encoding is recognised by its ``in_idx`` field), delayed
+  encodings (``semantics="delays"``) included.
 
 Both take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
@@ -20,17 +21,17 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .matrix import CompiledAny, CompiledSNP, CompiledSparseSNP
+from .matrix import CompiledAny, CompiledSNP, CompiledSparseSNP, in_neighbours
 from .system import Rule, SNPSystem
 
 __all__ = ["system_from_spec", "compiled_from_arrays"]
 
 # Fields of the reference encodings the port does not carry: the dense
-# rule→neuron one-hot (the port gathers through rule_neuron), the COO
-# tail's per-entry targets (coo_bounds/hub_slot hold them) and the
-# delayed tier's extension, which must be absent (None) since delays are
-# not ported.
+# rule→neuron one-hot (the port gathers through rule_neuron) and the COO
+# tail's per-entry targets (coo_bounds/hub_slot hold them).
 _DERIVED = {CompiledSNP: ("neuron_onehot",), CompiledSparseSNP: ("coo_dst",)}
+# The delayed tier's fields: all set, or none.  The dense encoding's
+# adj_in is the port's own, derived here from adjacency.
 _DELAY_FIELDS = {CompiledSNP: ("delay", "adjacency", "out_neuron"),
                  CompiledSparseSNP: ("delay",)}
 
@@ -61,15 +62,30 @@ def compiled_from_arrays(fields: Mapping[str, Any],
     ``hub_slot``, which then stay ``None``)."""
     dev = resolve_device(device)
     cls = CompiledSparseSNP if "in_idx" in fields else CompiledSNP
-    for k in _DELAY_FIELDS[cls]:
-        if fields.get(k) is not None:
-            raise ValueError(
-                f"field {k!r} is set: a delayed encoding cannot be carried "
-                "across (the delayed tier is not ported yet)")
-    known = set(cls._fields) | set(_DERIVED[cls]) | set(_DELAY_FIELDS[cls])
+    known = set(cls._fields) | set(_DERIVED[cls])
     unknown = set(fields) - known
     if unknown:
         raise ValueError(f"unknown encoding fields {sorted(unknown)}")
+    fields = dict(fields)
+    if cls is CompiledSNP and fields.get("adjacency") is not None \
+            and fields.get("adj_in") is None:
+        adj = np.asarray(fields["adjacency"])
+        src, dst = np.nonzero(adj)
+        fields["adj_in"] = in_neighbours(src, dst, adj.shape[0])
+    delay_set = [k for k in _DELAY_FIELDS[cls] if fields.get(k) is not None]
+    if delay_set and len(delay_set) != len(_DELAY_FIELDS[cls]):
+        raise ValueError(
+            f"a delayed encoding needs all of {_DELAY_FIELDS[cls]}, got "
+            f"only {delay_set}")
+    m = np.shape(fields["M"])[1] if cls is CompiledSNP \
+        else np.shape(fields["seg_start"])[0]
+    width = 3 * m if delay_set else m
+    if np.shape(fields["init_config"]) != (width,):
+        raise ValueError(
+            f"init_config has shape {np.shape(fields['init_config'])}, "
+            f"expected ({width},) for a "
+            f"{'delayed' if delay_set else 'delay-free'} encoding of {m} "
+            "neurons")
     out = {}
     for k in cls._fields:
         v = fields.get(k)

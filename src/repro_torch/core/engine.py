@@ -23,9 +23,12 @@ The transition is a step backend (:mod:`.backend`): ``"cuda"`` and
 ``"ref"`` on the dense encoding, ``"sparse_cuda"`` and ``"sparse"`` on
 the ELL or hybrid one.  An :class:`SNPSystem` is lowered by the backend's
 own ``compile`` under ``plan`` (:class:`~.plan.SystemPlan`); a compiled
-encoding passes through the backend's ``lower`` check.  Archives, flags
-and traces equal the reference's row for row, in discovery order, for both
-dedup modes and every backend.
+encoding passes through the backend's ``lower`` check.  Under
+``plan=SystemPlan(semantics="delays")`` every state row is ``3m`` wide
+(``[spikes | countdown | pending]``, ``comp.state_width``): archives,
+frontiers and traces hold whole state rows.  Archives, flags and traces
+equal the reference's row for row, in discovery order, for both dedup
+modes, every backend and both semantics tiers.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from .backend import BackendLike, StepBackend, resolve_entry
 from .device import DeviceLike, host_read, resolve_device
 from .hashing import M32, SENTINEL, config_hash
 from .hashtable import first_occurrence, insert_unique, lookup, make_table
-from .matrix import CompiledAny, is_compiled
+from .matrix import CompiledAny, is_compiled, is_delayed
 from .plan import SystemPlan
 
 __all__ = ["ExploreResult", "TraceOut", "explore", "resolve_dedup",
@@ -56,6 +59,12 @@ def _resolve_comp(system, be: StepBackend, plan: Optional[SystemPlan],
     under ``plan``."""
     dev = resolve_device(device)
     if is_compiled(system):
+        if plan is not None and (plan.semantics == "delays") != \
+                is_delayed(system):
+            raise ValueError(
+                f"plan semantics {plan.semantics!r} does not match this "
+                f"{'delayed' if is_delayed(system) else 'delay-free'} "
+                "compiled encoding; compile the system under the plan")
         return be.lower(system.to(dev), SystemPlan() if plan is None
                         else plan)
     return be.compile(system, plan, device=dev)
@@ -63,7 +72,7 @@ def _resolve_comp(system, be: StepBackend, plan: Optional[SystemPlan],
 
 @dataclass(frozen=True)
 class ExploreResult:
-    configs: np.ndarray         # (n_discovered, m) in discovery order
+    configs: np.ndarray         # (n_discovered, m|3m) in discovery order
     num_discovered: int
     steps: int
     exhausted: bool             # tree fully explored (no overflow, frontier drained)
@@ -153,7 +162,7 @@ def explore(
     comp = _resolve_comp(system, be, plan, device)
     dev = comp.device
     F, V, T = frontier_cap, visited_cap, max_branches
-    m = comp.num_neurons
+    m = comp.state_width          # row width: m, or 3m under delays
     c0 = comp.init_config if init is None else \
         torch.as_tensor(list(init), dtype=torch.int32, device=dev)
 
@@ -336,7 +345,7 @@ class TraceOut(NamedTuple):
     """:func:`run_traces` output.  ``branch_overflow[b, t]`` flags that
     trace b had more than ``max_branches`` successors at step t."""
 
-    configs: torch.Tensor          # (B, steps, m) int32
+    configs: torch.Tensor          # (B, steps, m|3m) int32
     emissions: torch.Tensor        # (B, steps) int32
     alive: torch.Tensor            # (B, steps) bool
     branch_overflow: torch.Tensor  # (B, steps) bool
@@ -361,7 +370,7 @@ def run_traces(system, *, steps: int, seeds, policy: str = "first",
         raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
     be = resolve_entry(system, backend, plan)
     comp = _resolve_comp(system, be, plan, device)
-    B, m, dev = int(seeds.shape[0]), comp.num_neurons, comp.device
+    B, m, dev = int(seeds.shape[0]), comp.state_width, comp.device
     res = TraceOut(
         torch.empty((B, steps, m), dtype=torch.int32, device=dev),
         torch.empty((B, steps), dtype=torch.int32, device=dev),

@@ -305,9 +305,10 @@ def with_delays(system: SNPSystem, delays: DelaySpec) -> SNPSystem:
     * a callable ``(rule_index, rule) -> int`` — e.g.
       ``lambda k, r: k % 3`` for a deterministic mixed-delay variant.
 
-    ``compile_system`` refuses the result once any delay is nonzero (the
-    delayed tier is not ported yet); ``with_delays(sys, 0)`` is a
-    delay-annotated system that compiles like ``sys``."""
+    Once any delay is nonzero the result compiles only under
+    ``semantics="delays"`` (``SystemPlan(semantics="delays")``);
+    ``with_delays(sys, 0)`` is a delay-annotated system that compiles like
+    ``sys`` under either tier."""
     rules = system.rules
     if callable(delays):
         ds = [int(delays(k, r)) for k, r in enumerate(rules)]

@@ -12,8 +12,14 @@ indexing, and move them to the requested device once:
   threshold (the hybrid plan), a COO tail of the hub neurons'
   in-synapses.  Nothing ``O(n·m)``.
 
-Only the paper's delay-free semantics is ported: a system with a delayed
-rule raises, as the reference does under ``semantics="no_delays"``.
+Both compile under either semantics tier (``semantics=``, normally a
+:class:`~.plan.SystemPlan`'s).  ``"no_delays"`` is the paper's and refuses
+a system with a delayed rule, as the reference does.  ``"delays"`` widens
+``init_config`` to the ``3m`` state row ``[spikes | countdown | pending]``
+and adds the per-rule ``delay``; the dense encoding also carries the 0/1
+synapse ``adjacency`` (which moves a reopening neuron's pending spikes),
+the output neuron, and ``adj_in``, the in-neighbour lists of
+``adjacency`` that the dense delayed kernel reads in its place.
 
 The reference's ``neuron_onehot`` (the ``(n, m)`` rule→neuron incidence)
 is not carried: on the TPU it turned the per-rule gather into a matmul,
@@ -34,7 +40,24 @@ from .system import Rule, SNPSystem
 
 __all__ = ["CompiledSNP", "CompiledSparseSNP", "CompiledAny",
            "check_coo_metadata", "compile_system", "compile_system_sparse",
-           "is_compiled"]
+           "in_neighbours", "is_compiled", "is_delayed"]
+
+_SEMANTICS = ("no_delays", "delays")
+
+
+def _check_semantics(system: SNPSystem, semantics: str) -> bool:
+    """Validate the semantics tier at compile time; ``True`` for the
+    delayed tier.  A system with a delayed rule raises under
+    ``no_delays``, where its delays would otherwise be ignored."""
+    if semantics not in _SEMANTICS:
+        raise ValueError(
+            f"semantics must be one of {_SEMANTICS}, got {semantics!r}")
+    if semantics == "no_delays" and system.max_delay > 0:
+        raise ValueError(
+            f"system {system.name!r} has rules with delay > 0; compile it "
+            "under SystemPlan(semantics=\"delays\") (the paper's matrix "
+            "semantics is delay-free)")
+    return semantics == "delays"
 
 
 def _to_device(comp, device):
@@ -48,7 +71,8 @@ def _to_device(comp, device):
 
 class CompiledSNP(NamedTuple):
     """Dense encoding of an SNP system.  Shapes: ``m`` neurons, ``n`` rules
-    (sorted by neuron); every tensor lives on one device."""
+    (sorted by neuron); every tensor lives on one device.  The trailing
+    delay fields are ``None`` under ``no_delays``."""
 
     M: torch.Tensor             # (n, m) int32 — spiking transition matrix
     rule_neuron: torch.Tensor   # (n,)  int32 — owning neuron of each rule
@@ -58,8 +82,14 @@ class CompiledSNP(NamedTuple):
     regex_period: torch.Tensor  # (n,)  int32 (0 => single word)
     covering: torch.Tensor      # (n,)  bool
     env_produce: torch.Tensor   # (n,)  int32 — spikes emitted to environment
-    init_config: torch.Tensor   # (m,)  int32 — C_0
+    init_config: torch.Tensor   # (m,)  int32 — C_0 (3m under delays)
     rule_order: Tuple[int, ...]  # original rule index per sorted position
+    delay: Optional[torch.Tensor] = None      # (n,) int32 — firing delay
+    adjacency: Optional[torch.Tensor] = None  # (m, m) int32 — 0/1 synapses
+    out_neuron: Optional[torch.Tensor] = None  # () int32 — or m if none
+    # In-neighbours of each neuron in ``adjacency``, ascending, padded
+    # with m (:func:`in_neighbours`); not a reference field.
+    adj_in: Optional[torch.Tensor] = None     # (m, Kin) int32
 
     @property
     def num_rules(self) -> int:
@@ -68,6 +98,11 @@ class CompiledSNP(NamedTuple):
     @property
     def num_neurons(self) -> int:
         return self.M.shape[1]
+
+    @property
+    def state_width(self) -> int:
+        """Columns of one state row: ``m``, or ``3m`` under delays."""
+        return self.init_config.shape[0]
 
     @property
     def device(self) -> torch.device:
@@ -113,6 +148,10 @@ class CompiledSparseSNP(NamedTuple):
     # (check_coo_metadata).
     coo_bounds: Optional[torch.Tensor] = None  # (Hn+1,) int32
     hub_slot: Optional[torch.Tensor] = None    # (m,) int32
+    # The delayed tier's per-rule delay (None under no_delays).  A
+    # reopening neuron's pending spikes ride the same in-adjacency as the
+    # fired produce, so no other array is needed.
+    delay: Optional[torch.Tensor] = None       # (n,) int32
 
     @property
     def num_rules(self) -> int:
@@ -121,6 +160,11 @@ class CompiledSparseSNP(NamedTuple):
     @property
     def num_neurons(self) -> int:
         return self.seg_start.shape[0]
+
+    @property
+    def state_width(self) -> int:
+        """Columns of one state row: ``m``, or ``3m`` under delays."""
+        return self.init_config.shape[0]
 
     @property
     def max_nnz_per_rule(self) -> int:
@@ -167,6 +211,25 @@ def is_compiled(obj) -> bool:
     return isinstance(obj, (CompiledSNP, CompiledSparseSNP))
 
 
+def is_delayed(comp) -> bool:
+    """True when ``comp`` was compiled under the delayed tier (its
+    ``delay`` is set and its state rows are ``3m`` wide)."""
+    return getattr(comp, "delay", None) is not None
+
+
+def in_neighbours(src: np.ndarray, dst: np.ndarray, m: int) -> np.ndarray:
+    """``(m, Kin)`` int32: the sources of the synapses into each neuron,
+    ascending, padded with ``m``; ``Kin`` = max in-degree (at least 1)."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    in_deg = np.bincount(dst, minlength=m)
+    kin = int(max(in_deg.max() if in_deg.size else 0, 1))
+    o = np.lexsort((src, dst))
+    out = np.full((m, kin), m, dtype=np.int32)
+    out[dst[o], _ragged_arange(in_deg)] = src[o]
+    return out
+
+
 def _ragged_arange(counts: np.ndarray) -> np.ndarray:
     """``concatenate([arange(c) for c in counts])`` without the Python loop."""
     counts = np.asarray(counts, np.int64)
@@ -196,11 +259,6 @@ class _Lowered(NamedTuple):
 
 
 def _lower(system: SNPSystem) -> _Lowered:
-    if system.max_delay > 0:
-        raise ValueError(
-            f"system {system.name!r} has rules with delay > 0; the port "
-            "runs only the paper's delay-free semantics (the delayed tier "
-            "is not ported yet)")
     m, n = system.num_neurons, system.num_rules
     if n == 0:
         raise ValueError("system has no rules")
@@ -252,9 +310,32 @@ def _tensors(dev: torch.device, **arrays):
             for k, a in arrays.items()}
 
 
-def compile_system(system: SNPSystem, *,
+def _delay_vector(low: _Lowered) -> np.ndarray:
+    return np.fromiter((r.delay for r in low.rules), np.int32,
+                       len(low.rules))
+
+
+def _init(system: SNPSystem, delayed: bool) -> np.ndarray:
+    """``C_0``, or under delays ``[spikes | 0 | 0]``: every neuron open,
+    nothing pending."""
+    spikes = np.asarray(system.initial_spikes, np.int32)
+    if not delayed:
+        return spikes
+    return np.concatenate([spikes, np.zeros(2 * spikes.shape[0], np.int32)])
+
+
+def _out_neuron(system: SNPSystem) -> np.ndarray:
+    m = system.num_neurons
+    return np.asarray(system.output_neuron if system.output_neuron >= 0
+                      else m, np.int32)
+
+
+def compile_system(system: SNPSystem, *, semantics: str = "no_delays",
                    device: DeviceLike = None) -> CompiledSNP:
-    """Dense lowering (paper eq. 1) onto ``device`` (``None`` = the card)."""
+    """Dense lowering (paper eq. 1) onto ``device`` (``None`` = the card).
+    ``semantics="delays"`` adds the delay fields and the ``3m`` initial
+    state (module docstring)."""
+    delayed = _check_semantics(system, semantics)
     dev = resolve_device(device)
     low = _lower(system)
     n, m = low.neuron.shape[0], system.num_neurons
@@ -262,16 +343,24 @@ def compile_system(system: SNPSystem, *,
     M[np.arange(n), low.neuron] = -low.consume
     rows, _, cols, vals, _, _ = _rule_row_entries(low)
     M[rows, cols] = vals  # no collisions: self-synapses are forbidden
+    extra = {}
+    if delayed:
+        adj = np.zeros((m, m), np.int32)
+        adj[low.src, low.dst] = 1
+        extra = dict(delay=_delay_vector(low), adjacency=adj,
+                     out_neuron=_out_neuron(system),
+                     adj_in=in_neighbours(low.src, low.dst, m))
     return CompiledSNP(rule_order=low.order, **_tensors(
         dev, M=M, rule_neuron=low.neuron, consume=low.consume,
         produce=low.produce, regex_base=low.regex_base,
         regex_period=low.regex_period, covering=low.covering,
-        env_produce=low.env_produce,
-        init_config=np.asarray(system.initial_spikes, np.int32)))
+        env_produce=low.env_produce, init_config=_init(system, delayed),
+        **extra))
 
 
 def compile_system_sparse(system: SNPSystem, *,
                           hub_threshold: Optional[int] = None,
+                          semantics: str = "no_delays",
                           device: DeviceLike = None) -> CompiledSparseSNP:
     """Sparse lowering onto ``device`` (``None`` = the card): ELL rows of
     ``M_Π``, per-neuron segments and the ELL in-adjacency, in
@@ -281,7 +370,9 @@ def compile_system_sparse(system: SNPSystem, *,
     most ``H`` in-neighbours and every further in-synapse of a hub lands in
     the COO tail, sorted by ``(dst, src)``, with its per-hub run offsets
     ``coo_bounds`` and the neuron→hub map ``hub_slot``.  ``None`` is pure
-    ELL (an empty tail)."""
+    ELL (an empty tail).  ``semantics="delays"`` adds the per-rule
+    ``delay`` and the ``3m`` initial state."""
+    delayed = _check_semantics(system, semantics)
     dev = resolve_device(device)
     low = _lower(system)
     m, n = system.num_neurons, low.neuron.shape[0]
@@ -329,15 +420,14 @@ def compile_system_sparse(system: SNPSystem, *,
     hub_slot = np.full((m,), hn, np.int32)
     hub_slot[hubs] = np.arange(hn, dtype=np.int32)
 
+    extra = dict(delay=_delay_vector(low)) if delayed else {}
     return CompiledSparseSNP(rule_order=low.order, **_tensors(
         dev, rule_neuron=low.neuron, consume=low.consume,
         produce=low.produce, regex_base=low.regex_base,
         regex_period=low.regex_period, covering=low.covering,
-        env_produce=low.env_produce,
-        init_config=np.asarray(system.initial_spikes, np.int32),
-        out_neuron=np.asarray(system.output_neuron
-                              if system.output_neuron >= 0 else m, np.int32),
-        seg_start=seg_start, seg_count=seg_count,
-        rule_slots=np.arange(R, dtype=np.int32), ell_col=ell_col,
-        ell_val=ell_val, ell_nnz=ell_nnz, in_idx=in_idx, coo_src=coo_src,
-        coo_bounds=coo_bounds, hub_slot=hub_slot))
+        env_produce=low.env_produce, init_config=_init(system, delayed),
+        out_neuron=_out_neuron(system), seg_start=seg_start,
+        seg_count=seg_count, rule_slots=np.arange(R, dtype=np.int32),
+        ell_col=ell_col, ell_val=ell_val, ell_nnz=ell_nnz, in_idx=in_idx,
+        coo_src=coo_src, coo_bounds=coo_bounds, hub_slot=hub_slot,
+        **extra))

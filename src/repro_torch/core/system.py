@@ -42,9 +42,9 @@ class Rule:
     ``delay`` is the rule's firing delay ``d`` from the general SNP
     definition (arXiv 1212.2529): firing closes the owning neuron for ``d``
     steps and its spikes land when it reopens.  The paper's matrix
-    formalism requires ``d == 0``; the port's
-    :func:`~repro_torch.core.matrix.compile_system` refuses ``delay > 0``
-    (the delayed semantics tier is not ported yet).
+    formalism requires ``d == 0``: a system with ``delay > 0`` compiles
+    only under ``SystemPlan(semantics="delays")`` (the delayed tier,
+    :mod:`repro_torch.core.semantics`) and raises under ``no_delays``.
     """
 
     neuron: int

@@ -1,20 +1,44 @@
-// Sparse SNP transition step for Hopper (sm_90a), bound with ctypes.
+// Sparse SNP transition step for Hopper (sm_90a), bound with ctypes:
+// kernels B2, B3 (delay-free) and B5 (delayed).
 //
-// Replaces the delay-free, unsharded bodies of the TPU kernel
+// Replaces the unsharded bodies of the TPU kernel
 // src/repro/kernels/snp_step/sparse_kernel.py::snp_step_sparse_pallas:
-// the ELL body _make_kernel(has_coo=False) and the hybrid body
-// _make_kernel(has_coo=True), here one template with the COO stage as a
-// flag.  For every config b and branch id t < T it computes
+// the ELL body _make_kernel(has_coo=False), the hybrid body
+// _make_kernel(has_coo=True) (B2, B3) and their delayed bodies
+// (has_delay=True, B5), here one template with the COO stage and the
+// delay stage as flags.  For every config b and branch id t < T it
+// computes
 //
 //   d[b,t,mu]     = (t / stride[b,mu]) % choices[b,mu]    (float32, exact)
 //   packed[b,t,mu] = tab[b, mu, d]            (produce | consume << 16)
-//   out[b,t,j]    = C[b,j] - consume[j] + sum_k produce[in_idx[j,k]]
+//   in[b,t,j]     = sum_k produce[in_idx[j,k]]
 //                   (+ sum over hub_slot[j]'s run of produce[coo_src[e]])
+//   out[b,t,j]    = C[b,j] - consume[j] + in[b,t,j]
 //   emis[b,t]     = produce[out_neuron]       (0 when out_neuron == m)
 //   valid[b,t]    = (float)t < psi[b]
 //
 // where produce/consume are the fired rule's, and index m (ELL padding,
 // no output neuron) reads a zero slot.
+//
+// The delay stage (HAS_DELAY; C is the spikes slice of a [spikes |
+// countdown | pending] state row, tab the emit-now table produce*(d==0) |
+// consume << 16, and dtab the delayed-action table produce | d << 16,
+// 0 where the fired rule has no delay): "produce" above is the emit-now
+// value produce[j] + (cd[j] == 1 ? pd[j] : 0), and with (p, dd) the fired
+// dtab entry the row is 3m wide:
+//
+//   cd'  = dd > 0 ? dd : max(cd - 1, 0)
+//   out  = [C - consume + (cd' == 0 ? in : 0) | cd' | dd > 0 ? p :
+//           (cd == 1 ? 0 : pd)]
+//
+// The emit-now value still fits the uint16 stage.  A neuron with
+// cd == 1 is closed, so none of its rules is applicable, its tab row is
+// all 0 and its fired produce is 0: one of the two terms is always 0.
+// The fired produce is < 2^16 (compile_system_sparse checks it), and so
+// is a pending count, which is only ever set to a fired delayed rule's
+// produce or reset to 0.  States that break that invariant (pending >=
+// 2^16, which no compiled system reaches) are outside the kernel's
+// domain; the plain version sums in int32.
 //
 // The decode stays exact.  Division is IEEE-rounded `/` (nvcc's default
 // -prec-div=true; never --use_fast_math or __fdividef): the floor of
@@ -57,6 +81,10 @@
 // Coalescing in_idx (it is read row-major, Kin ints per thread), a
 // persistent grid and warp-per-neuron gathers for hubs are later work.
 //
+// The delay stage adds, per block, the cd and pd reads of phase 1 and a
+// dtab read per (row, neuron) in phase 2, and writes 3m columns a row:
+// bytes bind it too (3.2 GB of output at the delayed hybrid wave).
+//
 // Determinism: no atomics; every output is written by exactly one thread,
 // and integer sums do not depend on their order.
 
@@ -77,7 +105,7 @@ __device__ __forceinline__ int digit(int t, float s, float c) {
   return (int)(q - c * floorf(q / c));
 }
 
-template <bool HAS_COO>
+template <bool HAS_COO, bool HAS_DELAY>
 __global__ void __launch_bounds__(THREADS)
 snp_step_sparse_kernel(const int* __restrict__ configs,
                        const float* __restrict__ stride,
@@ -89,6 +117,9 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
                        const int* __restrict__ coo_src,
                        const int* __restrict__ coo_bounds,
                        const int* __restrict__ hub_slot,
+                       const int* __restrict__ dtab,
+                       const int* __restrict__ cd,
+                       const int* __restrict__ pd,
                        int* __restrict__ out,
                        unsigned char* __restrict__ valid,
                        int* __restrict__ emis,
@@ -103,37 +134,45 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
   const int nt = min(bt, T - t0);
   const int ms = m + 1;
   const size_t row_b = (size_t)b * m;
+  const int W = HAS_DELAY ? 3 * m : m;         // output row width
 
-  // 1. fired produce of each (row, neuron) into shared memory
+  // 1. fired (emit-now) produce of each (row, neuron) into shared memory
   for (int j = tid; j < m; j += THREADS) {
     const float s = stride[row_b + j];
     const float c = (float)choices[row_b + j];
     const int* tab_j = tab + (row_b + j) * R;
+    unsigned pending = 0;
+    if constexpr (HAS_DELAY)
+      if (cd[row_b + j] == 1) pending = (unsigned)pd[row_b + j];
 #pragma unroll
     for (int r = 0; r < BT_MAX; ++r)
       if (r < nt)
-        prod_s[r * ms + j] =
-            (unsigned short)(tab_j[digit(t0 + r, s, c)] & 0xFFFF);
+        prod_s[r * ms + j] = (unsigned short)(
+            (tab_j[digit(t0 + r, s, c)] & 0xFFFF) + pending);
   }
   if (tid < nt) prod_s[tid * ms + m] = 0;      // the zero slot
   __syncthreads();
 
-  // 2. one neuron per thread: C - consume + in-synapses (+ hub tail)
+  // 2. one neuron per thread: C - consume + in-synapses (+ hub tail);
+  //    under delays acc holds the incoming sum alone until the combine
   for (int j0 = warp * 32; j0 < m; j0 += NWARPS * 32) {   // warp-uniform
     const int j = j0 + lane;
     const bool active = j < m;
     unsigned acc[BT_MAX];
+    int dg[BT_MAX];
 #pragma unroll
-    for (int r = 0; r < BT_MAX; ++r) acc[r] = 0;
+    for (int r = 0; r < BT_MAX; ++r) acc[r] = 0, dg[r] = 0;
+    const int* tab_j = tab + (row_b + j) * R;
     if (active) {
       const float s = stride[row_b + j];
       const float c = (float)choices[row_b + j];
-      const int* tab_j = tab + (row_b + j) * R;
       const unsigned cj = (unsigned)configs[row_b + j];
 #pragma unroll
-      for (int r = 0; r < BT_MAX; ++r)
-        if (r < nt)
-          acc[r] = cj - ((unsigned)tab_j[digit(t0 + r, s, c)] >> 16);
+      for (int r = 0; r < BT_MAX; ++r) {
+        if (r >= nt) continue;
+        dg[r] = digit(t0 + r, s, c);
+        if (!HAS_DELAY) acc[r] = cj - ((unsigned)tab_j[dg[r]] >> 16);
+      }
       const int* row = in_idx + (size_t)j * Kin;
       for (int k = 0; k < Kin; ++k) {
         const int src = row[k];
@@ -170,9 +209,30 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
       }
     }
     if (active) {
+      int* out_j = out + ((size_t)b * T + t0) * W + j;
+      if constexpr (HAS_DELAY) {
+        const unsigned cj = (unsigned)configs[row_b + j];
+        const int cdj = cd[row_b + j], pdj = pd[row_b + j];
+        const int* dtab_j = dtab + (row_b + j) * R;
+        const int cd_dec = max((int)((unsigned)cdj - 1u), 0);
 #pragma unroll
-      for (int r = 0; r < BT_MAX; ++r)
-        if (r < nt) out[((size_t)b * T + t0 + r) * m + j] = (int)acc[r];
+        for (int r = 0; r < BT_MAX; ++r) {
+          if (r >= nt) continue;
+          const unsigned dv = (unsigned)dtab_j[dg[r]];
+          const bool fired_del = dv != 0;
+          const int cd_next = fired_del ? (int)(dv >> 16) : cd_dec;
+          const unsigned cons = (unsigned)tab_j[dg[r]] >> 16;
+          int* o = out_j + (size_t)r * W;
+          o[0] = (int)(cj - cons + (cd_next == 0 ? acc[r] : 0u));
+          o[m] = cd_next;
+          o[2 * m] = fired_del ? (int)(dv & 0xFFFF)
+                               : (cdj == 1 ? 0 : pdj);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < BT_MAX; ++r)
+          if (r < nt) out_j[(size_t)r * W] = (int)acc[r];
+      }
     }
   }
 
@@ -194,13 +254,14 @@ int rows_per_block(int m, int T) {
   return bt;
 }
 
-template <bool HAS_COO>
+template <bool HAS_COO, bool HAS_DELAY>
 int launch(const void* configs, const void* stride, const void* choices,
            const void* psi, const void* tab, const void* in_idx,
            const void* out_neuron, const void* coo_src,
-           const void* coo_bounds, const void* hub_slot, void* out,
-           void* valid, void* emis, int B, int T, int m, int R, int Kin,
-           int Hn, cudaStream_t stream) {
+           const void* coo_bounds, const void* hub_slot, const void* dtab,
+           const void* cd, const void* pd, void* out, void* valid,
+           void* emis, int B, int T, int m, int R, int Kin, int Hn,
+           cudaStream_t stream) {
   const int bt = rows_per_block(m, T);
   const int t_tiles = (T + bt - 1) / bt;
   const size_t smem = (size_t)bt * (m + 1) * 2;
@@ -209,17 +270,18 @@ int launch(const void* configs, const void* stride, const void* choices,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        snp_step_sparse_kernel<HAS_COO>,
+        snp_step_sparse_kernel<HAS_COO, HAS_DELAY>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  snp_step_sparse_kernel<HAS_COO><<<(unsigned)blocks, THREADS, smem,
-                                    stream>>>(
-      (const int*)configs, (const float*)stride, (const int*)choices,
-      (const float*)psi, (const int*)tab, (const int*)in_idx,
-      (const int*)out_neuron, (const int*)coo_src, (const int*)coo_bounds,
-      (const int*)hub_slot, (int*)out, (unsigned char*)valid, (int*)emis,
-      T, m, R, Kin, Hn, bt, t_tiles);
+  snp_step_sparse_kernel<HAS_COO, HAS_DELAY>
+      <<<(unsigned)blocks, THREADS, smem, stream>>>(
+          (const int*)configs, (const float*)stride, (const int*)choices,
+          (const float*)psi, (const int*)tab, (const int*)in_idx,
+          (const int*)out_neuron, (const int*)coo_src,
+          (const int*)coo_bounds, (const int*)hub_slot, (const int*)dtab,
+          (const int*)cd, (const int*)pd, (int*)out, (unsigned char*)valid,
+          (int*)emis, T, m, R, Kin, Hn, bt, t_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -234,23 +296,31 @@ extern "C" int snp_step_sparse_max_neurons() { return SMEM_LIMIT / 2 - 1; }
 // success).  All arrays are contiguous int32 unless noted: configs and
 // choices (B,m), stride (B,m) float32, psi (B,) float32, tab (B,m,R),
 // in_idx (m,Kin), out_neuron (1,); with has_coo != 0 also coo_src (Ec,),
-// coo_bounds (Hn+1,) and hub_slot (m,).  Outputs: out (B,T,m), valid
-// (B,T) bool, emis (B,T).
+// coo_bounds (Hn+1,) and hub_slot (m,); with has_delay != 0 also dtab
+// (B,m,R), cd and pd (B,m).  Outputs: out (B,T,m), or (B,T,3m) with
+// has_delay, valid (B,T) bool, emis (B,T).
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
                                const void* tab, const void* in_idx,
                                const void* out_neuron, const void* coo_src,
                                const void* coo_bounds, const void* hub_slot,
-                               void* out, void* valid, void* emis, int B,
-                               int T, int m, int R, int Kin, int Hn,
-                               int has_coo, void* stream) {
+                               const void* dtab, const void* cd,
+                               const void* pd, void* out, void* valid,
+                               void* emis, int B, int T, int m, int R,
+                               int Kin, int Hn, int has_coo, int has_delay,
+                               void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (has_coo)
-    return launch<true>(configs, stride, choices, psi, tab, in_idx,
-                        out_neuron, coo_src, coo_bounds, hub_slot, out,
-                        valid, emis, B, T, m, R, Kin, Hn, s);
-  return launch<false>(configs, stride, choices, psi, tab, in_idx,
-                       out_neuron, coo_src, coo_bounds, hub_slot, out, valid,
-                       emis, B, T, m, R, Kin, Hn, s);
+#define SNP_LAUNCH(COO, DELAY)                                             \
+  return launch<COO, DELAY>(configs, stride, choices, psi, tab, in_idx,    \
+                            out_neuron, coo_src, coo_bounds, hub_slot,     \
+                            dtab, cd, pd, out, valid, emis, B, T, m, R,    \
+                            Kin, Hn, s)
+  if (has_coo) {
+    if (has_delay) SNP_LAUNCH(true, true);
+    SNP_LAUNCH(true, false);
+  }
+  if (has_delay) SNP_LAUNCH(false, true);
+  SNP_LAUNCH(false, false);
+#undef SNP_LAUNCH
 }

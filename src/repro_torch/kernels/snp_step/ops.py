@@ -1,4 +1,4 @@
-"""Wrapper around the hand-written dense SNP step kernel.
+"""Wrapper around the hand-written dense SNP step kernels.
 
 :func:`snp_step` does the cheap ``O(B·n)`` branch bookkeeping with the
 port's :func:`~repro_torch.core.semantics.branch_info` (applicability,
@@ -6,15 +6,23 @@ ranks, radix strides clamped to 2^30), then
 
 * on a CPU tensor runs the plain version
   (:func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_ref`);
-* on a CUDA tensor launches ``csrc/snp_step_dense.cu``, or raises.  There
-  is no fallback.
+* on a CUDA tensor launches ``csrc/snp_step_dense.cu`` (B1), or raises.
+  There is no fallback.
 
 and masks ``valid`` with ``alive``.  Its outputs equal
-:func:`~repro_torch.core.semantics.next_configs` on valid entries.
+:func:`~repro_torch.core.semantics.next_configs` on valid entries.  A
+delayed encoding (``3m``-wide state rows) takes the same route through
+the delayed step: :func:`~repro_torch.core.semantics.delayed_branch_info`,
+then the plain version
+(:func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_delay_ref`) or
+``csrc/snp_step_dense_delay.cu`` (B4), equal to
+:func:`~repro_torch.core.semantics.delayed_next_configs` on valid
+entries.
 
 Counters (plain integers, reset by callers that measure a run):
-``kernel_launches`` counts launches of the kernel, ``plain_calls`` calls
-of the plain version.
+``kernel_launches`` and ``plain_calls`` count launches of B1 and calls of
+its plain version, ``delay_launches`` and ``delay_plain_calls`` the same
+for B4.
 """
 
 from __future__ import annotations
@@ -24,18 +32,25 @@ from pathlib import Path
 
 import torch
 
-from ...core.matrix import CompiledSNP
-from ...core.semantics import branch_info, clamp_stride
+from ...core.matrix import CompiledSNP, is_delayed
+from ...core.semantics import (branch_info, clamp_stride,
+                               delayed_branch_info, split_state)
 from ._build import load_library
-from .ref import snp_step_dense_ref
+from .ref import snp_step_dense_delay_ref, snp_step_dense_ref
+from .sparse_ops import _check
 
-__all__ = ["snp_step", "snp_step_dense", "load_kernel", "SOURCE",
-           "kernel_launches", "plain_calls"]
+__all__ = ["snp_step", "snp_step_dense", "snp_step_dense_delay",
+           "delay_inputs", "load_kernel", "load_delay_kernel",
+           "delay_max_neurons", "SOURCE", "DELAY_SOURCE", "kernel_launches",
+           "plain_calls", "delay_launches", "delay_plain_calls"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
+DELAY_SOURCE = SOURCE.with_name("snp_step_dense_delay.cu")
 
 kernel_launches = 0
 plain_calls = 0
+delay_launches = 0
+delay_plain_calls = 0
 
 
 def load_kernel():
@@ -46,6 +61,24 @@ def load_kernel():
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def load_delay_kernel():
+    """Build (at first use) and load B4's shared library."""
+    lib = load_library(DELAY_SOURCE)
+    fn = lib.snp_step_dense_delay
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.snp_step_dense_delay_max_neurons.argtypes = []
+    lib.snp_step_dense_delay_max_neurons.restype = ctypes.c_int
+    return lib
+
+
+def delay_max_neurons() -> int:
+    """The largest system (neurons) B4 takes: one int32 row of emit-now
+    spikes must fit a block's shared memory."""
+    return int(load_delay_kernel().snp_step_dense_delay_max_neurons())
 
 
 _INPUTS = (("configs", torch.int32, 2), ("rank", torch.int32, 2),
@@ -95,15 +128,98 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
     return out, valid, emis
 
 
+def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
+                         rule_bounds, consume, produce, delay, adj_in,
+                         out_neuron, max_branches: int):
+    """Launch B4 on CUDA tensors: ``(out (B,T,3m) int32, valid (B,T) bool,
+    emis (B,T) int32)``, the contract of
+    :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_delay_ref`."""
+    global delay_launches
+    dev = spikes.device
+    B, m = spikes.shape
+    n = rank.shape[-1]
+    Kin = adj_in.shape[-1]
+    T = int(max_branches)
+    i32 = torch.int32
+    for name, x, dtype, shape in (
+            ("spikes", spikes, i32, (B, m)), ("cd", cd, i32, (B, m)),
+            ("pd", pd, i32, (B, m)), ("rank", rank, i32, (B, n)),
+            ("app", app, torch.bool, (B, n)), ("stride", stride, i32, (B, m)),
+            ("choices", choices, i32, (B, m)),
+            ("psi", psi, torch.float32, (B,)),
+            ("rule_bounds", rule_bounds, i32, (m + 1,)),
+            ("consume", consume, i32, (n,)), ("produce", produce, i32, (n,)),
+            ("delay", delay, i32, (n,)), ("adj_in", adj_in, i32, (m, Kin)),
+            ("out_neuron", out_neuron, i32, (1,))):
+        _check(name, x, dtype, shape, dev)
+    if T < 1:
+        raise ValueError(f"max_branches must be >= 1, got {T}")
+    lib = load_delay_kernel()
+    if m > delay_max_neurons():
+        raise ValueError(
+            f"the dense delayed step kernel takes at most "
+            f"{delay_max_neurons()} neurons (one row of emit-now spikes per "
+            f"block in shared memory), got m={m}")
+    out = torch.empty((B, T, 3 * m), dtype=i32, device=dev)
+    valid = torch.empty((B, T), dtype=torch.bool, device=dev)
+    emis = torch.empty((B, T), dtype=i32, device=dev)
+    if B == 0:
+        return out, valid, emis
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.snp_step_dense_delay(
+            *(x.data_ptr() for x in (
+                spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds,
+                consume, produce, delay, adj_in, out_neuron, out, valid,
+                emis)), B, T, n, m, Kin, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"snp_step_dense_delay launch failed: CUDA error {rc}")
+    delay_launches += 1
+    return out, valid, emis
+
+
+def delay_inputs(configs: torch.Tensor, comp: CompiledSNP):
+    """B4's inputs for state rows ``configs`` (B, 3m) of a delayed dense
+    encoding, and the branch info they came from: ``(args, info)``."""
+    if comp.adj_in is None:
+        raise ValueError(
+            "dense delayed step: this encoding lacks adj_in (the "
+            "in-neighbour lists of its adjacency); lower the system "
+            "through compile_system / backend.compile")
+    spikes, cd, pd = split_state(configs)
+    info = delayed_branch_info(configs, comp)
+    m = comp.num_neurons
+    rule_bounds = torch.searchsorted(
+        comp.rule_neuron, torch.arange(m + 1, dtype=torch.int32,
+                                       device=configs.device),
+        out_int32=True)
+    args = (spikes.contiguous(), cd.contiguous(), pd.contiguous(),
+            info.rank, info.app, clamp_stride(info.stride), info.choices,
+            info.psi.contiguous(), rule_bounds, comp.consume, comp.produce,
+            comp.delay, comp.adj_in, comp.out_neuron.reshape(1))
+    return args, info
+
+
 def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
              max_branches: int):
-    """Fused successor expansion of ``configs`` (B, m): ``(successors
-    (B,T,m) int32, valid (B,T) bool, emissions (B,T) int32, overflow (B,)
-    bool)``, bit-identical to the reference semantics on valid entries
-    for spike counts < 2^24."""
-    global plain_calls
+    """Fused successor expansion of ``configs`` (B, m), or (B, 3m) state
+    rows for a delayed encoding: ``(successors (B,T,m|3m) int32, valid
+    (B,T) bool, emissions (B,T) int32, overflow (B,) bool)``,
+    bit-identical to the reference semantics of ``comp``'s tier on valid
+    entries for spike counts < 2^24."""
+    global plain_calls, delay_plain_calls
     if configs.dim() != 2:
         raise ValueError(f"configs must be (B, m), got {tuple(configs.shape)}")
+    if is_delayed(comp):
+        args, info = delay_inputs(configs, comp)
+        if configs.device.type == "cpu":
+            delay_plain_calls += 1
+            out, valid, emis = snp_step_dense_delay_ref(*args, max_branches)
+        else:
+            out, valid, emis = snp_step_dense_delay(*args, max_branches)
+        return (out, valid & info.alive.unsqueeze(-1), emis,
+                info.psi > float(max_branches))
     info = branch_info(configs, comp)
     args = (configs.contiguous(), info.rank, info.app,
             clamp_stride(info.stride), info.choices, info.psi.contiguous(),

@@ -1,11 +1,15 @@
-"""Plain PyTorch version of the dense step kernel.
+"""Plain PyTorch versions of the dense step kernels.
 
-Takes exactly the kernel's inputs (the branch bookkeeping already done)
-and computes its three outputs with the reference semantics' own decode
-and transition (:mod:`repro_torch.core.semantics`), so the kernel is held
-against the math the rest of the port runs on.  The wrapper uses it for
-tensors on the CPU; ``chip_smoke.py`` compares the kernel with it on the
-card.
+Each takes exactly its kernel's inputs (the branch bookkeeping already
+done) and computes its three outputs with the reference semantics' own
+decode (:mod:`repro_torch.core.semantics`), so the kernel is held against
+the math the rest of the port runs on:
+
+* :func:`snp_step_dense_ref` — B1, ``C + S·M``;
+* :func:`snp_step_dense_delay_ref` — B4, the delayed step.
+
+The wrapper uses them for tensors on the CPU; ``chip_smoke.py`` compares
+the kernels with them on the card.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import torch
 
 from ...core.semantics import decode_spiking, transition
 
-__all__ = ["snp_step_dense_ref"]
+__all__ = ["snp_step_dense_ref", "snp_step_dense_delay_ref"]
 
 
 def snp_step_dense_ref(configs, rank, app, stride, choices, psi,
@@ -26,3 +30,53 @@ def snp_step_dense_ref(configs, rank, app, stride, choices, psi,
     out, emis = transition(configs, S, M, env)
     t = torch.arange(max_branches, device=configs.device).to(torch.float32)
     return out, t < psi.unsqueeze(-1), emis
+
+
+def snp_step_dense_delay_ref(spikes, cd, pd, rank, app, stride, choices,
+                             psi, rule_bounds, consume, produce, delay,
+                             adj_in, out_neuron, max_branches: int):
+    """``(out (B,T,3m) int32, valid (B,T) bool, emis (B,T) int32)`` of the
+    delayed step for every branch ``t < max_branches``, valid or not.
+    Neuron μ owns rules ``rule_bounds[μ]:rule_bounds[μ+1]``.  With ``S``
+    decoded as for B1, each neuron's fired ``consume``, ``produce·(d=0)``,
+    ``d`` and ``produce·(d>0)`` are ``S`` summed over its rules; ``emit =
+    produce·(d=0) + (cd == 1 ? pd : 0)`` rides ``adj_in`` (in-neighbours,
+    padded with ``m``) to each neuron, gated on the new countdown
+    (:func:`~repro_torch.core.semantics.delayed_next_configs` gives the
+    algebra); ``emis = emit[out_neuron]`` (0 when it is ``m``) and
+    ``valid = t < psi`` (not masked by ``alive``)."""
+    B, m = spikes.shape
+    n = rank.shape[-1]
+    T = max_branches
+    dev = spikes.device
+    rule_neuron = torch.repeat_interleave(
+        torch.arange(m, device=dev, dtype=torch.int32),
+        (rule_bounds[1:] - rule_bounds[:-1]).to(torch.int64), output_size=n)
+    S = decode_spiking(app, rank, stride, choices, rule_neuron, T)
+    nodelay = delay == 0
+
+    def fired(per_rule):                      # Σ over each neuron's rules
+        acc = torch.zeros((B, T, m), dtype=torch.int32, device=dev)
+        return acc.index_add_(-1, rule_neuron, S * per_rule)
+
+    cons = fired(consume)
+    emit = fired(torch.where(nodelay, produce, 0))
+    dd = fired(delay)
+    pend = fired(torch.where(nodelay, 0, produce))
+    reopen = (cd == 1)[:, None, :]
+    emit += torch.where(reopen, pd[:, None, :], 0)
+    emit_pad = torch.cat([emit, torch.zeros(
+        (B, T, 1), dtype=torch.int32, device=dev)], -1)          # (B,T,m+1)
+    incoming = torch.zeros((B, T, m), dtype=torch.int32, device=dev)
+    for k in range(adj_in.shape[1]):
+        incoming.add_(emit_pad.index_select(-1, adj_in[:, k]))
+    fired_del = dd > 0
+    cd_next = torch.where(fired_del, dd, (cd[:, None, :] - 1).clamp(min=0))
+    spikes_next = spikes[:, None, :] - cons \
+        + torch.where(cd_next == 0, incoming, 0)
+    pd_next = torch.where(fired_del, pend,
+                          torch.where(reopen, 0, pd[:, None, :]))
+    t = torch.arange(T, device=dev).to(torch.float32)
+    emis = emit_pad.index_select(-1, out_neuron)[..., 0]
+    return (torch.cat([spikes_next, cd_next, pd_next], -1),
+            t < psi.unsqueeze(-1), emis)

@@ -7,16 +7,25 @@ then
 * on a CPU tensor the plain version
   (:func:`~.sparse_ref.snp_step_sparse_ref`);
 * on a CUDA tensor ``csrc/snp_step_sparse.cu`` — its ELL body (B2), or its
-  body with the COO stage (B3) for a hybrid encoding — or it raises.
+  body with the COO stage (B3) for a hybrid encoding; for a delayed
+  encoding the same bodies with the delay stage (B5) — or it raises.
   There is no fallback.
 
 and masks ``valid`` with ``alive``.  Its outputs equal
-:func:`~repro_torch.core.semantics.sparse_next_configs` on every entry.
+:func:`~repro_torch.core.semantics.sparse_next_configs` (or, for a
+delayed encoding,
+:func:`~repro_torch.core.semantics.sparse_delayed_next_configs`) on every
+entry: under delays, on every state whose pending counts are
+below 2^16, which every state a compiled system reaches is (the kernel
+stages the emit-now vector as uint16; ``csrc/snp_step_sparse.cu`` gives
+the argument).
 
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` counts launches of the kernel, ``coo_launches`` those
-of them that ran the COO stage, ``plain_calls`` calls of the plain
-version.
+of them that ran the COO stage, ``delay_launches`` those that ran the
+delay stage and ``delay_coo_launches`` those that ran both;
+``plain_calls`` counts calls of the plain version.  :func:`body_counts`
+splits the launches by body.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from .sparse_ref import snp_step_sparse_ref, sparse_step
 
 __all__ = ["snp_step_sparse", "snp_step_sparse_cuda", "load_kernel",
            "max_neurons", "SOURCE", "MAX_BRANCHES", "kernel_launches",
-           "coo_launches", "plain_calls"]
+           "coo_launches", "delay_launches", "delay_coo_launches",
+           "plain_calls", "body_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
 
@@ -42,14 +52,26 @@ MAX_BRANCHES = 1 << 23
 
 kernel_launches = 0
 coo_launches = 0
+delay_launches = 0
+delay_coo_launches = 0
 plain_calls = 0
+
+
+def body_counts():
+    """Launches per body since the counters were last set to 0: ``ell``
+    (B2), ``coo`` (B3), ``ell_delay`` and ``coo_delay`` (B5)."""
+    return {"ell": kernel_launches - coo_launches - delay_launches
+            + delay_coo_launches,
+            "coo": coo_launches - delay_coo_launches,
+            "ell_delay": delay_launches - delay_coo_launches,
+            "coo_delay": delay_coo_launches}
 
 
 def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
     lib = load_library(SOURCE)
     fn = lib.snp_step_sparse
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snp_step_sparse_max_neurons.argtypes = []
@@ -80,12 +102,14 @@ def _check(name, x, dtype, shape, dev):
 
 def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
                          out_neuron, coo_src=None, coo_bounds=None,
-                         hub_slot=None, *, max_branches: int):
+                         hub_slot=None, dtab=None, cd=None, pd=None, *,
+                         max_branches: int):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid
     (B,T) bool, emis (B,T) int32)``, the plain version's contract.
     ``coo_src``/``coo_bounds``/``hub_slot`` (all or none) select the COO
-    stage."""
-    global kernel_launches, coo_launches
+    stage, ``dtab``/``cd``/``pd`` (all or none) the delay stage, whose
+    rows are ``3m`` wide."""
+    global kernel_launches, coo_launches, delay_launches, delay_coo_launches
     dev = configs.device
     B, m = configs.shape
     R, Kin = tab.shape[-1], in_idx.shape[-1]
@@ -94,6 +118,9 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
     if has_coo != (coo_bounds is not None) or has_coo != (hub_slot
                                                          is not None):
         raise ValueError("coo_src, coo_bounds and hub_slot come together")
+    has_delay = dtab is not None
+    if has_delay != (cd is not None) or has_delay != (pd is not None):
+        raise ValueError("dtab, cd and pd come together")
     Hn = coo_bounds.shape[0] - 1 if has_coo else 0
     i32, f32 = torch.int32, torch.float32
     checks = [("configs", configs, i32, (B, m)),
@@ -105,6 +132,9 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
         checks += [("coo_src", coo_src, i32, (coo_src.shape[0],)),
                    ("coo_bounds", coo_bounds, i32, (Hn + 1,)),
                    ("hub_slot", hub_slot, i32, (m,))]
+    if has_delay:
+        checks += [("dtab", dtab, i32, (B, m, R)), ("cd", cd, i32, (B, m)),
+                   ("pd", pd, i32, (B, m))]
     for name, x, dtype, shape in checks:
         _check(name, x, dtype, shape, dev)
     _check_branches(T)
@@ -114,7 +144,8 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
             f"the sparse step kernel takes at most {max_neurons()} neurons "
             f"(one row of fired produce per block in shared memory), got "
             f"m={m}")
-    out = torch.empty((B, T, m), dtype=i32, device=dev)
+    out = torch.empty((B, T, 3 * m if has_delay else m), dtype=i32,
+                      device=dev)
     valid = torch.empty((B, T), dtype=torch.bool, device=dev)
     emis = torch.empty((B, T), dtype=i32, device=dev)
     if B == 0:
@@ -123,22 +154,25 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = (None if x is None else x.data_ptr() for x in (
             configs, stride, choices, psi, tab, in_idx, out_neuron, coo_src,
-            coo_bounds, hub_slot, out, valid, emis))
+            coo_bounds, hub_slot, dtab, cd, pd, out, valid, emis))
         rc = lib.snp_step_sparse(*ptrs, B, T, m, R, Kin, Hn, int(has_coo),
-                                 stream)
+                                 int(has_delay), stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_sparse launch failed: CUDA error {rc}")
     kernel_launches += 1
     coo_launches += int(has_coo)
+    delay_launches += int(has_delay)
+    delay_coo_launches += int(has_coo and has_delay)
     return out, valid, emis
 
 
 def snp_step_sparse(configs: torch.Tensor, comp: CompiledSparseSNP, *,
                     max_branches: int):
-    """Fused sparse successor expansion of ``configs`` (B, m):
-    ``(successors (B,T,m) int32, valid (B,T) bool, emissions (B,T) int32,
-    overflow (B,) bool)``, bit-identical to the sparse semantics, pure-ELL
-    and hybrid encodings alike."""
+    """Fused sparse successor expansion of ``configs`` (B, m), or (B, 3m)
+    state rows for a delayed encoding: ``(successors (B,T,m|3m) int32,
+    valid (B,T) bool, emissions (B,T) int32, overflow (B,) bool)``,
+    bit-identical to the sparse semantics of ``comp``'s tier, pure-ELL and
+    hybrid encodings alike."""
     global plain_calls
     if configs.dim() != 2:
         raise ValueError(

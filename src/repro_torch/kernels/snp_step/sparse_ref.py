@@ -2,11 +2,14 @@
 body of the sparse step.
 
 * :func:`kernel_inputs` does the per-config bookkeeping (branch info and
-  the packed fired-rule table) that the kernel takes as input;
+  the packed fired-rule table; under delays the emit-now table, the
+  delayed-action table and the countdown and pending slices) that the
+  kernel takes as input;
 * :func:`snp_step_sparse_ref` computes the kernel's three outputs from
   exactly those inputs, reading the COO tail the way the kernel reads it:
   through the per-hub runs ``coo_bounds`` and the neuron→hub map
-  ``hub_slot``;
+  ``hub_slot``; with ``dtab``/``cd``/``pd`` it is the delayed step (the
+  plain version of B5);
 * :func:`sparse_step` chains the two (or the kernel in place of the plain
   body), masks ``valid`` with ``alive`` and flags overflow.
 
@@ -20,8 +23,10 @@ from __future__ import annotations
 
 import torch
 
-from ...core.matrix import CompiledSparseSNP, check_coo_metadata
-from ...core.semantics import packed_rule_table, sparse_branch_info
+from ...core.matrix import CompiledSparseSNP, check_coo_metadata, is_delayed
+from ...core.semantics import (delayed_packed_actions, packed_rule_table,
+                               sparse_branch_info,
+                               sparse_delayed_branch_info, split_state)
 
 __all__ = ["kernel_inputs", "snp_step_sparse_ref", "sparse_step",
            "decode_digits", "fired_packed"]
@@ -58,31 +63,52 @@ def fired_packed(digits: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP):
-    """The kernel's inputs for ``configs`` (B, m) and the branch info they
-    came from: ``(args, coo, info)`` with ``coo`` the COO stage's three
-    tensors, or ``{}`` for a pure-ELL encoding."""
+    """The kernel's inputs for ``configs`` (B, m), or (B, 3m) state rows
+    for a delayed encoding, and the branch info they came from: ``(args,
+    extra, info)`` with ``extra`` the COO stage's three tensors for a
+    hybrid encoding and the delay stage's ``dtab``/``cd``/``pd`` for a
+    delayed one (``{}`` for neither)."""
     check_coo_metadata(comp, "sparse step")
-    info = sparse_branch_info(configs, comp)
-    args = (configs.contiguous(), info.stride.contiguous(),
-            info.choices.contiguous(), info.psi.contiguous(),
-            packed_rule_table(info, comp), comp.in_idx,
-            comp.out_neuron.reshape(1))
-    coo = dict(coo_src=comp.coo_src, coo_bounds=comp.coo_bounds,
-               hub_slot=comp.hub_slot) if comp.is_hybrid else {}
-    return args, coo, info
+    extra = dict(coo_src=comp.coo_src, coo_bounds=comp.coo_bounds,
+                 hub_slot=comp.hub_slot) if comp.is_hybrid else {}
+    if is_delayed(comp):
+        spikes, cd, pd = split_state(configs)
+        info = sparse_delayed_branch_info(configs, comp)
+        packed_e, packed_d = delayed_packed_actions(comp)
+        tab = packed_rule_table(info, comp, packed_e)
+        extra.update(dtab=packed_rule_table(info, comp, packed_d),
+                     cd=cd.contiguous(), pd=pd.contiguous())
+    else:
+        spikes = configs
+        info = sparse_branch_info(configs, comp)
+        tab = packed_rule_table(info, comp)
+    args = (spikes.contiguous(), info.stride.contiguous(),
+            info.choices.contiguous(), info.psi.contiguous(), tab,
+            comp.in_idx, comp.out_neuron.reshape(1))
+    return args, extra, info
 
 
 def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
                         out_neuron, coo_src=None, coo_bounds=None,
-                        hub_slot=None, *, max_branches: int):
+                        hub_slot=None, dtab=None, cd=None, pd=None, *,
+                        max_branches: int):
     """``(out (B,T,m) int32, valid (B,T) bool, emis (B,T) int32)`` for
     every branch ``t < max_branches``, valid or not:
 
-    * ``out[b,t,j] = C[b,j] − consume_fired[j] + Σ_k produce_fired[in_idx[j,k]]
-      + tail[hub_slot[j]]``, with ``tail[h]`` the fired produce summed over
+    * ``out[b,t,j] = C[b,j] − consume_fired[j] + incoming[j]``, where
+      ``incoming[j] = Σ_k produce_fired[in_idx[j,k]] + tail[hub_slot[j]]``
+      and ``tail[h]`` is the fired produce summed over
       ``coo_src[coo_bounds[h]:coo_bounds[h+1]]`` (0 for ``hub_slot = Hn``);
     * ``emis[b,t] = produce_fired[out_neuron]`` (0 when it is ``m``);
     * ``valid[b,t] = t < psi[b]`` (not masked by ``alive``).
+
+    With ``dtab``, ``cd`` and ``pd`` (the delayed step; ``configs`` is the
+    spikes slice and ``tab`` the emit-now table) the vector riding the
+    in-adjacency and the emission is ``emit = produce_fired + (cd == 1 ?
+    pd : 0)``; with ``(p, d) = dtab`` fired (``d = 0``: no delayed rule
+    fired), ``out`` is ``(B, T, 3m)``: ``cd' = d > 0 ? d : max(cd − 1,
+    0)``, spikes ``C − consume + (cd' == 0 ? incoming : 0)``, ``pd' = d >
+    0 ? p : (cd == 1 ? 0 : pd)``.
 
     Padding indices (``m`` in ``in_idx``, ``Hn`` in ``hub_slot``) read a
     zero slot; the ELL sum takes one gather per column to bound the
@@ -90,12 +116,18 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
     B, m = configs.shape
     T = max_branches
     dev = configs.device
-    packed_f = fired_packed(decode_digits(T, stride, choices), tab)
-    prod_pad = torch.cat([packed_f & 0xFFFF, torch.zeros(
+    digits = decode_digits(T, stride, choices)
+    packed_f = fired_packed(digits, tab)
+    emit = packed_f & 0xFFFF
+    delayed = dtab is not None
+    if delayed:
+        reopen = (cd == 1)[:, None, :]
+        emit = emit + torch.where(reopen, pd[:, None, :], 0)
+    prod_pad = torch.cat([emit, torch.zeros(
         (B, T, 1), dtype=torch.int32, device=dev)], -1)          # (B,T,m+1)
-    out = configs[:, None, :] - (packed_f >> 16)
+    incoming = torch.zeros((B, T, m), dtype=torch.int32, device=dev)
     for k in range(in_idx.shape[1]):
-        out.add_(prod_pad.index_select(-1, in_idx[:, k]))
+        incoming.add_(prod_pad.index_select(-1, in_idx[:, k]))
     if coo_src is not None:
         hn = coo_bounds.shape[0] - 1
         hub_of_entry = torch.repeat_interleave(
@@ -103,7 +135,19 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
             (coo_bounds[1:] - coo_bounds[:-1]).to(torch.int64))
         tail = torch.zeros((B, T, hn + 1), dtype=torch.int32, device=dev)
         tail.index_add_(-1, hub_of_entry, prod_pad.index_select(-1, coo_src))
-        out.add_(tail.index_select(-1, hub_slot))
+        incoming.add_(tail.index_select(-1, hub_slot))
+    spikes = configs[:, None, :] - (packed_f >> 16)
+    if delayed:
+        packed_d = fired_packed(digits, dtab)
+        fired_del = packed_d != 0
+        cd_next = torch.where(fired_del, packed_d >> 16,
+                              (cd[:, None, :] - 1).clamp(min=0))
+        spikes = spikes + torch.where(cd_next == 0, incoming, 0)
+        pd_next = torch.where(fired_del, packed_d & 0xFFFF,
+                              torch.where(reopen, 0, pd[:, None, :]))
+        out = torch.cat([spikes, cd_next, pd_next], -1)
+    else:
+        out = spikes + incoming
     t = torch.arange(T, device=dev).to(torch.float32)
     emis = prod_pad.index_select(-1, out_neuron)[..., 0]
     return out, t < psi[:, None], emis
@@ -111,11 +155,11 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
 
 def sparse_step(configs: torch.Tensor, comp: CompiledSparseSNP, *,
                 max_branches: int, launch=snp_step_sparse_ref):
-    """One sparse step of ``configs`` (B, m) through ``launch`` (the plain
-    body, or the kernel's launcher, which share a contract):
-    ``(successors (B,T,m) int32, valid (B,T) bool, emissions (B,T)
-    int32, overflow (B,) bool)``."""
-    args, coo, info = kernel_inputs(configs, comp)
-    out, valid, emis = launch(*args, **coo, max_branches=max_branches)
+    """One sparse step of ``configs`` (B, m), or (B, 3m) under delays,
+    through ``launch`` (the plain body, or the kernel's launcher, which
+    share a contract): ``(successors (B,T,m|3m) int32, valid (B,T) bool,
+    emissions (B,T) int32, overflow (B,) bool)``."""
+    args, extra, info = kernel_inputs(configs, comp)
+    out, valid, emis = launch(*args, **extra, max_branches=max_branches)
     return (out, valid & info.alive[:, None], emis,
             info.psi > float(max_branches))

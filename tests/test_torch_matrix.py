@@ -36,6 +36,11 @@ def _assert_same_encoding(port, ref):
         if k == "rule_order":
             assert port.rule_order == tuple(ref.rule_order)
             continue
+        if k == "adj_in":              # the port's own; checked below
+            continue
+        if getattr(port, k) is None:   # a delay field, delay-free
+            assert k not in ref_f, k
+            continue
         got = getattr(port, k).numpy()
         assert got.dtype == ref_f[k].dtype, k
         np.testing.assert_array_equal(got, ref_f[k], err_msg=k)
@@ -43,6 +48,17 @@ def _assert_same_encoding(port, ref):
     onehot = np.zeros_like(ref_f["neuron_onehot"])
     onehot[np.arange(port.num_rules), port.rule_neuron.numpy()] = 1
     np.testing.assert_array_equal(onehot, ref_f["neuron_onehot"])
+    # adj_in lists each neuron's in-neighbours in the reference adjacency
+    if "adjacency" not in ref_f:
+        assert port.adj_in is None
+        return
+    adj, m = ref_f["adjacency"], port.num_neurons
+    adj_in = port.adj_in.numpy()
+    assert adj_in.shape == (m, max(1, int(adj.sum(0).max())))
+    for j in range(m):
+        want = np.flatnonzero(adj[:, j])
+        np.testing.assert_array_equal(adj_in[j, :want.size], want)
+        assert (adj_in[j, want.size:] == m).all()
 
 
 @pytest.mark.parametrize("name", sorted(SYSTEMS))
@@ -66,12 +82,19 @@ def test_compiled_from_arrays_carries_reference_encoding(name):
 
 
 def test_compiled_from_arrays_refuses_delayed_and_unknown_fields():
+    """A delay field alone (no adjacency or output neuron, a delay-free
+    state width) is refused; a whole delayed encoding carries across."""
     ref = jcompile(SYSTEMS["paper-pi"])
     fields = {k: (v if k == "rule_order" else np.asarray(v))
               for k, v in ref._asdict().items() if v is not None}
     with pytest.raises(ValueError, match="delay"):
         compiled_from_arrays({**fields, "delay": np.zeros(5, np.int32)},
                              device="cpu")
+    delayed = with_delays(SYSTEMS["paper-pi"], lambda k, r: k % 3)
+    dref = jcompile(delayed, semantics="delays")
+    dfields = {k: (v if k == "rule_order" else np.asarray(v))
+               for k, v in dref._asdict().items() if v is not None}
+    _assert_same_encoding(compiled_from_arrays(dfields, device="cpu"), dref)
     with pytest.raises(ValueError, match="unknown"):
         compiled_from_arrays({**fields, "bogus": np.zeros(1)}, device="cpu")
 

@@ -29,9 +29,7 @@ def _thresholds(system):
 
 
 def _assert_same_encoding(port, ref):
-    assert port._fields == tuple(
-        f for f in ref._fields if f not in ("delay", "coo_dst"))
-    assert ref.delay is None
+    assert port._fields == tuple(f for f in ref._fields if f != "coo_dst")
     # the reference's per-entry tail targets are the port's per-hub runs
     if port.coo_bounds is not None:
         bounds, slot = port.coo_bounds.numpy(), port.hub_slot.numpy()
@@ -43,6 +41,9 @@ def _assert_same_encoding(port, ref):
         a, b = getattr(port, f), getattr(ref, f)
         if f == "rule_order":
             assert a == tuple(b)
+            continue
+        if b is None:                  # the delay of a delay-free encoding
+            assert a is None, f
             continue
         a, b = a.numpy(), np.asarray(b)
         assert a.dtype == b.dtype and a.shape == b.shape, f
@@ -93,12 +94,21 @@ def test_reference_sparse_encoding_carries_across(enc):
 
 
 def test_carrying_a_delayed_sparse_encoding_raises():
+    """A delayed reference encoding carries across whole; one whose state
+    width contradicts its delay field (half of a delayed encoding) raises
+    instead of stepping under the wrong tier."""
     system = conftest.delayed_variant(SYSTEMS["paper-pi"])
     ref = J.compile_system_sparse(system, semantics="delays")
     fields = {k: (v if k == "rule_order" or v is None else np.asarray(v))
               for k, v in ref._asdict().items()}
+    _assert_same_encoding(compiled_from_arrays(fields, device="cpu"), ref)
+    m = system.num_neurons
     with pytest.raises(ValueError, match="delay"):
-        compiled_from_arrays(fields, device="cpu")
+        compiled_from_arrays({**fields, "init_config": np.asarray(
+            system.initial_spikes, np.int32)}, device="cpu")
+    with pytest.raises(ValueError, match="init_config"):
+        compiled_from_arrays({**fields, "delay": None}, device="cpu")
+    assert np.asarray(ref.init_config).shape == (3 * m,)
 
 
 def test_sparse_compile_refuses_what_the_reference_refuses():
