@@ -59,7 +59,29 @@ result line):
 12. the four delayed variants of the paper's Π, explored through all four
    backends, identical; traces of both delayed workloads, first and
    random policies, identical through the kernel and plain backends;
-13. summary — the kernels with their launch counts, then one JSON line of
+13. the shard kernels against their plain versions — B6 (the dense
+   kernel's halo body) and B7 (the sparse kernel's), bit-identical on
+   every entry of every shard, on shard operands made by the sharded
+   explore's own exchange: S=1, ``paper_pi`` over 8 shards (m < S: empty
+   slices), Ψ > T, a ragged shape, spikes near 2^20, the degree partition
+   of ``power_law(26)`` (asymmetric halos), random halos up to 2^16 − 1,
+   and the full-width waves (B=512, T=64): ``scaled_pi(682)`` over
+   ``neuron_axis(4)``, contiguous and degree, through both, and
+   ``ring_lattice(32768, 8)`` through B7; at the waves the times of shard
+   0's launch, its plain version, its bound and a library call
+   (``matmul(S, M_local) + matmul(halo, hadj)`` for B6; for B7 the
+   partial ``sparse.mm(S, M_local)``, without the halo term);
+14. full width, sharded, the slice's main path —
+   ``explore_distributed(scaled_pi(682), plan=neuron_axis(4))``, contiguous
+   and degree (F=512, T=64, 65,536 archive rows a shard), through
+   ``"cuda"`` (B6), ``"sparse_cuda"`` (B7), ``"ref"`` and ``"sparse"``,
+   archives and flags identical, and held against phase 5's archive;
+15. large m, sharded — ``explore_distributed(ring_lattice(32768, 8),
+   plan=neuron_axis(4))`` (16,384 archive rows a shard) through
+   ``"sparse_cuda"`` (B7) and ``"sparse"``, identical, peak allocation
+   under 60 GB, and held against the single-device ``"sparse_cuda"``
+   explore at 65,536 rows;
+16. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -67,8 +89,10 @@ Every path driven through a kernel backend has every kernel's launch
 counter set to 0 just before it and read just after; each count is
 checked and reported per path.  The main paths are the full-width
 explores: phase 5 for B1, phase 6 for B2, phase 7 for B3, phase 10 for
-B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``) and phase
-11 for B5's COO body; their counts are the kernels line's ``launches``.
+B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``), phase 11
+for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
+and B7 (via ``"sparse_cuda"``), S launches a level; their counts are the
+kernels line's ``launches``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -131,6 +155,17 @@ KERNELS = {
                "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
                "body": "_make_kernel(has_coo=True, has_delay=True), "
                        "sparse_kernel.py:124-135,155-167,176-186"},
+    "B6": {"name": "snp_step_dense_shard", "route": "cuda",
+           "source": "src/repro_torch/kernels/snp_step/csrc/snp_step_dense.cu",
+           "replaces": "src/repro/kernels/snp_step/kernel.py:201",
+           "body": "_make_kernel(has_halo=True), kernel.py:81-83,113-118; "
+                   "wrapper ops.py:157"},
+    "B7": {"name": "snp_step_sparse_shard", "route": "cuda",
+           "source": "src/repro_torch/kernels/snp_step/csrc/"
+                     "snp_step_sparse.cu",
+           "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
+           "body": "_make_kernel(has_halo=True), sparse_kernel.py:92-93,"
+                   "142-147; wrapper sparse_ops.py:170"},
 }
 
 # What each kernel's library_ms times (one PyTorch call, never used by the
@@ -145,6 +180,9 @@ LIBRARY_CALL = {
               "product",
     "B5-COO": "partial: torch.sparse.mm(S as CSR, M), f32, the delay-free "
               "product",
+    "B6": "torch.matmul(S, M_local) + torch.matmul(halo, hadj), f32",
+    "B7": "partial: torch.sparse.mm(S as CSR, M_local), f32, without the "
+          "halo term",
 }
 
 # Dense M for the sparse yardstick (torch.sparse.mm) only up to this size.
@@ -183,9 +221,10 @@ def time_ms(fn, iters):
 def reset_counts():
     """Every kernel's launch counter to 0 (just before a path)."""
     from repro_torch.kernels.snp_step import ops, sparse_ops
-    ops.kernel_launches = ops.delay_launches = 0
+    ops.kernel_launches = ops.delay_launches = ops.shard_launches = 0
     sparse_ops.kernel_launches = sparse_ops.coo_launches = 0
     sparse_ops.delay_launches = sparse_ops.delay_coo_launches = 0
+    sparse_ops.halo_launches = 0
 
 
 def read_counts():
@@ -195,7 +234,8 @@ def read_counts():
     body = sparse_ops.body_counts()
     return {"B1": ops.kernel_launches, "B2": body["ell"], "B3": body["coo"],
             "B4": ops.delay_launches, "B5-ELL": body["ell_delay"],
-            "B5-COO": body["coo_delay"]}
+            "B5-COO": body["coo_delay"], "B6": ops.shard_launches,
+            "B7": body["halo"]}
 
 
 def check_counts(path, counts, **want):
@@ -1146,6 +1186,396 @@ def phase_delay_paper_and_traces():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The neuron-sharded frontier: B6 and B7 (phases 13–15)
+# ---------------------------------------------------------------------------
+
+SHARDED = dict(max_steps=8, frontier_cap=512, max_branches=64,
+               visited_cap=65536)          # per shard: S·V = phase 5's rows
+# Phase 15: ring_lattice(32768, 8) over 4 shards, 16,384 archive rows a
+# shard (the 65,536 rows of its single-device comparison).
+RING = dict(SHARDED, visited_cap=16384)
+
+
+def _shard_level(system, plan, B, T, configs_fn, dev, dense=True):
+    """The per-shard operands of one level at frontier rows made by
+    ``configs_fn(m)`` (B, m): ``(comp, shards, frontier slices, level)``,
+    through the sharded explore's own bookkeeping and halo exchange."""
+    import torch
+    from repro_torch.core import compile_sharded, lower_shard_dense
+    from repro_torch.core import distributed as dist
+
+    comp = compile_sharded(system, plan, device=dev)
+    if dense:
+        comp = lower_shard_dense(comp)
+    S, mloc, m = comp.num_shards, comp.shard_size, comp.num_neurons
+    full = torch.zeros((B, S * mloc), dtype=torch.int32, device=dev)
+    full[:, :m] = configs_fn(m)
+    cols = full[:, comp.arrays.global_idx.reshape(-1).to(torch.int64)]
+    frontier = list(cols.reshape(B, S, mloc).unbind(1))
+    frontier = [f.contiguous() for f in frontier]
+    shards = dist._shards(comp, [torch.device(dev)] * S, dense)
+    return comp, shards, frontier, dist._exchange(shards, frontier, T, True)
+
+
+def _b6_args(sh, f, info, stride, psi, halo):
+    from repro_torch.core.semantics import clamp_stride
+    return (f, info.rank, info.app, clamp_stride(stride).contiguous(),
+            info.choices, psi.contiguous(), sh.view.rule_neuron, sh.M_local,
+            sh.hadj, halo)
+
+
+def _b7_args(sh, f, info, stride, psi, tab, halo):
+    import torch
+    mloc, H = f.shape[-1], halo.shape[-1]
+    zero = torch.full((1,), mloc + H, dtype=torch.int32, device=f.device)
+    return (f, stride.contiguous(), info.choices, psi.contiguous(), tab,
+            sh.in_idx, zero), halo
+
+
+def _halo_adds(halo, in_idx, mloc):
+    """Adds the data needs for the halo term: each nonzero halo entry
+    times the local neurons it feeds."""
+    import torch
+    H = halo.shape[-1]
+    ext = in_idx[(in_idx >= mloc) & (in_idx < mloc + H)] - mloc
+    fan = torch.bincount(ext.to(torch.int64), minlength=H)
+    nz = (halo != 0).sum(dim=(0, 1), dtype=torch.int64)
+    return int((nz * fan).sum())
+
+
+def _shard_dense_bound(args, in_idx, T):
+    """Least time of one B6 call (ms) and what binds, from its inputs:
+    bytes (each input once, the output once) over HBM bandwidth;
+    operations as for B1 (a decode per neuron and branch, the ``C +``, a
+    multiply-add per nonzero of each fired rule's row of ``M_local``)
+    plus two per halo entry and local neuron it feeds."""
+    import torch
+    from repro_torch.core.semantics import decode_spiking
+    (configs, rank, app, stride, choices, psi, rule_neuron, M, hadj,
+     halo) = args
+    B, m = configs.shape
+    in_bytes = sum(x.numel() * x.element_size() for x in args)
+    out_bytes = 4 * B * T * m
+    S = decode_spiking(app, rank, stride, choices, rule_neuron, T)
+    fired = S.sum(dim=(0, 1), dtype=torch.int64)
+    row_nnz = (M != 0).sum(dim=1)
+    n_ops = 3 * B * T * m + 2 * int((fired * row_nnz).sum()) \
+        + 2 * _halo_adds(halo, in_idx, m)
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _shard_sparse_bound(args, halo, T):
+    """Least time of one B7 call (ms) and what binds: ``_sparse_bound``'s
+    operations for the local slice plus one add per halo entry and local
+    neuron it feeds; bytes with the halo read once."""
+    B, m = args[0].shape
+    n_ops = _sparse_bound(args, {}, T)[2] + _halo_adds(halo, args[5], m)
+    in_bytes = sum(x.numel() * x.element_size() for x in args) \
+        + halo.numel() * 4
+    t_bytes = (in_bytes + 4 * B * T * m + 5 * B * T) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _shard_cases(rng, dev):
+    """(name, system, plan, B, T, configs, kernels, random halo?) — the
+    phase-13 shapes, smallest first."""
+    import numpy as np
+    import torch
+    from repro_torch.core import paper_pi
+    from repro_torch.core.generators import (nd_chain, power_law,
+                                             random_system, ring_lattice,
+                                             scaled_pi)
+    from repro_torch.sharding import neuron_axis
+
+    def rand(B, lo, hi):
+        return lambda m: torch.from_numpy(
+            rng.integers(lo, hi, size=(B, m)).astype(np.int32)).to(dev)
+
+    both = ("B6", "B7")
+    return [
+        ("paper_pi S=1", paper_pi(True), neuron_axis(1), 128, 16,
+         rand(128, 0, 5), both, False),
+        ("paper_pi S=8 (m<S)", paper_pi(True), neuron_axis(8), 128, 16,
+         rand(128, 0, 5), both, False),
+        ("nd_chain(10) S=2 Ψ>T", nd_chain(10), neuron_axis(2), 16, 64,
+         lambda m: torch.ones((16, m), dtype=torch.int32, device=dev),
+         both, False),
+        ("ragged B13 T37 S=3", random_system(45, 3, 0.1, seed=5),
+         neuron_axis(3), 13, 37, rand(13, 0, 4), both, False),
+        ("spikes~2^20 S=4", random_system(64, 2, 0.1, seed=2),
+         neuron_axis(4), 32, 32, rand(32, 2 ** 20 - 8, 2 ** 20 + 8), both,
+         False),
+        ("power_law(26) degree S=8", power_law(26, 3, seed=6),
+         neuron_axis(8, partition="degree"), 64, 32, rand(64, 0, 4), both,
+         False),
+        ("random halo <2^16 S=4", random_system(64, 2, 0.15, seed=3),
+         neuron_axis(4), 24, 40, rand(24, 0, 4), both, True),
+        ("scaled_pi(682) wave S=4", scaled_pi(682), neuron_axis(4), 512, 64,
+         rand(512, 0, 3), both, False),
+        ("scaled_pi(682) degree wave S=4", scaled_pi(682),
+         neuron_axis(4, partition="degree"), 512, 64, rand(512, 0, 3), both,
+         False),
+        ("ring_lattice(32768,8) wave S=4", ring_lattice(32768, 8, seed=2),
+         neuron_axis(4), 512, 64, rand(512, 0, 4), ("B7",), False),
+    ]
+
+
+def phase_shard_kernels():
+    """Phase 13: B6 and B7 == their plain versions on the card, on every
+    entry of every shard, at the phase-13 shapes; each wave's shard 0
+    timed.  Returns (max |err| per kernel, timing rows keyed by kernel
+    and case)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.semantics import decode_spiking
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+    from repro_torch.kernels.snp_step.ref import snp_step_dense_shard_ref
+    from repro_torch.kernels.snp_step.sparse_ref import snp_step_sparse_ref
+
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    max_err = {"B6": 0, "B7": 0}
+    rows = {}
+    for name, system, plan, B, T, make, kernels, rand_halo in _shard_cases(
+            rng, dev):
+        wave = "wave" in name
+        comp, shards, frontier, lv = _shard_level(
+            system, plan, B, T, make, dev, dense="B6" in kernels)
+        S, mloc, H = comp.num_shards, comp.shard_size, lv.halos[0].shape[-1]
+        if rand_halo:
+            halos = [torch.from_numpy(rng.integers(
+                0, 1 << 16, size=(B, T, H)).astype(np.int32)).to(dev)
+                for _ in range(S)]
+        else:
+            halos = lv.halos
+        if name.startswith("nd_chain"):
+            check(bool(lv.psi.min() > T), f"{name} should overflow T")
+        errs = {}
+        for d, sh in enumerate(shards):
+            info, f = lv.infos[d], frontier[d]
+            psi = lv.psi
+            if "B6" in kernels:
+                a6 = _b6_args(sh, f, info, lv.strides[d], psi, halos[d])
+                k = ops.snp_step_dense_shard_cuda(*a6, T)
+                p = snp_step_dense_shard_ref(*a6, T)
+                torch.cuda.synchronize()
+                errs["B6"] = max(errs.get("B6", 0),
+                                 int((k - p).abs().max()))
+                del k, p
+            a7, h7 = _b7_args(sh, f, info, lv.strides[d], psi, lv.tabs[d],
+                              halos[d])
+            k = sparse_ops.snp_step_sparse_cuda(*a7, halo=h7,
+                                                max_branches=T)
+            p = snp_step_sparse_ref(*a7, halo=h7, max_branches=T)
+            torch.cuda.synchronize()
+            errs["B7"] = max(errs.get("B7", 0), int((k[0] - p[0]).abs().max()),
+                             int((k[2] - p[2]).abs().max()))
+            check(bool(torch.equal(k[1], p[1])) and not bool(k[2].any()),
+                  f"{name}: B7's validity differs or its emission index is "
+                  "not the zero slot")
+            del k, p
+        for kern, err in errs.items():
+            max_err[kern] = max(max_err[kern], err)
+            check(err == 0, f"{name}: {kern} disagrees with its plain "
+                  f"version on some shard (max |err| {err})")
+        line = (f"[13] {name:32s} S={S} mloc={mloc:5d} H={H:5d} "
+                f"nloc={comp.arrays.rule_neuron.shape[1]:5d} "
+                f"Kin={comp.arrays.in_idx.shape[-1]:3d} B={B:4d} T={T:3d} | "
+                + ", ".join(f"{k} == plain on all {S} shards (max |err| "
+                            f"{e})" for k, e in errs.items()))
+        if not wave:
+            log(line)
+            continue
+        iters = 5
+        sh, info, f = shards[0], lv.infos[0], frontier[0]
+        psi = lv.psi
+        parts = []
+        if "B6" in kernels:
+            a6 = _b6_args(sh, f, info, lv.strides[0], psi, halos[0])
+            k_ms = time_ms(lambda: ops.snp_step_dense_shard_cuda(*a6, T),
+                           iters)
+            p_ms = time_ms(lambda: snp_step_dense_shard_ref(*a6, T), iters)
+            Sm = decode_spiking(info.app, info.rank, a6[3], info.choices,
+                                sh.view.rule_neuron, T)
+            Sm = Sm.reshape(B * T, -1).to(torch.float32)
+            Mf = sh.M_local.to(torch.float32)
+            hf = halos[0].reshape(B * T, H).to(torch.float32)
+            hadjf = sh.hadj.to(torch.float32)
+            l_ms = time_ms(lambda: torch.matmul(Sm, Mf)
+                           + torch.matmul(hf, hadjf), iters)
+            del Sm, Mf, hf, hadjf
+            b_ms, b_by = _shard_dense_bound(a6, sh.in_idx, T)
+            rows[("B6", name)] = dict(S=S, B=B, T=T, mloc=mloc, H=H,
+                                      ms=k_ms, plain_ms=p_ms,
+                                      library_ms=l_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+            parts.append(f"B6 {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                         f"matmul(S,M_local)+matmul(halo,hadj) {l_ms:.4f} "
+                         f"ms, bound {b_ms:.6f} ms ({b_by}) = "
+                         f"{k_ms / b_ms:.1f}x bound")
+        a7, h7 = _b7_args(sh, f, info, lv.strides[0], psi, lv.tabs[0],
+                          halos[0])
+        k_ms = time_ms(lambda: sparse_ops.snp_step_sparse_cuda(
+            *a7, halo=h7, max_branches=T), iters)
+        p_ms = time_ms(lambda: snp_step_sparse_ref(
+            *a7, halo=h7, max_branches=T), iters)
+        l_ms = None
+        if "B6" in kernels:    # M_local is there: the partial yardstick
+            Sm = decode_spiking(info.app, info.rank,
+                                a6[3], info.choices, sh.view.rule_neuron,
+                                T).reshape(B * T, -1).to(torch.float32)
+            Sm = Sm.to_sparse_csr()
+            Mf = sh.M_local.to(torch.float32)
+            l_ms = time_ms(lambda: torch.sparse.mm(Sm, Mf), iters)
+            del Sm, Mf
+        b_ms, b_by = _shard_sparse_bound(a7, h7, T)
+        rows[("B7", name)] = dict(S=S, B=B, T=T, mloc=mloc, H=H, ms=k_ms,
+                                  plain_ms=p_ms, library_ms=l_ms,
+                                  bound_ms=b_ms, bound_by=b_by)
+        lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
+        parts.append(f"B7 {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                     f"sparse.mm(S,M_local) {lib}, bound {b_ms:.6f} ms "
+                     f"({b_by}) = {k_ms / b_ms:.1f}x bound")
+        log(line + " | shard 0: " + "; ".join(parts))
+        del comp, shards, frontier, lv, halos
+        torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def _timed_sharded(tag, label, system, plan, backend, kernel, caps):
+    """One sharded explore with its launch counts (set to 0 just before,
+    read just after), wall time, host reads and peak memory."""
+    import torch
+    from repro_torch.core import device as devmod
+    from repro_torch.core.distributed import explore_distributed
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    devmod.host_reads = 0
+    t0 = time.perf_counter()
+    res = explore_distributed(system, plan=plan, backend=backend, **caps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, reads = read_counts(), devmod.host_reads
+    peak = torch.cuda.max_memory_allocated()
+    waves = res.steps
+    S = plan.num_shards
+    check_counts(f"{label} via {backend!r}", counts,
+                 **({kernel: S * waves} if kernel else {}))
+    log(f"[{tag}] {label} via {backend!r}: {waves} waves in {secs:.3f} s = "
+        f"{waves / secs:.3f} waves/s, {res.num_discovered} configs "
+        f"archived, flags b/f/v={res.branch_overflow}/"
+        f"{res.frontier_overflow}/{res.visited_overflow}, launches "
+        f"{json.dumps(counts)}, host reads {reads} "
+        f"({reads / max(waves, 1):.1f}/wave), max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    return res, (counts[kernel] if kernel else 0), peak
+
+
+def _against_single(tag, sharded, single, what):
+    """The comparison with a single-device archive: as a set with an equal
+    count where neither run flags an overflow (checked); whether it holds
+    in order, and as a set, is printed either way."""
+    import numpy as np
+    flags = lambda r: (r.branch_overflow, r.frontier_overflow,  # noqa: E731
+                       r.visited_overflow)
+    as_set = {tuple(r) for r in sharded.configs} == \
+        {tuple(r) for r in single.configs}
+    in_order = np.array_equal(sharded.configs, single.configs)
+    if not any(flags(sharded)) and not any(flags(single)):
+        check(as_set and sharded.num_discovered == single.num_discovered,
+              f"{what}: the sharded archive differs from the single-device "
+              "one as a set")
+        verdict = "equal as a set (checked: neither run overflowed)"
+    else:
+        verdict = (f"overflow flags b/f/v {flags(sharded)} sharded, "
+                   f"{flags(single)} single-device: the set comparison does "
+                   f"not apply; as a set {as_set}")
+    log(f"[{tag}] {what} against the single-device archive: {verdict}; "
+        f"identical in order: {in_order} ({sharded.num_discovered} vs "
+        f"{single.num_discovered} rows)")
+
+
+def phase_sharded(single_dense):
+    """Phase 14: ``explore_distributed(scaled_pi(682), neuron_axis(4))``,
+    contiguous and degree, through ``"cuda"`` (B6), ``"sparse_cuda"``
+    (B7), ``"ref"`` and ``"sparse"``: identical archives and flags, and
+    against phase 5's single-device archive.  Returns {kernel: {path:
+    launches}}."""
+    import torch
+    from repro_torch.core import compile_sharded, partition_stats
+    from repro_torch.core.generators import scaled_pi
+    from repro_torch.sharding import neuron_axis
+
+    system = scaled_pi(682)
+    launches = {"B6": {}, "B7": {}}
+    for part in ("contiguous", "degree"):
+        plan = neuron_axis(4, partition=part)
+        comp = compile_sharded(system, plan, device="cuda")
+        stats = partition_stats(comp.occupancy)
+        log(f"[14] scaled_pi(682) over 4 shards, {part}: mloc="
+            f"{comp.shard_size}, nloc={comp.arrays.rule_neuron.shape[1]}, "
+            f"Kin={comp.arrays.in_idx.shape[-1]}, Hmax={comp.halo_width} "
+            f"(halo {4 * comp.halo_width} slots a shard), occupancy "
+            f"imbalance {stats['imbalance']:.4f}")
+        del comp
+        label = f"explore_distributed(scaled_pi(682), neuron_axis(4, {part}))"
+        res = {}
+        for backend, kernel in (("cuda", "B6"), ("sparse_cuda", "B7"),
+                                ("ref", None), ("sparse", None)):
+            res[backend], n, _ = _timed_sharded("14", label, system, plan,
+                                                backend, kernel, SHARDED)
+            if kernel:
+                launches[kernel][f"sharded_{part}_explore"] = n
+            torch.cuda.empty_cache()
+        a = res["cuda"]
+        check(all(_same_explore(a, r) for r in res.values()),
+              f"{label}: archives or flags differ across the backends")
+        log(f"[14] {part}: archives and flags identical through 'cuda', "
+            f"'sparse_cuda', 'ref' and 'sparse' ({a.num_discovered} rows x "
+            f"{a.configs.shape[1]} neurons)")
+        _against_single("14", a, single_dense, f"{part} partition")
+        del res, a
+    return launches
+
+
+def phase_sharded_large():
+    """Phase 15: ``explore_distributed(ring_lattice(32768, 8, seed=2),
+    neuron_axis(4))`` through ``"sparse_cuda"`` (B7) and ``"sparse"``,
+    identical; against the single-device ``"sparse_cuda"`` explore at a
+    65,536-row archive.  Returns B7's launches."""
+    import torch
+    from repro_torch.core.generators import ring_lattice
+    from repro_torch.sharding import neuron_axis
+
+    system = ring_lattice(32768, 8, seed=2)
+    plan = neuron_axis(4)
+    label = "explore_distributed(ring_lattice(32768, 8), neuron_axis(4))"
+    a, b7, peak = _timed_sharded("15", label, system, plan, "sparse_cuda",
+                                 "B7", RING)
+    torch.cuda.empty_cache()
+    b, _, peak_plain = _timed_sharded("15", label, system, plan, "sparse",
+                                      None, RING)
+    check(_same_explore(a, b), f"{label}: archives or flags differ between "
+          "'sparse_cuda' and 'sparse'")
+    check(max(peak, peak_plain) < 60e9, "phase 15 allocated past 60 GB")
+    log(f"[15] archives identical through 'sparse_cuda' and 'sparse' "
+        f"({a.num_discovered} rows x {a.configs.shape[1]} neurons); peak "
+        f"allocation {peak / 2**30:.3f} / {peak_plain / 2**30:.3f} GiB")
+    del b
+    torch.cuda.empty_cache()
+    single, _, _ = _timed_explore(
+        "15", "explore(ring_lattice(32768, 8))", system, "sparse_cuda", "B2",
+        caps=dict(RING, visited_cap=65536))
+    _against_single("15", a, single, "ring_lattice(32768, 8)")
+    return b7
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1165,13 +1595,16 @@ def main() -> int:
         b1 = phase_paper()
         b1["full_width_explore"], dense_res = phase_full_width()
         b2 = {"full_width_ell_explore": phase_full_width_ell(dense_res)}
-        del dense_res
         b3 = {"full_width_hybrid_explore": phase_full_width_hybrid()}
         (b1["traces_first"], b1["traces_random"],
          b3["traces_random_hybrid"]) = phase_traces()
         delay_err, delay_rows = phase_delay_kernels()
         b4, b5e, b5c = phase_delay_full_width()
         delayed = phase_delay_paper_and_traces()
+        shard_err, shard_rows = phase_shard_kernels()
+        sharded = phase_sharded(dense_res)
+        del dense_res
+        sharded["B7"]["sharded_large_explore"] = phase_sharded_large()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1183,16 +1616,24 @@ def main() -> int:
                  "B3": "full_width_hybrid_explore",
                  "B4": "full_width_delayed_explore",
                  "B5-ELL": "full_width_delayed_ell_explore",
-                 "B5-COO": "full_width_delayed_hybrid_explore"}
-    by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed}
+                 "B5-COO": "full_width_delayed_hybrid_explore",
+                 "B6": "sharded_contiguous_explore",
+                 "B7": "sharded_contiguous_explore"}
+    by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded}
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
              "B3": sparse_rows["power_law(8192) hybrid wave"],
              "B4": delay_rows[("B4", "scaled_pi(682) delayed wave")],
              "B5-ELL": delay_rows[("B5-ELL", "scaled_pi(682) delayed wave")],
              "B5-COO": delay_rows[("B5-COO",
-                                   "power_law(8192) delayed hybrid wave")]}
-    errs = {"B1": dense_err, **sparse_err, **delay_err}
+                                   "power_law(8192) delayed hybrid wave")],
+             "B6": shard_rows[("B6", "scaled_pi(682) wave S=4")],
+             "B7": shard_rows[("B7", "scaled_pi(682) wave S=4")]}
+    # the shard kernels' other waves, beside their main path's
+    other_waves = {k: {name: row for (kk, name), row in shard_rows.items()
+                       if kk == k and row is not waves[k]}
+                   for k in ("B6", "B7")}
+    errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err}
     figures = []
     for k, meta in KERNELS.items():
         w = waves[k]
@@ -1201,11 +1642,12 @@ def main() -> int:
             launches_by_path=by_path[k], max_abs_err=errs[k], ms=w["ms"],
             plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
             bound_by=w["bound_by"], library_ms=w["library_ms"],
-            library_call=LIBRARY_CALL[k]))
-        log(f"[13] {k} {meta['name']} ({meta['route']}): "
+            library_call=LIBRARY_CALL[k],
+            **({"other_waves": other_waves[k]} if k in other_waves else {})))
+        log(f"[16] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[13] card: {card}")
+    log(f"[16] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@
   :mod:`.generators`);
 * :func:`compile_system`, :func:`compile_system_sparse` — the dense
   ``M_Π`` and the ELL/hybrid encodings (:mod:`.matrix`), chosen by a
-  :class:`SystemPlan` (:mod:`.plan`);
+  :class:`SystemPlan` (:mod:`.plan`), which also lowers a neuron-axis
+  partition (:func:`compile_sharded`);
 * :mod:`.semantics` — applicability, branch decode, ``C' = C + S·M``, the
   same step on the sparse encoding, and the delayed tier's steps on both
   (``SystemPlan(semantics="delays")``);
@@ -19,8 +20,9 @@
 
 from .backend import (CudaBackend, RefBackend, SparseBackend,
                       SparseCudaBackend, StepBackend, get_backend,
-                      resolve_entry)
-from .convert import compiled_from_arrays, system_from_spec
+                      resolve_entry, supports_sharded)
+from .convert import (compiled_from_arrays, sharded_from_arrays,
+                      system_from_spec)
 from .generators import with_delays
 from .engine import (ExploreResult, TraceOut, emission_gaps, explore,
                      resolve_dedup, run_trace, run_traces, successor_set)
@@ -28,7 +30,10 @@ from .hashtable import (HashTable, first_occurrence, insert_if_absent,
                         insert_unique, lookup, make_table, table_slots)
 from .matrix import (CompiledSNP, CompiledSparseSNP, compile_system,
                      compile_system_sparse, is_compiled, is_delayed)
-from .plan import SystemPlan, auto_hub_threshold
+from .plan import (DenseShardArrays, ShardArrays, ShardedCompiled,
+                   SystemPlan, auto_hub_threshold, compile_sharded,
+                   is_sharded, lower_shard_dense, partition_neurons,
+                   partition_stats)
 from .semantics import (applicability, branch_info, delayed_branch_info,
                         delayed_next_configs, delayed_packed_actions,
                         delayed_weight_matrix, next_configs,
@@ -42,8 +47,10 @@ __all__ = [
     "SNPSystem", "Rule", "paper_pi", "with_delays",
     "CompiledSNP", "CompiledSparseSNP", "compile_system",
     "compile_system_sparse", "is_compiled", "is_delayed",
-    "SystemPlan", "auto_hub_threshold",
-    "system_from_spec", "compiled_from_arrays",
+    "SystemPlan", "auto_hub_threshold", "ShardArrays", "DenseShardArrays",
+    "ShardedCompiled", "compile_sharded", "is_sharded", "lower_shard_dense",
+    "partition_neurons", "partition_stats",
+    "system_from_spec", "compiled_from_arrays", "sharded_from_arrays",
     "HashTable", "make_table", "table_slots", "lookup", "first_occurrence",
     "insert_unique", "insert_if_absent",
     "applicability", "branch_info", "next_configs", "spiking_vectors",
@@ -52,7 +59,7 @@ __all__ = [
     "delayed_weight_matrix", "delayed_packed_actions",
     "delayed_next_configs", "sparse_delayed_next_configs",
     "StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
-    "SparseCudaBackend", "get_backend", "resolve_entry",
+    "SparseCudaBackend", "get_backend", "resolve_entry", "supports_sharded",
     "explore", "resolve_dedup", "ExploreResult", "TraceOut", "successor_set",
     "emission_gaps", "run_trace", "run_traces",
 ]

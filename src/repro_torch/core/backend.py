@@ -24,10 +24,13 @@ B5) for an encoding compiled under ``semantics="delays"``.
 
 Each backend owns its lowering: ``supported_encodings(semantics)`` lists
 the plan encodings its step realizes under a semantics tier (first =
-native, what ``encoding="auto"`` resolves to), ``lower(compiled, plan)``
-checks a built encoding, and ``compile(system, plan, device)`` is the
-shared template :func:`_registry_compile`, which compiles under the
-plan's semantics.  A plan a backend cannot honour raises; it is never
+native, what ``encoding="auto"`` resolves to; ``"sharded"`` = it can step
+a neuron shard, delay-free only), ``lower(compiled, plan)`` checks a
+built encoding, and ``compile(system, plan, device)`` is the shared
+template :func:`_registry_compile`, which compiles under the plan's
+semantics, or to a :class:`~.plan.ShardedCompiled` for a plan with
+``num_shards > 1`` (``"cuda"``'s ``lower`` attaches the dense shard
+operands B6 reads).  A plan a backend cannot honour raises; it is never
 reinterpreted.
 """
 
@@ -42,14 +45,15 @@ from .device import DeviceLike
 from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
                      check_coo_metadata, compile_system,
                      compile_system_sparse, is_delayed)
-from .plan import SystemPlan
+from .plan import (SystemPlan, compile_sharded, is_sharded,
+                   lower_shard_dense)
 from .semantics import (StepOut, delayed_next_configs, next_configs,
                         sparse_delayed_next_configs, sparse_next_configs)
 from .system import SNPSystem
 
 __all__ = ["StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
            "SparseCudaBackend", "REFERENCE_NAME", "get_backend",
-           "resolve_entry"]
+           "resolve_entry", "supports_sharded"]
 
 #: port backend name -> the reference backend it must match bit for bit
 REFERENCE_NAME = {"ref": "ref", "cuda": "pallas", "sparse": "sparse",
@@ -87,9 +91,19 @@ def _registry_compile(backend: StepBackend, system: SNPSystem,
     """The ``compile`` every backend delegates to: resolve the plan's
     encoding against ``supported_encodings()`` under the plan's semantics
     tier, build it on ``device`` (``None`` = the card) under that tier,
-    hand it to ``lower``."""
+    hand it to ``lower``.  A plan with ``num_shards > 1`` lowers through
+    :func:`~.plan.compile_sharded` (which validates its encoding) for a
+    backend that declares ``"sharded"``."""
     plan = SystemPlan() if plan is None else plan
     sup = backend.supported_encodings(semantics=plan.semantics)
+    if plan.num_shards > 1:
+        if "sharded" not in sup:
+            raise ValueError(
+                f"backend {backend.name!r} cannot realize a neuron-axis "
+                f"sharded plan under semantics={plan.semantics!r} "
+                f"(supported encodings: {sup}); pick a backend whose "
+                "lowering supports 'sharded' there")
+        return backend.lower(compile_sharded(system, plan, device), plan)
     enc = sup[0] if plan.encoding == "auto" else plan.encoding
     if enc not in sup:
         raise ValueError(
@@ -132,9 +146,8 @@ def _flat_expand(step, configs, comp, max_branches) -> StepOut:
 class _Dense:
     def supported_encodings(self, semantics: str = "no_delays"
                             ) -> Tuple[str, ...]:
-        # both tiers, single-device (the reference adds "sharded" for
-        # no_delays, which arrives with ROADMAP item 7)
-        return ("dense",)
+        # the halo exchange carries spike counts only: no sharded delays
+        return ("dense",) if semantics == "delays" else ("dense", "sharded")
 
     def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
         return compiled
@@ -148,7 +161,8 @@ class _Dense:
 class _Sparse(_Dense):
     def supported_encodings(self, semantics: str = "no_delays"
                             ) -> Tuple[str, ...]:
-        return ("ell", "hybrid")
+        return ("ell", "hybrid") if semantics == "delays" \
+            else ("ell", "hybrid", "sharded")
 
     def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
         # Only a hand-built encoding can lack the COO metadata the step's
@@ -174,9 +188,15 @@ class RefBackend(_Dense):
 @dataclass(frozen=True)
 class CudaBackend(_Dense):
     """The hand-written dense step kernels: decode + S·M + C in one launch
-    (B1), or the delayed step (B4) for a delayed encoding."""
+    (B1), or the delayed step (B4) for a delayed encoding.  A neuron shard
+    steps through B6, on the dense operands ``lower`` attaches."""
 
     name: str = "cuda"
+
+    def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
+        if is_sharded(compiled):
+            return lower_shard_dense(compiled)
+        return compiled
 
     def expand(self, configs, comp, max_branches):
         # Imported here: the kernels package imports core.semantics, and
@@ -222,6 +242,13 @@ _REGISTRY: Dict[str, StepBackend] = {"ref": RefBackend(),
                                      "sparse_cuda": SparseCudaBackend()}
 
 BackendLike = Union[str, StepBackend, None]
+
+
+def supports_sharded(backend: StepBackend) -> bool:
+    """Whether ``backend`` declares the ``"sharded"`` encoding (for the
+    delay-free tier), so it may step a neuron shard."""
+    sup = getattr(backend, "supported_encodings", None)
+    return sup is not None and "sharded" in sup()
 
 
 def get_backend(name: BackendLike) -> StepBackend:

@@ -7,24 +7,29 @@
   ``repro.core.matrix.CompiledSNP`` / ``CompiledSparseSNP`` given as numpy
   arrays (``{k: np.asarray(v) for k, v in comp._asdict().items()}``; the
   sparse encoding is recognised by its ``in_idx`` field), delayed
-  encodings (``semantics="delays"``) included.
+  encodings (``semantics="delays"``) included;
+* :func:`sharded_from_arrays` rebuilds a :class:`~.plan.ShardedCompiled`
+  from the fields of a reference ``ShardedCompiled``'s ``arrays`` (and
+  optionally its ``dense`` view) as numpy arrays, plus its static ints.
 
-Both take plain Python and numpy values only, so this module never needs
+All take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
 from .matrix import CompiledAny, CompiledSNP, CompiledSparseSNP, in_neighbours
+from .plan import (DenseShardArrays, ShardArrays, ShardedCompiled,
+                   SystemPlan)
 from .system import Rule, SNPSystem
 
-__all__ = ["system_from_spec", "compiled_from_arrays"]
+__all__ = ["system_from_spec", "compiled_from_arrays", "sharded_from_arrays"]
 
 # Fields of the reference encodings the port does not carry: the dense
 # rule→neuron one-hot (the port gathers through rule_neuron) and the COO
@@ -35,7 +40,7 @@ _DERIVED = {CompiledSNP: ("neuron_onehot",), CompiledSparseSNP: ("coo_dst",)}
 _DELAY_FIELDS = {CompiledSNP: ("delay", "adjacency", "out_neuron"),
                  CompiledSparseSNP: ("delay",)}
 
-_DTYPES = {"covering": torch.bool}
+_DTYPES = {"covering": torch.bool, "hadj": torch.int8}
 
 
 def system_from_spec(spec: Mapping[str, Any]) -> SNPSystem:
@@ -96,3 +101,45 @@ def compiled_from_arrays(fields: Mapping[str, Any],
             out[k] = torch.from_numpy(arr).to(
                 device=dev, dtype=_DTYPES.get(k, torch.int32))
     return cls(**out)
+
+
+def sharded_from_arrays(arrays: Mapping[str, Any],
+                        dense: Optional[Mapping[str, Any]] = None, *,
+                        num_neurons: int, num_rules: int, shard_size: int,
+                        num_shards: int, halo_width: int,
+                        partition: str = "contiguous", occupancy=None,
+                        device: DeviceLike = None) -> ShardedCompiled:
+    """A :class:`~.plan.ShardedCompiled` on ``device`` from a reference
+    lowering: ``arrays`` are the fields of its ``ShardArrays`` and
+    ``dense`` (optional) those of its ``DenseShardArrays``, as numpy
+    arrays; the keywords are its static ints and its plan's partition.
+    The reference's dense ``onehot`` is accepted and not carried (B6
+    reads ``rule_neuron``)."""
+    dev = resolve_device(device)
+
+    def build(cls, fields, derived=()):
+        unknown = set(fields) - set(cls._fields) - set(derived)
+        if unknown:
+            raise ValueError(f"unknown {cls.__name__} fields "
+                             f"{sorted(unknown)}")
+        out = {}
+        for k in cls._fields:
+            arr = np.array(fields[k], copy=True)     # writable, contiguous
+            if k != "rule_slots" and arr.shape[:1] != (num_shards,):
+                raise ValueError(
+                    f"{k} has shape {arr.shape}, expected a leading shard "
+                    f"axis of {num_shards}")
+            out[k] = torch.from_numpy(arr).to(
+                device=dev, dtype=_DTYPES.get(k, torch.int32))
+        return cls(**out)
+
+    return ShardedCompiled(
+        arrays=build(ShardArrays, arrays),
+        plan=SystemPlan(encoding="ell", num_shards=num_shards,
+                        partition=partition),
+        num_neurons=int(num_neurons), num_rules=int(num_rules),
+        shard_size=int(shard_size), num_shards=int(num_shards),
+        halo_width=int(halo_width),
+        dense=None if dense is None else build(DenseShardArrays, dense,
+                                               ("onehot",)),
+        occupancy=None if occupancy is None else np.asarray(occupancy))

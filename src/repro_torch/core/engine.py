@@ -57,6 +57,10 @@ def _resolve_comp(system, be: StepBackend, plan: Optional[SystemPlan],
     card): a compiled encoding passes through ``be.lower`` (which refuses
     one its step cannot realize), a system is lowered by ``be.compile``
     under ``plan``."""
+    if plan is not None and plan.num_shards > 1:
+        raise ValueError(
+            "plan.num_shards > 1 (neuron-axis sharding) is only consumed "
+            "by repro_torch.core.distributed.explore_distributed")
     dev = resolve_device(device)
     if is_compiled(system):
         if plan is not None and (plan.semantics == "delays") != \

@@ -1,9 +1,14 @@
 """64-bit configuration hashing (2 x uint32 lanes) for on-device dedup.
 
-The port of ``repro.core.hashing.config_hash``: a per-element multiply and
-shift-xor folded by two position-salted polynomial accumulators, then a
-murmur3 finalizer per lane.  It gives the reference's ``(hi, lo)`` lanes
-bit for bit.
+The port of ``repro.core.hashing``, bit for bit:
+
+* :func:`config_hash` — a per-element multiply and shift-xor folded by two
+  position-salted polynomial accumulators, then a murmur3 finalizer per
+  lane (the single-device engine's key);
+* :func:`zobrist_hash` — each (global position, value) pair finalized on
+  its own and the lanes summed mod 2^32, so the hashes of disjoint column
+  slices add up to the hash of the whole row (the neuron-sharded
+  frontier's key: each shard hashes its slice, one sum combines them).
 
 uint32 arithmetic in int64.  Torch's ``uint32`` has few operators, so
 every lane value is held in int64 in ``[0, 2^32)``.  A product of two such
@@ -18,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["config_hash", "SENTINEL", "fmix32", "mul32"]
+__all__ = ["config_hash", "zobrist_hash", "SENTINEL", "fmix32", "mul32"]
 
 M32 = 0xFFFFFFFF
 # Sorts after every real hash; used for invalid / empty slots.
@@ -27,6 +32,14 @@ SENTINEL = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _P1 = 0x01000193  # FNV prime
 _P2 = 0x85EBCA77
+_Z1 = 0x9E3779B1
+_Z2 = 0x85EBCA77
+_ZV1 = 0x27D4EB2F
+_ZV2 = 0x165667B1
+
+# Both hashes make a dozen int64 temporaries the size of their input; rows
+# are hashed in blocks of at most this many entries to bound that memory.
+_BLOCK_ENTRIES = 1 << 26
 
 
 def mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -54,22 +67,68 @@ def _pow_vector(p: int, m: int) -> np.ndarray:
     return out
 
 
+def _by_rows(fn, configs: torch.Tensor):
+    """``fn(configs)`` on blocks of whole rows of at most
+    :data:`_BLOCK_ENTRIES` entries, the lanes concatenated (a row's hash
+    reads that row only, so the result is the same)."""
+    if configs.numel() <= _BLOCK_ENTRIES:
+        return fn(configs)
+    k = configs.shape[-1]
+    rows = configs.reshape(-1, k)
+    step = max(1, _BLOCK_ENTRIES // k)
+    parts = [fn(rows[i:i + step]) for i in range(0, rows.shape[0], step)]
+    return tuple(torch.cat([p[j] for p in parts]).reshape(configs.shape[:-1])
+                 for j in range(2))
+
+
 def config_hash(configs: torch.Tensor):
     """Hash int32 configs (..., m) to two lanes ``(hi, lo)``: int64 tensors
     holding the reference's uint32 values (negative entries wrap mod 2^32
     as the reference's cast does)."""
     m = configs.shape[-1]
     dev = configs.device
-    x = configs.to(torch.int64) & M32
     pos = torch.from_numpy(
         (np.arange(m, dtype=np.int64) * _GOLDEN) % (1 << 32)).to(dev)
-    y = mul32((x + pos) & M32, 0x85EBCA6B)
-    y = y ^ (y >> 16)
     p1 = torch.from_numpy(_pow_vector(_P1, m)).to(dev)
     p2 = torch.from_numpy(_pow_vector(_P2, m)).to(dev)
-    # each term < 2^32, so the int64 sum of m < 2^31 terms cannot overflow
-    h1 = mul32(y, p1).sum(-1) & M32
-    h2 = mul32(y ^ _GOLDEN, p2).sum(-1) & M32
-    hi = fmix32(h1 ^ m)
-    lo = fmix32((h2 + (m * _GOLDEN) % (1 << 32)) & M32)
-    return hi, lo
+
+    def lanes(rows):
+        x = rows.to(torch.int64) & M32
+        y = mul32((x + pos) & M32, 0x85EBCA6B)
+        y = y ^ (y >> 16)
+        # each term < 2^32, so the int64 sum of m < 2^31 terms cannot
+        # overflow
+        h1 = mul32(y, p1).sum(-1) & M32
+        h2 = mul32(y ^ _GOLDEN, p2).sum(-1) & M32
+        hi = fmix32(h1 ^ m)
+        lo = fmix32((h2 + (m * _GOLDEN) % (1 << 32)) & M32)
+        return hi, lo
+
+    return _by_rows(lanes, configs)
+
+
+def zobrist_hash(configs: torch.Tensor, offset=0, positions=None):
+    """Sum-combinable hash of config slices (..., k): ``(hi, lo)`` int64
+    lanes holding the reference's uint32 values.  Column ``c`` sits at
+    global position ``offset + c``, or ``positions[c]`` when given (a
+    degree partition's columns are not a contiguous range), and
+
+        ``zobrist(c) == Σ_d zobrist(c[:, lo_d:hi_d], offset=lo_d)  (mod 2^32)``
+    """
+    dev = configs.device
+    k = configs.shape[-1]
+    if positions is not None:
+        pos = torch.as_tensor(positions, device=dev).to(torch.int64)
+    else:
+        pos = torch.arange(k, dtype=torch.int64, device=dev) + offset
+    pos = (pos + 1) & M32
+    pos_hi, pos_lo = mul32(pos, _Z1), (mul32(pos, _Z2) + _GOLDEN) & M32
+
+    def lanes(rows):
+        x = rows.to(torch.int64) & M32
+        # each term < 2^32, so the int64 sum of k < 2^31 terms is exact
+        hi = fmix32(pos_hi ^ mul32(x, _ZV1)).sum(-1) & M32
+        lo = fmix32((pos_lo + mul32(x, _ZV2)) & M32).sum(-1) & M32
+        return hi, lo
+
+    return _by_rows(lanes, configs)

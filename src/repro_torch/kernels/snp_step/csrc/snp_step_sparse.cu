@@ -1,13 +1,15 @@
 // Sparse SNP transition step for Hopper (sm_90a), bound with ctypes:
-// kernels B2, B3 (delay-free) and B5 (delayed).
+// kernels B2, B3 (delay-free), B5 (delayed) and B7 (one neuron shard).
 //
-// Replaces the unsharded bodies of the TPU kernel
+// Replaces the bodies of the TPU kernel
 // src/repro/kernels/snp_step/sparse_kernel.py::snp_step_sparse_pallas:
 // the ELL body _make_kernel(has_coo=False), the hybrid body
-// _make_kernel(has_coo=True) (B2, B3) and their delayed bodies
-// (has_delay=True, B5), here one template with the COO stage and the
-// delay stage as flags.  For every config b and branch id t < T it
-// computes
+// _make_kernel(has_coo=True) (B2, B3), their delayed bodies
+// (has_delay=True, B5) and the shard body (has_halo=True, B7, wrapper
+// sparse_ops.py::snp_step_sparse_shard), here one template with the COO
+// stage, the delay stage and the halo as flags (the halo excludes the
+// other two, as sparse_kernel.py:76 asserts).  For every config b and
+// branch id t < T it computes
 //
 //   d[b,t,mu]     = (t / stride[b,mu]) % choices[b,mu]    (float32, exact)
 //   packed[b,t,mu] = tab[b, mu, d]            (produce | consume << 16)
@@ -19,6 +21,14 @@
 //
 // where produce/consume are the fired rule's, and index m (ELL padding,
 // no output neuron) reads a zero slot.
+//
+// The shard body (HAS_HALO): the neuron axis is one shard's mloc local
+// neurons, and in_idx indexes the extended space [local (m) | halo (H) |
+// zero]: slot m + s holds halo[b,t,s], the fired produce of a remote
+// in-neighbour that the halo exchange delivered, and m + H is the zero
+// slot, which the wrapper passes as out_neuron (the sharded explore
+// judges emissions).  Halo values are fired produce, below 2^16, so they fit the
+// stage too.
 //
 // The delay stage (HAS_DELAY; C is the spikes slice of a [spikes |
 // countdown | pending] state row, tab the emit-now table produce*(d==0) |
@@ -64,9 +74,11 @@
 // in VMEM because any in_idx[j,k] may point at any neuron.  Here a block
 // owns one config b and BT branch ids and stages the fired produce of its
 // BT rows in shared memory as uint16 (compile_system_sparse guarantees
-// produce < 2^16): BT*(m+1)*2 bytes, BT a power of two up to 8 chosen so
-// the stage stays within 64 KB where m allows (one row at m = 32768 is
-// 64 KB).  Phase 1 decodes and stages; phase 2 gives each thread a neuron
+// produce < 2^16): BT*(m+H+1)*2 bytes (H = 0 but for a shard), BT a power
+// of two up to 8 chosen so the stage stays within 64 KB where m allows
+// (one row at m = 32768 is 64 KB).  The shard body copies its rows' halo
+// into the stage after the local produce; phase 2 then gathers local and
+// remote in-neighbours alike.  Phase 1 decodes and stages; phase 2 gives each thread a neuron
 // j, recomputes its fired consume (a second table read, instead of a
 // second shared array), gathers its in-synapses from shared memory for
 // all BT rows (one in_idx read serves BT branches), and writes BT output
@@ -77,7 +89,7 @@
 // sums (mod 2^32).  Sums are unsigned 32-bit, so wraparound is defined and
 // equals the reference's int32 arithmetic.  A system past
 // snp_step_sparse_max_neurons() (one row no longer fits a block's 227 KB)
-// is refused with an error.
+// (m + H for a shard) is refused with an error.
 // Coalescing in_idx (it is read row-major, Kin ints per thread), a
 // persistent grid and warp-per-neuron gathers for hubs are later work.
 //
@@ -105,7 +117,7 @@ __device__ __forceinline__ int digit(int t, float s, float c) {
   return (int)(q - c * floorf(q / c));
 }
 
-template <bool HAS_COO, bool HAS_DELAY>
+template <bool HAS_COO, bool HAS_DELAY, bool HAS_HALO>
 __global__ void __launch_bounds__(THREADS)
 snp_step_sparse_kernel(const int* __restrict__ configs,
                        const float* __restrict__ stride,
@@ -120,19 +132,22 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
                        const int* __restrict__ dtab,
                        const int* __restrict__ cd,
                        const int* __restrict__ pd,
+                       const int* __restrict__ halo,
                        int* __restrict__ out,
                        unsigned char* __restrict__ valid,
                        int* __restrict__ emis,
-                       int T, int m, int R, int Kin, int Hn, int bt,
+                       int T, int m, int R, int Kin, int Hn, int H, int bt,
                        int t_tiles) {
-  extern __shared__ unsigned short prod_s[];   // [bt][m + 1]
+  static_assert(!(HAS_HALO && (HAS_COO || HAS_DELAY)),
+                "the shard body has neither a COO nor a delay stage");
+  extern __shared__ unsigned short prod_s[];   // [bt][m + H + 1]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.x / t_tiles;
   const int t0 = (blockIdx.x % t_tiles) * bt;
   const int nt = min(bt, T - t0);
-  const int ms = m + 1;
+  const int ms = m + H + 1;                    // stage row; m + H is zero
   const size_t row_b = (size_t)b * m;
   const int W = HAS_DELAY ? 3 * m : m;         // output row width
 
@@ -150,7 +165,12 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
         prod_s[r * ms + j] = (unsigned short)(
             (tab_j[digit(t0 + r, s, c)] & 0xFFFF) + pending);
   }
-  if (tid < nt) prod_s[tid * ms + m] = 0;      // the zero slot
+  if constexpr (HAS_HALO) {                    // remote produce after it
+    const int* halo_b = halo + ((size_t)b * T + t0) * H;
+    for (int i = tid; i < nt * H; i += THREADS)
+      prod_s[(i / H) * ms + m + i % H] = (unsigned short)halo_b[i];
+  }
+  if (tid < nt) prod_s[tid * ms + m + H] = 0;  // the zero slot
   __syncthreads();
 
   // 2. one neuron per thread: C - consume + in-synapses (+ hub tail);
@@ -240,55 +260,57 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
   if (tid < nt) {
     const int t = t0 + tid;
     const int o = out_neuron[0];
-    emis[(size_t)b * T + t] = (int)prod_s[tid * ms + (o < m ? o : m)];
+    emis[(size_t)b * T + t] = (int)prod_s[tid * ms + (o < m ? o : m + H)];
     valid[(size_t)b * T + t] = (float)t < psi[b];
   }
 }
 
 // Rows per block: the largest power of two <= BT_MAX (and <= T) whose
-// stage fits STAGE_TARGET; 1 when even one row is larger.
-int rows_per_block(int m, int T) {
+// stage of w entries a row fits STAGE_TARGET; 1 when even one row is
+// larger.
+int rows_per_block(int w, int T) {
   int bt = BT_MAX;
-  while (bt > 1 && (bt > T || (size_t)bt * (m + 1) * 2 > STAGE_TARGET))
+  while (bt > 1 && (bt > T || (size_t)bt * w * 2 > STAGE_TARGET))
     bt >>= 1;
   return bt;
 }
 
-template <bool HAS_COO, bool HAS_DELAY>
+template <bool HAS_COO, bool HAS_DELAY, bool HAS_HALO>
 int launch(const void* configs, const void* stride, const void* choices,
            const void* psi, const void* tab, const void* in_idx,
            const void* out_neuron, const void* coo_src,
            const void* coo_bounds, const void* hub_slot, const void* dtab,
-           const void* cd, const void* pd, void* out, void* valid,
-           void* emis, int B, int T, int m, int R, int Kin, int Hn,
-           cudaStream_t stream) {
-  const int bt = rows_per_block(m, T);
+           const void* cd, const void* pd, const void* halo, void* out,
+           void* valid, void* emis, int B, int T, int m, int R, int Kin,
+           int Hn, int H, cudaStream_t stream) {
+  const int bt = rows_per_block(m + H + 1, T);
   const int t_tiles = (T + bt - 1) / bt;
-  const size_t smem = (size_t)bt * (m + 1) * 2;
+  const size_t smem = (size_t)bt * (m + H + 1) * 2;
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)B * t_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        snp_step_sparse_kernel<HAS_COO, HAS_DELAY>,
+        snp_step_sparse_kernel<HAS_COO, HAS_DELAY, HAS_HALO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  snp_step_sparse_kernel<HAS_COO, HAS_DELAY>
+  snp_step_sparse_kernel<HAS_COO, HAS_DELAY, HAS_HALO>
       <<<(unsigned)blocks, THREADS, smem, stream>>>(
           (const int*)configs, (const float*)stride, (const int*)choices,
           (const float*)psi, (const int*)tab, (const int*)in_idx,
           (const int*)out_neuron, (const int*)coo_src,
           (const int*)coo_bounds, (const int*)hub_slot, (const int*)dtab,
-          (const int*)cd, (const int*)pd, (int*)out, (unsigned char*)valid,
-          (int*)emis, T, m, R, Kin, Hn, bt, t_tiles);
+          (const int*)cd, (const int*)pd, (const int*)halo, (int*)out,
+          (unsigned char*)valid, (int*)emis, T, m, R, Kin, Hn, H, bt,
+          t_tiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The largest m one block's shared-memory stage holds (one uint16 row of
-// m + 1 entries in 227 KB).
+// The largest m (m + H for a shard) one block's shared-memory stage holds
+// (one uint16 row of m + 1 entries in 227 KB).
 extern "C" int snp_step_sparse_max_neurons() { return SMEM_LIMIT / 2 - 1; }
 
 // C entry point: launches one kernel on `stream` (PyTorch's current
@@ -297,30 +319,35 @@ extern "C" int snp_step_sparse_max_neurons() { return SMEM_LIMIT / 2 - 1; }
 // choices (B,m), stride (B,m) float32, psi (B,) float32, tab (B,m,R),
 // in_idx (m,Kin), out_neuron (1,); with has_coo != 0 also coo_src (Ec,),
 // coo_bounds (Hn+1,) and hub_slot (m,); with has_delay != 0 also dtab
-// (B,m,R), cd and pd (B,m).  Outputs: out (B,T,m), or (B,T,3m) with
-// has_delay, valid (B,T) bool, emis (B,T).
+// (B,m,R), cd and pd (B,m); with has_halo != 0 (and neither of the other
+// two) halo (B,T,H), in_idx indexing [local | halo | zero] and out_neuron
+// the zero slot m + H.  Outputs: out (B,T,m), or (B,T,3m) with has_delay,
+// valid (B,T) bool, emis (B,T).
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
                                const void* tab, const void* in_idx,
                                const void* out_neuron, const void* coo_src,
                                const void* coo_bounds, const void* hub_slot,
                                const void* dtab, const void* cd,
-                               const void* pd, void* out, void* valid,
-                               void* emis, int B, int T, int m, int R,
-                               int Kin, int Hn, int has_coo, int has_delay,
-                               void* stream) {
+                               const void* pd, const void* halo, void* out,
+                               void* valid, void* emis, int B, int T, int m,
+                               int R, int Kin, int Hn, int H, int has_coo,
+                               int has_delay, int has_halo, void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
+  if (has_halo && (has_coo || has_delay)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define SNP_LAUNCH(COO, DELAY)                                             \
-  return launch<COO, DELAY>(configs, stride, choices, psi, tab, in_idx,    \
-                            out_neuron, coo_src, coo_bounds, hub_slot,     \
-                            dtab, cd, pd, out, valid, emis, B, T, m, R,    \
-                            Kin, Hn, s)
+#define SNP_LAUNCH(COO, DELAY, HALO)                                       \
+  return launch<COO, DELAY, HALO>(configs, stride, choices, psi, tab,      \
+                                  in_idx, out_neuron, coo_src, coo_bounds, \
+                                  hub_slot, dtab, cd, pd, halo, out,       \
+                                  valid, emis, B, T, m, R, Kin, Hn,        \
+                                  HALO ? H : 0, s)
+  if (has_halo) SNP_LAUNCH(false, false, true);
   if (has_coo) {
-    if (has_delay) SNP_LAUNCH(true, true);
-    SNP_LAUNCH(true, false);
+    if (has_delay) SNP_LAUNCH(true, true, false);
+    SNP_LAUNCH(true, false, false);
   }
-  if (has_delay) SNP_LAUNCH(false, true);
-  SNP_LAUNCH(false, false);
+  if (has_delay) SNP_LAUNCH(false, true, false);
+  SNP_LAUNCH(false, false, false);
 #undef SNP_LAUNCH
 }

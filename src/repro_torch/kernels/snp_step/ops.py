@@ -19,10 +19,17 @@ then the plain version
 :func:`~repro_torch.core.semantics.delayed_next_configs` on valid
 entries.
 
+:func:`snp_step_dense_shard` steps one neuron shard of the sharded
+frontier (its branch bookkeeping and halo come from the sharded explore,
+:mod:`repro_torch.core.distributed`): the plain version
+(:func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_shard_ref`) on a
+CPU tensor, the shard body of ``csrc/snp_step_dense.cu`` (B6) on a CUDA
+tensor, or it raises.
+
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` and ``plain_calls`` count launches of B1 and calls of
 its plain version, ``delay_launches`` and ``delay_plain_calls`` the same
-for B4.
+for B4, ``shard_launches`` and ``shard_plain_calls`` for B6.
 """
 
 from __future__ import annotations
@@ -36,13 +43,16 @@ from ...core.matrix import CompiledSNP, is_delayed
 from ...core.semantics import (branch_info, clamp_stride,
                                delayed_branch_info, split_state)
 from ._build import load_library
-from .ref import snp_step_dense_delay_ref, snp_step_dense_ref
+from .ref import (snp_step_dense_delay_ref, snp_step_dense_ref,
+                  snp_step_dense_shard_ref)
 from .sparse_ops import _check
 
 __all__ = ["snp_step", "snp_step_dense", "snp_step_dense_delay",
+           "snp_step_dense_shard", "snp_step_dense_shard_cuda",
            "delay_inputs", "load_kernel", "load_delay_kernel",
            "delay_max_neurons", "SOURCE", "DELAY_SOURCE", "kernel_launches",
-           "plain_calls", "delay_launches", "delay_plain_calls"]
+           "plain_calls", "delay_launches", "delay_plain_calls",
+           "shard_launches", "shard_plain_calls"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
 DELAY_SOURCE = SOURCE.with_name("snp_step_dense_delay.cu")
@@ -51,6 +61,8 @@ kernel_launches = 0
 plain_calls = 0
 delay_launches = 0
 delay_plain_calls = 0
+shard_launches = 0
+shard_plain_calls = 0
 
 
 def load_kernel():
@@ -60,6 +72,10 @@ def load_kernel():
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    shard = lib.snp_step_dense_shard
+    shard.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    shard.restype = ctypes.c_int
     return lib
 
 
@@ -177,6 +193,68 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
             f"snp_step_dense_delay launch failed: CUDA error {rc}")
     delay_launches += 1
     return out, valid, emis
+
+
+def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
+                              rule_neuron, M_local, hadj, halo,
+                              max_branches: int):
+    """Launch B6 on CUDA tensors: ``out (B,T,mloc) int32``, the contract
+    of :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_shard_ref`
+    (``stride`` int32, clamped)."""
+    global shard_launches
+    dev = configs.device
+    B, m = configs.shape
+    n = rank.shape[-1]
+    H = hadj.shape[0]
+    T = int(max_branches)
+    i32 = torch.int32
+    for name, x, dtype, shape in (
+            ("configs", configs, i32, (B, m)), ("rank", rank, i32, (B, n)),
+            ("app", app, torch.bool, (B, n)), ("stride", stride, i32, (B, m)),
+            ("choices", choices, i32, (B, m)),
+            ("psi", psi, torch.float32, (B,)),
+            ("rule_neuron", rule_neuron, i32, (n,)),
+            ("M_local", M_local, i32, (n, m)),
+            ("hadj", hadj, torch.int8, (H, m)),
+            ("halo", halo, i32, (B, T, H))):
+        _check(name, x, dtype, shape, dev)
+    if T < 1:
+        raise ValueError(f"max_branches must be >= 1, got {T}")
+    fn = load_kernel().snp_step_dense_shard
+    out = torch.empty((B, T, m), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(x.data_ptr() for x in (
+            configs, rank, app, stride, choices, psi, rule_neuron, M_local,
+            hadj, halo, out)), B, T, n, m, H, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"snp_step_dense_shard launch failed: CUDA error {rc}")
+    shard_launches += 1
+    return out
+
+
+def snp_step_dense_shard(configs: torch.Tensor, rank: torch.Tensor,
+                         app: torch.Tensor, stride: torch.Tensor,
+                         choices: torch.Tensor, psi: torch.Tensor,
+                         rule_neuron: torch.Tensor, M_local: torch.Tensor,
+                         hadj: torch.Tensor, halo: torch.Tensor, *,
+                         max_branches: int) -> torch.Tensor:
+    """One shard's candidate slices ``(B, T, mloc)``: ``C + halo·hadj +
+    S·M_local``, ``S`` decoded from the shard's local rules (``rank``,
+    ``app`` (B, nloc) over ``rule_neuron``) with the cross-shard float32
+    ``stride`` (clamped to 2^30 here) and ``choices`` (B, mloc);
+    ``halo`` (B, T, S·Hmax) is the exchanged remote produce.  The plain
+    version on a CPU tensor, B6 on a CUDA tensor."""
+    global shard_plain_calls
+    args = (configs.contiguous(), rank.contiguous(), app.contiguous(),
+            clamp_stride(stride).contiguous(), choices.contiguous(),
+            psi.contiguous(), rule_neuron, M_local, hadj,
+            halo.contiguous())
+    if configs.device.type == "cpu":
+        shard_plain_calls += 1
+        return snp_step_dense_shard_ref(*args, max_branches)
+    return snp_step_dense_shard_cuda(*args, max_branches)
 
 
 def delay_inputs(configs: torch.Tensor, comp: CompiledSNP):

@@ -6,7 +6,9 @@ decode (:mod:`repro_torch.core.semantics`), so the kernel is held against
 the math the rest of the port runs on:
 
 * :func:`snp_step_dense_ref` — B1, ``C + S·M``;
-* :func:`snp_step_dense_delay_ref` — B4, the delayed step.
+* :func:`snp_step_dense_delay_ref` — B4, the delayed step;
+* :func:`snp_step_dense_shard_ref` — B6, ``C + halo·hadj + S·M_local``
+  for one neuron shard.
 
 The wrapper uses them for tensors on the CPU; ``chip_smoke.py`` compares
 the kernels with them on the card.
@@ -18,7 +20,8 @@ import torch
 
 from ...core.semantics import decode_spiking, transition
 
-__all__ = ["snp_step_dense_ref", "snp_step_dense_delay_ref"]
+__all__ = ["snp_step_dense_ref", "snp_step_dense_delay_ref",
+           "snp_step_dense_shard_ref"]
 
 
 def snp_step_dense_ref(configs, rank, app, stride, choices, psi,
@@ -80,3 +83,19 @@ def snp_step_dense_delay_ref(spikes, cd, pd, rank, app, stride, choices,
     emis = emit_pad.index_select(-1, out_neuron)[..., 0]
     return (torch.cat([spikes_next, cd_next, pd_next], -1),
             t < psi.unsqueeze(-1), emis)
+
+
+def snp_step_dense_shard_ref(configs, rank, app, stride, choices, psi,
+                             rule_neuron, M_local, hadj, halo,
+                             max_branches: int):
+    """``out (B,T,mloc) int32 = C + halo·hadj + S·M_local`` for one shard
+    and every branch ``t < max_branches``: ``S`` decoded as for B1 from the
+    shard's local rules (``rule_neuron`` maps them to its columns, strides
+    already combined across shards and clamped), ``halo`` (B,T,H) the
+    remote produce and ``hadj`` (H,mloc) its 0/1 in-adjacency.  The halo
+    term adds each halo slot into the columns it feeds, in int32."""
+    S = decode_spiking(app, rank, stride, choices, rule_neuron, max_branches)
+    out, _ = transition(configs, S, M_local,
+                        torch.zeros_like(rule_neuron))
+    src, dst = hadj.nonzero(as_tuple=True)
+    return out.index_add_(-1, dst, halo.index_select(-1, src))

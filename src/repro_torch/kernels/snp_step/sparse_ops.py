@@ -20,12 +20,18 @@ below 2^16, which every state a compiled system reaches is (the kernel
 stages the emit-now vector as uint16; ``csrc/snp_step_sparse.cu`` gives
 the argument).
 
+
+:func:`snp_step_sparse_shard` steps one neuron shard of the sharded
+frontier (its bookkeeping and halo come from the sharded explore,
+:mod:`repro_torch.core.distributed`): the plain version with its
+``halo`` on a CPU tensor, the kernel's shard body (B7) on a CUDA tensor.
+
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` counts launches of the kernel, ``coo_launches`` those
 of them that ran the COO stage, ``delay_launches`` those that ran the
-delay stage and ``delay_coo_launches`` those that ran both;
-``plain_calls`` counts calls of the plain version.  :func:`body_counts`
-splits the launches by body.
+delay stage, ``delay_coo_launches`` those that ran both and
+``halo_launches`` those of the shard body; ``plain_calls`` counts calls
+of the plain version.  :func:`body_counts` splits the launches by body.
 """
 
 from __future__ import annotations
@@ -39,9 +45,10 @@ from ...core.matrix import CompiledSparseSNP
 from ._build import load_library
 from .sparse_ref import snp_step_sparse_ref, sparse_step
 
-__all__ = ["snp_step_sparse", "snp_step_sparse_cuda", "load_kernel",
-           "max_neurons", "SOURCE", "MAX_BRANCHES", "kernel_launches",
-           "coo_launches", "delay_launches", "delay_coo_launches",
+__all__ = ["snp_step_sparse", "snp_step_sparse_cuda",
+           "snp_step_sparse_shard", "load_kernel", "max_neurons", "SOURCE",
+           "MAX_BRANCHES", "kernel_launches", "coo_launches",
+           "delay_launches", "delay_coo_launches", "halo_launches",
            "plain_calls", "body_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
@@ -54,24 +61,27 @@ kernel_launches = 0
 coo_launches = 0
 delay_launches = 0
 delay_coo_launches = 0
+halo_launches = 0
 plain_calls = 0
 
 
 def body_counts():
     """Launches per body since the counters were last set to 0: ``ell``
-    (B2), ``coo`` (B3), ``ell_delay`` and ``coo_delay`` (B5)."""
+    (B2), ``coo`` (B3), ``ell_delay`` and ``coo_delay`` (B5), ``halo``
+    (B7)."""
     return {"ell": kernel_launches - coo_launches - delay_launches
-            + delay_coo_launches,
+            + delay_coo_launches - halo_launches,
             "coo": coo_launches - delay_coo_launches,
             "ell_delay": delay_launches - delay_coo_launches,
-            "coo_delay": delay_coo_launches}
+            "coo_delay": delay_coo_launches,
+            "halo": halo_launches}
 
 
 def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
     lib = load_library(SOURCE)
     fn = lib.snp_step_sparse
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snp_step_sparse_max_neurons.argtypes = []
@@ -80,8 +90,9 @@ def load_kernel():
 
 
 def max_neurons() -> int:
-    """The largest system (neurons) the kernel takes: one row of fired
-    produce must fit a block's shared memory."""
+    """The largest system (neurons; for a shard, its neurons plus its halo
+    slots) the kernel takes: one row of fired produce must fit a block's
+    shared memory."""
     return int(load_kernel().snp_step_sparse_max_neurons())
 
 
@@ -102,14 +113,16 @@ def _check(name, x, dtype, shape, dev):
 
 def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
                          out_neuron, coo_src=None, coo_bounds=None,
-                         hub_slot=None, dtab=None, cd=None, pd=None, *,
-                         max_branches: int):
+                         hub_slot=None, dtab=None, cd=None, pd=None,
+                         halo=None, *, max_branches: int):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid
     (B,T) bool, emis (B,T) int32)``, the plain version's contract.
     ``coo_src``/``coo_bounds``/``hub_slot`` (all or none) select the COO
     stage, ``dtab``/``cd``/``pd`` (all or none) the delay stage, whose
-    rows are ``3m`` wide."""
+    rows are ``3m`` wide, ``halo`` (B, T, H) the shard body (with neither
+    of the other two; its entries are fired produce, below 2^16)."""
     global kernel_launches, coo_launches, delay_launches, delay_coo_launches
+    global halo_launches
     dev = configs.device
     B, m = configs.shape
     R, Kin = tab.shape[-1], in_idx.shape[-1]
@@ -121,7 +134,12 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
     has_delay = dtab is not None
     if has_delay != (cd is not None) or has_delay != (pd is not None):
         raise ValueError("dtab, cd and pd come together")
+    has_halo = halo is not None
+    if has_halo and (has_coo or has_delay):
+        raise ValueError("the shard body (halo) has neither a COO nor a "
+                         "delay stage")
     Hn = coo_bounds.shape[0] - 1 if has_coo else 0
+    H = halo.shape[-1] if has_halo else 0
     i32, f32 = torch.int32, torch.float32
     checks = [("configs", configs, i32, (B, m)),
               ("stride", stride, f32, (B, m)),
@@ -135,15 +153,17 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
     if has_delay:
         checks += [("dtab", dtab, i32, (B, m, R)), ("cd", cd, i32, (B, m)),
                    ("pd", pd, i32, (B, m))]
+    if has_halo:
+        checks += [("halo", halo, i32, (B, T, H))]
     for name, x, dtype, shape in checks:
         _check(name, x, dtype, shape, dev)
     _check_branches(T)
     lib = load_kernel()
-    if m > max_neurons():
+    if m + H > max_neurons():
         raise ValueError(
             f"the sparse step kernel takes at most {max_neurons()} neurons "
-            f"(one row of fired produce per block in shared memory), got "
-            f"m={m}")
+            f"and halo slots (one row of fired produce per block in shared "
+            f"memory), got m={m}" + (f" and {H} halo slots" if H else ""))
     out = torch.empty((B, T, 3 * m if has_delay else m), dtype=i32,
                       device=dev)
     valid = torch.empty((B, T), dtype=torch.bool, device=dev)
@@ -154,16 +174,45 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = (None if x is None else x.data_ptr() for x in (
             configs, stride, choices, psi, tab, in_idx, out_neuron, coo_src,
-            coo_bounds, hub_slot, dtab, cd, pd, out, valid, emis))
-        rc = lib.snp_step_sparse(*ptrs, B, T, m, R, Kin, Hn, int(has_coo),
-                                 int(has_delay), stream)
+            coo_bounds, hub_slot, dtab, cd, pd, halo, out, valid, emis))
+        rc = lib.snp_step_sparse(*ptrs, B, T, m, R, Kin, Hn, H, int(has_coo),
+                                 int(has_delay), int(has_halo), stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_sparse launch failed: CUDA error {rc}")
     kernel_launches += 1
     coo_launches += int(has_coo)
     delay_launches += int(has_delay)
     delay_coo_launches += int(has_coo and has_delay)
+    halo_launches += int(has_halo)
     return out, valid, emis
+
+
+def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
+                          choices: torch.Tensor, psi: torch.Tensor,
+                          tab: torch.Tensor, in_idx: torch.Tensor,
+                          halo: torch.Tensor, *,
+                          max_branches: int) -> torch.Tensor:
+    """One shard's candidate slices ``(B, T, mloc)``: the local slice
+    ``configs`` minus the fired consume plus the produce gathered over
+    ``in_idx`` in the extended space ``[local | halo | zero]``, with the
+    cross-shard float32 ``stride``, the local ``choices`` and packed table
+    ``tab`` (B, mloc, R), and ``halo`` (B, T, S·Hmax) the exchanged remote
+    produce.  The emission index is the zero slot (the sharded explore
+    judges emissions).  The plain version on a CPU tensor, B7 on a CUDA tensor."""
+    global plain_calls
+    _check_branches(max_branches)
+    mloc, H = configs.shape[-1], halo.shape[-1]
+    zero = torch.full((1,), mloc + H, dtype=torch.int32,
+                      device=configs.device)
+    args = (configs.contiguous(), stride.contiguous(), choices.contiguous(),
+            psi.contiguous(), tab.contiguous(), in_idx, zero)
+    if configs.device.type == "cpu":
+        plain_calls += 1
+        launch = snp_step_sparse_ref
+    else:
+        launch = snp_step_sparse_cuda
+    return launch(*args, halo=halo.contiguous(),
+                  max_branches=max_branches)[0]
 
 
 def snp_step_sparse(configs: torch.Tensor, comp: CompiledSparseSNP, *,

@@ -9,7 +9,8 @@ body of the sparse step.
   exactly those inputs, reading the COO tail the way the kernel reads it:
   through the per-hub runs ``coo_bounds`` and the neuron→hub map
   ``hub_slot``; with ``dtab``/``cd``/``pd`` it is the delayed step (the
-  plain version of B5);
+  plain version of B5), with ``halo`` one neuron shard's step over the
+  extended space ``[local | halo | zero]`` (the plain version of B7);
 * :func:`sparse_step` chains the two (or the kernel in place of the plain
   body), masks ``valid`` with ``alive`` and flags overflow.
 
@@ -90,8 +91,8 @@ def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP):
 
 def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
                         out_neuron, coo_src=None, coo_bounds=None,
-                        hub_slot=None, dtab=None, cd=None, pd=None, *,
-                        max_branches: int):
+                        hub_slot=None, dtab=None, cd=None, pd=None,
+                        halo=None, *, max_branches: int):
     """``(out (B,T,m) int32, valid (B,T) bool, emis (B,T) int32)`` for
     every branch ``t < max_branches``, valid or not:
 
@@ -110,12 +111,20 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
     0)``, spikes ``C − consume + (cd' == 0 ? incoming : 0)``, ``pd' = d >
     0 ? p : (cd == 1 ? 0 : pd)``.
 
-    Padding indices (``m`` in ``in_idx``, ``Hn`` in ``hub_slot``) read a
-    zero slot; the ELL sum takes one gather per column to bound the
-    working set."""
+    With ``halo`` (B, T, H) (one neuron shard; neither the COO nor the
+    delay stage) ``in_idx`` indexes ``[local (m) | halo (H) | zero]``: the
+    fired produce, then the remote produce, then the zero slot ``m + H``,
+    which is also what ``out_neuron`` names.
+
+    Padding indices (``m``, or ``m + H`` for a shard, in ``in_idx``;
+    ``Hn`` in ``hub_slot``) read a zero slot; the ELL sum takes one gather
+    per column to bound the working set."""
     B, m = configs.shape
     T = max_branches
     dev = configs.device
+    if halo is not None and (coo_src is not None or dtab is not None):
+        raise ValueError("the shard step (halo) has neither a COO nor a "
+                         "delay stage")
     digits = decode_digits(T, stride, choices)
     packed_f = fired_packed(digits, tab)
     emit = packed_f & 0xFFFF
@@ -123,8 +132,9 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
     if delayed:
         reopen = (cd == 1)[:, None, :]
         emit = emit + torch.where(reopen, pd[:, None, :], 0)
-    prod_pad = torch.cat([emit, torch.zeros(
-        (B, T, 1), dtype=torch.int32, device=dev)], -1)          # (B,T,m+1)
+    parts = [emit] if halo is None else [emit, halo]
+    prod_pad = torch.cat(parts + [torch.zeros(
+        (B, T, 1), dtype=torch.int32, device=dev)], -1)     # (B,T,m[+H]+1)
     incoming = torch.zeros((B, T, m), dtype=torch.int32, device=dev)
     for k in range(in_idx.shape[1]):
         incoming.add_(prod_pad.index_select(-1, in_idx[:, k]))

@@ -292,4 +292,4 @@ def test_kernel_sources_ship_beside_the_wrappers():
     text = sparse_ops.SOURCE.read_text()
     assert "HAS_DELAY" in text and "int has_delay" in text
     counts = sparse_ops.body_counts()
-    assert set(counts) == {"ell", "coo", "ell_delay", "coo_delay"}
+    assert set(counts) == {"ell", "coo", "ell_delay", "coo_delay", "halo"}

@@ -33,6 +33,9 @@ def test_port_has_modules():
     for want in ("repro_torch/core/engine.py",
                  "repro_torch/core/plan.py",
                  "repro_torch/core/prng.py",
+                 "repro_torch/core/distributed.py",
+                 "repro_torch/core/hashing.py",
+                 "repro_torch/sharding/specs.py",
                  "repro_torch/kernels/snp_step/ops.py",
                  "repro_torch/kernels/snp_step/sparse_ops.py",
                  "repro_torch/kernels/snp_step/sparse_ref.py"):
@@ -63,6 +66,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.snp_step.ops, chip_smoke\n"
         "import repro_torch.kernels.snp_step.sparse_ops\n"
         "import repro_torch.core.plan, repro_torch.core.prng\n"
+        "import repro_torch.core.distributed, repro_torch.sharding.specs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n")
