@@ -8,8 +8,8 @@ result line):
 
 1. card and build — the card's name and power limit, the CUDA kernels
    built from the sources in this checkout (one ``nvcc`` per source, all
-   started together, sm_90a: the dense step B1, the dense delayed step B4
-   and the sparse step B2/B3/B5);
+   started together, sm_90a: the dense step B1/B6, the dense delayed step
+   B4, the sparse step B2/B3/B5/B7 and the forward attention B8);
 2. the dense kernel (B1) against its plain version on the card —
    bit-identical outputs on the paper's Π, ``nd_chain(10)`` (Ψ > T), a
    2048-neuron random system, a ragged shape, spike counts near 2^20 and
@@ -81,7 +81,28 @@ result line):
    ``"sparse_cuda"`` (B7) and ``"sparse"``, identical, peak allocation
    under 60 GB, and held against the single-device ``"sparse_cuda"``
    explore at 65,536 rows;
-16. summary — the kernels with their launch counts, then one JSON line of
+16. the attention kernel (B8) against its plain version
+   (``attention_ref``) — through the wrapper on f32 and bf16 inputs: the
+   reference tests' edge shapes (GQA 8/8, 8/2, 8/1, 15/5, padding on both
+   axes, ``Sq != Skv``, a single query, ``D`` in {16, 32, 64, 128},
+   ``kv_len`` with zeros, rows of exact zeros), and the serving prefill's
+   launch (q (8, 15, 1960 -> 2048, 64), k/v (8, 5, 2048, 64), bf16,
+   causal); f32 max |err| <= 2e-5, bf16 within atol 1e-3 and rtol 8e-3 in
+   f32; times of B8, its plain version and one
+   ``scaled_dot_product_attention(q, k, v, is_causal=True,
+   enable_gqa=True)`` (the yardstick, never called by the port);
+17. serving, the slice's main path — SmolLM-360M at full width and depth
+   (32 layers, d 960, 15/5 heads, vocab 49,152, bf16, random weights from
+   a fixed generator): prefill of 8 x 1960 tokens through
+   ``attn_impl="cuda"`` (32 B8 launches), then 64 greedy decode steps;
+   its last logits against the ``"ref"`` prefill (0 launches) within 2% of
+   max |logit|, an f32 prefill at batch 2 within 1e-4 relative, decode of
+   token S+1 against a prefill of S+1 tokens (teacher forcing), the
+   caches' ``len``, finite logits; prefill tokens/s, decode ms/step and
+   tokens/s, peak allocation; then the port's launcher end to end
+   (``repro_torch.launch.serve.main(["--arch", "smollm-360m", "--gen",
+   "32"])``, batch 4, prompt 64);
+18. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -91,7 +112,8 @@ checked and reported per path.  The main paths are the full-width
 explores: phase 5 for B1, phase 6 for B2, phase 7 for B3, phase 10 for
 B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``), phase 11
 for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
-and B7 (via ``"sparse_cuda"``), S launches a level; their counts are the
+and B7 (via ``"sparse_cuda"``), S launches a level, and phase 17's
+full-width prefill for B8 (one launch a layer); their counts are the
 kernels line's ``launches``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -113,6 +135,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # the float32 rate outside the tensor cores (the int32/f32 datapath).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# ... and the dense bf16 tensor-core rate (B8's inputs are bf16 when serving).
+BF16_OPS_PER_S = 989e12
 
 # The paper's printed allGenCk (§5); it lists '1-0-8' twice.
 PAPER_ALLGENCK = """
@@ -166,6 +190,12 @@ KERNELS = {
            "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
            "body": "_make_kernel(has_halo=True), sparse_kernel.py:92-93,"
                    "142-147; wrapper sparse_ops.py:170"},
+    "B8": {"name": "flash_attn_fwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                     "flash_attn_fwd.cu",
+           "replaces": "src/repro/kernels/flash_attn/kernel.py:90",
+           "body": "_kernel, kernel.py:29; pallas_call kernel.py:117; "
+                   "wrapper ops.py:73"},
 }
 
 # What each kernel's library_ms times (one PyTorch call, never used by the
@@ -183,6 +213,8 @@ LIBRARY_CALL = {
     "B6": "torch.matmul(S, M_local) + torch.matmul(halo, hadj), f32",
     "B7": "partial: torch.sparse.mm(S as CSR, M_local), f32, without the "
           "halo term",
+    "B8": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+          "is_causal=True, enable_gqa=True), bf16, at the unpadded shapes",
 }
 
 # Dense M for the sparse yardstick (torch.sparse.mm) only up to this size.
@@ -220,22 +252,25 @@ def time_ms(fn, iters):
 
 def reset_counts():
     """Every kernel's launch counter to 0 (just before a path)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.snp_step import ops, sparse_ops
     ops.kernel_launches = ops.delay_launches = ops.shard_launches = 0
     sparse_ops.kernel_launches = sparse_ops.coo_launches = 0
     sparse_ops.delay_launches = sparse_ops.delay_coo_launches = 0
     sparse_ops.halo_launches = 0
+    attn_ops.kernel_launches = 0
 
 
 def read_counts():
     """Launches per kernel since :func:`reset_counts` (just after a
     path)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.snp_step import ops, sparse_ops
     body = sparse_ops.body_counts()
     return {"B1": ops.kernel_launches, "B2": body["ell"], "B3": body["coo"],
             "B4": ops.delay_launches, "B5-ELL": body["ell_delay"],
             "B5-COO": body["coo_delay"], "B6": ops.shard_launches,
-            "B7": body["halo"]}
+            "B7": body["halo"], "B8": attn_ops.kernel_launches}
 
 
 def check_counts(path, counts, **want):
@@ -250,6 +285,7 @@ def check_counts(path, counts, **want):
 
 def phase_card_and_build():
     import torch
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.snp_step import _build, ops, sparse_ops
 
     smi = subprocess.run(
@@ -266,11 +302,13 @@ def phase_card_and_build():
     check(torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
-    sources = [ops.SOURCE, ops.DELAY_SOURCE, sparse_ops.SOURCE]
+    sources = [ops.SOURCE, ops.DELAY_SOURCE, sparse_ops.SOURCE,
+               attn_ops.SOURCE]
     _build.build_all(sources)
     ops.load_kernel()
     ops.load_delay_kernel()
     sparse_ops.load_kernel()
+    attn_ops.load_kernel()
     secs = time.perf_counter() - t0
     log(f"[1] built (in parallel) and loaded "
         f"{', '.join(s.name for s in sources)} in {secs:.2f} s; the sparse "
@@ -1576,6 +1614,398 @@ def phase_sharded_large():
     return b7
 
 
+# Phases 16-17: the LM serving slice, SmolLM-360M through kernel B8.
+# ``CARD`` is the device the two phases put their tensors on.
+CARD = "cuda"
+SERVE = dict(arch="smollm-360m", batch=8, prompt=1960, gen=64, seed=0)
+
+
+def _attn_pairs(Sq, kv_len, causal):
+    """Valid (query, key) pairs of one head, summed over the batch rows:
+    keys below ``kv_len`` (and, causal, at or before the query)."""
+    total = 0
+    for n in kv_len:
+        if causal:
+            m = min(int(n), Sq)
+            total += m * (m + 1) // 2 + (Sq - m) * int(n)
+        else:
+            total += Sq * int(n)
+    return total
+
+
+def _attn_bound(q, k, kv_len, causal):
+    """Least time of one attention call (ms), what binds, the f32-pipe
+    figure and the FLOPs, at these (unpadded) inputs: 4·D FLOPs a valid
+    pair and head (``q·k`` and ``p·v``), over the peak for the inputs'
+    type (bf16: the tensor cores); bytes: q, k, v and ``kv_len`` read once,
+    o written once."""
+    import torch
+    B, Hq, Sq, D = q.shape
+    flops = 4 * Hq * D * _attn_pairs(Sq, kv_len.tolist(), causal)
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * B
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound + (flops / FP32_OPS_PER_S * 1e3, flops)
+
+
+def _attn_cases():
+    """(name, B, Hq, Hkv, Sq, Skv, D, causal, kv_len or None, dtypes, block)
+    — the reference tests' shapes, a D=16 head (the reduced models), and
+    the serving prefill's launch."""
+    f32, both = ("float32",), ("float32", "bfloat16")
+    S = SERVE["prompt"]
+    return [
+        ("basic causal", 2, 4, 2, 64, 64, 32, True, None, both, 32),
+        ("basic", 2, 4, 2, 64, 64, 32, False, None, both, 32),
+        ("GQA 8/8", 1, 8, 8, 64, 64, 32, True, None, f32, 32),
+        ("GQA 8/2", 1, 8, 2, 64, 64, 32, True, None, f32, 32),
+        ("GQA 8/1", 1, 8, 1, 64, 64, 32, True, None, f32, 32),
+        ("GQA 15/5", 1, 15, 5, 64, 64, 32, True, None, both, 32),
+        ("multi-tile 96", 2, 4, 2, 96, 96, 64, True, None, f32, 32),
+        ("padding 40x72", 2, 4, 2, 40, 72, 64, False, None, f32, 32),
+        ("Sq != Skv 128x256", 2, 4, 2, 128, 256, 64, False, None, both, 32),
+        ("single query", 2, 4, 2, 1, 128, 64, False, None, both, 64),
+        ("padding causal 50, D=16", 2, 6, 2, 50, 50, 16, True, None, both, 32),
+        ("D=128", 1, 4, 2, 64, 64, 128, True, None, both, 32),
+        ("D=128 long", 2, 4, 1, 700, 700, 128, True, None, both, 128),
+        ("kv_len 0/57/128", 3, 4, 2, 32, 128, 32, False, [0, 57, 128], both,
+         32),
+        ("kv_len 0 causal", 2, 2, 2, 200, 200, 64, True, [0, 131], both, 128),
+        ("512 causal", 1, 2, 1, 512, 512, 64, True, None, f32, 128),
+        ("serving prefill", 8, 15, 5, S, S, 64, True, None, ("bfloat16",),
+         128),
+    ]
+
+
+def phase_attention_kernel():
+    """Phase 16: B8 == its plain version on the card.  Returns (errors by
+    dtype, the serving prefill's timing row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.flash_attn import attention_ref, flash_attention
+
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    row = None
+    for (name, B, Hq, Hkv, Sq, Skv, D, causal, kl, dtypes,
+         block) in _attn_cases():
+        for dname in dtypes:
+            dt = getattr(torch, dname)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                                     (B, Hkv, Skv, D)))
+            kv_len = torch.tensor(kl if kl is not None else [Skv] * B,
+                                  dtype=torch.int32, device=dev)
+            got = flash_attention(q, k, v, kv_len, causal=causal,
+                                  block_q=block, block_k=block)
+            want = attention_ref(q, k, v, kv_len, causal=causal)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            errs[dname] = max(errs[dname], err)
+            if dname == "float32":
+                check(err <= 2e-5, f"[16] {name} f32: B8 disagrees with "
+                      f"its plain version (max |err| {err:.3g} > 2e-5)")
+                detail = f"max |err| {err:.3g}"
+            else:
+                check(torch.allclose(got.float(), want.float(), atol=1e-3,
+                                     rtol=8e-3),
+                      f"[16] {name} bf16: B8 disagrees with its plain "
+                      f"version beyond atol 1e-3, rtol 8e-3 (max |err| "
+                      f"{err:.3g})")
+                share = float((got != want).float().mean())
+                detail = (f"max |err| {err:.3g}, {share:.4%} of elements "
+                          f"differ")
+            if kl is not None and 0 in kl:
+                zero = [i for i, n in enumerate(kl) if n == 0]
+                check(bool((got[zero] == 0).all()),
+                      f"[16] {name}: rows with kv_len 0 are not exactly 0")
+                detail += ", kv_len-0 rows exactly 0"
+            log(f"[16] {name:24s} {dname:8s} q {tuple(q.shape)} k "
+                f"{tuple(k.shape)} causal={causal}: B8 == plain ({detail})")
+            if name == "serving prefill":
+                row = _time_attention(q, k, v, kv_len, block, attn_ops,
+                                      attention_ref, F)
+            del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return errs, row
+
+
+def _time_attention(q, k, v, kv_len, block, attn_ops, attention_ref, F):
+    """Times at the serving prefill's launch: B8 on the wrapper's padded
+    inputs (what the main path launches), its plain version on the same
+    inputs, and the library call on the unpadded ones."""
+    import torch
+    B, Hq, Sq, D = q.shape
+    Sp = -(-Sq // block) * block
+    qp, kp, vp = (F.pad(t, (0, 0, 0, Sp - t.shape[2])).contiguous()
+                  for t in (q, k, v))
+    ker = attn_ops.flash_attention_cuda(qp, kp, vp, kv_len, causal=True)
+    plain = attention_ref(qp, kp, vp, kv_len, causal=True)
+    torch.cuda.synchronize()
+    err = float((ker.float() - plain.float()).abs().max())
+    check(torch.allclose(ker.float(), plain.float(), atol=1e-3, rtol=8e-3),
+          f"[16] serving prefill, padded launch: B8 disagrees with its "
+          f"plain version (max |err| {err:.3g})")
+    del ker, plain
+    k_ms = time_ms(lambda: attn_ops.flash_attention_cuda(
+        qp, kp, vp, kv_len, causal=True), 10)
+    p_ms = time_ms(lambda: attention_ref(qp, kp, vp, kv_len, causal=True), 3)
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+    group = Hq // k.shape[1]
+    ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    mha_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, is_causal=True), 10)
+    b_ms, b_by, f32_ms, flops = _attn_bound(q, k, kv_len, True)
+    log(f"[16] serving prefill launch q {tuple(qp.shape)} k "
+        f"{tuple(kp.shape)} (S {Sq} padded to {Sp}, kv_len {Sq}): B8 "
+        f"{k_ms:.4f} "
+        f"ms, plain {p_ms:.4f} ms, SDPA (GQA) {l_ms:.4f} ms, SDPA on "
+        f"repeated k/v {mha_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}: "
+        f"{flops / 1e9:.2f} GFLOP at the bf16 peak; {f32_ms:.4f} ms on the "
+        f"f32 pipe) = {k_ms / b_ms:.1f}x bound, {k_ms / f32_ms:.2f}x the "
+        f"f32-pipe figure, {k_ms / l_ms:.2f}x SDPA")
+    return dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sq_padded=Sp, D=D,
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                library_mha_ms=mha_ms, bound_ms=b_ms, bound_by=b_by,
+                f32_pipe_ms=f32_ms, gflop=flops / 1e9, max_abs_err=err)
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _serve_batch(cfg, B, S, dev, seed=0):
+    import torch
+    from repro_torch.data import DataConfig, make_batch
+    b = make_batch(cfg, DataConfig(seed=seed), step=0, shard=0, batch=B,
+                   seq_len=S)
+    return {k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "positions")}
+
+
+def _device_time(fn, wall_ms, label, tag="17"):
+    """Device busy time of ``fn`` from ``torch.profiler`` (the sum of the
+    durations of the events on the card: kernels, copies, sets; one
+    stream, so they do not overlap), beside ``wall_ms`` measured without
+    the profiler: the idle share is ``1 - busy / wall``.  Returns the busy
+    ms and the kernels' ms by name (B8 apart), or None if the profiler
+    shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                   n + 1)
+    except Exception as e:          # diagnostics only: report and go on
+        log(f"[{tag}] {label}: profiler failed ({type(e).__name__}: {e}); "
+            f"device time not measured")
+        return None
+    kernels = [(k, ms, n) for k, (ms, n) in by_name.items()]
+    busy = sum(ms for _, ms, _ in kernels)
+    if busy <= 0:
+        log(f"[{tag}] {label}: the profiler shows no device time; device "
+            f"time not measured")
+        return None
+    kernels.sort(key=lambda r: -r[1])
+    b8 = sum(ms for k, ms, _ in kernels if "flash_attn_fwd" in k)
+    log(f"[{tag}] {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        f"wall (idle share {max(0.0, 1 - busy / wall_ms):.3f}); B8 "
+        f"{b8:.3f} ms ({b8 / busy:.3f} of busy); top kernels: " + "; ".join(
+            f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in kernels[:6]))
+    return dict(busy_ms=busy, wall_ms=wall_ms, b8_ms=b8,
+                idle_share=max(0.0, 1 - busy / wall_ms))
+
+
+def phase_serving():
+    """Phase 17: SmolLM-360M served at full width and depth through B8.
+    Returns the B8 launches per path."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    dev = torch.device(CARD)
+    cfg = get_config(SERVE["arch"])
+    L = cfg.num_layers
+    B, S, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    max_len = S + G + 1
+    torch.cuda.empty_cache()
+    params = init_params(
+        torch.Generator(device=dev).manual_seed(SERVE["seed"]), cfg,
+        device=dev)
+    n_params = param_count(params)
+    batch = _serve_batch(cfg, B, S, dev)
+    prefill = make_prefill_step(cfg, max_len=max_len, attn_impl="cuda")
+    decode = make_decode_step(cfg)
+    log(f"[17] {cfg.name}: {L} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} "
+        f"parameters ({n_params * 2 / 1e9:.3f} GB), random from seed "
+        f"{SERVE['seed']}; batch {B} x prompt {S}, {G} decode steps, max_len "
+        f"{max_len}")
+
+    prefill(params, batch)            # first use: cuBLAS handles, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    # the main path: counts set to 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts("[17] full-width prefill via attn_impl='cuda'", counts,
+                 B8=L)
+    launches["full_width_prefill"] = counts["B8"]
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"[17] prefill logits {tuple(logits.shape)} not finite or "
+          f"misshapen")
+    check(all(bool((c["len"] == S).all()) for c in cache),
+          "[17] the caches' len after prefill is not S")
+    more = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        more.append(time.perf_counter() - t0)
+    log(f"[17] prefill {B}x{S} via 'cuda': {t_prefill * 1e3:.3f} ms "
+        f"({B * S / t_prefill:.0f} tokens/s); again "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in more)} ms; launches "
+        f"{json.dumps(counts)}")
+
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    first = tok
+    reset_counts()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in range(G):
+        pos = torch.full((B, 1), S + g, dtype=torch.int32, device=dev)
+        tok, dlogits, cache = decode(params, cache, tok, pos)
+        finite &= torch.isfinite(dlogits).all()
+        if g == 0:
+            dec_first = dlogits
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts("[17] decode", counts)
+    check(bool(finite), "[17] decode logits not finite")
+    check(all(bool((c["len"] == S + G).all()) for c in cache),
+          "[17] the caches' len after decode is not S + gen")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[17] decode {G} steps x batch {B}: {t_dec / G * 1e3:.3f} ms/step "
+        f"({B * G / t_dec:.0f} tokens/s); caches' len {S} -> {S + G}; "
+        f"peak allocation (prefill + decode) {peak / 2**30:.3f} GiB")
+
+    # where the time goes: one prefill, and 8 decode steps past the cache
+    # (len is clamped at the last slot, as the reference clamps)
+    _device_time(lambda: prefill(params, batch), min([t_prefill] + more)
+                 * 1e3, f"prefill {B}x{S} profile")
+
+    def steps8():
+        t = tok
+        for g in range(8):
+            t, _, _ = decode(params, cache, t, pos)
+    _device_time(steps8, t_dec / G * 8e3, f"decode, 8 steps x batch {B}, "
+                 f"profile")
+    del cache
+
+    # teacher forcing: decode of token S+1 == a prefill of S+1 tokens
+    tf_batch = {"tokens": torch.cat([batch["tokens"], first], 1),
+                "positions": torch.arange(S + 1, dtype=torch.int32,
+                                          device=dev).expand(B, S + 1)}
+    tf_logits, _ = prefill(params, tf_batch)
+    tf = _rel_err(dec_first, tf_logits)
+    check(tf <= 0.02, f"[17] decode of token S+1 vs a prefill of S+1 "
+          f"tokens: {tf:.4g} of max |logit| > 2%")
+
+    reset_counts()
+    ref_logits, _ = make_prefill_step(cfg, max_len=max_len,
+                                      attn_impl="ref")(params, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("[17] full-width prefill via attn_impl='ref'", counts)
+    launches["full_width_prefill_ref"] = counts["B8"]
+    rel = _rel_err(logits, ref_logits)
+    agree = (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean()
+    check(rel <= 0.02, f"[17] prefill via 'cuda' vs 'ref': {rel:.4g} of "
+          f"max |logit| > 2%")
+    log(f"[17] bf16: 'cuda' vs 'ref' prefill last logits {rel:.4g} of max "
+        f"|logit| ({float(ref_logits.float().abs().max()):.4f}); decode of "
+        f"token S+1 vs prefill of S+1 tokens {tf:.4g}; greedy tokens "
+        f"agree on {float(agree):.3f} of rows")
+    del params, logits, ref_logits, tf_logits, dec_first
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = init_params(torch.Generator(device=dev).manual_seed(SERVE["seed"]),
+                      cfg32, device=dev)
+    b2 = {k: t[:2] for k, t in batch.items()}
+    reset_counts()
+    l32, c32 = make_prefill_step(cfg32, max_len=max_len,
+                                 attn_impl="cuda")(p32, b2)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("[17] f32 prefill via 'cuda'", counts, B8=L)
+    launches["f32_prefill"] = counts["B8"]
+    r32, _ = make_prefill_step(cfg32, max_len=max_len,
+                               attn_impl="ref")(p32, b2)
+    rel32 = _rel_err(l32, r32)
+    check(rel32 <= 1e-4, f"[17] f32 prefill, batch 2: 'cuda' vs 'ref' "
+          f"{rel32:.3g} relative > 1e-4")
+    nxt = l32[:, -1].argmax(-1).to(torch.int32)[:, None]
+    _, d32, _ = make_decode_step(cfg32)(
+        p32, c32, nxt, torch.full((2, 1), S, dtype=torch.int32, device=dev))
+    t32, _ = make_prefill_step(cfg32, max_len=max_len, attn_impl="cuda")(
+        p32, {"tokens": torch.cat([b2["tokens"], nxt], 1),
+              "positions": torch.arange(S + 1, dtype=torch.int32,
+                                        device=dev).expand(2, S + 1)})
+    tf32 = _rel_err(d32, t32)
+    check(tf32 <= 1e-4, f"[17] f32 teacher forcing {tf32:.3g} > 1e-4")
+    log(f"[17] f32, batch 2: 'cuda' vs 'ref' prefill {rel32:.3g} relative "
+        f"(<= 1e-4); decode of token S+1 vs prefill of S+1 {tf32:.3g}")
+    del p32, l32, c32, r32, d32, t32
+    torch.cuda.empty_cache()
+
+    out = io.StringIO()
+    reset_counts()
+    argv = ["--arch", SERVE["arch"], "--gen", "32"]
+    with contextlib.redirect_stdout(out):
+        gen = serve_main(argv if CARD == "cuda" else argv + ["--device", CARD])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("[17] launcher", counts, B8=L)
+    launches["launcher_serve_lm"] = counts["B8"]
+    check(gen.shape == (4, 32), f"[17] launcher returned {gen.shape}")
+    for line in out.getvalue().splitlines():
+        log(f"[17] launcher | {line}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1605,6 +2035,8 @@ def main() -> int:
         sharded = phase_sharded(dense_res)
         del dense_res
         sharded["B7"]["sharded_large_explore"] = phase_sharded_large()
+        attn_errs, attn_row = phase_attention_kernel()
+        served = phase_serving()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1618,8 +2050,10 @@ def main() -> int:
                  "B5-ELL": "full_width_delayed_ell_explore",
                  "B5-COO": "full_width_delayed_hybrid_explore",
                  "B6": "sharded_contiguous_explore",
-                 "B7": "sharded_contiguous_explore"}
-    by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded}
+                 "B7": "sharded_contiguous_explore",
+                 "B8": "full_width_prefill"}
+    by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
+               "B8": served}
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
              "B3": sparse_rows["power_law(8192) hybrid wave"],
@@ -1628,12 +2062,21 @@ def main() -> int:
              "B5-COO": delay_rows[("B5-COO",
                                    "power_law(8192) delayed hybrid wave")],
              "B6": shard_rows[("B6", "scaled_pi(682) wave S=4")],
-             "B7": shard_rows[("B7", "scaled_pi(682) wave S=4")]}
+             "B7": shard_rows[("B7", "scaled_pi(682) wave S=4")],
+             "B8": attn_row}
     # the shard kernels' other waves, beside their main path's
     other_waves = {k: {name: row for (kk, name), row in shard_rows.items()
                        if kk == k and row is not waves[k]}
                    for k in ("B6", "B7")}
-    errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err}
+    errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err,
+            "B8": max(attn_errs.values())}
+    # B8's extras: its error per dtype, the f32-pipe figure, the launch
+    extras = {"B8": dict(max_abs_err_by_dtype=attn_errs,
+                         f32_pipe_ms=attn_row["f32_pipe_ms"],
+                         library_mha_ms=attn_row["library_mha_ms"],
+                         launch={k: attn_row[k] for k in (
+                             "B", "Hq", "Hkv", "Sq", "Sq_padded", "D",
+                             "gflop")})}
     figures = []
     for k, meta in KERNELS.items():
         w = waves[k]
@@ -1643,11 +2086,12 @@ def main() -> int:
             plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
             bound_by=w["bound_by"], library_ms=w["library_ms"],
             library_call=LIBRARY_CALL[k],
-            **({"other_waves": other_waves[k]} if k in other_waves else {})))
-        log(f"[16] {k} {meta['name']} ({meta['route']}): "
+            **({"other_waves": other_waves[k]} if k in other_waves else {}),
+            **extras.get(k, {})))
+        log(f"[18] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[16] card: {card}")
+    log(f"[18] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

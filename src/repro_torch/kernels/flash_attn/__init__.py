@@ -1,0 +1,8 @@
+"""Flash attention: kernel B8 (``csrc/flash_attn_fwd.cu``, hand-written
+CUDA C++ for sm_90a) with its wrapper :mod:`.ops` and plain version
+:mod:`.ref`."""
+
+from .ops import flash_attention, flash_attention_cuda
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_cuda", "attention_ref"]

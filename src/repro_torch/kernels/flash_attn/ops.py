@@ -1,0 +1,172 @@
+"""Wrapper of kernel B8, the forward flash-attention kernel.
+
+:func:`flash_attention` is the counterpart of the JAX package's
+``kernels/flash_attn/ops.py::flash_attention``:
+
+* it pads ``Sq``/``Skv`` to multiples of ``min(block, S)`` (padding keys
+  are masked through ``kv_len``, padding queries sliced off) and clips
+  ``kv_len`` to ``min(kv_len, Skv)``;
+* on a CUDA tensor it launches ``csrc/flash_attn_fwd.cu`` (B8), on a CPU
+  tensor it runs the plain version (:func:`.ref.attention_ref`) on the same
+  padded inputs; there is no fallback;
+* it is a :class:`torch.autograd.Function` whose backward recomputes the
+  plain attention, as the reference's ``custom_vjp`` does (there is no
+  backward kernel in either package).
+
+Counters (plain integers, reset by callers that measure a run):
+``kernel_launches`` counts launches of B8, ``plain_calls`` calls of its
+plain version through this wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..snp_step._build import load_library
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_cuda", "load_kernel",
+           "SOURCE", "HEAD_DIMS", "kernel_launches", "plain_calls"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+kernel_launches = 0
+plain_calls = 0
+
+
+def load_kernel():
+    """Build (at first use) and load B8's shared library."""
+    lib = load_library(SOURCE)
+    fn = lib.flash_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q, k, v, kv_len, *, causal: bool = True):
+    """Launch B8 on CUDA tensors: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D),
+    contiguous, f32 or bf16; ``kv_len`` (B,) int32 with values at most
+    ``Skv``.  Returns o (B, Hq, Sq, D) in q's dtype."""
+    global kernel_launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {dev}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    for name, x, shape in (("q", q, (B, Hq, Sq, D)),
+                           ("k", k, (B, Hkv, Skv, D)),
+                           ("v", v, (B, Hkv, Skv, D))):
+        if x.device != dev or x.dtype not in _DTYPES \
+                or x.dtype != q.dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {q.dtype} tensor of shape "
+                f"{shape} on {dev} (f32 or bf16), got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    if kv_len.device != dev or kv_len.dtype != torch.int32 \
+            or tuple(kv_len.shape) != (B,) or not kv_len.is_contiguous():
+        raise ValueError(f"kv_len must be a contiguous int32 tensor of shape "
+                         f"({B},) on {dev}, got {kv_len.dtype} "
+                         f"{tuple(kv_len.shape)} on {kv_len.device}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"GQA needs q heads divisible by kv heads, got "
+                         f"{Hq} and {Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    if Hq > 65535 or B > 65535:
+        raise ValueError(f"the grid takes at most 65535 heads and batch "
+                         f"rows, got {Hq} and {B}")
+    out = torch.empty_like(q)
+    lib = load_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), B, Hq, Hkv, Sq, Skv, D, int(causal),
+            _DTYPES[q.dtype], 1.0 / (D ** 0.5), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {rc}")
+    kernel_launches += 1
+    return out
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _forward(q, k, v, kv_len, causal, block_q, block_k):
+    global plain_calls
+    Sq, Skv = q.shape[2], k.shape[2]
+    Sq_p = _round_up(Sq, min(block_q, Sq)) if Sq else 0
+    Skv_p = _round_up(Skv, min(block_k, Skv)) if Skv else 0
+    qp = F.pad(q, (0, 0, 0, Sq_p - Sq))
+    kp = F.pad(k, (0, 0, 0, Skv_p - Skv))
+    vp = F.pad(v, (0, 0, 0, Skv_p - Skv))
+    kl = kv_len.to(device=q.device, dtype=torch.int32).clamp(max=Skv)
+    if q.device.type == "cuda":
+        out = flash_attention_cuda(qp.contiguous(), kp.contiguous(),
+                                   vp.contiguous(), kl.contiguous(),
+                                   causal=causal)
+    elif q.device.type == "cpu":
+        plain_calls += 1
+        out = attention_ref(qp, kp, vp, kl, causal=causal)
+    else:
+        raise ValueError(f"flash_attention runs on CUDA (kernel B8) or CPU "
+                         f"(its plain version) tensors, got {q.device}")
+    return out[:, :, :Sq]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: B8 (or its plain version on the CPU); backward: the
+    gradient of the plain attention, recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, block_q, block_k):
+        ctx.save_for_backward(q, k, v, kv_len)
+        ctx.causal = causal
+        return _forward(q, k, v, kv_len, causal, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_len = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_ref(*qkv, kv_len, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = True,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Softmax attention, (B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+
+    ``kv_len`` (B,) masks trailing cache slots (serving); defaults to full.
+    ``block_q``/``block_k`` set the padding, as in the reference; the
+    kernel's own tiles are fixed and mask their ragged edge.
+    """
+    B, Hq = q.shape[:2]
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"GQA needs q heads divisible by kv heads, got "
+                         f"{Hq} and {Hkv}")
+    if kv_len is None:
+        kv_len = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
+    return _FlashAttention.apply(q, k, v, kv_len, causal, block_q, block_k)

@@ -1,4 +1,5 @@
-"""Build the step kernels' CUDA sources at first use.
+"""Build the kernels' CUDA sources at first use (the step kernels here and
+B8 in ``kernels/flash_attn``).
 
 Each ``csrc/*.cu`` has a plain C entry point and is compiled by ``nvcc``
 into its own shared library under ``kernels/_build/`` (listed in

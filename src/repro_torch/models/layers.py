@@ -1,0 +1,282 @@
+"""Core neural layers: norms, RoPE/M-RoPE, GQA attention, SwiGLU/GELU MLPs
+(the port of the JAX package's ``repro.models.layers``).
+
+Parameters keep the reference's layouts, so weights carry across tensor
+for tensor (:mod:`.convert`): ``dense`` weights are ``(d_in, d_out)`` (the
+transpose of ``nn.Linear``'s), ``wq``/``wk``/``wv`` are ``(d, H, hd)`` and
+``wo`` is ``(H, hd, d)``.  Each layer's parameters are a :class:`Params`
+module (the counterpart of the reference's param dict); the functions
+here apply them.  Matmuls run in the config dtype; ``rms_norm``, ``rope``
+and the decode attention compute in f32 and cast back at the points the
+reference does.
+
+``attn_impl`` selects the prefill attention: ``"cuda"`` runs kernel B8
+through :func:`repro_torch.kernels.flash_attn.flash_attention` (on a CPU
+tensor, its plain version), ``"ref"`` the plain
+:func:`~repro_torch.kernels.flash_attn.attention_ref`: the counterparts of
+the reference's ``"pallas"`` and ``"xla"``.  Decode attention
+(:func:`_decode_attend`) is plain torch in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..kernels.flash_attn import attention_ref, flash_attention
+
+__all__ = [
+    "Params", "rms_norm", "init_rms_norm", "init_dense", "dense",
+    "rope", "mrope", "init_attention", "attention",
+    "init_mlp", "mlp", "ATTN_IMPLS",
+]
+
+#: prefill attention implementations (reference names: "pallas", "xla")
+ATTN_IMPLS = ("cuda", "ref")
+
+Constrain = Callable[[torch.Tensor, str], torch.Tensor]
+
+
+def _identity(t, kind):
+    return t
+
+
+class Params(nn.Module):
+    """A named set of parameters: the port's counterpart of one of the
+    reference's param dicts (``p.wq`` for ``p["wq"]``, ``"b" in p``)."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
+
+
+# -- initializers ------------------------------------------------------------
+
+def _normal(gen: Optional[torch.Generator], shape, dtype, device,
+            scale: float = 0.02) -> torch.Tensor:
+    """``normal · scale`` drawn in f32 from ``gen`` and cast to ``dtype``, as
+    the reference draws (its distribution, not its values).  ``gen=None``
+    leaves the tensor unset, for weights carried across from the reference
+    (:func:`repro_torch.models.convert.params_from_jax`)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device) * scale).to(dtype)
+
+
+def init_rms_norm(d: int, dtype, device=None) -> Params:
+    return Params(scale=torch.ones((d,), dtype=dtype, device=device))
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p.scale.float()).to(x.dtype)
+
+
+def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,
+               device=None) -> Params:
+    t = {"w": _normal(gen, (d_in, d_out), dtype, device)}
+    if bias:
+        t["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return Params(**t)
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w
+    if "b" in p:
+        y = y + p.b
+    return y
+
+
+# -- rotary position embeddings ----------------------------------------------
+
+def _freqs(half_dim: int, theta: float, device) -> torch.Tensor:
+    return theta ** (-torch.arange(0, half_dim, dtype=torch.float32,
+                                   device=device) / half_dim)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of ``x`` (B, S, H, D) by ``ang`` (B, S, D/2),
+    in f32 (``x`` is promoted), cast back to ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Standard rotary embedding.  x (B, S, H, D), positions (B, S)."""
+    freqs = _freqs(x.shape[-1] // 2, theta, x.device)
+    return _rotate(x, positions.float()[..., None] * freqs)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: ``positions`` (3, B, S) carries
+    (temporal, height, width) ids; the rotary half-dim is split into
+    ``sections`` (summing to D/2), section i rotating with positions[i]."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to {half}")
+    freqs = _freqs(half, theta, x.device)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(positions[i].float()[..., None]
+                     * freqs[start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))
+
+
+def _apply_rope(cfg: ArchConfig, x: torch.Tensor, positions) -> torch.Tensor:
+    if cfg.mrope_sections:
+        if positions.dim() == 2:   # plain text positions -> all three planes
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return rope(x, positions, cfg.rope_theta)
+
+
+# -- grouped-query attention ---------------------------------------------------
+
+def init_attention(gen, cfg: ArchConfig, dtype, device=None) -> Params:
+    d, h, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t = {"wq": _normal(gen, (d, h, hd), dtype, device),
+         "wk": _normal(gen, (d, hk, hd), dtype, device),
+         "wv": _normal(gen, (d, hk, hd), dtype, device),
+         "wo": _normal(gen, (h, hd, d), dtype, device)}
+    if cfg.attn_bias:
+        for name, heads in (("bq", h), ("bk", hk), ("bv", hk)):
+            t[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
+    return Params(**t)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``: one matmul over the flattened
+    heads."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _attend(q, k, v, attn_impl: str) -> torch.Tensor:
+    """Causal attention over (B, S, H, hd) q and (B, S, Hk, hd) k/v."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, hd)
+    if attn_impl == "cuda":
+        out = flash_attention(qh, kh, vh, causal=True)
+    elif attn_impl == "ref":
+        out = attention_ref(qh, kh, vh, causal=True)
+    elif attn_impl == "chunked":
+        raise NotImplementedError(
+            "the chunked attention fallback is not ported yet (ROADMAP "
+            "item 9, with the training slice)")
+    else:
+        raise ValueError(f"unknown attention impl {attn_impl!r}; the port "
+                         f"takes {ATTN_IMPLS}")
+    return out.transpose(1, 2)                            # (B, S, H, hd)
+
+
+def attention(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, positions,
+    cache: Optional[Dict] = None, *, attn_impl: str = "ref",
+    constrain: Constrain = _identity,
+):
+    """GQA attention.  x (B, S, D).
+
+    ``cache``: None without serving; {"k": (B, Smax, Hk, hd), "v": ...,
+    "len": (B,) int32} for serving.  Prefill (S > 1) zeroes the cache and
+    writes positions [0, S); decode (S == 1) writes at ``len``, clamped to
+    ``Smax - 1`` as the reference's ``dynamic_update_slice`` clamps.  Both
+    write the cache's tensors in place (the reference returns new arrays;
+    the port saves the copy) and return the cache with the new ``len``.
+    Returns (out, new_cache).
+    """
+    B, S, D = x.shape
+    q = _project(x, p.wq)
+    k = _project(x, p.wk)
+    v = _project(x, p.wv)
+    if cfg.attn_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = constrain(q, "heads")
+    q = _apply_rope(cfg, q, positions)
+    k = _apply_rope(cfg, k, positions)
+
+    new_cache = None
+    if cache is None:
+        out = _attend(q, k, v, attn_impl)
+    elif S == 1:   # decode: append and attend over the whole cache
+        idx = cache["len"]                                  # (B,)
+        ck, cv = cache["k"], cache["v"]
+        at = idx.clamp(0, ck.shape[1] - 1).long()
+        rows = torch.arange(B, device=x.device)
+        ck[rows, at] = k[:, 0]
+        cv[rows, at] = v[:, 0]
+        new_cache = {"k": ck, "v": cv, "len": idx + 1}
+        out = _decode_attend(q, ck, cv, idx + 1, constrain)
+    else:          # prefill: a zero cache holding [0, S)
+        ck, cv = cache["k"], cache["v"]
+        ck.zero_()
+        cv.zero_()
+        ck[:, :S] = k
+        cv[:, :S] = v
+        new_cache = {"k": ck, "v": cv,
+                     "len": torch.full((B,), S, dtype=torch.int32,
+                                       device=x.device)}
+        out = _attend(q, k, v, attn_impl)
+    out = constrain(out, "heads")
+    h, hd, d = p.wo.shape
+    return out.reshape(B, S, h * hd) @ p.wo.reshape(h * hd, d), new_cache
+
+
+def _decode_attend(q, ck, cv, kv_len, constrain: Constrain = _identity):
+    """Single-token attention over the KV cache, as the reference's
+    ``_decode_attend``: f32 scores from the cache's dtype (exact products,
+    f32 sums), masked softmax numerators rounded to the cache's dtype before
+    the ``P·V`` product, f32 accumulation.
+
+    q (B, 1, H, hd); ck/cv (B, Smax, Hk, hd); kv_len (B,).
+    """
+    B, Smax, Hk, hd = ck.shape
+    H = q.shape[2]
+    group = H // Hk
+    qg = q.reshape(B, 1, Hk, group, hd)
+    s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
+                     ck.float()) / (hd ** 0.5)
+    mask = (torch.arange(Smax, device=ck.device)
+            < kv_len[:, None])[:, None, None, None, :]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), 0.0)
+    num = torch.einsum("bhgqs,bshd->bqhgd", e.to(cv.dtype).float(),
+                       cv.float())
+    den = e.sum(dim=-1)[..., None].permute(0, 3, 1, 2, 4)
+    out = num / den.clamp_min(1e-30)
+    return out.reshape(B, 1, H, cv.shape[-1]).to(q.dtype)
+
+
+# -- MLPs ---------------------------------------------------------------------
+
+def init_mlp(gen, d: int, ff: int, dtype, act: str = "silu",
+             device=None) -> Params:
+    if act == "silu":   # SwiGLU
+        return Params(wg=_normal(gen, (d, ff), dtype, device),
+                      wu=_normal(gen, (d, ff), dtype, device),
+                      wd=_normal(gen, (ff, d), dtype, device))
+    return Params(wu=_normal(gen, (d, ff), dtype, device),
+                  wd=_normal(gen, (ff, d), dtype, device))
+
+
+def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    if act == "silu":
+        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ p.wu, approximate="tanh") @ p.wd

@@ -1,0 +1,118 @@
+"""Public model API: embeddings, the stack and the head, with the prefill
+and decode entry points (the port of the JAX package's
+``repro.models.model``).
+
+Batch dict conventions (tensors on the model's device):
+
+* ``tokens``          (B, S) int
+* ``positions``       (B, S) int, or (3, B, S) for M-RoPE (qwen2-vl)
+* ``frontend_embeds`` (B, S, D) optional: precomputed patch/frame
+                      embeddings (the modality frontend is a stub, as in
+                      the reference), substituted where ``embed_mask``
+* ``embed_mask``      (B, S) bool optional
+
+Training (``mode="train"``, ``loss_fn``) and parallel codebooks
+(musicgen) wait for later slices (ROADMAP item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core.device import resolve_device
+from . import layers as L
+from .transformer import apply_stack, dtype_of, init_stack, init_stack_cache
+
+__all__ = ["LM", "init_params", "forward", "init_cache", "param_count"]
+
+_MODES = ("prefill", "decode")
+
+
+class LM(nn.Module):
+    """Parameters of one language model: ``embed`` (V, d), ``blocks`` (one
+    per layer), ``ln_f`` and, for untied embeddings, ``head`` (d, V).
+    ``gen=None`` leaves the weights unset (see :func:`init_params`)."""
+
+    def __init__(self, gen, cfg: ArchConfig, device=None):
+        super().__init__()
+        if cfg.codebooks:
+            raise NotImplementedError(
+                f"{cfg.name}: parallel codebooks are not ported yet "
+                f"(ROADMAP item 9)")
+        dt = dtype_of(cfg)
+        self.cfg = cfg
+        self.embed = nn.Parameter(
+            L._normal(gen, (cfg.vocab_size, cfg.d_model), dt, device))
+        self.blocks = init_stack(gen, cfg, device)
+        self.ln_f = L.init_rms_norm(cfg.d_model, dt, device)
+        self.head = None if cfg.tie_embeddings else nn.Parameter(
+            L._normal(gen, (cfg.d_model, cfg.vocab_size), dt, device))
+
+    def forward(self, batch: Dict, **kw):
+        return forward(self, self.cfg, batch, **kw)
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, *,
+                device=None) -> LM:
+    """Randomly initialised parameters: ``normal · 0.02`` drawn in f32 from
+    ``gen`` (a generator on ``device``) and cast to the config dtype, norm
+    scales 1, biases 0, as the reference's ``init_params`` (the same
+    distribution, not the same values).  ``device=None`` is the card."""
+    return LM(gen, cfg, resolve_device(device))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
+    """One zero KV cache per layer (``device=None`` is the card)."""
+    return init_stack_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def _embed(params: LM, cfg: ArchConfig, batch, constrain):
+    x = params.embed[batch["tokens"].long()]              # (B, S, D)
+    if "frontend_embeds" in batch:
+        mask = batch["embed_mask"][..., None]
+        x = torch.where(mask, batch["frontend_embeds"].to(x.dtype), x)
+    return constrain(x, "hidden")
+
+
+def _head(params: LM, cfg: ArchConfig, x, constrain):
+    if cfg.tie_embeddings:
+        logits = x @ params.embed.t()
+    else:
+        logits = x @ params.head
+    return constrain(logits, "logits")
+
+
+def forward(
+    params: LM, cfg: ArchConfig, batch: Dict, *,
+    cache=None, mode: str = "prefill", attn_impl: str = "ref",
+    constrain=L._identity, logits_slice: Optional[str] = None,
+):
+    """mode: prefill | decode (with ``cache``, prefill fills it and decode
+    appends one token; without, a plain causal forward).
+
+    ``logits_slice='last'`` returns logits only for the final position
+    (serving: avoids materialising (B, S, V)).  The cache's tensors are
+    written in place.  Returns (logits, new_cache, aux).
+    """
+    if mode == "train":
+        raise NotImplementedError(
+            "training (mode='train', loss_fn) is not ported yet (ROADMAP "
+            "item 9, the training slice)")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}; the port takes {_MODES}")
+    x = _embed(params, cfg, batch, constrain)
+    x, new_cache, aux = apply_stack(
+        params.blocks, cfg, x, batch["positions"], cache,
+        attn_impl=attn_impl, constrain=constrain)
+    x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
+    if logits_slice == "last":
+        x = x[:, -1:]
+    return _head(params, cfg, x, constrain), new_cache, aux
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())

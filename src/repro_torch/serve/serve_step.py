@@ -1,0 +1,88 @@
+"""Serving steps: LM prefill/decode factories and the SNP trace runner (the
+port of the JAX package's ``repro.serve.serve_step``).
+
+``prefill_step`` consumes a (B, S) request batch and returns the
+last-position logits and a filled KV cache; ``decode_step`` advances every
+sequence one token (greedy or temperature sampling).  Both run without
+autograd.  ``constrain`` and ``activation_stationary`` are kept for the
+reference's signatures: on one card they are the identity.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..models import forward, init_cache
+from ..models.layers import _identity
+
+__all__ = ["make_prefill_step", "make_decode_step", "sample_token",
+           "make_trace_runner"]
+
+
+def make_trace_runner(*, mesh=None) -> Callable:
+    """The SNP trace runner: the port's
+    :func:`~repro_torch.core.engine.run_traces` (a mesh-sharded runner is
+    not ported yet)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh-sharded trace runner (run_traces_distributed) is not "
+            "ported yet (ROADMAP item 7)")
+    from ..core.engine import run_traces
+    return run_traces
+
+
+def sample_token(logits: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 temperature: float = 0.0) -> torch.Tensor:
+    """logits (..., V) -> token ids (...,) int32.  temperature 0 = greedy;
+    otherwise one draw from ``softmax(logits / temperature)`` per row with
+    ``generator`` (a token of probability 0 is never drawn)."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    tok = torch.multinomial(flat, 1, generator=generator)[:, 0]
+    return tok.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def make_prefill_step(cfg: ArchConfig, *, max_len: int,
+                      attn_impl: str = "ref",
+                      constrain: Callable = _identity):
+    @torch.no_grad()
+    def prefill_step(params, batch: Dict):
+        tokens = batch["tokens"]
+        cache = init_cache(cfg, tokens.shape[0], max_len=max_len,
+                           device=tokens.device)
+        logits, cache, _ = forward(
+            params, cfg, batch, cache=cache, mode="prefill",
+            attn_impl=attn_impl, constrain=constrain, logits_slice="last")
+        return logits, cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, *, temperature: float = 0.0,
+                     constrain: Callable = _identity,
+                     activation_stationary: bool = True):
+    if activation_stationary:
+        base = constrain
+
+        def constrain(t, kind, _base=base):  # noqa: F811
+            return _base(t, "hidden_decode" if kind == "hidden" else kind)
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, positions,
+                    generator: Optional[torch.Generator] = None):
+        """tokens (B, 1); returns (next_tokens (B, 1), logits, cache).  The
+        cache's tensors are written in place."""
+        batch = {"tokens": tokens, "positions": positions}
+        logits, cache, _ = forward(
+            params, cfg, batch, cache=cache, mode="decode",
+            constrain=constrain)
+        nxt = sample_token(logits[:, -1, :], generator, temperature)
+        return nxt[..., None], logits, cache
+
+    return decode_step

@@ -1,0 +1,149 @@
+"""Kernel B8's wrapper (``repro_torch.kernels.flash_attn.ops``) against the
+JAX package's ``flash_attention``, run as its own tests run it (Pallas in
+interpret mode), on the cases of ``tests/test_kernel_flash_attn.py``.
+
+On the CPU the wrapper pads, clips ``kv_len`` and runs the kernel's plain
+version, so these tests hold the padding logic and the plain version to
+the reference; ``chip_smoke.py`` holds the kernel to the plain version on
+the card.  Tolerances are the reference tests' own: 2e-5 (f32) and 5e-2
+(bf16), and 1e-4 for gradients.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attn import flash_attention as jax_flash  # noqa: E402
+from repro_torch.kernels.flash_attn import ops  # noqa: E402
+from repro_torch.kernels.flash_attn import (attention_ref,  # noqa: E402
+                                            flash_attention)
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+def _inputs(rng, shape, jdt, tdt):
+    a = rng.standard_normal(shape).astype(np.float32)
+    j = jnp.asarray(a, jdt)
+    # the same values in both packages (bf16 rounded once, by JAX)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+    return j, t
+
+
+def _check(B, Hq, Hkv, Sq, Skv, D, *, causal, dtype="float32", bq=32, bk=32,
+           kv_len=None, seed=42):
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(seed)
+    jq, tq = _inputs(rng, (B, Hq, Sq, D), jdt, tdt)
+    jk, tk = _inputs(rng, (B, Hkv, Skv, D), jdt, tdt)
+    jv, tv = _inputs(rng, (B, Hkv, Skv, D), jdt, tdt)
+    jl = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
+    tl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    want = jax_flash(jq, jk, jv, jl, causal=causal, block_q=bq, block_k=bk)
+    calls = ops.plain_calls
+    got = flash_attention(tq, tk, tv, tl, causal=causal, block_q=bq,
+                          block_k=bk)
+    assert ops.plain_calls == calls + 1     # the plain version, on the CPU
+    assert got.dtype == tdt and tuple(got.shape) == (B, Hq, Sq, D)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_basic(dtype, causal):
+    _check(2, 4, 2, 64, 64, 32, causal=causal, dtype=dtype)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(8, 8), (8, 2), (8, 1), (15, 5)])
+def test_gqa_ratios(Hq, Hkv):
+    _check(1, Hq, Hkv, 64, 64, 32, causal=True)
+
+
+@pytest.mark.parametrize("Sq,Skv,bq,bk", [
+    (64, 64, 64, 64),      # single tile
+    (96, 96, 32, 32),      # multiple tiles
+    (40, 72, 32, 32),      # padding on both axes
+    (128, 256, 32, 64),    # rectangular (cross-attention style)
+    (1, 128, 1, 64),       # decode-like single query
+])
+def test_shape_sweep(Sq, Skv, bq, bk):
+    _check(2, 4, 2, Sq, Skv, 64, causal=(Sq == Skv), bq=bq, bk=bk)
+
+
+def test_padding_with_causal_mask():
+    """S not a multiple of the block (as the serving prefill's 1960): the
+    causal mask runs on padded indices, the padded rows are sliced off."""
+    _check(2, 6, 2, 50, 50, 16, causal=True, bq=32, bk=32)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_head_dims(D):
+    _check(1, 4, 2, 64, 64, D, causal=True)
+
+
+def test_kv_length_masking():
+    _check(3, 4, 2, 32, 128, 32, causal=False, kv_len=[0, 57, 128])
+
+
+def test_kv_len_past_skv_is_clipped():
+    _check(2, 2, 1, 16, 40, 16, causal=False, kv_len=[40, 1000])
+
+
+def test_kv_len_zero_rows_are_zero():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 8, 16)).astype("f4"))
+    k = torch.from_numpy(rng.standard_normal((1, 2, 32, 16)).astype("f4"))
+    v = torch.from_numpy(rng.standard_normal((1, 2, 32, 16)).astype("f4"))
+    out = flash_attention(q, k, v, torch.tensor([0], dtype=torch.int32),
+                          causal=False, block_q=8, block_k=16)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_gradients_match_reference_custom_vjp():
+    rng = np.random.default_rng(7)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((1, 2, 32, 16), (1, 1, 32, 16), (1, 1, 32, 16))]
+
+    def loss_jax(q, k, v):
+        return (jax_flash(q, k, v, block_q=16, block_k=16) ** 2).sum()
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    (flash_attention(*ts, block_q=16, block_k=16) ** 2).sum().backward()
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_plain_version_matches_reference_oracle():
+    """``attention_ref`` itself against the reference's oracle, GQA with
+    both masks."""
+    from repro.kernels.flash_attn import attention_ref as jax_ref
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 6, 24, 16), (2, 3, 24, 16), (2, 3, 24, 16)))
+    kl = np.array([24, 5], np.int32)
+    want = jax_ref(*map(jnp.asarray, (q, k, v, kl)), causal=True)
+    got = attention_ref(*map(torch.from_numpy, (q, k, v, kl)), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_wrapper_refuses_without_fallback():
+    """A tensor on neither the card nor the CPU raises; the CUDA launcher
+    refuses CPU tensors (it never runs the plain version)."""
+    q = torch.zeros((1, 2, 4, 16))
+    with pytest.raises(ValueError):
+        ops.flash_attention_cuda(q, q, q, torch.zeros(1, dtype=torch.int32))
+    meta = torch.zeros((1, 2, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(meta, meta, meta,
+                        torch.zeros(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros((1, 3, 4, 16)), q, q)   # 3 % 2 != 0

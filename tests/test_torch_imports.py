@@ -38,11 +38,25 @@ def test_port_has_modules():
                  "repro_torch/sharding/specs.py",
                  "repro_torch/kernels/snp_step/ops.py",
                  "repro_torch/kernels/snp_step/sparse_ops.py",
-                 "repro_torch/kernels/snp_step/sparse_ref.py"):
+                 "repro_torch/kernels/snp_step/sparse_ref.py",
+                 "repro_torch/configs/base.py",
+                 "repro_torch/configs/smollm_360m.py",
+                 "repro_torch/configs/smoke.py",
+                 "repro_torch/data/pipeline.py",
+                 "repro_torch/kernels/flash_attn/ops.py",
+                 "repro_torch/kernels/flash_attn/ref.py",
+                 "repro_torch/models/layers.py",
+                 "repro_torch/models/transformer.py",
+                 "repro_torch/models/model.py",
+                 "repro_torch/models/convert.py",
+                 "repro_torch/serve/serve_step.py",
+                 "repro_torch/launch/serve.py"):
         assert want in names
-    csrc = SRC / "repro_torch/kernels/snp_step/csrc"
-    for want in ("snp_step_dense.cu", "snp_step_sparse.cu"):
-        assert (csrc / want).is_file()
+    kernels = SRC / "repro_torch/kernels"
+    for want in ("snp_step/csrc/snp_step_dense.cu",
+                 "snp_step/csrc/snp_step_sparse.cu",
+                 "flash_attn/csrc/flash_attn_fwd.cu"):
+        assert (kernels / want).is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
@@ -67,6 +81,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.snp_step.sparse_ops\n"
         "import repro_torch.core.plan, repro_torch.core.prng\n"
         "import repro_torch.core.distributed, repro_torch.sharding.specs\n"
+        "import repro_torch.configs, repro_torch.data, repro_torch.models\n"
+        "import repro_torch.kernels.flash_attn.ops, repro_torch.serve\n"
+        "import repro_torch.launch.serve\n"
+        "repro_torch.configs.get_config('smollm-360m')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n")
