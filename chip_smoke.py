@@ -9,7 +9,8 @@ result line):
 1. card and build — the card's name and power limit, the CUDA kernels
    built from the sources in this checkout (one ``nvcc`` per source, all
    started together, sm_90a: the dense step B1/B6, the dense delayed step
-   B4, the sparse step B2/B3/B5/B7 and the forward attention B8);
+   B4, the sparse step B2/B3/B5/B7 and the forward attention B8, with
+   ``-Xptxas -v``'s registers, spills and performance notes);
 2. the dense kernel (B1) against its plain version on the card —
    bit-identical outputs on the paper's Π, ``nd_chain(10)`` (Ψ > T), a
    2048-neuron random system, a ragged shape, spike counts near 2^20 and
@@ -81,27 +82,32 @@ result line):
    ``"sparse_cuda"`` (B7) and ``"sparse"``, identical, peak allocation
    under 60 GB, and held against the single-device ``"sparse_cuda"``
    explore at 65,536 rows;
-16. the attention kernel (B8) against its plain version
-   (``attention_ref``) — through the wrapper on f32 and bf16 inputs: the
-   reference tests' edge shapes (GQA 8/8, 8/2, 8/1, 15/5, padding on both
-   axes, ``Sq != Skv``, a single query, ``D`` in {16, 32, 64, 128},
-   ``kv_len`` with zeros, rows of exact zeros), and the serving prefill's
-   launch (q (8, 15, 1960 -> 2048, 64), k/v (8, 5, 2048, 64), bf16,
-   causal); f32 max |err| <= 2e-5, bf16 within atol 1e-3 and rtol 8e-3 in
-   f32; times of B8, its plain version and one
+16. the attention kernel's two bodies against their plain version
+   (``attention_ref``) — B8-TC (bf16 at D 64/128: wgmma + TMA) and B8-FFMA
+   (f32; bf16 at D 16/32), each case counted on the body it runs: the
+   reference tests' edge shapes (GQA 8/8, 8/2, 8/1, 15/5, ragged axes,
+   ``Sq != Skv``, a single query, ``D`` in {16, 32, 64, 128}, ``kv_len``
+   with zeros, rows of exact zeros), the same edges in bf16 at D 64 and
+   128, both causal and not, and the main paths' launches, unpadded: the
+   serving prefill's (q (8, 15, 1960, 64), k/v (8, 5, 1960, 64), bf16,
+   causal, B8-TC) and its f32 twin at batch 2 (B8-FFMA); f32 max |err| <=
+   2e-5, bf16 within atol 1e-3 and rtol 8e-3 in f32; at the two launches
+   the times of the body (and its TFLOP/s), its plain version and one
    ``scaled_dot_product_attention(q, k, v, is_causal=True,
    enable_gqa=True)`` (the yardstick, never called by the port);
 17. serving, the slice's main path — SmolLM-360M at full width and depth
-   (32 layers, d 960, 15/5 heads, vocab 49,152, bf16, random weights from
-   a fixed generator): prefill of 8 x 1960 tokens through
-   ``attn_impl="cuda"`` (32 B8 launches), then 64 greedy decode steps;
-   its last logits against the ``"ref"`` prefill (0 launches) within 2% of
-   max |logit|, an f32 prefill at batch 2 within 1e-4 relative, decode of
-   token S+1 against a prefill of S+1 tokens (teacher forcing), the
-   caches' ``len``, finite logits; prefill tokens/s, decode ms/step and
-   tokens/s, peak allocation; then the port's launcher end to end
-   (``repro_torch.launch.serve.main(["--arch", "smollm-360m", "--gen",
-   "32"])``, batch 4, prompt 64);
+   (32 layers, d 960, 15/5 heads, vocab 49,152, bf16, random weights drawn
+   on the card from ``PRNGKey(0)``, the reference's values): prefill of 8
+   x 1960 tokens through ``attn_impl="cuda"`` (32 B8-TC launches), then 64
+   greedy decode steps; its last logits against the ``"ref"`` prefill (0
+   launches) within 2% of max |logit|, an f32 prefill at batch 2 (32
+   B8-FFMA launches) within 1e-4 relative, decode of token S+1 against a
+   prefill of S+1 tokens (teacher forcing), the caches' ``len``, finite
+   logits; prefill tokens/s, decode ms/step and tokens/s, peak
+   allocation, a profiler split of device time; then the port's launcher
+   end to end (``repro_torch.launch.serve.main(["--arch", "smollm-360m",
+   "--gen", "32"])``, batch 4, prompt 64), greedy once and twice at
+   ``--temperature 0.8 --seed 3`` (identical tokens, in range);
 18. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -113,8 +119,8 @@ explores: phase 5 for B1, phase 6 for B2, phase 7 for B3, phase 10 for
 B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``), phase 11
 for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
 and B7 (via ``"sparse_cuda"``), S launches a level, and phase 17's
-full-width prefill for B8 (one launch a layer); their counts are the
-kernels line's ``launches``.
+full-width bf16 prefill for B8-TC and its f32 prefill for B8-FFMA (one
+launch a layer); their counts are the kernels line's ``launches``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -190,12 +196,20 @@ KERNELS = {
            "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
            "body": "_make_kernel(has_halo=True), sparse_kernel.py:92-93,"
                    "142-147; wrapper sparse_ops.py:170"},
-    "B8": {"name": "flash_attn_fwd", "route": "cuda",
-           "source": "src/repro_torch/kernels/flash_attn/csrc/"
-                     "flash_attn_fwd.cu",
-           "replaces": "src/repro/kernels/flash_attn/kernel.py:90",
-           "body": "_kernel, kernel.py:29; pallas_call kernel.py:117; "
-                   "wrapper ops.py:73"},
+    "B8-TC": {"name": "flash_attn_fwd_tc", "route": "cuda",
+              "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                        "flash_attn_fwd.cu",
+              "replaces": "src/repro/kernels/flash_attn/kernel.py:90",
+              "body": "_kernel, kernel.py:29; pallas_call kernel.py:117; "
+                      "the tensor-core body (bf16, D 64/128: wgmma + TMA), "
+                      "tc::flash_attn_fwd_tc_kernel; wrapper ops.py:75"},
+    "B8-FFMA": {"name": "flash_attn_fwd_ffma", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                          "flash_attn_fwd.cu",
+                "replaces": "src/repro/kernels/flash_attn/kernel.py:90",
+                "body": "_kernel, kernel.py:29; pallas_call kernel.py:117; "
+                        "the FFMA body (f32; bf16 at D 16/32), "
+                        "flash_attn_fwd_kernel; wrapper ops.py:75"},
 }
 
 # What each kernel's library_ms times (one PyTorch call, never used by the
@@ -213,8 +227,10 @@ LIBRARY_CALL = {
     "B6": "torch.matmul(S, M_local) + torch.matmul(halo, hadj), f32",
     "B7": "partial: torch.sparse.mm(S as CSR, M_local), f32, without the "
           "halo term",
-    "B8": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
-          "is_causal=True, enable_gqa=True), bf16, at the unpadded shapes",
+    "B8-TC": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+             "is_causal=True, enable_gqa=True), bf16",
+    "B8-FFMA": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+               "is_causal=True, enable_gqa=True), f32",
 }
 
 # Dense M for the sparse yardstick (torch.sparse.mm) only up to this size.
@@ -258,7 +274,7 @@ def reset_counts():
     sparse_ops.kernel_launches = sparse_ops.coo_launches = 0
     sparse_ops.delay_launches = sparse_ops.delay_coo_launches = 0
     sparse_ops.halo_launches = 0
-    attn_ops.kernel_launches = 0
+    attn_ops.kernel_launches = attn_ops.kernel_launches_tc = 0
 
 
 def read_counts():
@@ -270,7 +286,8 @@ def read_counts():
     return {"B1": ops.kernel_launches, "B2": body["ell"], "B3": body["coo"],
             "B4": ops.delay_launches, "B5-ELL": body["ell_delay"],
             "B5-COO": body["coo_delay"], "B6": ops.shard_launches,
-            "B7": body["halo"], "B8": attn_ops.kernel_launches}
+            "B7": body["halo"], "B8-TC": attn_ops.kernel_launches_tc,
+            "B8-FFMA": attn_ops.kernel_launches}
 
 
 def check_counts(path, counts, **want):
@@ -317,7 +334,7 @@ def phase_card_and_build():
     for source in sources:
         for line in _build.build_logs.get(source, "").splitlines():
             if "registers" in line or "spill" in line or "error" in line \
-                    or "Compiling entry" in line:
+                    or "Compiling entry" in line or "Performance" in line:
                 log(f"[1]   {source.name}: {line.strip()}")
     return card
 
@@ -1651,37 +1668,58 @@ def _attn_bound(q, k, kv_len, causal):
 
 
 def _attn_cases():
-    """(name, B, Hq, Hkv, Sq, Skv, D, causal, kv_len or None, dtypes, block)
-    — the reference tests' shapes, a D=16 head (the reduced models), and
-    the serving prefill's launch."""
-    f32, both = ("float32",), ("float32", "bfloat16")
+    """(name, B, Hq, Hkv, Sq, Skv, D, causal, kv_len or None, dtypes) — the
+    reference tests' shapes, a D=16 head (the reduced models), their edge
+    shapes again at D = 64 and 128 in bf16 (the tensor-core body), the
+    serving prefill's launch (unpadded, as the main path launches it) and
+    its f32 twin at batch 2 (the FFMA body's main-path launch)."""
+    f32, bf, both = ("float32",), ("bfloat16",), ("float32", "bfloat16")
     S = SERVE["prompt"]
     return [
-        ("basic causal", 2, 4, 2, 64, 64, 32, True, None, both, 32),
-        ("basic", 2, 4, 2, 64, 64, 32, False, None, both, 32),
-        ("GQA 8/8", 1, 8, 8, 64, 64, 32, True, None, f32, 32),
-        ("GQA 8/2", 1, 8, 2, 64, 64, 32, True, None, f32, 32),
-        ("GQA 8/1", 1, 8, 1, 64, 64, 32, True, None, f32, 32),
-        ("GQA 15/5", 1, 15, 5, 64, 64, 32, True, None, both, 32),
-        ("multi-tile 96", 2, 4, 2, 96, 96, 64, True, None, f32, 32),
-        ("padding 40x72", 2, 4, 2, 40, 72, 64, False, None, f32, 32),
-        ("Sq != Skv 128x256", 2, 4, 2, 128, 256, 64, False, None, both, 32),
-        ("single query", 2, 4, 2, 1, 128, 64, False, None, both, 64),
-        ("padding causal 50, D=16", 2, 6, 2, 50, 50, 16, True, None, both, 32),
-        ("D=128", 1, 4, 2, 64, 64, 128, True, None, both, 32),
-        ("D=128 long", 2, 4, 1, 700, 700, 128, True, None, both, 128),
-        ("kv_len 0/57/128", 3, 4, 2, 32, 128, 32, False, [0, 57, 128], both,
-         32),
-        ("kv_len 0 causal", 2, 2, 2, 200, 200, 64, True, [0, 131], both, 128),
-        ("512 causal", 1, 2, 1, 512, 512, 64, True, None, f32, 128),
-        ("serving prefill", 8, 15, 5, S, S, 64, True, None, ("bfloat16",),
-         128),
+        ("basic causal", 2, 4, 2, 64, 64, 32, True, None, both),
+        ("basic", 2, 4, 2, 64, 64, 32, False, None, both),
+        ("GQA 8/8", 1, 8, 8, 64, 64, 32, True, None, f32),
+        ("GQA 8/2", 1, 8, 2, 64, 64, 32, True, None, f32),
+        ("GQA 8/1", 1, 8, 1, 64, 64, 32, True, None, f32),
+        ("GQA 15/5", 1, 15, 5, 64, 64, 32, True, None, both),
+        ("multi-tile 96", 2, 4, 2, 96, 96, 64, True, None, f32),
+        ("ragged 40x72", 2, 4, 2, 40, 72, 64, False, None, f32),
+        ("Sq != Skv 128x256", 2, 4, 2, 128, 256, 64, False, None, both),
+        ("single query", 2, 4, 2, 1, 128, 64, False, None, both),
+        ("ragged causal 50, D=16", 2, 6, 2, 50, 50, 16, True, None, both),
+        ("D=128", 1, 4, 2, 64, 64, 128, True, None, both),
+        ("D=128 long", 2, 4, 1, 700, 700, 128, True, None, both),
+        ("kv_len 0/57/128", 3, 4, 2, 32, 128, 32, False, [0, 57, 128], both),
+        ("kv_len 0 causal", 2, 2, 2, 200, 200, 64, True, [0, 131], both),
+        ("512 causal", 1, 2, 1, 512, 512, 64, True, None, f32),
+        # the tensor-core body's edges (bf16, D in {64, 128})
+        ("TC basic D=64", 2, 4, 2, 64, 64, 64, False, None, bf),
+        ("TC GQA 15/5 D=64", 1, 15, 5, 300, 300, 64, True, None, bf),
+        ("TC GQA 8/2 D=64", 1, 8, 2, 200, 200, 64, True, None, bf),
+        ("TC GQA 8/1 D=128", 1, 8, 1, 200, 200, 128, True, None, bf),
+        ("TC basic D=128", 2, 4, 2, 96, 96, 128, False, None, bf),
+        ("TC ragged 40x72 D=128", 2, 4, 2, 40, 72, 128, False, None, bf),
+        ("TC Sq != Skv 200x130", 2, 4, 2, 200, 130, 128, True, None, bf),
+        ("TC Sq != Skv 130x300", 2, 4, 2, 130, 300, 64, False, None, bf),
+        ("TC single query D=128", 2, 4, 2, 1, 131, 128, False, None, bf),
+        ("TC kv_len 0/57/128 D=128", 3, 4, 2, 32, 128, 128, False,
+         [0, 57, 128], bf),
+        ("TC kv_len 0 causal D=128", 2, 2, 2, 200, 200, 128, True,
+         [0, 131], bf),
+        ("serving prefill", 8, 15, 5, S, S, 64, True, None, bf),
+        ("serving prefill f32", 2, 15, 5, S, S, 64, True, None, f32),
     ]
 
 
+def _body(dtype, D):
+    """The B8 body the kernel's entry point runs for these inputs."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    return "B8-TC" if attn_ops.uses_tensor_cores(dtype, D) else "B8-FFMA"
+
+
 def phase_attention_kernel():
-    """Phase 16: B8 == its plain version on the card.  Returns (errors by
-    dtype, the serving prefill's timing row)."""
+    """Phase 16: both of B8's bodies == the plain version on the card.
+    Returns (max error by body and dtype, timing row by body)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops as attn_ops
@@ -1689,91 +1727,92 @@ def phase_attention_kernel():
 
     dev = torch.device(CARD)
     gen = torch.Generator(device=dev).manual_seed(16)
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    row = None
-    for (name, B, Hq, Hkv, Sq, Skv, D, causal, kl, dtypes,
-         block) in _attn_cases():
+    errs = {"B8-TC": {"bfloat16": 0.0},
+            "B8-FFMA": {"float32": 0.0, "bfloat16": 0.0}}
+    rows = {}
+    for (name, B, Hq, Hkv, Sq, Skv, D, causal, kl,
+         dtypes) in _attn_cases():
         for dname in dtypes:
             dt = getattr(torch, dname)
+            body = _body(dt, D)
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                        for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
                                      (B, Hkv, Skv, D)))
             kv_len = torch.tensor(kl if kl is not None else [Skv] * B,
                                   dtype=torch.int32, device=dev)
-            got = flash_attention(q, k, v, kv_len, causal=causal,
-                                  block_q=block, block_k=block)
-            want = attention_ref(q, k, v, kv_len, causal=causal)
+            reset_counts()
+            got = flash_attention(q, k, v, kv_len, causal=causal)
             torch.cuda.synchronize()
+            counts = read_counts()
+            check_counts(f"[16] {name} {dname}", counts, **{body: 1})
+            want = attention_ref(q, k, v, kv_len, causal=causal)
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
-            errs[dname] = max(errs[dname], err)
+            errs[body][dname] = max(errs[body][dname], err)
             if dname == "float32":
-                check(err <= 2e-5, f"[16] {name} f32: B8 disagrees with "
+                check(err <= 2e-5, f"[16] {name} f32: {body} disagrees with "
                       f"its plain version (max |err| {err:.3g} > 2e-5)")
                 detail = f"max |err| {err:.3g}"
             else:
                 check(torch.allclose(got.float(), want.float(), atol=1e-3,
                                      rtol=8e-3),
-                      f"[16] {name} bf16: B8 disagrees with its plain "
+                      f"[16] {name} bf16: {body} disagrees with its plain "
                       f"version beyond atol 1e-3, rtol 8e-3 (max |err| "
                       f"{err:.3g})")
                 share = float((got != want).float().mean())
                 detail = (f"max |err| {err:.3g}, {share:.4%} of elements "
                           f"differ")
+            check(bool(torch.isfinite(got).all()),
+                  f"[16] {name} {dname}: {body} output not finite")
             if kl is not None and 0 in kl:
                 zero = [i for i, n in enumerate(kl) if n == 0]
                 check(bool((got[zero] == 0).all()),
                       f"[16] {name}: rows with kv_len 0 are not exactly 0")
                 detail += ", kv_len-0 rows exactly 0"
-            log(f"[16] {name:24s} {dname:8s} q {tuple(q.shape)} k "
-                f"{tuple(k.shape)} causal={causal}: B8 == plain ({detail})")
-            if name == "serving prefill":
-                row = _time_attention(q, k, v, kv_len, block, attn_ops,
-                                      attention_ref, F)
+            log(f"[16] {name:26s} {dname:8s} q {tuple(q.shape)} k "
+                f"{tuple(k.shape)} causal={causal}: {body} == plain "
+                f"({detail})")
+            if name.startswith("serving prefill"):
+                rows[body] = _time_attention(q, k, v, kv_len, body,
+                                             attn_ops, attention_ref, F)
+                rows[body]["max_abs_err"] = err
             del q, k, v, got, want, diff
     torch.cuda.empty_cache()
-    return errs, row
+    return errs, rows
 
 
-def _time_attention(q, k, v, kv_len, block, attn_ops, attention_ref, F):
-    """Times at the serving prefill's launch: B8 on the wrapper's padded
-    inputs (what the main path launches), its plain version on the same
-    inputs, and the library call on the unpadded ones."""
+def _time_attention(q, k, v, kv_len, body, attn_ops, attention_ref, F):
+    """Times at a main-path launch (unpadded, as the wrapper launches):
+    B8's body, its plain version on the same inputs, the library call on
+    the same inputs, and the library call on k/v repeated to every head."""
     import torch
     B, Hq, Sq, D = q.shape
-    Sp = -(-Sq // block) * block
-    qp, kp, vp = (F.pad(t, (0, 0, 0, Sp - t.shape[2])).contiguous()
-                  for t in (q, k, v))
-    ker = attn_ops.flash_attention_cuda(qp, kp, vp, kv_len, causal=True)
-    plain = attention_ref(qp, kp, vp, kv_len, causal=True)
-    torch.cuda.synchronize()
-    err = float((ker.float() - plain.float()).abs().max())
-    check(torch.allclose(ker.float(), plain.float(), atol=1e-3, rtol=8e-3),
-          f"[16] serving prefill, padded launch: B8 disagrees with its "
-          f"plain version (max |err| {err:.3g})")
-    del ker, plain
     k_ms = time_ms(lambda: attn_ops.flash_attention_cuda(
-        qp, kp, vp, kv_len, causal=True), 10)
-    p_ms = time_ms(lambda: attention_ref(qp, kp, vp, kv_len, causal=True), 3)
+        q, k, v, kv_len, causal=True), 20)
+    p_ms = time_ms(lambda: attention_ref(q, k, v, kv_len, causal=True), 3)
     l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10)
+        q, k, v, is_causal=True, enable_gqa=True), 20)
     group = Hq // k.shape[1]
     ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
     mha_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, ke, ve, is_causal=True), 10)
+        q, ke, ve, is_causal=True), 20)
+    again = time_ms(lambda: attn_ops.flash_attention_cuda(
+        q, k, v, kv_len, causal=True), 20)
     b_ms, b_by, f32_ms, flops = _attn_bound(q, k, kv_len, True)
-    log(f"[16] serving prefill launch q {tuple(qp.shape)} k "
-        f"{tuple(kp.shape)} (S {Sq} padded to {Sp}, kv_len {Sq}): B8 "
-        f"{k_ms:.4f} "
-        f"ms, plain {p_ms:.4f} ms, SDPA (GQA) {l_ms:.4f} ms, SDPA on "
-        f"repeated k/v {mha_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}: "
-        f"{flops / 1e9:.2f} GFLOP at the bf16 peak; {f32_ms:.4f} ms on the "
-        f"f32 pipe) = {k_ms / b_ms:.1f}x bound, {k_ms / f32_ms:.2f}x the "
-        f"f32-pipe figure, {k_ms / l_ms:.2f}x SDPA")
-    return dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, Sq_padded=Sp, D=D,
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                library_mha_ms=mha_ms, bound_ms=b_ms, bound_by=b_by,
-                f32_pipe_ms=f32_ms, gflop=flops / 1e9, max_abs_err=err)
+    log(f"[16] {body} at its main-path launch q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} {str(q.dtype)[6:]} causal, kv_len {Sq}: "
+        f"{k_ms:.4f} / {again:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s of "
+        f"{flops / 1e9:.2f} GFLOP), plain {p_ms:.4f} ms, SDPA (GQA) "
+        f"{l_ms:.4f} ms, SDPA on repeated k/v {mha_ms:.4f} ms; bound "
+        f"{b_ms:.6f} ms ({b_by}) = {k_ms / b_ms:.1f}x bound, "
+        f"{k_ms / l_ms:.2f}x SDPA (GQA), {k_ms / mha_ms:.2f}x SDPA on "
+        f"repeated k/v; {f32_ms:.4f} ms on the f32 pipe")
+    del ke, ve
+    return dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, D=D,
+                dtype=str(q.dtype)[6:], ms=k_ms, ms_again=again,
+                plain_ms=p_ms, library_ms=l_ms, library_mha_ms=mha_ms,
+                bound_ms=b_ms, bound_by=b_by, f32_pipe_ms=f32_ms,
+                gflop=flops / 1e9, tflops=flops / k_ms / 1e9)
 
 
 def _rel_err(got, want):
@@ -1834,13 +1873,14 @@ def _device_time(fn, wall_ms, label, tag="17"):
 
 def phase_serving():
     """Phase 17: SmolLM-360M served at full width and depth through B8.
-    Returns the B8 launches per path."""
+    Returns the launches of each B8 body per path."""
     import contextlib
     import dataclasses
     import io
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import init_params, param_count
     from repro_torch.serve import make_decode_step, make_prefill_step
@@ -1851,24 +1891,29 @@ def phase_serving():
     B, S, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     max_len = S + G + 1
     torch.cuda.empty_cache()
-    params = init_params(
-        torch.Generator(device=dev).manual_seed(SERVE["seed"]), cfg,
-        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(prng.PRNGKey(SERVE["seed"]), cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
     n_params = param_count(params)
+    check(all(bool(torch.isfinite(t).all()) for t in params.parameters()),
+          "[17] the seeded weights are not finite")
     batch = _serve_batch(cfg, B, S, dev)
     prefill = make_prefill_step(cfg, max_len=max_len, attn_impl="cuda")
     decode = make_decode_step(cfg)
     log(f"[17] {cfg.name}: {L} layers, d {cfg.d_model}, heads "
         f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} "
-        f"parameters ({n_params * 2 / 1e9:.3f} GB), random from seed "
-        f"{SERVE['seed']}; batch {B} x prompt {S}, {G} decode steps, max_len "
+        f"parameters ({n_params * 2 / 1e9:.3f} GB), drawn on the card from "
+        f"PRNGKey({SERVE['seed']}) as the reference draws them in "
+        f"{t_init:.3f} s; batch {B} x prompt {S}, {G} decode steps, max_len "
         f"{max_len}")
 
     prefill(params, batch)            # first use: cuBLAS handles, caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = {}
+    launches = {"B8-TC": {}, "B8-FFMA": {}}
     # the main path: counts set to 0 just before, read just after
     reset_counts()
     t0 = time.perf_counter()
@@ -1877,8 +1922,8 @@ def phase_serving():
     t_prefill = time.perf_counter() - t0
     counts = read_counts()
     check_counts("[17] full-width prefill via attn_impl='cuda'", counts,
-                 B8=L)
-    launches["full_width_prefill"] = counts["B8"]
+                 **{"B8-TC": L})
+    launches["B8-TC"]["full_width_prefill"] = counts["B8-TC"]
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"[17] prefill logits {tuple(logits.shape)} not finite or "
@@ -1949,7 +1994,7 @@ def phase_serving():
     torch.cuda.synchronize()
     counts = read_counts()
     check_counts("[17] full-width prefill via attn_impl='ref'", counts)
-    launches["full_width_prefill_ref"] = counts["B8"]
+    launches["B8-TC"]["full_width_prefill_ref"] = counts["B8-TC"]
     rel = _rel_err(logits, ref_logits)
     agree = (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean()
     check(rel <= 0.02, f"[17] prefill via 'cuda' vs 'ref': {rel:.4g} of "
@@ -1962,16 +2007,15 @@ def phase_serving():
     torch.cuda.empty_cache()
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = init_params(torch.Generator(device=dev).manual_seed(SERVE["seed"]),
-                      cfg32, device=dev)
+    p32 = init_params(prng.PRNGKey(SERVE["seed"]), cfg32, device=dev)
     b2 = {k: t[:2] for k, t in batch.items()}
     reset_counts()
     l32, c32 = make_prefill_step(cfg32, max_len=max_len,
                                  attn_impl="cuda")(p32, b2)
     torch.cuda.synchronize()
     counts = read_counts()
-    check_counts("[17] f32 prefill via 'cuda'", counts, B8=L)
-    launches["f32_prefill"] = counts["B8"]
+    check_counts("[17] f32 prefill via 'cuda'", counts, **{"B8-FFMA": L})
+    launches["B8-FFMA"]["f32_prefill"] = counts["B8-FFMA"]
     r32, _ = make_prefill_step(cfg32, max_len=max_len,
                                attn_impl="ref")(p32, b2)
     rel32 = _rel_err(l32, r32)
@@ -1991,18 +2035,36 @@ def phase_serving():
     del p32, l32, c32, r32, d32, t32
     torch.cuda.empty_cache()
 
-    out = io.StringIO()
-    reset_counts()
     argv = ["--arch", SERVE["arch"], "--gen", "32"]
-    with contextlib.redirect_stdout(out):
-        gen = serve_main(argv if CARD == "cuda" else argv + ["--device", CARD])
-    torch.cuda.synchronize()
-    counts = read_counts()
-    check_counts("[17] launcher", counts, B8=L)
-    launches["launcher_serve_lm"] = counts["B8"]
-    check(gen.shape == (4, 32), f"[17] launcher returned {gen.shape}")
-    for line in out.getvalue().splitlines():
-        log(f"[17] launcher | {line}")
+    if CARD != "cuda":
+        argv += ["--device", CARD]
+    runs = [("launcher_serve_lm", argv)] + [
+        (f"launcher_sampled_{i}", argv + ["--temperature", "0.8", "--seed",
+                                          "3"]) for i in (1, 2)]
+    gens = {}
+    for path, args in runs:
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            gens[path] = serve_main(args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(f"[17] {path}", counts, **{"B8-TC": L})
+        launches["B8-TC"][path] = counts["B8-TC"]
+        check(gens[path].shape == (4, 32),
+              f"[17] {path} returned {gens[path].shape}")
+        check(bool(((gens[path] >= 0)
+                    & (gens[path] < cfg.vocab_size)).all()),
+              f"[17] {path}: token ids out of [0, {cfg.vocab_size})")
+        for line in out.getvalue().splitlines():
+            log(f"[17] {path} | {line}")
+    a, b = gens["launcher_sampled_1"], gens["launcher_sampled_2"]
+    check(bool((a == b).all()), "[17] two launcher runs at --temperature "
+          "0.8 --seed 3 sampled different tokens")
+    log(f"[17] launcher at --temperature 0.8 --seed 3, twice: identical "
+        f"tokens (4 x 32, in [0, {cfg.vocab_size})); {float((a != gens[
+            'launcher_serve_lm']).mean()):.3f} of them differ from the "
+        f"greedy run's")
     return launches
 
 
@@ -2035,7 +2097,7 @@ def main() -> int:
         sharded = phase_sharded(dense_res)
         del dense_res
         sharded["B7"]["sharded_large_explore"] = phase_sharded_large()
-        attn_errs, attn_row = phase_attention_kernel()
+        attn_errs, attn_rows = phase_attention_kernel()
         served = phase_serving()
     except Exception:
         traceback.print_exc()
@@ -2051,9 +2113,9 @@ def main() -> int:
                  "B5-COO": "full_width_delayed_hybrid_explore",
                  "B6": "sharded_contiguous_explore",
                  "B7": "sharded_contiguous_explore",
-                 "B8": "full_width_prefill"}
+                 "B8-TC": "full_width_prefill", "B8-FFMA": "f32_prefill"}
     by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
-               "B8": served}
+               **served}
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
              "B3": sparse_rows["power_law(8192) hybrid wave"],
@@ -2063,20 +2125,22 @@ def main() -> int:
                                    "power_law(8192) delayed hybrid wave")],
              "B6": shard_rows[("B6", "scaled_pi(682) wave S=4")],
              "B7": shard_rows[("B7", "scaled_pi(682) wave S=4")],
-             "B8": attn_row}
+             **attn_rows}
     # the shard kernels' other waves, beside their main path's
     other_waves = {k: {name: row for (kk, name), row in shard_rows.items()
                        if kk == k and row is not waves[k]}
                    for k in ("B6", "B7")}
     errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err,
-            "B8": max(attn_errs.values())}
-    # B8's extras: its error per dtype, the f32-pipe figure, the launch
-    extras = {"B8": dict(max_abs_err_by_dtype=attn_errs,
-                         f32_pipe_ms=attn_row["f32_pipe_ms"],
-                         library_mha_ms=attn_row["library_mha_ms"],
-                         launch={k: attn_row[k] for k in (
-                             "B", "Hq", "Hkv", "Sq", "Sq_padded", "D",
-                             "gflop")})}
+            **{k: max(e.values()) for k, e in attn_errs.items()}}
+    # B8's extras, per body: its error per dtype, the f32-pipe figure, the
+    # rate, a second timing, SDPA on repeated k/v, the launch
+    extras = {k: dict(max_abs_err_by_dtype=attn_errs[k],
+                      f32_pipe_ms=row["f32_pipe_ms"], tflops=row["tflops"],
+                      ms_again=row["ms_again"],
+                      library_mha_ms=row["library_mha_ms"],
+                      launch={f: row[f] for f in (
+                          "B", "Hq", "Hkv", "Sq", "D", "dtype", "gflop")})
+              for k, row in attn_rows.items()}
     figures = []
     for k, meta in KERNELS.items():
         w = waves[k]

@@ -4,13 +4,78 @@
 // Replaces src/repro/kernels/flash_attn/kernel.py::flash_attention_pallas
 // (body _kernel, kernel.py:29; pallas_call, kernel.py:117).  Same function:
 //   o[b,h,i] = sum_j softmax_j(q[b,h,i]·scale · k[b,h//group,j]) v[b,h//group,j]
-// over the keys j < kv_len[b] (and j <= i when causal); a row with no valid
-// key is exactly 0.  Inputs q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D)
-// contiguous, f32 or bf16; kv_len (B,) int32 with kv_len <= Skv (the
-// wrapper, ops.py, clips it and pads Sq/Skv as the reference's ops.py does).
-// The output has q's type.
+// over the keys j < kv_len[b] (and j <= i when causal); masked
+// probabilities are exactly 0 and a row with no valid key is exactly 0.
+// Inputs q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) contiguous, f32 or bf16,
+// unpadded; kv_len (B,) int32 (clipped to Skv here and by the wrapper).
+// The output has q's type.  Two bodies, picked by type and head dim (no
+// fallback between them; flash_attn_fwd_tensor_cores says which runs):
 //
-// Design (the simple, right first version):
+// The tensor-core body: bf16 at D in {64, 128} (SmolLM-360M's 64,
+// Command-R's and Qwen2-VL's 128).  It takes those inputs from the FFMA
+// body below, which ran them at 3.5 ms at the serving prefill's launch,
+// 59x its bound (f32 FFMA at a quarter of that pipe's peak, f32 tiles in
+// shared memory at 3 loads per 8 FFMA, plain per-element loads, 8% of its
+// work on padded rows).
+// * What bounds it: 4·D FLOPs a valid (query, key) pair and head, read
+//   once: at the serving prefill (B=8, Hq=15, Hkv=5, S=1960, D=64, causal)
+//   59 GFLOP, 0.060 ms at the bf16 tensor-core peak, against 0.012 ms of
+//   bytes: operations bind.  Past the tensor cores, the softmax's
+//   exponentials (one MUFU op a pair, 16 a clock an SM) are the next wall.
+// * Tiles: a block of 384 threads per (q tile of BQ = 128 rows, query
+//   head, batch row): warpgroup 0 is the producer (one thread issues TMA),
+//   warpgroups 1 and 2 are consumers of 64 rows each.  The grid is (Hq, B,
+//   q tiles) with the q tile taken in reverse, so the longest causal rows
+//   start first.  KV tiles are BK = 128 keys at D = 64, 64 at D = 128
+//   (S, P and O of 128 keys at D = 128 do not fit 240 registers: ptxas
+//   serialised the wgmmas and spilled).
+// * Loads: TMA into 128-byte-swizzled shared memory (the layout wgmma's
+//   descriptors read), each tile in panels of 64 columns.  Q is loaded once
+//   a block; K and V go through a ring of 3 stages, each with its own full
+//   barrier (S = Q·Kᵀ starts before V has landed) and one empty barrier
+//   the two consumers release.  The tensor maps are 3-D, (D, S, B·H), so
+//   rows past S read as zeros, never as the next head's rows: the wrapper
+//   pads nothing.  They are encoded on the host (cuTensorMapEncodeTiled
+//   through cudaGetDriverEntryPoint: no -lcuda) and passed as
+//   __grid_constant__ parameters.
+// * S = Q·Kᵀ: wgmma m64nBKk16, bf16 in, f32 accumulate, both operands
+//   from shared memory, K-major.  The scale times log2(e) multiplies the f32
+//   scores and the exponentials are exp2 (the reference scales q first,
+//   kernel.py:50: the two differ by f32 rounding only).
+// * Softmax: online, in registers, on the accumulator's own fragment (a
+//   thread holds 2 rows; a row's max and sum reduce over a quad by
+//   shuffles; each thread keeps a partial row sum until the end).  Masks
+//   are computed only on tiles that reach kv_len or cross the causal
+//   diagonal; there masked scores are -1e30 and their probabilities are set
+//   to exactly 0 after the exponential, so a row with no valid key keeps
+//   l = 0 and ends as 0 (kernel.py:59-68, :82).
+// * O += P·V: wgmma m64nDk16 with P from registers (the f32 fragment of S
+//   maps onto the bf16 A fragment with no shuffles) and V from shared
+//   memory, MN-major (the descriptor's transpose bit).  P goes in as two
+//   bf16 terms, hi = bf16(p) and lo = bf16(p - hi), two wgmmas a k-step:
+//   P in one bf16 term misses the kernel's tolerance against its plain
+//   version (atol 1e-3, rtol 8e-3 on bf16 outputs) on about 1e-5 of the
+//   elements at the serving launch (outputs near 0, few keys); hi + lo
+//   carries 16 bits of p.  It costs 1.5x the tensor work of one term.
+// * Epilogue: O / l where l > 0, else 0, cast to bf16, plain stores of
+//   bf16 pairs; rows past Sq are not written.
+// * Registers: the producer drops to 24 a thread, the consumers rise to
+//   240 (setmaxnreg).  -Xptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints
+//   it): 168 registers at entry for both instantiations; D = 64 spills 4
+//   bytes (16 bytes of reloads), D = 128 nothing.  Shared memory: 16 KiB
+//   of Q and 3 x 32 KiB of K/V at D = 64, 32 + 3 x 32 KiB at D = 128 (113
+//   and 129 KiB with alignment), 80 bytes of barriers: one block an SM,
+//   held there by registers (384 x 168).
+// * Measured (H100 80GB HBM3, 700 W; PERF.md): 0.327 ms at the serving
+//   launch, 180 TFLOP/s of the bound's work, 1.8x SDPA; at D = 128 (q (1,
+//   64, 4096, 128), GQA 8) 316 TFLOP/s.  What holds it there is not split
+//   by a trace: per pair it runs one exp2 and, for P's two terms, two
+//   conversions to bf16 beside a 64-wide dot, and a consumer waits for its
+//   own S before its softmax and for its P·V before the next S (the two
+//   consumers overlap each other, not their own stages).
+//
+// The FFMA body: f32 inputs (TF32 would break the f32 contract: 2e-5
+// against the plain version, 1e-4 on logits) and bf16 at D in {16, 32}.
 // * one block of 128 threads per (q tile of BQ=64 rows, query head, batch
 //   row); it loops over the KV tiles of BK=64 keys in order and stops at the
 //   last one with a valid key: at kv_len, and for a causal mask at the
@@ -22,26 +87,24 @@
 //   in shared memory, the output accumulator in f32 registers (each thread
 //   holds 4 of the D columns in D/8 of the rows);
 // * masked scores are -1e30 and their probabilities are set to exactly 0
-//   after the exponential (kernel.py:59-68), so a row whose keys are all
-//   masked so far keeps l == 0 and ends as 0 (kernel.py:82);
+//   after the exponential, as in the tensor-core body;
 // * no fast math: expf and IEEE division.  The products run on the f32
-//   pipe (FFMA), not the tensor cores.
-//
-// What bounds it on the H100: the work is 4·B·Hq·D·(valid pairs) FLOPs over
-// bytes that are read about once (q, k, v, o), so operations bind: at the
-// serving prefill (B=8, Hq=15, S=1960, D=64, causal) 59 GFLOP, 0.06 ms at
-// the bf16 tensor-core peak, 0.88 ms on the f32 pipe this kernel uses.  This
-// version is further held back by shared-memory loads (about 3 per 8 FFMA)
-// and by recomputing nothing across q tiles: K/V tiles are re-read from L2
-// by every q tile of a head.  The later redesign (wgmma on bf16 tiles, TMA
-// into a ring of tiles, P·V in bf16) is where the tensor-core bound lies.
+//   pipe (FFMA): 67 TFLOP/s at most on the H100, and this body's
+//   shared-memory loads (about 3 per 8 FFMA) hold it to about a quarter.
 
+#include <cuda.h>  // CUtensorMap types only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The FFMA body (f32; bf16 at D in {16, 32})
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per KV tile
@@ -275,11 +338,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// bf16 at D 64/128 belongs to the tensor-core body: only f32 builds the
+// FFMA body there, so each (type, head dim) has exactly one body.
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      const void* kv_len, void* out, int B, int Hq, int Hkv,
                      int Sq, int Skv, int causal, float scale,
                      cudaStream_t stream) {
+  constexpr bool kWide = std::is_same<T, float>::value;
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, causal,
@@ -288,17 +354,562 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
       return launch<T, 32>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, causal,
                            scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, causal,
-                           scale, stream);
+      if constexpr (kWide)
+        return launch<T, 64>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
+                             causal, scale, stream);
+      return cudaErrorInvalidValue;
     case 128:
-      return launch<T, 128>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
-                            causal, scale, stream);
+      if constexpr (kWide)
+        return launch<T, 128>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
+                              causal, scale, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16, D in {64, 128})
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;          // query rows per block (two consumers x 64)
+constexpr int PANEL = 64;        // bf16 columns of one 128-byte swizzled row
+constexpr int ROW_BYTES = 128;   // bytes of one row of a panel
+constexpr int THREADS = 384;     // producer + two consumer warpgroups
+constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  // keys per KV tile: 64 at D = 128 keeps S, P (hi + lo) and O in 240
+  // registers a thread, so ptxas need not serialise the wgmmas
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int PANELS = D / PANEL;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  // + slack to align the tiles to the 1024-byte swizzle atom
+  static constexpr int SMEM = V_OFF + STAGES * KV_BYTES + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// wait past about 10 s (2^34 clocks) traps: a fault, never a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// One box of a 3-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads of wgmma's registers across its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (m64n128, f32) = A·B (+ d if scale_d): A 64 x 16 and B 16 x 128, both
+// from shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n64, f32) = A·B (+ d if scale_d): A 64 x 16 and B 16 x 64, both
+// from shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n64, f32) += A·B: A 64 x 16 from registers (bf16 pairs), B
+// 16 x 64 from shared memory, MN-major (transposed), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n128, f32) += A·B: A 64 x 16 from registers (bf16 pairs), B
+// 16 x 128 from shared memory, MN-major (transposed), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S += Q·Kᵀ over one k-step (N = BK keys) and O += P·V (N = D columns).
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_n64(s, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&s)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss_n128(s, da, db, scale_d);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Fragment coordinates (wgmma's f32 accumulator, m64nN): element i of a
+// thread lies in row r0 + 8·((i >> 1) & 1) of its warpgroup's 64 and in
+// column 8·(i / 4) + c0 + (i & 1), with r0 = 16·warp + lane / 4 and
+// c0 = 2·(lane % 4).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const int* __restrict__ kv_len,
+                             __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
+                             int Sq, int Skv, int causal, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int S = C::STAGES, BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  // barriers: Q full, K full x S, V full x S, K/V stage empty x S
+  __shared__ __align__(8) uint64_t bars[1 + 3 * S];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, k_s = base + C::K_OFF, v_s = base + C::V_OFF;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_k = smem_u32(&bars[1]);          // + 8·stage
+  const uint32_t bar_v = smem_u32(&bars[1 + S]);
+  const uint32_t bar_e = smem_u32(&bars[1 + 2 * S]);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest rows first
+  const int hk = h / (Hq / Hkv);                      // GQA
+  const int len = min(kv_len[b], Skv);
+  // Tiles from n_tiles on hold no valid key (all at or past kv_len, or, for
+  // a causal mask, above every row of this block): skipping them is exact.
+  const int k_end = causal ? min(len, q0 + BQ) : len;
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load of the block ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      const int bh_q = b * Hq + h, bh_kv = b * Hkv + hk;
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      for (int p = 0; p < C::PANELS; ++p)
+        tma_load_3d(q_s + p * BQ * ROW_BYTES, &tm_q, bar_q, p * PANEL, q0,
+                    bh_q);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % S;
+        const uint32_t off = s * C::KV_BYTES;
+        // the stage's previous tile is consumed (the first round passes)
+        mbar_wait(bar_e + 8 * s, ((n / S) & 1) ^ 1);
+        mbar_expect_tx(bar_k + 8 * s, C::KV_BYTES);
+        for (int p = 0; p < C::PANELS; ++p)
+          tma_load_3d(k_s + off + p * BK * ROW_BYTES, &tm_k, bar_k + 8 * s,
+                      p * PANEL, n * BK, bh_kv);
+        mbar_expect_tx(bar_v + 8 * s, C::KV_BYTES);
+        for (int p = 0; p < C::PANELS; ++p)
+          tma_load_3d(v_s + off + p * BK * ROW_BYTES, &tm_v, bar_v + 8 * s,
+                      p * PANEL, n * BK, bh_kv);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int r0 = 16 * (t / 32) + lane / 4, c0 = 2 * (lane % 4);
+    const int row0 = q0 + 64 * c + r0;  // query index of fragment row 0
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+    if (n_tiles > 0) mbar_wait(bar_q, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int s = n % S;
+      const uint32_t ph = (n / S) & 1, off = s * C::KV_BYTES;
+      const int k0 = n * BK;
+
+      // S = Q Kᵀ (64 x BK, f32)
+      float sc[BK / 2];
+      mbar_wait(bar_k + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // 16 bf16 within the panel
+        const uint64_t da = desc_sw128(
+            q_s + (kk / 4) * BQ * ROW_BYTES + c * 64 * ROW_BYTES + col, 16,
+            1024);
+        const uint64_t db = desc_sw128(
+            k_s + off + (kk / 4) * BK * ROW_BYTES + col, 16, 1024);
+        wgmma_qk<BK>(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // online softmax in base 2; masks only where the tile needs them
+      const bool masked =
+          k0 + BK > len || (causal && k0 + BK - 1 > q0 + 64 * c);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + c0 + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          const bool ok = key < len && (!causal || key <= row);
+          sc[i] = ok ? sc[i] * scale_log2 : NEG;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+      }
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 2));
+        // 1 while the row has no valid key (m stays -1e30), else <= 1
+        alpha[hh] = exp2f(m[hh] - mt[hh]);
+        m[hh] = mt[hh];
+        l[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      if (masked) {  // masked probabilities are exactly 0
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + c0 + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          if (!(key < len && (!causal || key <= row))) sc[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) l[(i >> 1) & 1] += sc[i];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // P as bf16 hi + lo A fragments: k-step kk takes S elements 8kk..8kk+7
+      uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x = sc[8 * kk + 2 * r], y = sc[8 * kk + 2 * r + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+          const float2 hf = __bfloat1622float2(hi);
+          p_hi[kk][r] = bf16x2_bits(hi);
+          p_lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+        }
+
+      // O += P V: V rows are keys (K), D columns (N) contiguous: MN-major
+      mbar_wait(bar_v + 8 * s, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db =
+            desc_sw128(v_s + off + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024);
+        wgmma_pv<D>(o, p_hi[kk], db);
+        wgmma_pv<D>(o, p_lo[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      if (t == 0) mbar_arrive(bar_e + 8 * s);  // this consumer is done here
+    }
+
+    // O / l (0 for a row without a valid key), bf16 pairs
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    __nv_bfloat16* ob = out + (size_t)(b * Hq + h) * Sq * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= Sq) continue;
+      const float lr = l[hh];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int i = 4 * j + 2 * hh;
+        const float x = lr > 0.f ? o[i] / fmaxf(lr, 1e-30f) : 0.f;
+        const float y = lr > 0.f ? o[i + 1] / fmaxf(lr, 1e-30f) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + 8 * j +
+                                           c0) = __floats2bfloat162_rn(x, y);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime.
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (D, S, BH) bf16 map read in boxes of 64 columns x `rows` rows, with the
+// 128-byte swizzle; rows past S read as zeros.
+bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int D,
+              int S, int BH, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)PANEL, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* kv_len, void* out, int B, int Hq, int Hkv,
+                   int Sq, int Skv, int causal, float scale,
+                   cudaStream_t stream) {
+  const EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
+    return cudaErrorMisalignedAddress;
+  if ((Sq + BQ - 1) / BQ > 65535) return cudaErrorInvalidConfiguration;
+  CUtensorMap mq, mk, mv;
+  // without keys no tile is loaded: K/V's maps then describe q's memory
+  const bool no_keys = Skv == 0;
+  if (!make_map(encode, &mq, q, D, Sq, B * Hq, BQ) ||
+      !make_map(encode, &mk, no_keys ? q : k, D, no_keys ? Sq : Skv,
+                no_keys ? B * Hq : B * Hkv, Cfg<D>::BK) ||
+      !make_map(encode, &mv, no_keys ? q : v, D, no_keys ? Sq : Skv,
+                no_keys ? B * Hq : B * Hkv, Cfg<D>::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attn_fwd_tc_kernel<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, Cfg<D>::SMEM, stream>>>(
+      mq, mk, mv, static_cast<const int*>(kv_len),
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Skv, causal,
+      scale * LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+
+// 1 if flash_attn_fwd runs the tensor-core body for this head dim and type
+// (dtype: 0 = f32, 1 = bf16), else 0: the wrapper counts each body apart.
+extern "C" int flash_attn_fwd_tensor_cores(int D, int dtype) {
+  return dtype == 1 && (D == 64 || D == 128) ? 1 : 0;
+}
 
 // Plain C entry point (loaded with ctypes).  dtype: 0 = f32, 1 = bf16.
 // Returns the CUDA error of the launch (0 = launched).
@@ -309,6 +920,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (B == 0 || Hq == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (flash_attn_fwd_tensor_cores(D, dtype))
+    return (int)(D == 64 ? tc::launch<64>(q, k, v, kv_len, out, B, Hq, Hkv,
+                                          Sq, Skv, causal, scale, s)
+                         : tc::launch<128>(q, k, v, kv_len, out, B, Hq, Hkv,
+                                           Sq, Skv, causal, scale, s));
   if (dtype == 0)
     return (int)dispatch<float>(D, q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
                                 causal, scale, s);

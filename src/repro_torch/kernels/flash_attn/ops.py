@@ -3,19 +3,26 @@
 :func:`flash_attention` is the counterpart of the JAX package's
 ``kernels/flash_attn/ops.py::flash_attention``:
 
-* it pads ``Sq``/``Skv`` to multiples of ``min(block, S)`` (padding keys
-  are masked through ``kv_len``, padding queries sliced off) and clips
-  ``kv_len`` to ``min(kv_len, Skv)``;
-* on a CUDA tensor it launches ``csrc/flash_attn_fwd.cu`` (B8), on a CPU
-  tensor it runs the plain version (:func:`.ref.attention_ref`) on the same
-  padded inputs; there is no fallback;
+* it clips ``kv_len`` to ``min(kv_len, Skv)``;
+* on a CUDA tensor it launches ``csrc/flash_attn_fwd.cu`` (B8) on the
+  unpadded inputs (the kernel masks its ragged edge: TMA reads rows past
+  ``S`` as zeros, ``kv_len`` and the causal mask cover them); on a CPU
+  tensor it pads ``Sq``/``Skv`` to multiples of ``min(block, S)`` as the
+  reference does (padding keys are masked through ``kv_len``, padding
+  queries sliced off) and runs the plain version
+  (:func:`.ref.attention_ref`); the two agree, since padding keys are
+  masked and padding queries are dropped.  There is no fallback;
 * it is a :class:`torch.autograd.Function` whose backward recomputes the
   plain attention, as the reference's ``custom_vjp`` does (there is no
   backward kernel in either package).
 
-Counters (plain integers, reset by callers that measure a run):
-``kernel_launches`` counts launches of B8, ``plain_calls`` calls of its
-plain version through this wrapper.
+B8 has two bodies, picked by type and head dim inside the kernel's entry
+point (:func:`uses_tensor_cores`): bf16 at D in {64, 128} runs on the
+tensor cores (wgmma and TMA), f32 and bf16 at D in {16, 32} on the FFMA
+body.  Counters (plain integers, reset by callers that measure a run):
+``kernel_launches_tc`` counts launches of the tensor-core body,
+``kernel_launches`` of the FFMA body, ``plain_calls`` calls of the plain
+version through this wrapper.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from ..snp_step._build import load_library
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_cuda", "load_kernel",
-           "SOURCE", "HEAD_DIMS", "kernel_launches", "plain_calls"]
+           "uses_tensor_cores", "SOURCE", "HEAD_DIMS", "kernel_launches",
+           "kernel_launches_tc", "plain_calls"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
 
@@ -40,6 +48,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 kernel_launches = 0
+kernel_launches_tc = 0
 plain_calls = 0
 
 
@@ -50,14 +59,24 @@ def load_kernel():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    body = lib.flash_attn_fwd_tensor_cores
+    body.argtypes = [ctypes.c_int, ctypes.c_int]
+    body.restype = ctypes.c_int
     return lib
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether B8 runs its tensor-core body for this type and head dim (the
+    kernel's entry point decides; this asks it)."""
+    return bool(load_kernel().flash_attn_fwd_tensor_cores(
+        head_dim, _DTYPES[dtype]))
 
 
 def flash_attention_cuda(q, k, v, kv_len, *, causal: bool = True):
     """Launch B8 on CUDA tensors: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D),
     contiguous, f32 or bf16; ``kv_len`` (B,) int32 with values at most
     ``Skv``.  Returns o (B, Hq, Sq, D) in q's dtype."""
-    global kernel_launches
+    global kernel_launches, kernel_launches_tc
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {dev}")
@@ -96,7 +115,10 @@ def flash_attention_cuda(q, k, v, kv_len, *, causal: bool = True):
             _DTYPES[q.dtype], 1.0 / (D ** 0.5), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {rc}")
-    kernel_launches += 1
+    if uses_tensor_cores(q.dtype, D):
+        kernel_launches_tc += 1
+    else:
+        kernel_launches += 1
     return out
 
 
@@ -107,23 +129,21 @@ def _round_up(x: int, m: int) -> int:
 def _forward(q, k, v, kv_len, causal, block_q, block_k):
     global plain_calls
     Sq, Skv = q.shape[2], k.shape[2]
+    kl = kv_len.to(device=q.device, dtype=torch.int32).clamp(max=Skv)
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), kl.contiguous(),
+                                    causal=causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA (kernel B8) or CPU "
+                         f"(its plain version) tensors, got {q.device}")
     Sq_p = _round_up(Sq, min(block_q, Sq)) if Sq else 0
     Skv_p = _round_up(Skv, min(block_k, Skv)) if Skv else 0
     qp = F.pad(q, (0, 0, 0, Sq_p - Sq))
     kp = F.pad(k, (0, 0, 0, Skv_p - Skv))
     vp = F.pad(v, (0, 0, 0, Skv_p - Skv))
-    kl = kv_len.to(device=q.device, dtype=torch.int32).clamp(max=Skv)
-    if q.device.type == "cuda":
-        out = flash_attention_cuda(qp.contiguous(), kp.contiguous(),
-                                   vp.contiguous(), kl.contiguous(),
-                                   causal=causal)
-    elif q.device.type == "cpu":
-        plain_calls += 1
-        out = attention_ref(qp, kp, vp, kl, causal=causal)
-    else:
-        raise ValueError(f"flash_attention runs on CUDA (kernel B8) or CPU "
-                         f"(its plain version) tensors, got {q.device}")
-    return out[:, :, :Sq]
+    plain_calls += 1
+    return attention_ref(qp, kp, vp, kl, causal=causal)[:, :, :Sq]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -159,8 +179,9 @@ def flash_attention(
     """Softmax attention, (B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
 
     ``kv_len`` (B,) masks trailing cache slots (serving); defaults to full.
-    ``block_q``/``block_k`` set the padding, as in the reference; the
-    kernel's own tiles are fixed and mask their ragged edge.
+    ``block_q``/``block_k`` set the CPU route's padding, as in the
+    reference; the kernel's own tiles are fixed and mask their ragged
+    edge.
     """
     B, Hq = q.shape[:2]
     Hkv, Skv = k.shape[1], k.shape[2]

@@ -8,8 +8,10 @@ decode (the port of the LM path of the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --device cpu                        # reduced, on the CPU
 
-The weights are random, drawn from ``--seed`` at the published shapes, as
-the reference's launcher draws them.  Prefill runs its attention through
+The weights are random, drawn from ``PRNGKey(--seed)`` at the published
+shapes, and sampled tokens from the same key split once a step, as the
+reference's launcher draws them (the same values, through
+:mod:`repro_torch.core.prng`).  Prefill runs its attention through
 kernel B8 (``attn_impl="cuda"``; on the CPU its plain version); the
 reference's launcher leaves its prefill at the plain ``"xla"``.
 """
@@ -24,6 +26,7 @@ import torch
 
 from ..configs import get_config
 from ..configs.smoke import reduced
+from ..core import prng
 from ..core.device import resolve_device
 from ..data import DataConfig, make_batch
 from ..models import init_params
@@ -47,8 +50,7 @@ def serve_lm(args) -> np.ndarray:
     B, S, G = args.batch, args.prompt_len, args.gen
     max_len = S + G + 1
 
-    params = init_params(torch.Generator(device=dev).manual_seed(args.seed),
-                         cfg, device=dev)
+    params = init_params(prng.PRNGKey(args.seed), cfg, device=dev)
     prefill = make_prefill_step(cfg, max_len=max_len, attn_impl="cuda")
     decode = make_decode_step(cfg, temperature=args.temperature)
 
@@ -66,14 +68,15 @@ def serve_lm(args) -> np.ndarray:
           f"({B*S/t_prefill:.0f} tok/s)")
 
     tok = logits[:, -1, :].argmax(dim=-1).to(torch.int32)[..., None]
-    sampler = torch.Generator(device=dev).manual_seed(args.seed)
+    key = prng.PRNGKey(args.seed).to(dev)
     outs = []
     t0 = time.perf_counter()
     for g in range(G):
         pos = torch.full((B, 1), S + g, dtype=torch.int32, device=dev)
         if cfg.mrope_sections:
             pos = pos[None].expand(3, B, 1)
-        tok, logits, cache = decode(params, cache, tok, pos, sampler)
+        key, sub = prng.split(key)
+        tok, logits, cache = decode(params, cache, tok, pos, sub)
         outs.append(tok[:, 0])
     _sync(dev)
     dt = time.perf_counter() - t0

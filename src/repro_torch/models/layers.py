@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..core import prng
 from ..kernels.flash_attn import attention_ref, flash_attention
 
 __all__ = [
@@ -60,16 +61,21 @@ class Params(nn.Module):
 
 # -- initializers ------------------------------------------------------------
 
-def _normal(gen: Optional[torch.Generator], shape, dtype, device,
+def _normal(key: Optional[torch.Tensor], shape, dtype, device,
             scale: float = 0.02) -> torch.Tensor:
-    """``normal · scale`` drawn in f32 from ``gen`` and cast to ``dtype``, as
-    the reference draws (its distribution, not its values).  ``gen=None``
-    leaves the tensor unset, for weights carried across from the reference
+    """``normal(key) · scale`` drawn in f32 and cast to ``dtype``, as the
+    reference's ``_normal`` draws (:func:`repro_torch.core.prng.normal`:
+    jax's values).  ``key=None`` leaves the tensor unset, for weights
+    carried across from the reference
     (:func:`repro_torch.models.convert.params_from_jax`)."""
-    if gen is None:
+    if key is None:
         return torch.empty(shape, dtype=dtype, device=device)
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * scale).to(dtype)
+    return (prng.normal(key, shape, device=device) * scale).to(dtype)
+
+
+def _split(key: Optional[torch.Tensor], num: int):
+    """``jax.random.split(key, num)``, or ``num`` unset keys."""
+    return [None] * num if key is None else list(prng.split(key, num))
 
 
 def init_rms_norm(d: int, dtype, device=None) -> Params:
@@ -83,9 +89,9 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * p.scale.float()).to(x.dtype)
 
 
-def init_dense(gen, d_in: int, d_out: int, dtype, bias: bool = False,
+def init_dense(key, d_in: int, d_out: int, dtype, bias: bool = False,
                device=None) -> Params:
-    t = {"w": _normal(gen, (d_in, d_out), dtype, device)}
+    t = {"w": _normal(key, (d_in, d_out), dtype, device)}
     if bias:
         t["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return Params(**t)
@@ -149,12 +155,13 @@ def _apply_rope(cfg: ArchConfig, x: torch.Tensor, positions) -> torch.Tensor:
 
 # -- grouped-query attention ---------------------------------------------------
 
-def init_attention(gen, cfg: ArchConfig, dtype, device=None) -> Params:
+def init_attention(key, cfg: ArchConfig, dtype, device=None) -> Params:
     d, h, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    t = {"wq": _normal(gen, (d, h, hd), dtype, device),
-         "wk": _normal(gen, (d, hk, hd), dtype, device),
-         "wv": _normal(gen, (d, hk, hd), dtype, device),
-         "wo": _normal(gen, (h, hd, d), dtype, device)}
+    ks = _split(key, 4)
+    t = {"wq": _normal(ks[0], (d, h, hd), dtype, device),
+         "wk": _normal(ks[1], (d, hk, hd), dtype, device),
+         "wv": _normal(ks[2], (d, hk, hd), dtype, device),
+         "wo": _normal(ks[3], (h, hd, d), dtype, device)}
     if cfg.attn_bias:
         for name, heads in (("bq", h), ("bk", hk), ("bv", hk)):
             t[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
@@ -265,14 +272,15 @@ def _decode_attend(q, ck, cv, kv_len, constrain: Constrain = _identity):
 
 # -- MLPs ---------------------------------------------------------------------
 
-def init_mlp(gen, d: int, ff: int, dtype, act: str = "silu",
+def init_mlp(key, d: int, ff: int, dtype, act: str = "silu",
              device=None) -> Params:
+    ks = _split(key, 3)
     if act == "silu":   # SwiGLU
-        return Params(wg=_normal(gen, (d, ff), dtype, device),
-                      wu=_normal(gen, (d, ff), dtype, device),
-                      wd=_normal(gen, (ff, d), dtype, device))
-    return Params(wu=_normal(gen, (d, ff), dtype, device),
-                  wd=_normal(gen, (ff, d), dtype, device))
+        return Params(wg=_normal(ks[0], (d, ff), dtype, device),
+                      wu=_normal(ks[1], (d, ff), dtype, device),
+                      wd=_normal(ks[2], (ff, d), dtype, device))
+    return Params(wu=_normal(ks[1], (d, ff), dtype, device),
+                  wd=_normal(ks[2], (ff, d), dtype, device))
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

@@ -35,9 +35,9 @@ _MODES = ("prefill", "decode")
 class LM(nn.Module):
     """Parameters of one language model: ``embed`` (V, d), ``blocks`` (one
     per layer), ``ln_f`` and, for untied embeddings, ``head`` (d, V).
-    ``gen=None`` leaves the weights unset (see :func:`init_params`)."""
+    ``key=None`` leaves the weights unset (see :func:`init_params`)."""
 
-    def __init__(self, gen, cfg: ArchConfig, device=None):
+    def __init__(self, key, cfg: ArchConfig, device=None):
         super().__init__()
         if cfg.codebooks:
             raise NotImplementedError(
@@ -45,24 +45,27 @@ class LM(nn.Module):
                 f"(ROADMAP item 9)")
         dt = dtype_of(cfg)
         self.cfg = cfg
+        k_embed, k_stack, k_head = L._split(key, 3)
         self.embed = nn.Parameter(
-            L._normal(gen, (cfg.vocab_size, cfg.d_model), dt, device))
-        self.blocks = init_stack(gen, cfg, device)
+            L._normal(k_embed, (cfg.vocab_size, cfg.d_model), dt, device))
+        self.blocks = init_stack(k_stack, cfg, device)
         self.ln_f = L.init_rms_norm(cfg.d_model, dt, device)
         self.head = None if cfg.tie_embeddings else nn.Parameter(
-            L._normal(gen, (cfg.d_model, cfg.vocab_size), dt, device))
+            L._normal(k_head, (cfg.d_model, cfg.vocab_size), dt, device))
 
     def forward(self, batch: Dict, **kw):
         return forward(self, self.cfg, batch, **kw)
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig, *,
+def init_params(key: torch.Tensor, cfg: ArchConfig, *,
                 device=None) -> LM:
-    """Randomly initialised parameters: ``normal · 0.02`` drawn in f32 from
-    ``gen`` (a generator on ``device``) and cast to the config dtype, norm
-    scales 1, biases 0, as the reference's ``init_params`` (the same
-    distribution, not the same values).  ``device=None`` is the card."""
-    return LM(gen, cfg, resolve_device(device))
+    """Randomly initialised parameters, the reference's ``init_params(key,
+    cfg)``: ``normal · 0.02`` drawn in f32 under the same tree of split
+    keys and cast to the config dtype, norm scales 1, biases 0.  ``key``
+    is a threefry key (:func:`repro_torch.core.prng.PRNGKey`; the keys are
+    split where it lies, the weights drawn on ``device``).  ``device=None``
+    is the card."""
+    return LM(key, cfg, resolve_device(device))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):

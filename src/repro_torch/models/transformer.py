@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..core import prng
 from . import layers as L
 
 __all__ = ["Block", "init_stack", "apply_stack", "init_stack_cache",
@@ -48,15 +49,16 @@ class Block(nn.Module):
     (``cfg.parallel_block``, command-r) both reading the same normed
     input."""
 
-    def __init__(self, gen, cfg: ArchConfig, kind: str, device=None):
+    def __init__(self, key, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
         _check_kind(cfg, kind)
         dt = dtype_of(cfg)
         self.cfg = cfg
+        ks = L._split(key, 4)          # as the reference's _init_position
         self.ln_attn = L.init_rms_norm(cfg.d_model, dt, device)
-        self.attn = L.init_attention(gen, cfg, dt, device)
+        self.attn = L.init_attention(ks[0], cfg, dt, device)
         self.ln_mlp = L.init_rms_norm(cfg.d_model, dt, device)
-        self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, cfg.mlp_act,
+        self.mlp = L.init_mlp(ks[1], cfg.d_model, cfg.d_ff, dt, cfg.mlp_act,
                               device)
 
     def forward(self, x, positions, cache: Optional[Dict] = None, *,
@@ -76,11 +78,16 @@ class Block(nn.Module):
         return x, new_cache
 
 
-def init_stack(gen, cfg: ArchConfig, device=None) -> nn.ModuleList:
-    """One block per layer, drawn in layer order from ``gen``."""
+def init_stack(key, cfg: ArchConfig, device=None) -> nn.ModuleList:
+    """One block per layer.  Layer ``period·P + pos`` of a pattern of
+    length ``P`` takes ``split(fold_in(key, pos), num_periods)[period]``,
+    the key the reference's ``init_stack`` vmaps that position over."""
     pattern = cfg.layer_pattern
+    P = len(pattern)
+    keys = [L._split(None if key is None else prng.fold_in(key, pos),
+                    cfg.num_periods) for pos in range(P)]
     return nn.ModuleList(
-        Block(gen, cfg, pattern[i % len(pattern)], device)
+        Block(keys[i % P][i // P], cfg, pattern[i % P], device)
         for i in range(cfg.num_layers))
 
 

@@ -3,7 +3,8 @@ port of the JAX package's ``repro.serve.serve_step``).
 
 ``prefill_step`` consumes a (B, S) request batch and returns the
 last-position logits and a filled KV cache; ``decode_step`` advances every
-sequence one token (greedy or temperature sampling).  Both run without
+sequence one token (greedy, or sampled with a threefry key as the
+reference samples).  Both run without
 autograd.  ``constrain`` and ``activation_stationary`` are kept for the
 reference's signatures: on one card they are the identity.
 """
@@ -15,6 +16,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..configs.base import ArchConfig
+from ..core import prng
 from ..models import forward, init_cache
 from ..models.layers import _identity
 
@@ -34,18 +36,17 @@ def make_trace_runner(*, mesh=None) -> Callable:
     return run_traces
 
 
-def sample_token(logits: torch.Tensor,
-                 generator: Optional[torch.Generator] = None,
+def sample_token(logits: torch.Tensor, key: Optional[torch.Tensor] = None,
                  temperature: float = 0.0) -> torch.Tensor:
     """logits (..., V) -> token ids (...,) int32.  temperature 0 = greedy;
-    otherwise one draw from ``softmax(logits / temperature)`` per row with
-    ``generator`` (a token of probability 0 is never drawn)."""
+    otherwise ``jax.random.categorical(key, logits / temperature)`` as the
+    reference draws it (:func:`repro_torch.core.prng.categorical`, a
+    threefry ``key``; a token of logit -inf is never drawn)."""
     if temperature <= 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    tok = torch.multinomial(flat, 1, generator=generator)[:, 0]
-    return tok.reshape(probs.shape[:-1]).to(torch.int32)
+    # a 0-d divisor on the logits' device: a true division on the card too
+    t = torch.tensor(temperature, dtype=torch.float32, device=logits.device)
+    return prng.categorical(key, logits.float() / t).to(torch.int32)
 
 
 def make_prefill_step(cfg: ArchConfig, *, max_len: int,
@@ -75,14 +76,15 @@ def make_decode_step(cfg: ArchConfig, *, temperature: float = 0.0,
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, positions,
-                    generator: Optional[torch.Generator] = None):
-        """tokens (B, 1); returns (next_tokens (B, 1), logits, cache).  The
-        cache's tensors are written in place."""
+                    key: Optional[torch.Tensor] = None):
+        """tokens (B, 1); ``key`` a threefry key (for temperature > 0);
+        returns (next_tokens (B, 1), logits, cache).  The cache's tensors
+        are written in place."""
         batch = {"tokens": tokens, "positions": positions}
         logits, cache, _ = forward(
             params, cfg, batch, cache=cache, mode="decode",
             constrain=constrain)
-        nxt = sample_token(logits[:, -1, :], generator, temperature)
+        nxt = sample_token(logits[:, -1, :], key, temperature)
         return nxt[..., None], logits, cache
 
     return decode_step

@@ -5,8 +5,11 @@ interpret mode), on the cases of ``tests/test_kernel_flash_attn.py``.
 On the CPU the wrapper pads, clips ``kv_len`` and runs the kernel's plain
 version, so these tests hold the padding logic and the plain version to
 the reference; ``chip_smoke.py`` holds the kernel to the plain version on
-the card.  Tolerances are the reference tests' own: 2e-5 (f32) and 5e-2
-(bf16), and 1e-4 for gradients.
+the card.  On a CUDA tensor the wrapper pads nothing: the plain version on
+the unpadded inputs equals the padded route, sliced, which
+``test_unpadded_equals_the_padded_route`` holds.  Tolerances are the
+reference tests' own: 2e-5 (f32) and 5e-2 (bf16), and 1e-4 for
+gradients.
 """
 
 import numpy as np
@@ -147,3 +150,42 @@ def test_wrapper_refuses_without_fallback():
                         torch.zeros(1, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         flash_attention(torch.zeros((1, 3, 4, 16)), q, q)   # 3 % 2 != 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,kv_len,block", [
+    (2, 4, 2, 200, 200, 64, True, None, 128),        # ragged, causal
+    (2, 15, 5, 1960 // 8, 1960 // 8, 64, True, None, 128),
+    (2, 4, 2, 130, 300, 64, False, None, 128),       # Sq != Skv
+    (2, 4, 1, 300, 130, 128, True, None, 128),       # Sq > Skv, causal
+    (3, 4, 2, 77, 201, 32, False, [0, 57, 201], 64),  # kv_len with zeros
+    (2, 2, 2, 129, 129, 16, True, [0, 100], 128),
+    (1, 2, 1, 1, 131, 64, False, None, 128),         # a single query
+])
+def test_unpadded_equals_the_padded_route(dtype, B, Hq, Hkv, Sq, Skv, D,
+                                          causal, kv_len, block):
+    """What the kernel's route rests on: ``attention_ref`` on the unpadded
+    inputs equals the padded route (the reference's padding to block
+    multiples, then slicing), on shapes that are no multiple of 128.
+    Padding keys are masked (probability exactly 0) and padding queries are
+    dropped; the sums may associate differently over the longer key axis,
+    so f32 is held to 1e-6 and bf16 outputs (rounded once) to max |out| ·
+    2^-8, under one bf16 ulp of the largest value."""
+    _, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(Sq * 1000 + Skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype("f4")).to(tdt)
+               for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    kl = torch.tensor(kv_len if kv_len is not None else [Skv] * B,
+                      dtype=torch.int32)
+    assert Sq % block or Skv % block           # the route really pads
+    padded = flash_attention(q, k, v, kl, causal=causal, block_q=block,
+                             block_k=block)
+    plain = attention_ref(q, k, v, kl, causal=causal)
+    assert padded.shape == plain.shape == (B, Hq, Sq, D)
+    tol = 1e-6 if dtype == "float32" else \
+        float(plain.float().abs().max()) * 2 ** -8
+    np.testing.assert_allclose(padded.float().numpy(),
+                               plain.float().numpy(), atol=tol, rtol=0)
+    if kv_len is not None and 0 in kv_len:
+        assert bool((padded[[i for i, n in enumerate(kv_len) if n == 0]]
+                     == 0).all())

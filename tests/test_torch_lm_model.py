@@ -27,6 +27,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import param_count as jax_param_count  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.smoke import reduced  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.models import (LM, forward, init_cache,  # noqa: E402
                                 init_params, param_count, params_from_jax)
 from repro_torch.models import layers as L  # noqa: E402
@@ -138,8 +139,9 @@ def test_dense(bias):
     got = L.dense(L.Params(**{k: torch.from_numpy(np.array(v))
                               for k, v in p.items()}), torch.from_numpy(x))
     _close(got, want, 1e-5)
-    assert sorted(L.init_dense(torch.Generator().manual_seed(0), 64, 48,
-                               torch.float32, bias)._parameters) == sorted(p)
+    mine = L.init_dense(prng.PRNGKey(6), 64, 48, torch.float32, bias)
+    assert sorted(mine._parameters) == sorted(p)
+    _close(mine.w, p["w"], 1e-7)            # the reference's draw
 
 
 @pytest.mark.parametrize("impl", ["cuda", "ref"])
@@ -240,18 +242,49 @@ def test_full_width_param_count_without_allocating():
 def test_init_params_distribution():
     cfg = dataclasses.replace(reduced(get_config("smollm-360m")),
                               d_model=128, vocab_size=512)
-    gen = torch.Generator().manual_seed(0)
-    p = init_params(gen, cfg, device="cpu")
+    p = init_params(prng.PRNGKey(0), cfg, device="cpu")
     w = p.embed.detach()
     assert w.dtype == torch.float32
     assert abs(float(w.mean())) < 2e-3 and abs(float(w.std()) - 0.02) < 1e-3
     assert torch.equal(p.ln_f.scale.detach(), torch.ones(128))
-    again = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    again = init_params(prng.PRNGKey(0), cfg, device="cpu")
     assert torch.equal(again.blocks[1].mlp.wd, p.blocks[1].mlp.wd)
-    bf = init_params(torch.Generator().manual_seed(0),
+    bf = init_params(prng.PRNGKey(0),
                      dataclasses.replace(cfg, dtype="bfloat16"),
                      device="cpu")
     assert bf.blocks[0].attn.wq.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch,seed", [
+    ("smollm-360m", 0), ("smollm-360m", 3), ("smollm-360m", 2 ** 32 - 1),
+    ("qwen2-vl-7b", 1),        # attention biases (zeros), untied head
+    ("command-r-35b", 2),      # parallel block
+    ("musicgen-medium", 5)])   # GELU MLP (keys 1 and 2 of its split)
+def test_init_params_equal_the_reference(arch, seed):
+    """Every weight of ``init_params(PRNGKey(s), cfg)`` against the
+    reference's ``init_params(jax.random.PRNGKey(s), cfg)`` at f32: the
+    same tree of split keys, normals to a few ulps."""
+    jc, pc = _cfgs(arch)
+    if pc.codebooks:     # the GELU MLP without the unported codebooks
+        jc, pc = (dataclasses.replace(c, codebooks=0) for c in (jc, pc))
+    jk = jax.random.wrap_key_data(jnp.asarray([0, seed], jnp.uint32))
+    tree = jax.tree.map(np.asarray, jax_init(jk, jc))
+    p = init_params(prng.PRNGKey(seed), pc, device="cpu")
+    pairs = [(p.embed, tree["embed"]), (p.ln_f.scale, tree["ln_f"]["scale"])]
+    if p.head is not None:
+        pairs.append((p.head, tree["head"]))
+    P = len(pc.layer_pattern)
+    for i, block in enumerate(p.blocks):
+        period, pos = divmod(i, P)
+        for sub, pset in block.named_children():
+            for name, t in pset.named_parameters():
+                pairs.append((t, tree["stack"][f"pos{pos}"][sub][name]
+                              [period]))
+    assert len(pairs) == sum(1 for _ in p.parameters())
+    for got, want in pairs:
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-7)
 
 
 # -- forward -------------------------------------------------------------------
@@ -389,7 +422,7 @@ def test_decode_clamps_the_write_at_max_len():
 def test_unported_families_raise(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        init_params(prng.PRNGKey(0), cfg, device="cpu")
 
 
 def test_train_mode_and_chunked_raise():
