@@ -13,10 +13,19 @@ result line):
    ``-Xptxas -v``'s registers, spills and performance notes);
 2. the dense kernel (B1) against its plain version on the card —
    bit-identical outputs on the paper's Π, ``nd_chain(10)`` (Ψ > T), a
-   2048-neuron random system, a ragged shape, spike counts near 2^20 and
-   the full-width explore wave; times of the kernel, its plain version and
-   one ``torch.matmul`` of a materialised ``S`` with ``M`` (the yardstick,
-   timed here only: the port never calls it);
+   2048-neuron random system, a ragged shape, spike counts near 2^20, an
+   output slab no row of which starts 16-byte aligned (m = 1023, T = 33),
+   hand-made ``M``s (|values| up to 1000, a hub column holding every
+   rule, an empty column), one of them and ``scaled_pi(1700)`` with more
+   rules than one block stages, and the full-width explore wave; the
+   encodings' column lists against ``dense_column_lists`` of their
+   ``M``; forged lists (entries naming rules outside the system, starts
+   below 0 and past the end) against the plain version without the
+   forged entries, which B1 skips; times of the kernel, its plain
+   version and one ``torch.matmul`` of a materialised ``S`` with ``M``
+   (the yardstick, timed here only: the port never calls it), the bound
+   with ``M`` counted by its nonzeros (and, for comparison, dense), and at
+   the wave B1's device time from ``torch.profiler``;
 3. the sparse kernel's two bodies, ELL (B2) and ELL + COO (B3), against
    their plain version — bit-identical on every entry at Π, ``nd_chain(10)``,
    a ragged shape, a random system with every in-synapse past the first
@@ -68,10 +77,15 @@ result line):
    of ``power_law(26)`` (asymmetric halos), random halos up to 2^16 − 1,
    and the full-width waves (B=512, T=64): ``scaled_pi(682)`` over
    ``neuron_axis(4)``, contiguous and degree, through both, and
-   ``ring_lattice(32768, 8)`` through B7; at the waves the times of shard
-   0's launch, its plain version, its bound and a library call
-   (``matmul(S, M_local) + matmul(halo, hadj)`` for B6; for B7 the
-   partial ``sparse.mm(S, M_local)``, without the halo term);
+   ``ring_lattice(32768, 8)`` through B7; then B6 alone on a halo slab
+   that is not 16-byte aligned, on 30,001 halo slots (past its stage)
+   over a hand-made ``hadj``, and on forged lists (rules and halo slots
+   out of range, which it skips); at the waves the times of shard 0's launch,
+   its plain version, its bound (B6: ``M_local`` and ``hadj`` counted by
+   their nonzeros; B6's device time from ``torch.profiler``) and a library
+   call (``matmul(S, M_local) +
+   matmul(halo, hadj)`` for B6; for B7 the partial ``sparse.mm(S,
+   M_local)``, without the halo term);
 14. full width, sharded, the slice's main path —
    ``explore_distributed(scaled_pi(682), plan=neuron_axis(4))``, contiguous
    and degree (F=512, T=64, 65,536 archive rows a shard), through
@@ -266,6 +280,27 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters, kernel):
+    """Mean device time (ms) of the kernels whose name holds ``kernel`` in
+    ``iters`` calls of ``fn``, from ``torch.profiler``: beside
+    :func:`time_ms`, it shows whether the host kept the card waiting.  A
+    failure here, or a trace without such a kernel, fails the smoke."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(len(us) > 0, f"the profiler shows no kernel named {kernel!r}")
+    return sum(us) / len(us) / 1e3
+
+
 def reset_counts():
     """Every kernel's launch counter to 0 (just before a path)."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
@@ -347,10 +382,17 @@ def _step_inputs(comp, configs):
             comp.rule_neuron, comp.M, comp.env_produce), info
 
 
-def _bound(args, T):
-    """Least time for one call (ms), what binds, the operations counted
-    and the rules fired, from this call's inputs.  Bytes: each input read once and each output written once,
-    over HBM bandwidth.  Operations: what these inputs need, over the
+def _list_bytes(*lists):
+    return sum(x.numel() * x.element_size() for x in lists)
+
+
+def _bound(args, T, cols):
+    """Least time for one call (ms), what binds, the operations counted,
+    the rules fired, and the bound with ``M`` and ``env`` counted as dense
+    arrays (for comparison), from this call's inputs.  Bytes: each
+    input read once and each output written once, over HBM bandwidth,
+    with ``[M | env]`` read as its nonzeros (``cols``, the column lists
+    the kernel walks).  Operations: what these inputs need, over the
     f32/int32 datapath peak: a digit decode (divide, modulo, compare) per
     neuron and branch, the ``C +`` per output entry, and a multiply-add
     per nonzero of ``M``'s row (and of ``env``) for every rule that fires
@@ -360,8 +402,8 @@ def _bound(args, T):
     from repro_torch.core.semantics import decode_spiking
     configs, rank, app, stride, choices, psi, rule_neuron, M, env = args
     B, m = configs.shape
-    n = M.shape[0]
-    in_bytes = sum(x.numel() * x.element_size() for x in args)
+    dense_bytes = _list_bytes(M, env)
+    in_bytes = _list_bytes(*args) - dense_bytes + _list_bytes(*cols)
     out_bytes = 4 * B * T * m + 5 * B * T
     S = decode_spiking(app, rank, stride, choices, rule_neuron, T)
     fired = S.sum(dim=(0, 1), dtype=torch.int64)                 # (n,)
@@ -370,7 +412,24 @@ def _bound(args, T):
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    return bound + (n_ops, int(fired.sum()))
+    t_dense = (in_bytes - _list_bytes(*cols) + dense_bytes + out_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    return bound + (n_ops, int(fired.sum()), max(t_dense, t_ops))
+
+
+def _hand_made(comp, rng):
+    """A hand-made ``M`` and ``env`` for ``comp``'s shape: |values| up to
+    1000 (past int8), negatives, column 1 empty and column 0 a hub holding
+    every rule."""
+    import numpy as np
+    import torch
+    n, m = comp.num_rules, comp.num_neurons
+    M = rng.integers(-1000, 1001, size=(n, m)) * (rng.random((n, m)) < 0.01)
+    M[:, 0] = rng.integers(128, 1001, size=n) * rng.choice([-1, 1], size=n)
+    M[:, 1] = 0
+    env = rng.integers(-1000, 1001, size=n) * (rng.random(n) < 0.3)
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(comp.device)
+                 for x in (M, env))
 
 
 def phase_kernel():
@@ -380,6 +439,8 @@ def phase_kernel():
     import torch
     from repro_torch.core import compile_system, next_configs, paper_pi
     from repro_torch.core.generators import nd_chain, random_system, scaled_pi
+    from repro_torch.core.matrix import dense_column_lists
+    from repro_torch.core.semantics import decode_spiking
     from repro_torch.kernels.snp_step import ops
     from repro_torch.kernels.snp_step.ref import snp_step_dense_ref
 
@@ -390,27 +451,51 @@ def phase_kernel():
         return torch.from_numpy(
             rng.integers(lo, hi, size=(B, m)).astype(np.int32)).to(dev)
 
+    # (name, system, B, T, configs, hand-made M?): the hand-made cases
+    # replace M and env (and their column lists, derived here)
     cases = [
-        ("paper_pi", paper_pi(True), 128, 16, lambda m: rand(128, m, 0, 5)),
+        ("paper_pi", paper_pi(True), 128, 16, lambda m: rand(128, m, 0, 5),
+         False),
         ("nd_chain(10)", nd_chain(10), 16, 64,
-         lambda m: torch.ones((16, m), dtype=torch.int32, device=dev)),
+         lambda m: torch.ones((16, m), dtype=torch.int32, device=dev), False),
         ("random_system(2048)", random_system(2048, 2, 8 / 2048, seed=1),
-         64, 32, lambda m: rand(64, m, 0, 4)),
+         64, 32, lambda m: rand(64, m, 0, 4), False),
         ("ragged B13 T37", random_system(45, 3, 0.1, seed=5), 13, 37,
-         lambda m: rand(13, m, 0, 4)),
+         lambda m: rand(13, m, 0, 4), False),
         ("spikes~2^20", random_system(64, 2, 0.1, seed=2), 32, 32,
-         lambda m: rand(32, m, 2 ** 20 - 8, 2 ** 20 + 8)),
+         lambda m: rand(32, m, 2 ** 20 - 8, 2 ** 20 + 8), False),
+        # m = 1023 (odd), T = 33: no row of the output slab starts aligned
+        ("unaligned slab m1023 T33", scaled_pi(341), 37, 33,
+         lambda m: rand(37, m, 0, 3), False),
+        ("hub column |M|>127 (hand-made)", random_system(40, 9, 0.2, seed=6),
+         48, 64, lambda m: rand(48, m, 0, 4), True),
+        ("n past one rule chunk (hand-made)",
+         random_system(64, 130, 0.2, seed=7), 32, 64,
+         lambda m: rand(32, m, 0, 4), True),
+        ("scaled_pi(1700) n past one rule chunk", scaled_pi(1700), 64, 64,
+         lambda m: rand(64, m, 0, 3), False),
         ("scaled_pi(682) wave", scaled_pi(682), 512, 64,
-         lambda m: rand(512, m, 0, 3)),
+         lambda m: rand(512, m, 0, 3), False),
     ]
     max_err = 0
     rows = {}
-    for name, system, B, T, make in cases:
+    for name, system, B, T, make, hand in cases:
         comp = compile_system(system, device=dev)
         n, m = comp.num_rules, comp.num_neurons
         configs = make(m)
         args, info = _step_inputs(comp, configs)
-        k_out, k_valid, k_emis = ops.snp_step_dense(*args, T)
+        cols = (comp.col_start, comp.col_rule, comp.col_val)
+        if hand:
+            args = args[:7] + _hand_made(comp, rng)
+            cols = dense_column_lists(*args[7:])
+            check(int(cols[0][1] - cols[0][0]) == n > 300
+                  and int(cols[0][2] - cols[0][1]) == 0
+                  and int(cols[2].abs().max()) > 127,
+                  f"{name}: the hand-made M lacks its hub or empty column")
+        if "chunk" in name:
+            check(n > ops.RULE_CHUNK, f"{name}: n={n} fits one rule chunk")
+        # B1 reads the lists, its plain version the matrices
+        k_out, k_valid, k_emis = ops.snp_step_dense(*args[:7], cols, T)
         p_out, p_valid, p_emis = snp_step_dense_ref(*args, T)
         torch.cuda.synchronize()
         err = max(int((k_out - p_out).abs().max()),
@@ -419,39 +504,114 @@ def phase_kernel():
         check(err == 0 and bool(torch.equal(k_valid, p_valid)),
               f"{name}: kernel disagrees with its plain version "
               f"(max |err| {err})")
-        # the wrapper against the reference semantics, on valid entries
-        w_out, w_valid, w_emis, w_ovf = ops.snp_step(configs, comp,
-                                                     max_branches=T)
-        ref = next_configs(configs, comp, T)
-        check(torch.equal(w_valid, ref.valid)
-              and torch.equal(w_ovf, ref.overflow)
-              and torch.equal(torch.where(w_valid[..., None], w_out, 0),
-                              torch.where(ref.valid[..., None],
-                                          ref.configs, 0))
-              and torch.equal(torch.where(w_valid, w_emis, 0),
-                              torch.where(ref.valid, ref.emissions, 0)),
-              f"{name}: wrapper disagrees with next_configs")
+        if not hand:
+            check(all(torch.equal(a, b) for a, b in zip(
+                cols, dense_column_lists(comp.M, comp.env_produce))),
+                f"{name}: the encoding's lists differ from the derived ones")
+            # the wrapper against the reference semantics, on valid entries
+            w_out, w_valid, w_emis, w_ovf = ops.snp_step(configs, comp,
+                                                         max_branches=T)
+            ref = next_configs(configs, comp, T)
+            check(torch.equal(w_valid, ref.valid)
+                  and torch.equal(w_ovf, ref.overflow)
+                  and torch.equal(torch.where(w_valid[..., None], w_out, 0),
+                                  torch.where(ref.valid[..., None],
+                                              ref.configs, 0))
+                  and torch.equal(torch.where(w_valid, w_emis, 0),
+                                  torch.where(ref.valid, ref.emissions, 0)),
+                  f"{name}: wrapper disagrees with next_configs")
+            del w_out, ref
         if name == "nd_chain(10)":
             check(bool(info.psi.min() > T) and bool(w_ovf.all()),
                   "nd_chain(10) should overflow T")
 
         iters = 5 if B * T * n * m > 1e10 else 50
-        k_ms = time_ms(lambda: ops.snp_step_dense(*args, T), iters)
+        k_ms = time_ms(lambda: ops.snp_step_dense(*args[:7], cols, T), 50)
         p_ms = time_ms(lambda: snp_step_dense_ref(*args, T), iters)
-        S = ref.spiking.reshape(B * T, n).to(torch.float32)
-        Mf = comp.M.to(torch.float32)
+        S = decode_spiking(*(args[i] for i in (2, 1, 3, 4, 6)), T)
+        S = S.reshape(B * T, n).to(torch.float32)
+        Mf = args[7].to(torch.float32)
         l_ms = time_ms(lambda: torch.matmul(S, Mf), iters)
-        b_ms, b_by, b_ops, fired = _bound(args, T)
+        b_ms, b_by, b_ops, fired, b_dense = _bound(args, T, cols)
         rows[name] = dict(B=B, T=T, n=n, m=m, ms=k_ms, plain_ms=p_ms,
-                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-        log(f"[2] {name:22s} B={B:4d} T={T:3d} n={n:5d} m={m:5d} | "
-            f"kernel == plain (max |err| {err}) | kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, matmul(S,M) {l_ms:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}; {fired} fired rules, {b_ops} "
-            f"ops needed vs {2 * B * T * n * m} dense) = "
-            f"{k_ms / b_ms:.1f}x bound")
-        del S, Mf, ref, k_out, p_out, w_out
+                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                          bound_dense_ms=b_dense)
+        if "wave" in name:
+            rows[name]["device_ms"] = d_ms = device_ms(
+                lambda: ops.snp_step_dense(*args[:7], cols, T), 20,
+                "snp_step_dense_kernel<false")
+            log(f"[2] {name}: B1's device time by the profiler {d_ms} ms "
+                f"(CUDA events {k_ms:.4f})")
+        log(f"[2] {name:38s} B={B:4d} T={T:3d} n={n:5d} m={m:5d} "
+            f"nnz={int(cols[0][-1]):6d} | kernel == plain (max |err| {err})"
+            f" | kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul(S,M) "
+            f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {fired} fired "
+            f"rules, {b_ops} ops needed vs {2 * B * T * n * m} dense; "
+            f"{b_dense:.6f} ms counting M dense) = {k_ms / b_ms:.1f}x bound")
+        del S, Mf, k_out, p_out
+    err = _forged_b1(rng, dev)
+    max_err = max(max_err, err)
     return max_err, rows
+
+
+def _forge(start, index, rows, rng):
+    """One column list ``(start, index)`` (``index`` cut to ``start``'s
+    last entry) with entries out of range: every 7th entry's index moved
+    outside ``0..rows-1``, the first start below 0 and the last past the
+    list's end.  Returns the forged pair and the (index, column) of each
+    forged entry, which the kernel must skip."""
+    import torch
+    nnz = int(start[-1])
+    start, index = start.clone(), index[:nnz].clone()
+    col = torch.repeat_interleave(
+        torch.arange(start.shape[0] - 1, device=start.device),
+        (start[1:] - start[:-1]).long())
+    bad = torch.arange(0, nnz, 7, device=index.device)
+    dropped = (index[bad].long(), col[bad])
+    far = torch.from_numpy(rng.integers(0, 1 << 20, bad.shape[0])).to(
+        index.device, torch.int32)
+    index[bad] = torch.where(bad % 2 == 0, rows + far, -1 - far)
+    start[0] = -5
+    start[-1] = nnz + 1000
+    return start, index, dropped
+
+
+def _forged_b1(rng, dev):
+    """B1 on forged column lists (entries naming rules outside the system,
+    a start below 0 and one past the lists' end) equals its plain version
+    on ``[M | env]`` without the forged entries: the kernel skips them and
+    reads nothing out of bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compile_system
+    from repro_torch.core.generators import random_system
+    from repro_torch.core.matrix import dense_column_lists
+    from repro_torch.kernels.snp_step import ops
+    from repro_torch.kernels.snp_step.ref import snp_step_dense_ref
+
+    comp = compile_system(random_system(40, 9, 0.2, seed=6), device=dev)
+    n, m, B, T = comp.num_rules, comp.num_neurons, 48, 64
+    configs = torch.from_numpy(
+        rng.integers(0, 4, size=(B, m)).astype(np.int32)).to(dev)
+    args = _step_inputs(comp, configs)[0][:7] + _hand_made(comp, rng)
+    start, rule_idx, val = dense_column_lists(*args[7:])
+    start, rule_idx, (rule, col) = _forge(start, rule_idx, n, rng)
+    cols = (start, rule_idx, val)
+    full = torch.cat([args[7], args[8][:, None]], 1)
+    full[rule, col] = 0
+    k_out, k_valid, k_emis = ops.snp_step_dense(*args[:7], cols, T)
+    p_out, p_valid, p_emis = snp_step_dense_ref(
+        *args[:7], full[:, :m].contiguous(), full[:, m].contiguous(), T)
+    torch.cuda.synchronize()
+    err = max(int((k_out - p_out).abs().max()),
+              int((k_emis - p_emis).abs().max()))
+    check(err == 0 and bool(torch.equal(k_valid, p_valid)),
+          f"forged lists: B1 disagrees with its plain version without the "
+          f"forged entries (max |err| {err})")
+    log(f"[2] forged lists (hand-made)            B={B:4d} T={T:3d} n={n:5d} "
+        f"m={m:5d} | {rule.shape[0]} entries out of range, starts below 0 "
+        f"and past the end: B1 == plain without them (max |err| {err})")
+    return err
 
 
 def _sparse_bound(args, extra, T):
@@ -1280,6 +1440,58 @@ def _b6_args(sh, f, info, stride, psi, halo):
             sh.hadj, halo)
 
 
+def _b6_hand_cases(rng, dev, T=33):
+    """Hand-made B6 operands on one shard of ``power_law(26)`` over 4
+    degree shards (B=24, T=33): ``(name, args, cols)`` with the halo slab
+    not 16-byte aligned (the tensor starts 4 bytes past an aligned
+    address, so every block stages it by plain loads), and with 30,001
+    random halo slots (a slab past the stage: read in place) over a
+    hand-made ``hadj`` of 2,000 nonzeros, and the first case's operands on
+    forged lists (entries naming rules and halo slots out of range, starts
+    below 0 and past the lists' end) against the plain version on the
+    matrices without the forged entries."""
+    import numpy as np
+    import torch
+    from repro_torch.core.generators import power_law
+    from repro_torch.core.matrix import shard_column_lists
+    from repro_torch.sharding import neuron_axis
+
+    B = 24
+    make = lambda m: torch.from_numpy(                       # noqa: E731
+        rng.integers(0, 4, size=(B, m)).astype(np.int32)).to(dev)
+    comp, shards, frontier, lv = _shard_level(
+        power_law(26, 3, seed=6), neuron_axis(4, partition="degree"), B, T,
+        make, dev)
+    sh, info, f = shards[1], lv.infos[1], frontier[1]
+    halo = lv.halos[1]
+    buf = torch.empty(halo.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = buf[1:].view(halo.shape)
+    shifted.copy_(halo)
+    check(shifted.data_ptr() % 16 != 0, "the shifted halo is aligned")
+    out = [("halo slab unaligned (hand-made)",
+            _b6_args(sh, f, info, lv.strides[1], lv.psi, shifted), sh.cols)]
+    H, mloc = 30001, f.shape[1]
+    hadj = np.zeros((H, mloc), np.int8)
+    hadj[rng.integers(0, H, 2000), rng.integers(0, mloc, 2000)] = 1
+    big = torch.from_numpy(rng.integers(
+        0, 1 << 16, size=(B, T, H)).astype(np.int32)).to(dev)
+    args = _b6_args(sh, f, info, lv.strides[1], lv.psi, big)
+    args = args[:8] + (torch.from_numpy(hadj).to(dev), big)
+    out.append(("halo past the stage (hand-made)", args,
+                shard_column_lists(*args[7:9])))
+    a6 = out[0][1]
+    start, rule, (r, c) = _forge(sh.cols[0], sh.cols[1], a6[7].shape[0], rng)
+    hstart, hslot, (hs, hc) = _forge(sh.cols[3], sh.cols[4],
+                                     a6[9].shape[-1], rng)
+    M_local, hadj = a6[7].clone(), a6[8].clone()
+    M_local[r, c] = 0
+    hadj[hs, hc] = 0
+    out.append(("forged lists (hand-made)",
+                a6[:7] + (M_local, hadj, a6[9]),
+                (start, rule, sh.cols[2][:rule.shape[0]], hstart, hslot)))
+    return out
+
+
 def _b7_args(sh, f, info, stride, psi, tab, halo):
     import torch
     mloc, H = f.shape[-1], halo.shape[-1]
@@ -1299,18 +1511,24 @@ def _halo_adds(halo, in_idx, mloc):
     return int((nz * fan).sum())
 
 
-def _shard_dense_bound(args, in_idx, T):
-    """Least time of one B6 call (ms) and what binds, from its inputs:
-    bytes (each input once, the output once) over HBM bandwidth;
-    operations as for B1 (a decode per neuron and branch, the ``C +``, a
-    multiply-add per nonzero of each fired rule's row of ``M_local``)
-    plus two per halo entry and local neuron it feeds."""
+def _shard_dense_bound(args, in_idx, T, cols):
+    """Least time of one B6 call (ms), what binds, and the bound with
+    ``M_local`` and ``hadj`` counted as dense arrays (for comparison),
+    from its inputs: bytes (each input once, ``M_local`` and ``hadj``
+    as their nonzeros, i.e. the column lists ``cols`` the kernel walks;
+    the output once) over HBM bandwidth; operations as for B1 (a decode
+    per neuron and branch, the ``C +``, a multiply-add per nonzero of each
+    fired rule's row of ``M_local``) plus two per halo entry and local
+    neuron it feeds."""
     import torch
     from repro_torch.core.semantics import decode_spiking
     (configs, rank, app, stride, choices, psi, rule_neuron, M, hadj,
      halo) = args
     B, m = configs.shape
-    in_bytes = sum(x.numel() * x.element_size() for x in args)
+    start, rule, val, hstart, hslot = cols
+    lists = _list_bytes(start, hstart) + 4 * (2 * int(start[-1])
+                                              + int(hstart[-1]))
+    in_bytes = _list_bytes(*args) - _list_bytes(M, hadj) + lists
     out_bytes = 4 * B * T * m
     S = decode_spiking(app, rank, stride, choices, rule_neuron, T)
     fired = S.sum(dim=(0, 1), dtype=torch.int64)
@@ -1319,7 +1537,10 @@ def _shard_dense_bound(args, in_idx, T):
         + 2 * _halo_adds(halo, in_idx, m)
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_dense = (in_bytes - lists + _list_bytes(M, hadj) + out_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound + (max(t_dense, t_ops),)
 
 
 def _shard_sparse_bound(args, halo, T):
@@ -1415,7 +1636,8 @@ def phase_shard_kernels():
             psi = lv.psi
             if "B6" in kernels:
                 a6 = _b6_args(sh, f, info, lv.strides[d], psi, halos[d])
-                k = ops.snp_step_dense_shard_cuda(*a6, T)
+                k = ops.snp_step_dense_shard_cuda(*a6[:7], sh.cols, a6[9],
+                                                  T)
                 p = snp_step_dense_shard_ref(*a6, T)
                 torch.cuda.synchronize()
                 errs["B6"] = max(errs.get("B6", 0),
@@ -1451,8 +1673,8 @@ def phase_shard_kernels():
         parts = []
         if "B6" in kernels:
             a6 = _b6_args(sh, f, info, lv.strides[0], psi, halos[0])
-            k_ms = time_ms(lambda: ops.snp_step_dense_shard_cuda(*a6, T),
-                           iters)
+            k_ms = time_ms(lambda: ops.snp_step_dense_shard_cuda(
+                *a6[:7], sh.cols, a6[9], T), 50)
             p_ms = time_ms(lambda: snp_step_dense_shard_ref(*a6, T), iters)
             Sm = decode_spiking(info.app, info.rank, a6[3], info.choices,
                                 sh.view.rule_neuron, T)
@@ -1463,14 +1685,21 @@ def phase_shard_kernels():
             l_ms = time_ms(lambda: torch.matmul(Sm, Mf)
                            + torch.matmul(hf, hadjf), iters)
             del Sm, Mf, hf, hadjf
-            b_ms, b_by = _shard_dense_bound(a6, sh.in_idx, T)
+            b_ms, b_by, b_dense = _shard_dense_bound(a6, sh.in_idx, T,
+                                                     sh.cols)
+            d_ms = device_ms(lambda: ops.snp_step_dense_shard_cuda(
+                *a6[:7], sh.cols, a6[9], T), 20,
+                "snp_step_dense_kernel<true")
             rows[("B6", name)] = dict(S=S, B=B, T=T, mloc=mloc, H=H,
                                       ms=k_ms, plain_ms=p_ms,
                                       library_ms=l_ms, bound_ms=b_ms,
-                                      bound_by=b_by)
-            parts.append(f"B6 {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                                      bound_by=b_by, bound_dense_ms=b_dense,
+                                      device_ms=d_ms)
+            parts.append(f"B6 {k_ms:.4f} ms (profiler: {d_ms} ms on the "
+                         f"card), plain {p_ms:.4f} ms, "
                          f"matmul(S,M_local)+matmul(halo,hadj) {l_ms:.4f} "
-                         f"ms, bound {b_ms:.6f} ms ({b_by}) = "
+                         f"ms, bound {b_ms:.6f} ms ({b_by}; {b_dense:.6f} "
+                         f"ms counting M_local and hadj dense) = "
                          f"{k_ms / b_ms:.1f}x bound")
         a7, h7 = _b7_args(sh, f, info, lv.strides[0], psi, lv.tabs[0],
                           halos[0])
@@ -1498,6 +1727,18 @@ def phase_shard_kernels():
         log(line + " | shard 0: " + "; ".join(parts))
         del comp, shards, frontier, lv, halos
         torch.cuda.empty_cache()
+    for name, a6, cols in _b6_hand_cases(rng, dev):
+        T = a6[-1].shape[1]
+        k = ops.snp_step_dense_shard_cuda(*a6[:7], cols, a6[9], T)
+        p = snp_step_dense_shard_ref(*a6, T)
+        torch.cuda.synchronize()
+        err = int((k - p).abs().max())
+        max_err["B6"] = max(max_err["B6"], err)
+        check(err == 0, f"{name}: B6 disagrees with its plain version "
+              f"(max |err| {err})")
+        log(f"[13] {name:32s} H={a6[-1].shape[-1]:5d} halo at byte "
+            f"{a6[-1].data_ptr() % 16} mod 16, B={a6[0].shape[0]} T={T} | "
+            f"B6 == plain (max |err| {err})")
     return max_err, rows
 
 
@@ -2151,6 +2392,9 @@ def main() -> int:
             bound_by=w["bound_by"], library_ms=w["library_ms"],
             library_call=LIBRARY_CALL[k],
             **({"other_waves": other_waves[k]} if k in other_waves else {}),
+            **({"bound_ms_matrices_dense": w["bound_dense_ms"],
+                "device_ms": w["device_ms"]}
+               if "bound_dense_ms" in w else {}),
             **extras.get(k, {})))
         log(f"[18] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "

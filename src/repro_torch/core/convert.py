@@ -12,6 +12,10 @@
   from the fields of a reference ``ShardedCompiled``'s ``arrays`` (and
   optionally its ``dense`` view) as numpy arrays, plus its static ints.
 
+The port's own fields that the reference does not carry are derived from
+its matrices: the dense encoding's ``adj_in`` (delays) or column lists
+(no delays), and the dense shard view's column lists.
+
 All take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
 """
@@ -24,9 +28,10 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .matrix import CompiledAny, CompiledSNP, CompiledSparseSNP, in_neighbours
+from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
+                     dense_column_lists, in_neighbours)
 from .plan import (DenseShardArrays, ShardArrays, ShardedCompiled,
-                   SystemPlan)
+                   SystemPlan, dense_shard_columns)
 from .system import Rule, SNPSystem
 
 __all__ = ["system_from_spec", "compiled_from_arrays", "sharded_from_arrays"]
@@ -100,6 +105,9 @@ def compiled_from_arrays(fields: Mapping[str, Any],
             arr = np.array(v, copy=True)   # writable, contiguous
             out[k] = torch.from_numpy(arr).to(
                 device=dev, dtype=_DTYPES.get(k, torch.int32))
+    if cls is CompiledSNP and not delay_set and out.get("col_start") is None:
+        out.update(zip(("col_start", "col_rule", "col_val"),
+                       dense_column_lists(out["M"], out["env_produce"])))
     return cls(**out)
 
 
@@ -124,6 +132,8 @@ def sharded_from_arrays(arrays: Mapping[str, Any],
                              f"{sorted(unknown)}")
         out = {}
         for k in cls._fields:
+            if k not in fields and k in cls._field_defaults:
+                continue                    # the port's own, derived below
             arr = np.array(fields[k], copy=True)     # writable, contiguous
             if k != "rule_slots" and arr.shape[:1] != (num_shards,):
                 raise ValueError(
@@ -140,6 +150,13 @@ def sharded_from_arrays(arrays: Mapping[str, Any],
         num_neurons=int(num_neurons), num_rules=int(num_rules),
         shard_size=int(shard_size), num_shards=int(num_shards),
         halo_width=int(halo_width),
-        dense=None if dense is None else build(DenseShardArrays, dense,
-                                               ("onehot",)),
+        dense=None if dense is None else _with_columns(
+            build(DenseShardArrays, dense, ("onehot",))),
         occupancy=None if occupancy is None else np.asarray(occupancy))
+
+
+def _with_columns(dense: DenseShardArrays) -> DenseShardArrays:
+    """``dense`` with its column lists, derived when they were not given."""
+    if dense.col_start is not None:
+        return dense
+    return dense._replace(**dense_shard_columns(dense.M_local, dense.hadj))

@@ -93,6 +93,7 @@ class _Shard(NamedTuple):
     gidx: torch.Tensor          # (mloc,) — global neuron per column
     M_local: Optional[torch.Tensor]
     hadj: Optional[torch.Tensor]
+    cols: Optional[tuple]       # B6's column lists of M_local and hadj
 
 
 def _shards(comp: ShardedCompiled, devices, dense: bool) -> List[_Shard]:
@@ -105,8 +106,13 @@ def _shards(comp: ShardedCompiled, devices, dense: bool) -> List[_Shard]:
             send=a.send_idx[d].reshape(-1).to(dev),
             gidx=a.global_idx[d].to(dev),
             M_local=comp.dense.M_local[d].to(dev) if dense else None,
-            hadj=comp.dense.hadj[d].to(dev) if dense else None))
+            hadj=comp.dense.hadj[d].to(dev) if dense else None,
+            cols=_to(comp.dense.shard_columns(d), dev) if dense else None))
     return out
+
+
+def _to(xs, dev):
+    return None if xs is None else tuple(x.to(dev) for x in xs)
 
 
 def _decode(T: int, stride, choices, tab):
@@ -198,7 +204,7 @@ def _expand(shards, frontier, T: int, backend):
             out = snp_step_dense_shard(
                 frontier[d], info.rank, info.app, lv.strides[d],
                 info.choices, psi, sh.view.rule_neuron, sh.M_local,
-                sh.hadj, lv.halos[d], max_branches=T)
+                sh.hadj, lv.halos[d], max_branches=T, cols=sh.cols)
         else:
             # plain route ("ref", "sparse"): the sparse math on the slice
             packed = lv.fired[d]

@@ -19,7 +19,12 @@ a system with a delayed rule, as the reference does.  ``"delays"`` widens
 and adds the per-rule ``delay``; the dense encoding also carries the 0/1
 synapse ``adjacency`` (which moves a reopening neuron's pending spikes),
 the output neuron, and ``adj_in``, the in-neighbour lists of
-``adjacency`` that the dense delayed kernel reads in its place.
+``adjacency`` that the dense delayed kernel reads in its place.  Without
+delays the dense encoding carries the column lists of ``[M_Π |
+env_produce]`` (:func:`dense_column_lists`), which the dense step kernel
+B1 walks in place of the ``(n, m)`` matrix.  This module is the one that
+builds column lists: the shard kernel B6's too
+(:func:`shard_column_lists`).
 
 The reference's ``neuron_onehot`` (the ``(n, m)`` rule→neuron incidence)
 is not carried: on the TPU it turned the per-rule gather into a matmul,
@@ -39,8 +44,9 @@ from .device import DeviceLike, resolve_device
 from .system import Rule, SNPSystem
 
 __all__ = ["CompiledSNP", "CompiledSparseSNP", "CompiledAny",
-           "check_coo_metadata", "compile_system", "compile_system_sparse",
-           "in_neighbours", "is_compiled", "is_delayed"]
+           "check_coo_metadata", "column_lists", "compile_system",
+           "compile_system_sparse", "dense_column_lists", "in_neighbours",
+           "is_compiled", "is_delayed", "shard_column_lists"]
 
 _SEMANTICS = ("no_delays", "delays")
 
@@ -90,6 +96,13 @@ class CompiledSNP(NamedTuple):
     # In-neighbours of each neuron in ``adjacency``, ascending, padded
     # with m (:func:`in_neighbours`); not a reference field.
     adj_in: Optional[torch.Tensor] = None     # (m, Kin) int32
+    # The column lists of [M | env_produce] (n, m+1), column m being
+    # env's (:func:`dense_column_lists`), which B1 walks; not reference
+    # fields.  None under delays (B4 reads adj_in) and on a hand-built
+    # encoding, which B1 then refuses.
+    col_start: Optional[torch.Tensor] = None  # (m+2,) int32
+    col_rule: Optional[torch.Tensor] = None   # (nnz,) int32
+    col_val: Optional[torch.Tensor] = None    # (nnz,) int32
 
     @property
     def num_rules(self) -> int:
@@ -230,6 +243,36 @@ def in_neighbours(src: np.ndarray, dst: np.ndarray, m: int) -> np.ndarray:
     return out
 
 
+def column_lists(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The nonzeros of a 2-D ``mat`` (r, c) by column, on its device:
+    ``(col_start (c+1,), col_row (nnz,), col_val (nnz,))`` int32, column
+    ``j``'s entries being rows ``col_row[col_start[j]:col_start[j+1]]``,
+    ascending, with values ``col_val`` (``mat``'s, as int32).  One host
+    read (the count of nonzeros)."""
+    cols, rows = (mat.T != 0).nonzero(as_tuple=True)   # column-major
+    start = torch.zeros((mat.shape[1] + 1,), dtype=torch.int32,
+                        device=mat.device)
+    start[1:] = torch.cumsum(torch.bincount(cols, minlength=mat.shape[1]),
+                             0)
+    return (start, rows.to(torch.int32),
+            mat[rows, cols].to(torch.int32))
+
+
+def dense_column_lists(M: torch.Tensor, env: torch.Tensor):
+    """The dense step's lists ``(col_start (m+2,), col_rule, col_val)``:
+    :func:`column_lists` of ``[M | env]``, env being column ``m``."""
+    return column_lists(torch.cat([M, env[:, None].to(M.dtype)], 1))
+
+
+def shard_column_lists(M_local: torch.Tensor, hadj: torch.Tensor):
+    """One shard's lists for B6 ``(col_start, col_rule, col_val,
+    hcol_start, hcol_slot)``: :func:`column_lists` of ``M_local`` (nloc,
+    mloc), then the halo slots of ``hadj`` (H, mloc)'s nonzeros by column
+    (hadj enters as its nonzero pattern, as in the plain step)."""
+    return column_lists(M_local) + column_lists(hadj)[:2]
+
+
 def _ragged_arange(counts: np.ndarray) -> np.ndarray:
     """``concatenate([arange(c) for c in counts])`` without the Python loop."""
     counts = np.asarray(counts, np.int64)
@@ -350,6 +393,11 @@ def compile_system(system: SNPSystem, *, semantics: str = "no_delays",
         extra = dict(delay=_delay_vector(low), adjacency=adj,
                      out_neuron=_out_neuron(system),
                      adj_in=in_neighbours(low.src, low.dst, m))
+    else:
+        lists = dense_column_lists(torch.from_numpy(M),
+                                   torch.from_numpy(low.env_produce))
+        extra = dict(zip(("col_start", "col_rule", "col_val"),
+                         (x.numpy() for x in lists)))
     return CompiledSNP(rule_order=low.order, **_tensors(
         dev, M=M, rule_neuron=low.neuron, consume=low.consume,
         produce=low.produce, regex_base=low.regex_base,

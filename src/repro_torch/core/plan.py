@@ -47,9 +47,9 @@ from .device import DeviceLike, resolve_device
 from .system import SNPSystem
 
 __all__ = ["SystemPlan", "auto_hub_threshold", "ShardArrays", "ShardView",
-           "DenseShardArrays", "ShardedCompiled", "is_sharded",
-           "partition_neurons", "partition_stats", "compile_sharded",
-           "lower_shard_dense", "shard_view"]
+           "DenseShardArrays", "dense_shard_columns", "ShardedCompiled",
+           "is_sharded", "partition_neurons", "partition_stats",
+           "compile_sharded", "lower_shard_dense", "shard_view"]
 
 _ENCODINGS = ("auto", "dense", "ell", "hybrid")
 _SEMANTICS = ("no_delays", "delays")
@@ -218,10 +218,51 @@ class DenseShardArrays(NamedTuple):
     ``d``'s columns (``−consume`` at the owner, ``produce`` on local
     out-neighbours; dummy rules all zero); ``hadj[d][s, j] = 1`` iff halo
     slot ``s`` feeds local neuron ``j``.  The reference's rule→neuron
-    one-hot is not carried: the kernel reads ``rule_neuron``."""
+    one-hot is not carried: the kernel reads ``rule_neuron``.
+
+    The port's own fields are what B6 walks instead of the two matrices
+    (:func:`dense_shard_columns`): per shard the column lists of
+    ``M_local[d]`` and the halo slots feeding each local neuron, each
+    shard's lists padded with zeros to the longest (its ``col_start`` /
+    ``hcol_start`` bound them).  ``None`` only on a hand-built view, which
+    B6 then refuses."""
 
     M_local: torch.Tensor       # (S, nloc, mloc) int32
     hadj: torch.Tensor          # (S, S·Hmax, mloc) int8
+    col_start: Optional[torch.Tensor] = None   # (S, mloc+1) int32
+    col_rule: Optional[torch.Tensor] = None    # (S, L) int32
+    col_val: Optional[torch.Tensor] = None     # (S, L) int32
+    hcol_start: Optional[torch.Tensor] = None  # (S, mloc+1) int32
+    hcol_slot: Optional[torch.Tensor] = None   # (S, Lh) int32
+
+    def shard_columns(self, shard: int) -> Optional[Tuple[torch.Tensor,
+                                                          ...]]:
+        """Shard ``shard``'s ``(col_start, col_rule, col_val, hcol_start,
+        hcol_slot)``, or ``None`` when the view lacks them."""
+        if self.col_start is None:
+            return None
+        return tuple(x[shard] for x in self[2:])
+
+
+def dense_shard_columns(M_local: torch.Tensor, hadj: torch.Tensor) -> dict:
+    """:class:`DenseShardArrays`' column-list fields from its stacked
+    ``M_local`` and ``hadj``, on their device: each shard's
+    :func:`~.matrix.shard_column_lists`, padded with zeros to the longest
+    shard's."""
+    from .matrix import shard_column_lists   # matrix stays plan-free
+    lists = [shard_column_lists(M_local[d], hadj[d])
+             for d in range(M_local.shape[0])]
+
+    def stack(k):
+        width = max(1, max(x[k].shape[0] for x in lists))
+        out = torch.zeros((len(lists), width), dtype=torch.int32,
+                          device=M_local.device)
+        for d, x in enumerate(lists):
+            out[d, :x[k].shape[0]] = x[k]
+        return out
+
+    return dict(zip(("col_start", "col_rule", "col_val", "hcol_start",
+                     "hcol_slot"), (stack(k) for k in range(5))))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -471,10 +512,12 @@ def lower_shard_dense(comp: ShardedCompiled) -> ShardedCompiled:
         hj, hk = np.nonzero((in_idx[d] >= mloc) &
                             (in_idx[d] < mloc + S * hmax))
         hadj[d][in_idx[d][hj, hk] - mloc, hj] = 1
+    M, hadj = torch.from_numpy(M), torch.from_numpy(hadj)
+    lists = dense_shard_columns(M, hadj)
     dev = comp.device
     return dataclasses.replace(comp, dense=DenseShardArrays(
-        M_local=torch.from_numpy(M).to(dev),
-        hadj=torch.from_numpy(hadj).to(dev)))
+        M_local=M.to(dev), hadj=hadj.to(dev),
+        **{k: v.to(dev) for k, v in lists.items()}))
 
 
 def shard_view(arrays: ShardArrays, shard: int) -> ShardView:

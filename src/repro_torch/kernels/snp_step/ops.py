@@ -26,6 +26,16 @@ frontier (its branch bookkeeping and halo come from the sharded explore,
 CPU tensor, the shard body of ``csrc/snp_step_dense.cu`` (B6) on a CUDA
 tensor, or it raises.
 
+B1 and B6 walk column lists in place of the matrices: their launchers
+take the lists (:class:`~repro_torch.core.matrix.CompiledSNP`'s of
+``[M | env]``, :meth:`~repro_torch.core.plan.DenseShardArrays.
+shard_columns`' of ``M_local`` and ``hadj``; both built at lowering by
+:mod:`repro_torch.core.matrix`), not the matrices, so the lists are the
+one source of what the kernel adds.  The host checks their shapes; the
+kernel skips an entry that points outside the matrix or past the lists'
+end, so no list reads out of bounds.  The plain versions read the
+matrices.
+
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` and ``plain_calls`` count launches of B1 and calls of
 its plain version, ``delay_launches`` and ``delay_plain_calls`` the same
@@ -52,10 +62,14 @@ __all__ = ["snp_step", "snp_step_dense", "snp_step_dense_delay",
            "delay_inputs", "load_kernel", "load_delay_kernel",
            "delay_max_neurons", "SOURCE", "DELAY_SOURCE", "kernel_launches",
            "plain_calls", "delay_launches", "delay_plain_calls",
-           "shard_launches", "shard_plain_calls"]
+           "shard_launches", "shard_plain_calls", "RULE_CHUNK"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
 DELAY_SOURCE = SOURCE.with_name("snp_step_dense_delay.cu")
+
+# Rules whose fired-row masks one block of B1/B6 stages at a time (the
+# source's RULE_CHUNK); a longer rule axis is walked in chunks.
+RULE_CHUNK = 8192
 
 kernel_launches = 0
 plain_calls = 0
@@ -69,11 +83,11 @@ def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
     lib = load_library(SOURCE)
     fn = lib.snp_step_dense
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     shard = lib.snp_step_dense_shard
-    shard.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+    shard.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     shard.restype = ctypes.c_int
     return lib
@@ -100,17 +114,48 @@ def delay_max_neurons() -> int:
 _INPUTS = (("configs", torch.int32, 2), ("rank", torch.int32, 2),
            ("app", torch.bool, 2), ("stride", torch.int32, 2),
            ("choices", torch.int32, 2), ("psi", torch.float32, 1),
-           ("rule_neuron", torch.int32, 1), ("M", torch.int32, 2),
-           ("env", torch.int32, 1))
+           ("rule_neuron", torch.int32, 1))
+
+_DENSE_LISTS = ("col_start", "col_rule", "col_val")
+_SHARD_LISTS = _DENSE_LISTS + ("hcol_start", "hcol_slot")
+
+
+def _check_lists(names, lists, starts, dev):
+    """Each list a contiguous 1-D int32 tensor on ``dev``; ``starts`` maps
+    a start list's name to the length the output's width implies; a value
+    list is as long as the index list before it."""
+    if lists is None or len(lists) != len(names):
+        raise ValueError(f"expected the column lists {names}, got "
+                         f"{'none' if lists is None else len(lists)}")
+    for k, (name, x) in enumerate(zip(names, lists)):
+        if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 "
+                             f"tensor, got {x.dtype} {tuple(x.shape)}")
+        want = starts.get(name, lists[k - 1].shape[0]
+                          if name == "col_val" else None)
+        if want is not None and x.shape[0] != want:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                             f"({want},)")
+    for name, x in zip(names, lists):
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
+                             f"got {x.device}")
 
 
 def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
-                   M, env, max_branches: int):
+                   cols, max_branches: int):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid (B,T)
-    bool, emis (B,T) int32)``, same contract as the plain version."""
+    bool, emis (B,T) int32)``, the plain version's contract for the ``M``
+    and ``env`` whose column lists ``cols`` = ``(col_start (m+2,),
+    col_rule, col_val)`` holds (:func:`~repro_torch.core.matrix.
+    dense_column_lists`)."""
     global kernel_launches
-    args = (configs, rank, app, stride, choices, psi, rule_neuron, M, env)
+    args = (configs, rank, app, stride, choices, psi, rule_neuron)
     dev = configs.device
+    B, m = configs.shape
+    n = rule_neuron.shape[0]
+    T = int(max_branches)
+    _check_lists(_DENSE_LISTS, cols, {"col_start": m + 2}, dev)
     for (name, dtype, ndim), x in zip(_INPUTS, args):
         if x.device != dev or dev.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
@@ -118,11 +163,8 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
         if x.dtype != dtype or x.dim() != ndim or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
                              f"tensor, got {x.dtype} {tuple(x.shape)}")
-    B, m = configs.shape
-    n = rule_neuron.shape[0]
-    T = int(max_branches)
     shapes = {"rank": (B, n), "app": (B, n), "stride": (B, m),
-              "choices": (B, m), "psi": (B,), "M": (n, m), "env": (n,)}
+              "choices": (B, m), "psi": (B,)}
     for (name, _, _), x in zip(_INPUTS[1:], args[1:]):
         want = shapes.get(name)
         if want is not None and tuple(x.shape) != want:
@@ -136,8 +178,9 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
     emis = torch.empty((B, T), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(x.data_ptr() for x in args), out.data_ptr(),
-                valid.data_ptr(), emis.data_ptr(), B, T, n, m, stream)
+        rc = fn(*(x.data_ptr() for x in args + tuple(cols)),
+                out.data_ptr(), valid.data_ptr(), emis.data_ptr(), B, T, n,
+                m, cols[1].shape[0], stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_dense launch failed: CUDA error {rc}")
     kernel_launches += 1
@@ -196,26 +239,29 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
 
 
 def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
-                              rule_neuron, M_local, hadj, halo,
-                              max_branches: int):
+                              rule_neuron, cols, halo, max_branches: int):
     """Launch B6 on CUDA tensors: ``out (B,T,mloc) int32``, the contract
     of :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_shard_ref`
-    (``stride`` int32, clamped)."""
+    (``stride`` int32, clamped) for the ``M_local`` and ``hadj`` whose
+    column lists ``cols`` = ``(col_start (mloc+1,), col_rule, col_val,
+    hcol_start (mloc+1,), hcol_slot)`` holds (:meth:`~repro_torch.core.
+    plan.DenseShardArrays.shard_columns`; padding past each list's end is
+    ignored)."""
     global shard_launches
     dev = configs.device
     B, m = configs.shape
     n = rank.shape[-1]
-    H = hadj.shape[0]
+    H = halo.shape[-1]
     T = int(max_branches)
     i32 = torch.int32
+    _check_lists(_SHARD_LISTS, cols, {"col_start": m + 1,
+                                      "hcol_start": m + 1}, dev)
     for name, x, dtype, shape in (
             ("configs", configs, i32, (B, m)), ("rank", rank, i32, (B, n)),
             ("app", app, torch.bool, (B, n)), ("stride", stride, i32, (B, m)),
             ("choices", choices, i32, (B, m)),
             ("psi", psi, torch.float32, (B,)),
             ("rule_neuron", rule_neuron, i32, (n,)),
-            ("M_local", M_local, i32, (n, m)),
-            ("hadj", hadj, torch.int8, (H, m)),
             ("halo", halo, i32, (B, T, H))):
         _check(name, x, dtype, shape, dev)
     if T < 1:
@@ -225,8 +271,9 @@ def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(x.data_ptr() for x in (
-            configs, rank, app, stride, choices, psi, rule_neuron, M_local,
-            hadj, halo, out)), B, T, n, m, H, stream)
+            configs, rank, app, stride, choices, psi, rule_neuron) + tuple(
+                cols) + (halo, out)), B, T, n, m, H, cols[1].shape[0],
+            cols[4].shape[0], stream)
     if rc != 0:
         raise RuntimeError(
             f"snp_step_dense_shard launch failed: CUDA error {rc}")
@@ -239,13 +286,15 @@ def snp_step_dense_shard(configs: torch.Tensor, rank: torch.Tensor,
                          choices: torch.Tensor, psi: torch.Tensor,
                          rule_neuron: torch.Tensor, M_local: torch.Tensor,
                          hadj: torch.Tensor, halo: torch.Tensor, *,
-                         max_branches: int) -> torch.Tensor:
+                         max_branches: int, cols=None) -> torch.Tensor:
     """One shard's candidate slices ``(B, T, mloc)``: ``C + halo·hadj +
     S·M_local``, ``S`` decoded from the shard's local rules (``rank``,
     ``app`` (B, nloc) over ``rule_neuron``) with the cross-shard float32
     ``stride`` (clamped to 2^30 here) and ``choices`` (B, mloc);
     ``halo`` (B, T, S·Hmax) is the exchanged remote produce.  The plain
-    version on a CPU tensor, B6 on a CUDA tensor."""
+    version on a CPU tensor (it reads ``M_local`` and ``hadj``), B6 on a
+    CUDA tensor (it reads ``cols``, the shard's column lists,
+    :meth:`~repro_torch.core.plan.DenseShardArrays.shard_columns`)."""
     global shard_plain_calls
     args = (configs.contiguous(), rank.contiguous(), app.contiguous(),
             clamp_stride(stride).contiguous(), choices.contiguous(),
@@ -254,7 +303,8 @@ def snp_step_dense_shard(configs: torch.Tensor, rank: torch.Tensor,
     if configs.device.type == "cpu":
         shard_plain_calls += 1
         return snp_step_dense_shard_ref(*args, max_branches)
-    return snp_step_dense_shard_cuda(*args, max_branches)
+    return snp_step_dense_shard_cuda(*args[:7], cols, args[9],
+                                     max_branches)
 
 
 def delay_inputs(configs: torch.Tensor, comp: CompiledSNP):
@@ -301,11 +351,19 @@ def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
     info = branch_info(configs, comp)
     args = (configs.contiguous(), info.rank, info.app,
             clamp_stride(info.stride), info.choices, info.psi.contiguous(),
-            comp.rule_neuron, comp.M, comp.env_produce)
+            comp.rule_neuron)
     if configs.device.type == "cpu":
         plain_calls += 1
-        out, valid, emis = snp_step_dense_ref(*args, max_branches)
+        out, valid, emis = snp_step_dense_ref(
+            *args, comp.M, comp.env_produce, max_branches)
     else:
-        out, valid, emis = snp_step_dense(*args, max_branches)
+        if comp.col_start is None:
+            raise ValueError(
+                "dense step: this encoding lacks the column lists of [M | "
+                "env_produce]; lower the system through compile_system / "
+                "backend.compile")
+        out, valid, emis = snp_step_dense(
+            *args, (comp.col_start, comp.col_rule, comp.col_val),
+            max_branches)
     return (out, valid & info.alive.unsqueeze(-1), emis,
             info.psi > float(max_branches))

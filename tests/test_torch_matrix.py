@@ -30,13 +30,32 @@ def _fields(comp):
             if v is not None and k != "rule_order"}
 
 
+# The port's own fields, derived from the reference's.
+PORT_FIELDS = ("adj_in", "col_start", "col_rule", "col_val")
+
+
+def _assert_column_lists(port, M, env):
+    """``col_*`` hold the nonzeros of ``[M | env]`` column by column, rules
+    ascending, and nothing else."""
+    full = np.concatenate([M, env[:, None]], 1)
+    start, rule, val = (getattr(port, k).numpy()
+                        for k in ("col_start", "col_rule", "col_val"))
+    assert start.dtype == rule.dtype == val.dtype == np.int32
+    assert start.shape == (full.shape[1] + 1,) and start[-1] == rule.size
+    for j in range(full.shape[1]):
+        want = np.flatnonzero(full[:, j])
+        np.testing.assert_array_equal(rule[start[j]:start[j + 1]], want)
+        np.testing.assert_array_equal(val[start[j]:start[j + 1]],
+                                      full[want, j])
+
+
 def _assert_same_encoding(port, ref):
     ref_f = _fields(ref)
     for k in CompiledSNP._fields:
         if k == "rule_order":
             assert port.rule_order == tuple(ref.rule_order)
             continue
-        if k == "adj_in":              # the port's own; checked below
+        if k in PORT_FIELDS:           # the port's own; checked below
             continue
         if getattr(port, k) is None:   # a delay field, delay-free
             assert k not in ref_f, k
@@ -48,10 +67,14 @@ def _assert_same_encoding(port, ref):
     onehot = np.zeros_like(ref_f["neuron_onehot"])
     onehot[np.arange(port.num_rules), port.rule_neuron.numpy()] = 1
     np.testing.assert_array_equal(onehot, ref_f["neuron_onehot"])
-    # adj_in lists each neuron's in-neighbours in the reference adjacency
+    # without delays the column lists rebuild [M | env_produce]; a delayed
+    # encoding carries none (B4 reads adj_in, not M)
     if "adjacency" not in ref_f:
+        _assert_column_lists(port, ref_f["M"], ref_f["env_produce"])
         assert port.adj_in is None
         return
+    assert (port.col_start, port.col_rule, port.col_val) == (None,) * 3
+    # adj_in lists each neuron's in-neighbours in the reference adjacency
     adj, m = ref_f["adjacency"], port.num_neurons
     adj_in = port.adj_in.numpy()
     assert adj_in.shape == (m, max(1, int(adj.sum(0).max())))

@@ -22,6 +22,7 @@ from repro_torch.core import compile_system as pcompile  # noqa: E402
 from repro_torch.core import get_backend, next_configs  # noqa: E402
 from repro_torch.core.backend import REFERENCE_NAME  # noqa: E402
 from repro_torch.core.convert import system_from_spec  # noqa: E402
+from repro_torch.core.matrix import dense_column_lists  # noqa: E402
 from repro_torch.core.semantics import branch_info, clamp_stride  # noqa: E402
 from repro_torch.kernels.snp_step import ops  # noqa: E402
 from repro_torch.kernels.snp_step.ref import snp_step_dense_ref  # noqa: E402
@@ -109,8 +110,8 @@ def test_kernel_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.snp_step_dense(configs, info.rank, info.app,
                            clamp_stride(info.stride), info.choices,
-                           info.psi.contiguous(), pc.rule_neuron, pc.M,
-                           pc.env_produce, 8)
+                           info.psi.contiguous(), pc.rule_neuron,
+                           (pc.col_start, pc.col_rule, pc.col_val), 8)
     assert ops.kernel_launches == launches
 
 
@@ -159,3 +160,199 @@ def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(src)
+
+
+# ---- B1's column lists (the kernel walks them in place of [M | env]) ----
+
+def _scatter(configs, S, lists):
+    """``C + Σ S[..., col_rule]·col_val`` into each column, the columns
+    past ``C``'s (B1: env's) starting at 0: the kernel's walk, written as
+    a plain scatter over the lists."""
+    start, rule, val = lists
+    cols = start.shape[0] - 1
+    col = torch.repeat_interleave(
+        torch.arange(cols), (start[1:] - start[:-1]).to(torch.int64))
+    B, T = S.shape[:2]
+    out = torch.zeros((B, T, cols), dtype=torch.int32)
+    out.index_add_(-1, col, S.index_select(-1, rule.to(torch.int64)) * val)
+    out[..., :configs.shape[1]] += configs[:, None, :]
+    return out
+
+
+def _rebuild(lists, rows, cols):
+    start, rule, val = (x.numpy() for x in lists)
+    assert start.shape == (cols + 1,) and start[0] == 0
+    assert start[-1] == rule.size == val.size
+    mat = np.zeros((rows, cols), np.int64)
+    for j in range(cols):
+        r = rule[start[j]:start[j + 1]]
+        assert (np.diff(r) > 0).all(), f"column {j}'s rules not ascending"
+        assert (val[start[j]:start[j + 1]] != 0).all()
+        mat[r, j] = val[start[j]:start[j + 1]]
+    return mat
+
+
+def _kernel_inputs(pc, configs):
+    info = branch_info(configs, pc)
+    return (configs, info.rank, info.app, clamp_stride(info.stride),
+            info.choices, info.psi.contiguous(), pc.rule_neuron, pc.M,
+            pc.env_produce)
+
+
+def _assert_walk_is_the_plain_version(args, lists, T):
+    from repro_torch.core.semantics import decode_spiking
+    configs, rank, app, stride, choices, psi, rule_neuron, M, env = args
+    out, valid, emis = snp_step_dense_ref(*args, T)
+    S = decode_spiking(app, rank, stride, choices, rule_neuron, T)
+    walk = _scatter(configs, S, lists)
+    assert torch.equal(walk[..., :-1], out)
+    assert torch.equal(walk[..., -1], emis)
+
+
+@pytest.mark.parametrize("name", sorted(conftest.EQUIV_SYSTEMS))
+def test_column_lists_rebuild_M_and_env(name):
+    system, _ = conftest.EQUIV_SYSTEMS[name]
+    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
+    lists = (pc.col_start, pc.col_rule, pc.col_val)
+    full = np.concatenate([pc.M.numpy(), pc.env_produce.numpy()[:, None]], 1)
+    np.testing.assert_array_equal(
+        _rebuild(lists, pc.num_rules, pc.num_neurons + 1), full)
+
+
+@pytest.mark.parametrize("name", sorted(conftest.EQUIV_SYSTEMS))
+def test_scatter_over_column_lists_is_the_plain_version(name):
+    """Walking the lists (C + S·col_val into each column, env's column
+    giving the emissions) is ``snp_step_dense_ref`` on every entry."""
+    system, T = conftest.EQUIV_SYSTEMS[name]
+    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
+    configs = torch.from_numpy(
+        conftest.random_states(system, "no_delays", 6, seed=9, high=5))
+    _assert_walk_is_the_plain_version(
+        _kernel_inputs(pc, configs), (pc.col_start, pc.col_rule, pc.col_val),
+        T)
+
+
+def _hand_made(case):
+    """Decode inputs of a random system with a hand-made ``M`` and ``env``:
+    |values| up to 1000 (past int8), negatives, column 1 empty and column
+    0 a hub holding every rule (360 or 8,320 entries); "n-past-one-chunk"
+    has more rules than one block stages (ops.RULE_CHUNK)."""
+    rng = np.random.default_rng(11)
+    system = random_system(64, 130, 0.2, seed=7) if case == \
+        "n-past-one-chunk" else random_system(40, 9, 0.2, seed=6)
+    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
+    n, m = pc.num_rules, pc.num_neurons
+    M = rng.integers(-1000, 1001, size=(n, m)) * (rng.random((n, m)) < 0.05)
+    M[:, 0] = rng.integers(128, 1001, size=n) * rng.choice([-1, 1], size=n)
+    M[:, 1] = 0
+    env = rng.integers(-1000, 1001, size=n) * (rng.random(n) < 0.3)
+    configs = torch.from_numpy(
+        rng.integers(0, 4, size=(3, m)).astype(np.int32))
+    args = _kernel_inputs(pc, configs)[:7] + (
+        torch.from_numpy(M.astype(np.int32)),
+        torch.from_numpy(env.astype(np.int32)))
+    return args, n, m
+
+
+@pytest.mark.parametrize("case", ["wide-values", "n-past-one-chunk"])
+def test_scatter_over_hand_made_lists_is_the_plain_version(case):
+    args, n, m = _hand_made(case)
+    M, env = args[7], args[8]
+    lists = dense_column_lists(M, env)
+    full = np.concatenate([M.numpy(), env.numpy()[:, None]], 1)
+    np.testing.assert_array_equal(_rebuild(lists, n, m + 1), full)
+    start = lists[0].numpy()
+    assert start[2] == start[1]                         # the empty column
+    assert start[1] - start[0] == n > 300               # the hub column
+    assert int(np.abs(lists[2].numpy()).max()) > 127
+    if case == "n-past-one-chunk":
+        assert n > ops.RULE_CHUNK
+        assert int(lists[1].max()) >= ops.RULE_CHUNK
+    _assert_walk_is_the_plain_version(args, lists, 16)
+
+
+@pytest.mark.parametrize("name", ["paper-pi", "power-law-40", "random-17"])
+def test_carried_lists_equal_the_derived_ones(name):
+    """The lists ``compile_system`` carries, those ``compiled_from_arrays``
+    derives for a reference encoding and those ``dense_column_lists``
+    derives from ``M`` and ``env`` are one and the same."""
+    from repro_torch.core.convert import compiled_from_arrays
+    system, _ = conftest.EQUIV_SYSTEMS[name]
+    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
+    ref = jcompile(system)
+    carried = compiled_from_arrays(
+        {k: (v if k == "rule_order" or v is None else np.asarray(v))
+         for k, v in ref._asdict().items()}, device="cpu")
+    derived = dense_column_lists(pc.M, pc.env_produce)
+    for enc in (pc, carried):
+        for x, y in zip((enc.col_start, enc.col_rule, enc.col_val),
+                        derived):
+            assert x.dtype == torch.int32 and torch.equal(x, y)
+
+
+def test_launcher_refuses_lists_that_do_not_match_M():
+    system, T = conftest.EQUIV_SYSTEMS["random-17"]
+    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
+    configs = torch.from_numpy(
+        conftest.random_states(system, "no_delays", 4, seed=1))
+    args = _kernel_inputs(pc, configs)
+    good = (pc.col_start, pc.col_rule, pc.col_val)
+    launches = ops.kernel_launches
+    # lists of a system one neuron wider: col_start one entry too long
+    wider = dense_column_lists(
+        torch.cat([pc.M, pc.M[:, :1]], 1), pc.env_produce)
+    for bad, match in (((good[0][:-1],) + good[1:], "col_start"),
+                       (wider, "col_start"),
+                       (good[:2] + (good[2][:-1],), "col_val"),
+                       (good[:2] + (good[2].to(torch.int64),), "col_val"),
+                       (good[:2], "lists"), (None, "lists")):
+        with pytest.raises(ValueError, match=match):
+            ops.snp_step_dense(*args[:7], bad, T)
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed: CPU refused
+        ops.snp_step_dense(*args[:7], good, T)
+    assert ops.kernel_launches == launches
+
+
+def test_cpu_tensors_with_lists_run_the_plain_version_only():
+    """An encoding that carries its lists still takes the plain version on
+    the CPU: the launch counter does not move."""
+    system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
+    pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
+    assert pc.col_start is not None
+    configs = torch.from_numpy(
+        conftest.random_states(system, "no_delays", 4, seed=3))
+    plain, launches = ops.plain_calls, ops.kernel_launches
+    out = ops.snp_step(configs, pc, max_branches=T)
+    assert (ops.plain_calls, ops.kernel_launches) == (plain + 1, launches)
+    conftest.assert_same_step(_Out(*out), next_configs(configs, pc, T))
+
+
+def test_an_encoding_without_lists_never_reaches_the_kernel(monkeypatch):
+    """Off the CPU (here the meta device) the dense step takes B1's route:
+    an encoding without column lists (a delayed one carries none) is
+    refused before any launch, one with them reaches the launcher, which
+    refuses a tensor that is not on the card; nothing is built on the way
+    and no counter moves."""
+    from repro_torch.kernels.snp_step import _build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel build was started")
+
+    monkeypatch.setattr(_build.subprocess, "Popen", no_build)
+    pc = pcompile(system_from_spec(dataclasses.asdict(paper_pi(True))),
+                  device="cpu")
+    meta = pc._replace(**{k: v.to("meta") for k, v in pc._asdict().items()
+                          if isinstance(v, torch.Tensor)})
+    bare = meta._replace(col_start=None, col_rule=None, col_val=None)
+    configs = torch.tensor([[2, 1, 1]], dtype=torch.int32, device="meta")
+    counts = (ops.plain_calls, ops.kernel_launches)
+    with pytest.raises(ValueError, match="lacks the column lists"):
+        ops.snp_step(configs, bare, max_branches=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.snp_step(configs, meta, max_branches=8)
+    assert (ops.plain_calls, ops.kernel_launches) == counts
+
+
+def test_rule_chunk_is_the_sources():
+    assert f"constexpr int RULE_CHUNK = {ops.RULE_CHUNK};" in \
+        ops.SOURCE.read_text()

@@ -6,6 +6,8 @@ and halos drawn from a numpy seed; and the wrappers' refusals.  On CPU
 tensors the wrappers run the kernels' plain versions; any other tensor
 goes to the launcher, which takes CUDA tensors only."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ from repro.kernels.snp_step.ops import (  # noqa: E402
     snp_step_dense_shard as jdense)
 from repro.kernels.snp_step.sparse_ops import (  # noqa: E402
     snp_step_sparse_shard as jsparse)
-from repro_torch.core.convert import sharded_from_arrays  # noqa: E402
+from repro_torch.core.convert import (sharded_from_arrays,  # noqa: E402
+                                      system_from_spec)
+from repro_torch.core.matrix import shard_column_lists  # noqa: E402
 from repro_torch.kernels.snp_step import (_build, ops,  # noqa: E402
                                           sparse_ops)
 from repro_torch.kernels.snp_step.ref import (  # noqa: E402
@@ -202,7 +206,7 @@ def test_launchers_refuse_cpu_tensors():
             _t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]),
             clamp_stride(_t(sh["stride"])), _t(sh["choices"]),
             _t(sh["psi"]), port.arrays.rule_neuron[0],
-            port.dense.M_local[0], port.dense.hadj[0], _t(sh["halo"]), T)
+            port.dense.shard_columns(0), _t(sh["halo"]), T)
     mloc, H = sh["configs"].shape[1], sh["halo"].shape[-1]
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(
@@ -233,7 +237,8 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
             meta["choices"], meta["psi"],
             port.arrays.rule_neuron[0].to("meta"),
             port.dense.M_local[0].to("meta"), port.dense.hadj[0].to("meta"),
-            meta["halo"], max_branches=T)
+            meta["halo"], max_branches=T,
+            cols=tuple(x.to("meta") for x in port.dense.shard_columns(0)))
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_shard(
             meta["configs"], meta["stride"], meta["choices"], meta["psi"],
@@ -263,3 +268,137 @@ def test_shard_kernels_ship_in_their_sources():
     assert "HAS_HALO" in dense
     sparse = sparse_ops.SOURCE.read_text()
     assert "HAS_HALO" in sparse and "int has_halo" in sparse
+
+
+# ---- B6's column lists (the kernel walks them in place of M_local, hadj) --
+
+def _shard_lists(port, d):
+    """Shard ``d``'s lists as lowered, cut to their lengths."""
+    start, rule, val, hstart, hslot = port.dense.shard_columns(d)
+    nnz, hnnz = int(start[-1]), int(hstart[-1])
+    return start, rule[:nnz], val[:nnz], hstart, hslot[:hnnz]
+
+
+def _rebuild(start, idx, rows, val=None):
+    start, idx = start.numpy(), idx.numpy()
+    cols = start.shape[0] - 1
+    assert start[0] == 0 and start[-1] == idx.size
+    mat = np.zeros((rows, cols), np.int64)
+    for j in range(cols):
+        r = idx[start[j]:start[j + 1]]
+        assert (np.diff(r) > 0).all(), f"column {j}'s entries not ascending"
+        mat[r, j] = 1 if val is None else val.numpy()[start[j]:start[j + 1]]
+    return mat
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_shard_column_lists_rebuild_M_local_and_hadj(name):
+    ref, port, shards, T = _shard_inputs(name)
+    for d in range(port.num_shards):
+        start, rule, val, hstart, hslot = _shard_lists(port, d)
+        M, hadj = port.dense.M_local[d], port.dense.hadj[d]
+        np.testing.assert_array_equal(
+            _rebuild(start, rule, M.shape[0], val), M.numpy())
+        np.testing.assert_array_equal(
+            _rebuild(hstart, hslot, hadj.shape[0]), hadj.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_scatter_over_shard_lists_is_the_plain_version(name):
+    """``C + Σ S[..., col_rule]·col_val + Σ halo[..., hcol_slot]`` into each
+    column is ``snp_step_dense_shard_ref`` on every entry of every shard."""
+    from repro_torch.core.semantics import clamp_stride, decode_spiking
+    ref, port, shards, T = _shard_inputs(name)
+    for d, sh in enumerate(shards):
+        start, rule, val, hstart, hslot = _shard_lists(port, d)
+        args = (_t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]),
+                clamp_stride(_t(sh["stride"])), _t(sh["choices"]),
+                _t(sh["psi"]), port.arrays.rule_neuron[d],
+                port.dense.M_local[d], port.dense.hadj[d], _t(sh["halo"]))
+        want = snp_step_dense_shard_ref(*args, T)
+        S = decode_spiking(args[2], args[1], args[3], args[4], args[6], T)
+        mloc = start.shape[0] - 1
+        col = torch.repeat_interleave(torch.arange(mloc),
+                                      (start[1:] - start[:-1]).long())
+        hcol = torch.repeat_interleave(torch.arange(mloc),
+                                       (hstart[1:] - hstart[:-1]).long())
+        got = args[0][:, None, :].expand(-1, T, -1).clone()
+        got.index_add_(-1, col, S.index_select(-1, rule.long()) * val)
+        got.index_add_(-1, hcol, args[9].index_select(-1, hslot.long()))
+        assert torch.equal(got, want), f"shard {d}"
+
+
+@pytest.mark.parametrize("partition", ["contiguous", "degree"])
+def test_lowered_shard_lists_equal_the_derived_ones(partition):
+    """The lists ``lower_shard_dense`` carries, those
+    ``sharded_from_arrays`` derives for a reference lowering and those
+    ``shard_column_lists`` derives from one shard's ``M_local`` and
+    ``hadj`` agree."""
+    from repro_torch.sharding import neuron_axis
+    system = power_law(26, 3, seed=6)
+    ref = J.lower_shard_dense(J.compile_sharded(
+        system, J.SystemPlan(num_shards=4, partition=partition)))
+    own = P.lower_shard_dense(P.compile_sharded(
+        system_from_spec(dataclasses.asdict(system)),
+        neuron_axis(4, partition=partition), device="cpu"))
+    carried = _carry(ref)
+    for k in ("col_start", "col_rule", "col_val", "hcol_start", "hcol_slot"):
+        assert torch.equal(getattr(own.dense, k), getattr(carried.dense, k))
+        assert getattr(own.dense, k).dtype == torch.int32
+    for d in range(4):
+        derived = shard_column_lists(own.dense.M_local[d], own.dense.hadj[d])
+        for x, y in zip(_shard_lists(own, d), derived):
+            assert torch.equal(x, y), f"shard {d}"
+
+
+def test_shard_launcher_refuses_lists_that_do_not_match():
+    from repro_torch.core.semantics import clamp_stride
+    ref, port, shards, T = _shard_inputs("random-17-S3-degree")
+    sh = shards[0]
+    args = (_t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]),
+            clamp_stride(_t(sh["stride"])), _t(sh["choices"]),
+            _t(sh["psi"]), port.arrays.rule_neuron[0],
+            port.dense.M_local[0], port.dense.hadj[0], _t(sh["halo"]))
+    good = port.dense.shard_columns(0)
+    launches = ops.shard_launches
+    for bad, match in (((good[0][:-1],) + good[1:], "col_start"),
+                       (good[:2] + (good[2][:-1],) + good[3:], "col_val"),
+                       (good[:3] + (good[3][1:],) + good[4:], "hcol_start"),
+                       (good[:4] + (good[4].to(torch.int64),), "hcol_slot"),
+                       (good[:3], "lists"), (None, "lists")):
+        with pytest.raises(ValueError, match=match):
+            ops.snp_step_dense_shard_cuda(*args[:7], bad, args[9], T)
+    with pytest.raises(ValueError, match="CUDA"):   # well-formed: CPU refused
+        ops.snp_step_dense_shard_cuda(*args[:7], good, args[9], T)
+    assert ops.shard_launches == launches
+
+
+def test_shard_step_off_the_cpu_needs_the_lists():
+    """Off the CPU (here the meta device) the shard step goes to B6, which
+    walks the lists: without them it refuses before any launch."""
+    ref, port, shards, T = _shard_inputs("paper-pi-S2")
+    meta = {k: _t(v).to("meta") for k, v in shards[0].items()
+            if isinstance(v, np.ndarray)}
+    counts = (ops.shard_plain_calls, ops.shard_launches)
+    with pytest.raises(ValueError, match="column lists"):
+        ops.snp_step_dense_shard(
+            meta["configs"], meta["rank"], meta["app"], meta["stride"],
+            meta["choices"], meta["psi"],
+            port.arrays.rule_neuron[0].to("meta"),
+            port.dense.M_local[0].to("meta"), port.dense.hadj[0].to("meta"),
+            meta["halo"], max_branches=T)
+    assert (ops.shard_plain_calls, ops.shard_launches) == counts
+
+
+def test_cpu_tensors_with_lists_run_the_plain_version_only():
+    ref, port, shards, T = _shard_inputs("power-law-26-S8-degree")
+    sh = shards[1]
+    before = (ops.shard_plain_calls, ops.shard_launches)
+    got = ops.snp_step_dense_shard(
+        _t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]), _t(sh["stride"]),
+        _t(sh["choices"]), _t(sh["psi"]), port.arrays.rule_neuron[1],
+        port.dense.M_local[1], port.dense.hadj[1], _t(sh["halo"]),
+        max_branches=T, cols=port.dense.shard_columns(1))
+    assert (ops.shard_plain_calls, ops.shard_launches) == (
+        before[0] + 1, before[1])
+    assert got.shape == (sh["configs"].shape[0], T, port.shard_size)
