@@ -26,13 +26,20 @@ result line):
    (the yardstick, timed here only: the port never calls it), the bound
    with ``M`` counted by its nonzeros (and, for comparison, dense), and at
    the wave B1's device time from ``torch.profiler``;
-3. the sparse kernel's two bodies, ELL (B2) and ELL + COO (B3), against
-   their plain version — bit-identical on every entry at Π, ``nd_chain(10)``,
-   a ragged shape, a random system with every in-synapse past the first
-   in the COO tail, spike counts near 2^20, ``ring_lattice(32768, 8)``,
-   ``power_law(32768, max_in=64)`` and the two full-width waves; times of
-   the kernel, its plain version and one ``torch.sparse.mm`` of ``S`` as
-   CSR with a dense ``M`` (where ``M`` fits 4 GiB);
+3. the sparse kernel's two bodies, ELL (B2) and hybrid (B3: the sliced
+   in-lists and the COO tail), against their plain version — bit-identical
+   on every entry at Π, ``nd_chain(10)``, a ragged shape, a random system
+   with every in-synapse past the first in the COO tail, a hybrid system
+   of 45 neurons (m not a multiple of 32), one whose neurons 32..63 have
+   no in-synapse (a slice of width 0), spike counts near 2^20,
+   ``ring_lattice(32768, 8)``, ``power_law(32768, max_in=64)`` (ELL, and
+   hybrid at hub threshold 16: 2 rows a block) and the two full-width
+   waves, and B3 on forged lists (list and tail entries above m or below
+   0, slice starts out of range) against the plain version without the
+   forged entries; times of the kernel, its plain version and one
+   ``torch.sparse.mm`` of ``S`` as CSR with a dense ``M`` (where ``M``
+   fits 4 GiB), and at the hybrid wave B3's device time from
+   ``torch.profiler``;
 4. the paper's §5 run through B1 — the allGenCk list and the ℕ∖{1}
    emission-gap result;
 5. full width, dense — ``explore(scaled_pi(682))`` (m=2046, n=3410,
@@ -48,11 +55,14 @@ result line):
    and ``"ref"``, and ``run_traces(power_law(8192), policy="random")``
    identical through ``"sparse_cuda"`` and ``"sparse"``;
 9. the delayed kernels against their plain versions — B4 (dense) and B5
-   (the sparse kernel's ELL and COO bodies with the delay stage),
+   (the sparse kernel's ELL and hybrid bodies with the delay stage),
    bit-identical on every entry at small edge shapes (delays 0–3, Ψ > T,
    a ragged shape, a neuron reopening with 2^16 − 1 pending spikes, no
-   output neuron, spike counts near 2^20) and at the delayed
-   ``scaled_pi(682)`` and ``power_law(8192)`` waves; times of each kernel,
+   output neuron, spike counts near 2^20; for B5 COO also m not a
+   multiple of 32, a slice of width 0, ``power_law(32768, max_in=64)`` at
+   hub threshold 16 and forged lists, as in phase 3) and at the delayed
+   ``scaled_pi(682)`` and ``power_law(8192)`` waves (B5 COO's device time
+   there from ``torch.profiler``); times of each kernel,
    its plain version, its bound and one library call (partial yardsticks:
    ``torch.matmul`` of ``S`` with the ``(n, 4m)`` ``W``, the accumulate
    stage only, for B4; ``torch.sparse.mm`` of ``S`` with ``M``, the
@@ -614,10 +624,12 @@ def _forged_b1(rng, dev):
     return err
 
 
-def _sparse_bound(args, extra, T):
+def _sparse_bound(args, extra, T, read=None):
     """Least time for one sparse step call (ms), what binds, and the
-    operations counted, from this call's inputs.  Bytes: each input read
-    once and each output written once, over HBM bandwidth.  Operations:
+    operations counted, from this call's inputs (the plain version's
+    ``args``/``extra``).  Bytes: each input the kernel reads (``read``;
+    by default the plain version's inputs) read once and each output
+    written once, over HBM bandwidth.  Operations:
     what these inputs need, over the f32/int32 datapath peak: a digit
     decode (divide, floor, modulo) per neuron and branch, the ``C −
     consume`` per output entry, and one add per out-synapse of every
@@ -633,7 +645,7 @@ def _sparse_bound(args, extra, T):
     configs, stride, choices, psi, tab, in_idx, out_neuron = args
     B, m = configs.shape
     delayed = "dtab" in extra
-    inputs = list(args) + list(extra.values())
+    inputs = list(args) + list(extra.values()) if read is None else read
     in_bytes = sum(x.numel() * x.element_size() for x in inputs)
     out_bytes = 4 * B * T * m * (3 if delayed else 1) + 5 * B * T
     out_deg = torch.bincount(in_idx[in_idx < m].to(torch.int64),
@@ -676,6 +688,89 @@ def _sparse_library_ms(system, comp, configs, info, T, iters,
     return ms
 
 
+def _kernel_read(kargs, kextra):
+    """The tensors the kernel reads, from its launcher's arguments."""
+    return [a for a in kargs if a is not None] + list(kextra.values())
+
+
+def _empty_slice_system():
+    """``random_system(100)`` (m not a multiple of 32) with no synapse
+    into neurons 32..63, a slice of the sliced lists with width 0, and one
+    from every even neuron into neuron 70, a hub."""
+    import dataclasses
+    from repro_torch.core.generators import random_system
+    base = random_system(100, 2, 0.08, seed=7)
+    syn = {(i, j) for i, j in base.synapses if not 32 <= j < 64}
+    syn |= {(i, 70) for i in range(0, 100, 2) if i != 70}
+    return dataclasses.replace(base, synapses=tuple(sorted(syn)),
+                               name="empty-slice-100")
+
+
+def _forged_hybrid(rng, dev, delayed):
+    """The COO body (B3, or B5 COO when ``delayed``) on forged sliced lists
+    and tail equals its plain version without the forged entries: every
+    5th list entry and every 7th tail entry moved above m or below 0 (the
+    kernel skips them; the plain version reads ``m``, the zero slot, in
+    their place), the first slice start below 0 and the last past the
+    lists' end (clamped).  Returns max |err|."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compile_system_sparse, with_delays
+    from repro_torch.core.generators import power_law
+    from repro_torch.kernels.snp_step import sparse_ops
+    from repro_torch.kernels.snp_step.sparse_ref import (kernel_inputs,
+                                                         snp_step_sparse_ref)
+
+    system = power_law(1000, 4, seed=9)
+    if delayed:
+        system = with_delays(system, lambda k, r: k % 3)
+    comp = compile_system_sparse(system, hub_threshold=3, device=dev,
+                                 semantics="delays" if delayed
+                                 else "no_delays")
+    m, B, T = comp.num_neurons, 24, 40
+    cols = 3 * m if delayed else m
+    configs = torch.from_numpy(rng.integers(0, 4, size=(B, cols)).astype(
+        np.int32)).to(dev)
+    start, src = comp.sell_start.cpu().numpy(), comp.sell_src.cpu().numpy()
+    in_idx, coo = comp.in_idx.cpu().numpy(), comp.coo_src.cpu().numpy()
+    pos = np.arange(src.shape[0])
+    sl = np.searchsorted(start, pos, side="right") - 1
+    neuron, k = 32 * sl + (pos - start[sl]) % 32, (pos - start[sl]) // 32
+    bad = pos[pos % 5 == 0]
+    far = rng.integers(1, 1 << 20, bad.shape[0])
+    src = src.copy()
+    src[bad] = np.where(bad % 2 == 0, m + far, -far)
+    live = neuron[bad] < m
+    in_idx = in_idx.copy()
+    in_idx[neuron[bad][live], k[bad][live]] = m
+    cbad = np.arange(0, coo.shape[0], 7)
+    coo_k = coo.copy()
+    coo_k[cbad] = m + 1 + rng.integers(0, 1 << 20, cbad.shape[0])
+    coo_p = coo.copy()
+    coo_p[cbad] = m
+    start = start.copy()
+    start[0], start[-1] = -5, src.shape[0] + 1000
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    forged = comp._replace(sell_start=t(start), sell_src=t(src),
+                           coo_src=t(coo_k))
+    plain = comp._replace(in_idx=t(in_idx), coo_src=t(coo_p))
+    kargs, kextra, _ = kernel_inputs(configs, forged, lists=True)
+    pargs, pextra, _ = kernel_inputs(configs, plain)
+    k = sparse_ops.snp_step_sparse_cuda(*kargs, **kextra, max_branches=T)
+    p = snp_step_sparse_ref(*pargs, **pextra, max_branches=T)
+    torch.cuda.synchronize()
+    err = max(int((k[0] - p[0]).abs().max()), int((k[2] - p[2]).abs().max()))
+    kernel = "B5-COO" if delayed else "B3"
+    check(err == 0 and bool(torch.equal(k[1], p[1])),
+          f"forged sliced lists: {kernel} disagrees with its plain version "
+          f"without the forged entries (max |err| {err})")
+    log(f"[{9 if delayed else 3}] forged lists (power_law(1000) h=3) "
+        f"{kernel} B={B} T={T} m={m} | {bad.shape[0]} list and "
+        f"{cbad.shape[0]} tail entries out of range, starts below 0 and past "
+        f"the end: {kernel} == plain without them (max |err| {err})")
+    return err
+
+
 def phase_sparse_kernel():
     """B2 (ELL body) and B3 (COO stage) == their plain version on the
     card, on every entry; returns (max |err| per kernel, timing rows keyed
@@ -709,12 +804,19 @@ def phase_sparse_kernel():
          lambda m: rand(13, m, 0, 4)),
         ("random(64) h=1", random_system(64, 2, 0.15, seed=3), 1, 24, 40,
          lambda m: rand(24, m, 0, 4)),
+        ("ragged m=45 h=2 B13 T37", random_system(45, 3, 0.1, seed=5), 2,
+         13, 37, lambda m: rand(13, m, 0, 4)),
+        ("empty slice m=100 h=4", _empty_slice_system(), 4, 24, 40,
+         lambda m: rand(24, m, 0, 4)),
         ("spikes~2^20", random_system(64, 2, 0.1, seed=2), None, 32, 32,
          lambda m: rand(32, m, 2 ** 20 - 8, 2 ** 20 + 8)),
         ("ring_lattice(32768,8)", ring_lattice(32768, 8, seed=2), None, 64,
          64, lambda m: rand(64, m, 0, 4)),
         ("power_law(32768,max_in=64)",
          power_law(32768, 4, seed=2, max_in=64), None, 64, 64,
+         lambda m: rand(64, m, 0, 4)),
+        ("power_law(32768,max_in=64) h=16",
+         power_law(32768, 4, seed=2, max_in=64), 16, 64, 64,
          lambda m: rand(64, m, 0, 4)),
         ("scaled_pi(682) wave", scaled_pi(682), None, 512, 64,
          lambda m: rand(512, m, 0, 3)),
@@ -733,8 +835,13 @@ def phase_sparse_kernel():
         n, m = comp.num_rules, comp.num_neurons
         configs = make(m)
         args, coo, info = kernel_inputs(configs, comp)
+        kargs, kcoo, _ = kernel_inputs(configs, comp, lists=True)
+        if name.startswith("empty slice"):
+            st = comp.sell_start
+            check(m % 32 != 0 and bool((st[1:] == st[:-1]).any()),
+                  f"{name}: expected a slice of width 0")
         k_out, k_valid, k_emis = sparse_ops.snp_step_sparse_cuda(
-            *args, **coo, max_branches=T)
+            *kargs, **kcoo, max_branches=T)
         p_out, p_valid, p_emis = snp_step_sparse_ref(*args, **coo,
                                                      max_branches=T)
         torch.cuda.synchronize()
@@ -757,25 +864,37 @@ def phase_sparse_kernel():
         big = B * T * m > 1e7
         iters = 5 if big else 50
         k_ms = time_ms(lambda: sparse_ops.snp_step_sparse_cuda(
-            *args, **coo, max_branches=T), iters)
+            *kargs, **kcoo, max_branches=T), iters)
         p_ms = time_ms(lambda: snp_step_sparse_ref(
             *args, **coo, max_branches=T), iters)
         del k_out, p_out
         l_ms = _sparse_library_ms(system, comp, configs, info, T, iters)
-        b_ms, b_by, b_ops = _sparse_bound(args, coo, T)
+        b_ms, b_by, b_ops = _sparse_bound(args, coo, T,
+                                          _kernel_read(kargs, kcoo))
         rows[name] = dict(kernel=kernel, B=B, T=T, n=n, m=m,
                           Kin=comp.max_in_degree,
                           Ec=int(comp.coo_src.shape[0]), ms=k_ms,
                           plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                           bound_by=b_by)
+        if kernel == "B3" and "wave" in name:
+            rows[name]["device_ms"] = d_ms = device_ms(
+                lambda: sparse_ops.snp_step_sparse_cuda(
+                    *kargs, **kcoo, max_branches=T), 20,
+                "snp_step_sparse_coo_kernel")
+            log(f"[3] {name}: B3's device time by the profiler {d_ms} ms "
+                f"(CUDA events {k_ms:.4f})")
         lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
+        rows_b = (f" sliced entries={comp.sell_src.shape[0]}"
+                  if comp.is_hybrid else "")
         log(f"[3] {name:27s} {kernel} B={B:4d} T={T:3d} n={n:6d} m={m:6d} "
-            f"Kin={comp.max_in_degree:3d} Ec={rows[name]['Ec']:6d} | "
+            f"Kin={comp.max_in_degree:3d} Ec={rows[name]['Ec']:6d}{rows_b} | "
             f"kernel == plain (max |err| {err}) | kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, sparse.mm(S,M) {lib}, bound "
             f"{b_ms:.6f} ms ({b_by}; {b_ops} ops) = {k_ms / b_ms:.1f}x "
             f"bound")
+        del kargs, kcoo, args, coo, info
         torch.cuda.empty_cache()
+    max_err["B3"] = max(max_err["B3"], _forged_hybrid(rng, dev, False))
     return max_err, rows
 
 
@@ -901,10 +1020,13 @@ def phase_full_width_hybrid():
     comp = compile_system_sparse(system, hub_threshold=plan.hub_threshold,
                                  device="cuda")
     hubs = int(comp.coo_bounds.shape[0]) - 1
+    runs = comp.coo_bounds[1:] - comp.coo_bounds[:-1]
     log(f"[7] power_law(8192, 4, seed=2): m={comp.num_neurons}, "
         f"n={comp.num_rules}, {len(system.synapses)} synapses, plan "
         f"{plan.encoding} (hub threshold {plan.hub_threshold}), Kin="
-        f"{comp.max_in_degree}, Ec={comp.coo_src.shape[0]} over {hubs} hubs, "
+        f"{comp.max_in_degree}, Ec={comp.coo_src.shape[0]} over {hubs} hubs "
+        f"(longest run {int(runs.max())}), sliced entries "
+        f"{comp.sell_src.shape[0]} against {comp.in_idx.numel()} ELL slots, "
         f"R={comp.max_rules_per_neuron}, K={comp.max_nnz_per_rule}")
     a, launches, _ = _timed_explore("7", "explore(power_law(8192))",
                                     system, "sparse_cuda", "B3", plan)
@@ -963,7 +1085,7 @@ def _wave_breakdown(tag, comp, archive, backends):
             lambda: packed_rule_table(info, comp))
     if isinstance(comp, CompiledSparseSNP):
         stages["· kernel_inputs (all bookkeeping)"], (args, extra, _) = \
-            timed(lambda: kernel_inputs(frontier, comp))
+            timed(lambda: kernel_inputs(frontier, comp, lists=True))
         stages["· kernel launch"], _ = timed(
             lambda: sparse_ops.snp_step_sparse_cuda(*args, **extra,
                                                     max_branches=T))
@@ -1141,12 +1263,21 @@ def _delay_cases(rng, dev):
         ("random(64) h=1 d=k%3",
          with_delays(random_system(64, 2, 0.15, seed=3), k3), 1, 24, 40,
          lambda m: states(m, 24)),
+        ("ragged m=45 h=2 B13 T37 d=k%4",
+         with_delays(random_system(45, 3, 0.1, seed=5), k4), 2, 13, 37,
+         lambda m: states(m, 13)),
+        ("empty slice m=100 h=4 d=k%3",
+         with_delays(_empty_slice_system(), k3), 4, 24, 40,
+         lambda m: states(m, 24)),
         ("reopen 2^16-1, no output", _reopen_system(), None, 4, 8,
          lambda m: reopen),
         ("reopen 2^16-1 h=1", _reopen_system(), 1, 4, 8, lambda m: reopen),
         ("spikes~2^20 d=k%3",
          with_delays(random_system(64, 2, 0.1, seed=2), k3), None, 32, 32,
          lambda m: states(m, 32, 2 ** 20 - 8, 2 ** 20 + 8)),
+        ("power_law(32768,max_in=64) h=16 d=k%3",
+         with_delays(power_law(32768, 4, seed=2, max_in=64), k3), 16, 64,
+         64, lambda m: states(m, 64)),
         ("scaled_pi(682) delayed wave", with_delays(scaled_pi(682), k3),
          None, 512, 64, lambda m: states(m, 512, 0, 3)),
         ("power_law(8192) delayed hybrid wave",
@@ -1182,7 +1313,7 @@ def phase_delay_kernels():
     for name, system, h, B, T, make in _delay_cases(
             np.random.default_rng(3), dev):
         wave = "wave" in name
-        iters = 5 if wave else 50
+        iters = 5 if wave or B * T * system.num_neurons > 1e7 else 50
         m = system.num_neurons
         configs = make(m)
         hybrid_wave = wave and h == "auto"
@@ -1248,7 +1379,12 @@ def phase_delay_kernels():
               f"{name}: expected {'a hybrid' if h else 'an ELL'} encoding")
         n = comp.num_rules
         args, extra, info = kernel_inputs(configs, comp)
-        k = sparse_ops.snp_step_sparse_cuda(*args, **extra, max_branches=T)
+        kargs, kextra, _ = kernel_inputs(configs, comp, lists=True)
+        if name.startswith("empty slice"):
+            st = comp.sell_start
+            check(m % 32 != 0 and bool((st[1:] == st[:-1]).any()),
+                  f"{name}: expected a slice of width 0")
+        k = sparse_ops.snp_step_sparse_cuda(*kargs, **kextra, max_branches=T)
         p = snp_step_sparse_ref(*args, **extra, max_branches=T)
         torch.cuda.synchronize()
         err = _max_err(k, p)
@@ -1269,25 +1405,39 @@ def phase_delay_kernels():
             "sparse_delayed_next_configs")
         del w, ref
         k_ms = time_ms(lambda: sparse_ops.snp_step_sparse_cuda(
-            *args, **extra, max_branches=T), iters)
+            *kargs, **kextra, max_branches=T), iters)
         p_ms = time_ms(lambda: snp_step_sparse_ref(
             *args, **extra, max_branches=T), iters)
         l_ms = _sparse_library_ms(system, comp, configs, info, T, iters,
                                   semantics="delays")
-        b_ms, b_by, b_ops = _sparse_bound(args, extra, T)
+        b_ms, b_by, b_ops = _sparse_bound(args, extra, T,
+                                          _kernel_read(kargs, kextra))
         rows[(kernel, name)] = dict(
             B=B, T=T, n=n, m=m, Kin=comp.max_in_degree,
             Ec=int(comp.coo_src.shape[0]), ms=k_ms, plain_ms=p_ms,
             library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+        if kernel == "B5-COO" and wave:
+            rows[(kernel, name)]["device_ms"] = d_ms = device_ms(
+                lambda: sparse_ops.snp_step_sparse_cuda(
+                    *kargs, **kextra, max_branches=T), 20,
+                "snp_step_sparse_coo_kernel")
+            log(f"[9] {name}: B5-COO's device time by the profiler {d_ms} "
+                f"ms (CUDA events {k_ms:.4f})")
         lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
+        rows_b = (f" sliced entries={comp.sell_src.shape[0]}"
+                  if comp.is_hybrid else "")
         log(f"[9] {name:36s} {kernel} B={B:4d} T={T:3d} n={n:5d} m={m:5d} "
             f"Kin={comp.max_in_degree:3d} Ec={rows[(kernel, name)]['Ec']:6d}"
-            f" | kernel == plain (max |err| {err}) | kernel {k_ms:.4f} ms, "
+            f"{rows_b} | kernel == plain (max |err| {err}) | kernel "
+            f"{k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, sparse.mm(S,M) {lib}, bound "
             f"{b_ms:.6f} ms ({b_by}; {b_ops} ops) = {k_ms / b_ms:.1f}x "
             f"bound")
-        del comp, args, extra, info
+        del comp, args, extra, kargs, kextra, info
         torch.cuda.empty_cache()
+    max_err["B5-COO"] = max(max_err["B5-COO"],
+                            _forged_hybrid(np.random.default_rng(4), dev,
+                                           True))
     return max_err, rows
 
 
@@ -2392,9 +2542,9 @@ def main() -> int:
             bound_by=w["bound_by"], library_ms=w["library_ms"],
             library_call=LIBRARY_CALL[k],
             **({"other_waves": other_waves[k]} if k in other_waves else {}),
-            **({"bound_ms_matrices_dense": w["bound_dense_ms"],
-                "device_ms": w["device_ms"]}
+            **({"bound_ms_matrices_dense": w["bound_dense_ms"]}
                if "bound_dense_ms" in w else {}),
+            **({"device_ms": w["device_ms"]} if "device_ms" in w else {}),
             **extras.get(k, {})))
         log(f"[18] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "

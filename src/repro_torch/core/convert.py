@@ -14,7 +14,8 @@
 
 The port's own fields that the reference does not carry are derived from
 its matrices: the dense encoding's ``adj_in`` (delays) or column lists
-(no delays), and the dense shard view's column lists.
+(no delays), a hybrid sparse encoding's sliced in-lists and hub neurons,
+and the dense shard view's column lists.
 
 All take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
@@ -29,7 +30,8 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
-                     dense_column_lists, in_neighbours)
+                     dense_column_lists, hub_neurons, in_neighbours,
+                     sliced_in_lists)
 from .plan import (DenseShardArrays, ShardArrays, ShardedCompiled,
                    SystemPlan, dense_shard_columns)
 from .system import Rule, SNPSystem
@@ -69,7 +71,8 @@ def compiled_from_arrays(fields: Mapping[str, Any],
     """A :class:`CompiledSNP` or :class:`CompiledSparseSNP` on ``device``
     from a reference encoding's fields as numpy arrays (``rule_order`` may
     stay a tuple; a hand-built sparse encoding may lack ``coo_bounds`` and
-    ``hub_slot``, which then stay ``None``)."""
+    ``hub_slot``, which then stay ``None``, as do the sliced in-lists the
+    kernel's COO body needs)."""
     dev = resolve_device(device)
     cls = CompiledSparseSNP if "in_idx" in fields else CompiledSNP
     known = set(cls._fields) | set(_DERIVED[cls])
@@ -108,6 +111,15 @@ def compiled_from_arrays(fields: Mapping[str, Any],
     if cls is CompiledSNP and not delay_set and out.get("col_start") is None:
         out.update(zip(("col_start", "col_rule", "col_val"),
                        dense_column_lists(out["M"], out["env_produce"])))
+    if cls is CompiledSparseSNP and np.size(fields["coo_src"]) \
+            and out.get("coo_bounds") is not None \
+            and out.get("hub_slot") is not None \
+            and out.get("sell_start") is None:
+        start, src = sliced_in_lists(fields["in_idx"])
+        hubs = hub_neurons(fields["hub_slot"], np.size(fields["coo_bounds"])
+                           - 1)
+        out.update((k, torch.from_numpy(v).to(dev)) for k, v in (
+            ("sell_start", start), ("sell_src", src), ("hub_neuron", hubs)))
     return cls(**out)
 
 

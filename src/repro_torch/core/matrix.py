@@ -30,7 +30,10 @@ The reference's ``neuron_onehot`` (the ``(n, m)`` rule→neuron incidence)
 is not carried: on the TPU it turned the per-rule gather into a matmul,
 while the port gathers through ``rule_neuron`` directly.  Nor is its
 ``coo_dst``: the COO tail's targets are read through ``coo_bounds`` and
-``hub_slot``.
+``hub_slot``.  A hybrid sparse encoding also carries its ELL in-adjacency
+in slices of 32 neurons (:func:`sliced_in_lists`) and the inverse of
+``hub_slot`` (:func:`hub_neurons`), which the sparse kernel's COO body
+walks in place of ``in_idx`` and ``hub_slot``.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ from .device import DeviceLike, resolve_device
 from .system import Rule, SNPSystem
 
 __all__ = ["CompiledSNP", "CompiledSparseSNP", "CompiledAny",
-           "check_coo_metadata", "column_lists", "compile_system",
-           "compile_system_sparse", "dense_column_lists", "in_neighbours",
-           "is_compiled", "is_delayed", "shard_column_lists"]
+           "check_coo_metadata", "check_sliced_lists", "column_lists",
+           "compile_system", "compile_system_sparse", "dense_column_lists",
+           "hub_neurons", "in_neighbours", "is_compiled", "is_delayed",
+           "shard_column_lists", "sliced_in_lists"]
 
 _SEMANTICS = ("no_delays", "delays")
 
@@ -165,6 +169,14 @@ class CompiledSparseSNP(NamedTuple):
     # reopening neuron's pending spikes ride the same in-adjacency as the
     # fired produce, so no other array is needed.
     delay: Optional[torch.Tensor] = None       # (n,) int32
+    # What the kernel's COO body (B3, B5 COO) reads in place of in_idx
+    # and hub_slot (not reference fields; built for hybrid encodings only,
+    # None otherwise and on a hand-built encoding, which the kernel then
+    # refuses): the ELL part in slices of 32 neurons (sliced_in_lists) and
+    # each hub's neuron, the inverse of hub_slot (hub_neurons).
+    sell_start: Optional[torch.Tensor] = None  # (ceil(m/32)+1,) int32
+    sell_src: Optional[torch.Tensor] = None    # (E,) int32, pad m
+    hub_neuron: Optional[torch.Tensor] = None  # (Hn,) int32
 
     @property
     def num_rules(self) -> int:
@@ -217,6 +229,50 @@ def check_coo_metadata(comp: CompiledSparseSNP, who: str) -> None:
             "metadata (coo_bounds/hub_slot) the step's tail stage reads; "
             "lower the system through compile_system_sparse / "
             "backend.compile")
+
+
+def check_sliced_lists(comp: CompiledSparseSNP, who: str) -> None:
+    """Raise unless a hybrid encoding carries the sliced in-lists and hub
+    neurons (``sell_start``/``sell_src``/``hub_neuron``) that the kernel's
+    COO body walks."""
+    if comp.is_hybrid and (comp.sell_start is None or comp.sell_src is None
+                           or comp.hub_neuron is None):
+        raise ValueError(
+            f"{who}: this hybrid ELL+COO encoding lacks the sliced in-lists "
+            "(sell_start/sell_src/hub_neuron) the kernel's COO body walks; "
+            "lower the system through compile_system_sparse or "
+            "convert.compiled_from_arrays")
+
+
+def sliced_in_lists(in_idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The rows of ``in_idx`` (m, Kin) (padding ``m``) in slices of 32
+    neurons, stored column by column: ``(sell_start (ceil(m/32)+1,),
+    sell_src (E,))`` int32, entry ``k`` of neuron ``32s + l`` at
+    ``sell_start[s] + 32k + l``.  Slice ``s`` is as wide as its longest
+    row (up to its last entry that is not ``m``); shorter rows and the
+    lanes past ``m`` are padded with ``m``, and each row keeps its order."""
+    in_idx = np.asarray(in_idx)
+    m, kin = in_idx.shape
+    n_slices = -(-m // 32)
+    rows = np.full((n_slices * 32, kin), m, np.int32)
+    rows[:m] = in_idx
+    length = ((rows != m) * np.arange(1, kin + 1)).max(1)
+    width = length.reshape(n_slices, 32).max(1)
+    start = np.zeros((n_slices + 1,), np.int32)
+    np.cumsum(32 * width, out=start[1:])
+    pos = _ragged_arange(32 * width)
+    neuron = 32 * np.repeat(np.arange(n_slices), 32 * width) + pos % 32
+    return start, rows[neuron, pos // 32]
+
+
+def hub_neurons(hub_slot: np.ndarray, num_hubs: int) -> np.ndarray:
+    """``(Hn,)`` int32: the neuron of each hub, the inverse of
+    ``hub_slot`` (``num_hubs`` = ``Hn`` marks a neuron that is no hub)."""
+    hub_slot = np.asarray(hub_slot)
+    out = np.zeros((num_hubs,), np.int32)
+    hubs = np.flatnonzero(hub_slot < num_hubs)
+    out[hub_slot[hubs]] = hubs
+    return out
 
 
 def is_compiled(obj) -> bool:
@@ -417,9 +473,11 @@ def compile_system_sparse(system: SNPSystem, *,
     ``hub_threshold=H`` selects the hybrid in-adjacency: ELL rows hold at
     most ``H`` in-neighbours and every further in-synapse of a hub lands in
     the COO tail, sorted by ``(dst, src)``, with its per-hub run offsets
-    ``coo_bounds`` and the neuron→hub map ``hub_slot``.  ``None`` is pure
-    ELL (an empty tail).  ``semantics="delays"`` adds the per-rule
-    ``delay`` and the ``3m`` initial state."""
+    ``coo_bounds`` and the neuron→hub map ``hub_slot``, and the port's
+    own ``sell_start``/``sell_src`` (:func:`sliced_in_lists` of
+    ``in_idx``) and ``hub_neuron`` that the kernel's COO body reads.
+    ``None`` is pure ELL (an empty tail).  ``semantics="delays"`` adds the
+    per-rule ``delay`` and the ``3m`` initial state."""
     delayed = _check_semantics(system, semantics)
     dev = resolve_device(device)
     low = _lower(system)
@@ -469,6 +527,9 @@ def compile_system_sparse(system: SNPSystem, *,
     hub_slot[hubs] = np.arange(hn, dtype=np.int32)
 
     extra = dict(delay=_delay_vector(low)) if delayed else {}
+    if hn:
+        extra.update(zip(("sell_start", "sell_src"), sliced_in_lists(in_idx)),
+                     hub_neuron=hub_neurons(hub_slot, hn))
     return CompiledSparseSNP(rule_order=low.order, **_tensors(
         dev, rule_neuron=low.neuron, consume=low.consume,
         produce=low.produce, regex_base=low.regex_base,

@@ -6,21 +6,24 @@
 // the ELL body _make_kernel(has_coo=False), the hybrid body
 // _make_kernel(has_coo=True) (B2, B3), their delayed bodies
 // (has_delay=True, B5) and the shard body (has_halo=True, B7, wrapper
-// sparse_ops.py::snp_step_sparse_shard), here one template with the COO
-// stage, the delay stage and the halo as flags (the halo excludes the
-// other two, as sparse_kernel.py:76 asserts).  For every config b and
-// branch id t < T it computes
+// sparse_ops.py::snp_step_sparse_shard).  Two templates: the ELL kernel
+// (B2, B5 ELL, B7; the delay stage and the halo as flags, the halo
+// excluding the delay, as sparse_kernel.py:76 asserts) and the hybrid
+// kernel (B3, B5 COO; the delay stage as a flag).  For every config b and
+// branch id t < T they compute
 //
 //   d[b,t,mu]     = (t / stride[b,mu]) % choices[b,mu]    (float32, exact)
 //   packed[b,t,mu] = tab[b, mu, d]            (produce | consume << 16)
-//   in[b,t,j]     = sum_k produce[in_idx[j,k]]
-//                   (+ sum over hub_slot[j]'s run of produce[coo_src[e]])
+//   in[b,t,j]     = sum over j's in-neighbours s of produce[s]
+//                   (+ sum over hub j's COO run of produce[coo_src[e]])
 //   out[b,t,j]    = C[b,j] - consume[j] + in[b,t,j]
 //   emis[b,t]     = produce[out_neuron]       (0 when out_neuron == m)
 //   valid[b,t]    = (float)t < psi[b]
 //
-// where produce/consume are the fired rule's, and index m (ELL padding,
-// no output neuron) reads a zero slot.
+// where produce/consume are the fired rule's, and index m (padding, no
+// output neuron) reads a zero slot.  The ELL kernel reads the
+// in-neighbours from in_idx (m, Kin); the hybrid kernel from the sliced
+// lists sell_start/sell_src (below), which hold the same entries.
 //
 // The shard body (HAS_HALO): the neuron axis is one shard's mloc local
 // neurons, and in_idx indexes the extended space [local (m) | halo (H) |
@@ -47,7 +50,7 @@
 // The fired produce is < 2^16 (compile_system_sparse checks it), and so
 // is a pending count, which is only ever set to a fired delayed rule's
 // produce or reset to 0.  States that break that invariant (pending >=
-// 2^16, which no compiled system reaches) are outside the kernel's
+// 2^16, which no compiled system reaches) are outside the kernels'
 // domain; the plain version sums in int32.
 //
 // The decode stays exact.  Division is IEEE-rounded `/` (nvcc's default
@@ -56,60 +59,97 @@
 // gives the argument), and t / +inf = 0 is digit 0.  q and c*floor(q/c)
 // are integers below 2^23, so every product is exact in float32; if nvcc
 // contracts q - c*floor(q/c) into one FMA, the FMA's exact product and
-// single rounding give the same integer.
+// single rounding give the same integer.  The hybrid kernel decodes a
+// neuron once for its first row t0 and steps to the next rows in
+// integers (struct Digits): a stride is a float32 product of choices
+// (>= 1), exact below 2^24, so a stride below T (< 2^23) is an integer
+// s >= 1, and with p = t0 - s*floor(t0/s) (exact) the digit of t0 + 1 is
+// the digit of t0, advanced by one modulo c when p + 1 reaches s.  A
+// stride >= T (+inf included) gives floor(t/stride) = 0 for every t < T,
+// and choices 1 give digit 0: both skip the divides.
 //
-// What bounds it.  Per call it writes B*T*m*4 output bytes; it reads the
-// (B, m, R) table, C, the strides and choices per config, and in_idx
-// (m*Kin*4) and the COO arrays once at best.  The operations the data
-// needs are a digit decode per (b, t, neuron), the C - consume per output
-// entry and one add per real in-synapse, on the non-tensor datapath.  At
-// the hybrid explore wave (B=512, T=64, m=8192, 32,768 synapses) that is
-// 1.07 GB of output, 0.32 ms at 3.35 TB/s, against about 2.1 G
-// operations, 0.03 ms at 67 T op/s: bytes bind (chip_smoke.py::
-// _sparse_bound counts both from each call's data).  The kernel itself
-// also adds the ELL padding: Kin = 36 slots a neuron where the mean
-// in-degree is 4.
+// What bounds them.  Per call they write B*T*m*4 output bytes (3x under
+// delays); they read the (B, m, R) table, C, the strides and choices per
+// config, and the in-adjacency and the COO arrays once at best.  The
+// operations the data needs are a digit decode per (b, t, neuron), the
+// C - consume per output entry and one add per real in-synapse, on the
+// non-tensor datapath.  At the hybrid explore wave (B=512, T=64, m=8192,
+// 32,768 synapses) that is 1.07 GB of output, 0.32 ms at 3.35 TB/s,
+// against about 2.1 G operations, 0.03 ms at 67 T op/s: bytes bind
+// (chip_smoke.py::_sparse_bound counts both from each call's data).
 //
-// What the design does about it.  The TPU body keeps (bb, bt, m) resident
-// in VMEM because any in_idx[j,k] may point at any neuron.  Here a block
-// owns one config b and BT branch ids and stages the fired produce of its
-// BT rows in shared memory as uint16 (compile_system_sparse guarantees
-// produce < 2^16): BT*(m+H+1)*2 bytes (H = 0 but for a shard), BT a power
-// of two up to 8 chosen so the stage stays within 64 KB where m allows
-// (one row at m = 32768 is 64 KB).  The shard body copies its rows' halo
-// into the stage after the local produce; phase 2 then gathers local and
-// remote in-neighbours alike.  Phase 1 decodes and stages; phase 2 gives each thread a neuron
-// j, recomputes its fired consume (a second table read, instead of a
-// second shared array), gathers its in-synapses from shared memory for
-// all BT rows (one in_idx read serves BT branches), and writes BT output
-// entries.  The COO stage (hybrid plans): each warp finds the hubs among
-// its 32 neurons (ballot) and sums each hub's contiguous run of coo_src
-// cooperatively, 32 entries a step, reduced by shuffles; the TPU's
-// zero-fronted cumsum differenced at coo_bounds computes the same int32
-// sums (mod 2^32).  Sums are unsigned 32-bit, so wraparound is defined and
-// equals the reference's int32 arithmetic.  A system past
-// snp_step_sparse_max_neurons() (one row no longer fits a block's 227 KB)
-// (m + H for a shard) is refused with an error.
-// Coalescing in_idx (it is read row-major, Kin ints per thread), a
-// persistent grid and warp-per-neuron gathers for hubs are later work.
+// The ELL kernel.  The TPU body keeps (bb, bt, m) resident in VMEM
+// because any in_idx[j,k] may point at any neuron.  Here a block owns one
+// config b and bt branch ids and stages the fired produce of its rows in
+// shared memory as uint16 (compile_system_sparse guarantees produce <
+// 2^16): bt*(m+H+1)*2 bytes (H = 0 but for a shard), bt a power of two up
+// to 8 chosen so the stage stays within 64 KB where m allows (one row at
+// m = 32768 is 64 KB).  The shard body copies its rows' halo into the
+// stage after the local produce; phase 2 then gathers local and remote
+// in-neighbours alike.  Phase 1 decodes and stages; phase 2 gives each
+// thread a neuron j, recomputes its fired consume (a second table read,
+// instead of a second shared array), gathers its in-synapses from shared
+// memory for all bt rows (one in_idx read serves bt branches), and writes
+// bt output entries.
 //
-// The delay stage adds, per block, the cd and pd reads of phase 1 and a
-// dtab read per (row, neuron) in phase 2, and writes 3m columns a row:
-// bytes bind it too (3.2 GB of output at the delayed hybrid wave).
+// The hybrid kernel (B3, B5 COO).  The ELL part of a hybrid encoding is
+// 6% real entries at the smoke's power_law(8192) (Kin = 36 slots, mean
+// in-degree 2.2), and in_idx read row-major by one thread a neuron is not
+// coalesced.  So the lowering cuts the neurons into slices of 32 and
+// stores slice s's entries column by column at sell_start[s] (entry k of
+// neuron 32s + l at sell_start[s] + 32k + l, width the slice's longest
+// list, padded with m): a warp walks its slice with coalesced loads and
+// stops at the slice's width.  A block owns one config and BT = 8 rows
+// where 8*(m+1)*2 bytes fit the 227 KB opt-in (m <= 14,527; 4, 2 or 1
+// row past that) and stages them neuron-major, stage[src*BT + r], so one
+// 16-byte shared load returns the 8 rows of a source.  1024 threads: one
+// block an SM (the stage takes 131 KB at m = 8192) keeps 32 warps.
+// The hybrid kernel waits on dependent global reads (L2 hits), not on
+// bandwidth, so every step issues its reads together:
+//   1. each thread decodes neurons j = tid, tid + 1024, ... once (Digits;
+//      four neurons' reads in flight, the digit-0 table entry read with
+//      the stride, as digit 0 is the common case) and stores their BT
+//      emit-now values in one vector store;
+//   2. each warp walks slices warp, warp + 32, ... (lane i loads the
+//      bounds of the i-th of the next 32 at once): its lanes' per-config
+//      reads go out first, then four list entries at a time, a vector
+//      gather each, BT adds; then the lanes re-derive their digits (no
+//      divide unless the stride is below T and the choices above 1),
+//      re-read the fired consume (and dtab) only where the digit is not
+//      0 or changes, and write the BT rows of their 32 neurons, coalesced;
+//   3. the COO tail, after a barrier: each hub's run of coo_src is cut in
+//      chunks of 64 entries, numbered over the hubs in order, and chunk i
+//      goes to warp i % 32 (108 hubs with runs up to 1,549 entries at the
+//      smoke's system: a hub a warp would leave one warp with most of the
+//      work).  A warp sums a chunk's BT rows lane-wise, folds the 8 sums
+//      across lanes in 9 shuffles (each halving step hands half the rows to
+//      the partner lane), and 8 lanes add the rows onto the hub's outputs
+//      with one atomicAdd each (under delays only where the row's cd' is 0,
+//      read back from the block's own output).  The hub's neuron comes
+//      from hub_neuron, the inverse of hub_slot.
+// Integer adds commute, so the atomics leave the result deterministic.
+// The kernel skips a list or tail entry outside [0, m] and clamps slice
+// and run bounds to the lists' lengths, so forged lists read nothing out
+// of bounds (one compare an entry, no host read).
 //
-// Determinism: no atomics; every output is written by exactly one thread,
-// and integer sums do not depend on their order.
+// A system past snp_step_sparse_max_neurons() (one uint16 row no longer
+// fits a block's 227 KB; m + H for a shard) is refused with an error.
+// Sums are unsigned 32-bit, so wraparound is defined and equals the
+// reference's int32 arithmetic (mod 2^32).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int THREADS = 256;                  // 8 warps
+constexpr int THREADS = 256;                  // ELL kernel: 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int BT_MAX = 8;                     // branch rows per block
-constexpr int STAGE_TARGET = 64 * 1024;       // shared bytes aimed for
+constexpr int STAGE_TARGET = 64 * 1024;       // ELL kernel's stage target
 constexpr int SMEM_LIMIT = 232448;            // opt-in max per block (227 KB)
+constexpr int COO_THREADS = 1024;             // hybrid kernel: 32 warps
+constexpr int COO_WARPS = COO_THREADS / 32;
+constexpr int CHUNK = 64;                     // tail entries a warp step
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int digit(int t, float s, float c) {
@@ -117,7 +157,7 @@ __device__ __forceinline__ int digit(int t, float s, float c) {
   return (int)(q - c * floorf(q / c));
 }
 
-template <bool HAS_COO, bool HAS_DELAY, bool HAS_HALO>
+template <bool HAS_DELAY, bool HAS_HALO>
 __global__ void __launch_bounds__(THREADS)
 snp_step_sparse_kernel(const int* __restrict__ configs,
                        const float* __restrict__ stride,
@@ -126,9 +166,6 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
                        const int* __restrict__ tab,
                        const int* __restrict__ in_idx,
                        const int* __restrict__ out_neuron,
-                       const int* __restrict__ coo_src,
-                       const int* __restrict__ coo_bounds,
-                       const int* __restrict__ hub_slot,
                        const int* __restrict__ dtab,
                        const int* __restrict__ cd,
                        const int* __restrict__ pd,
@@ -136,10 +173,10 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
                        int* __restrict__ out,
                        unsigned char* __restrict__ valid,
                        int* __restrict__ emis,
-                       int T, int m, int R, int Kin, int Hn, int H, int bt,
+                       int T, int m, int R, int Kin, int H, int bt,
                        int t_tiles) {
-  static_assert(!(HAS_HALO && (HAS_COO || HAS_DELAY)),
-                "the shard body has neither a COO nor a delay stage");
+  static_assert(!(HAS_HALO && HAS_DELAY),
+                "the shard body has no delay stage");
   extern __shared__ unsigned short prod_s[];   // [bt][m + H + 1]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -173,8 +210,8 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
   if (tid < nt) prod_s[tid * ms + m + H] = 0;  // the zero slot
   __syncthreads();
 
-  // 2. one neuron per thread: C - consume + in-synapses (+ hub tail);
-  //    under delays acc holds the incoming sum alone until the combine
+  // 2. one neuron per thread: C - consume + in-synapses; under delays
+  //    acc holds the incoming sum alone until the combine
   for (int j0 = warp * 32; j0 < m; j0 += NWARPS * 32) {   // warp-uniform
     const int j = j0 + lane;
     const bool active = j < m;
@@ -199,33 +236,6 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
 #pragma unroll
         for (int r = 0; r < BT_MAX; ++r)
           if (r < nt) acc[r] += prod_s[r * ms + src];
-      }
-    }
-    if constexpr (HAS_COO) {
-      const int h = active ? hub_slot[j] : Hn;
-      unsigned hubs = __ballot_sync(FULL, h < Hn);
-      while (hubs) {                           // warp-uniform loop
-        const int owner = __ffs(hubs) - 1;
-        hubs &= hubs - 1;
-        const int hh = __shfl_sync(FULL, h, owner);
-        const int e1 = coo_bounds[hh + 1];
-        unsigned sum[BT_MAX];
-#pragma unroll
-        for (int r = 0; r < BT_MAX; ++r) sum[r] = 0;
-        for (int e = coo_bounds[hh] + lane; e < e1; e += 32) {
-          const int src = coo_src[e];
-#pragma unroll
-          for (int r = 0; r < BT_MAX; ++r)
-            if (r < nt) sum[r] += prod_s[r * ms + src];
-        }
-#pragma unroll
-        for (int r = 0; r < BT_MAX; ++r) {
-          unsigned v = sum[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_xor_sync(FULL, v, off);
-          if (lane == owner) acc[r] += v;
-        }
       }
     }
     if (active) {
@@ -265,9 +275,312 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
   }
 }
 
-// Rows per block: the largest power of two <= BT_MAX (and <= T) whose
-// stage of w entries a row fits STAGE_TARGET; 1 when even one row is
-// larger.
+// ---------------------------------------------------------------------------
+// The hybrid kernel (B3, B5 COO)
+// ---------------------------------------------------------------------------
+
+// The digits of one neuron (stride sf, choices c) for rows t0, t0 + 1,
+// ... (one step a row), exact as the header argues.  s == 0: every row's
+// digit is 0.
+struct Digits {
+  int d = 0, p = 0, s = 0, c = 1;
+
+  __device__ __forceinline__ Digits(int t0, float sf, int choices, int T) {
+    if (!(sf < (float)T) || choices <= 1) return;   // digit 0 for t < T
+    c = choices;
+    s = (int)sf;
+    const float q = floorf((float)t0 / sf);
+    const float cf = (float)c;
+    p = t0 - (int)q * s;
+    d = (int)(q - cf * floorf(q / cf));
+  }
+
+  // To the next row; true when the digit changed.
+  __device__ __forceinline__ bool step() {
+    if (s == 0 || ++p < s) return false;
+    p = 0;
+    if (++d == c) d = 0;
+    return true;
+  }
+};
+
+// A list entry outside [0, m] reads the zero slot m.
+__device__ __forceinline__ int in_range(int src, int m) {
+  return (unsigned)src > (unsigned)m ? m : src;
+}
+
+// Neuron j's BT staged values (each below 2^16) in one vector store.
+template <int BT>
+__device__ __forceinline__ void put_rows(unsigned short* stage, int j,
+                                         const unsigned (&v)[BT]) {
+  if constexpr (BT == 1) {
+    stage[j] = (unsigned short)v[0];
+  } else {
+    unsigned w[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i)
+      w[i] = (v[2 * i] & 0xFFFFu) | (v[2 * i + 1] << 16);
+    if constexpr (BT == 8)
+      reinterpret_cast<uint4*>(stage)[j] = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (BT == 4)
+      reinterpret_cast<uint2*>(stage)[j] = make_uint2(w[0], w[1]);
+    else
+      reinterpret_cast<unsigned*>(stage)[j] = w[0];
+  }
+}
+
+// acc[r] += stage value of source src in row r, for the BT rows (one
+// vector load).
+template <int BT>
+__device__ __forceinline__ void add_rows(const unsigned short* stage,
+                                         int src, unsigned (&acc)[BT]) {
+  if constexpr (BT == 1) {
+    acc[0] += stage[src];
+  } else {
+    unsigned w[BT / 2];
+    if constexpr (BT == 8) {
+      const uint4 q = reinterpret_cast<const uint4*>(stage)[src];
+      w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+    } else if constexpr (BT == 4) {
+      const uint2 q = reinterpret_cast<const uint2*>(stage)[src];
+      w[0] = q.x, w[1] = q.y;
+    } else {
+      w[0] = reinterpret_cast<const unsigned*>(stage)[src];
+    }
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) {
+      acc[2 * i] += w[i] & 0xFFFFu;
+      acc[2 * i + 1] += w[i] >> 16;
+    }
+  }
+}
+
+// Lanes `off` apart swap halves of their N sums: the lower lane keeps the
+// first N/2 rows, the upper the last, each summed over the pair.
+template <int N>
+__device__ __forceinline__ void fold_half(unsigned* v, int lane, int off) {
+  const bool upper = lane & off;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const unsigned send = upper ? v[i] : v[i + N / 2];
+    const unsigned keep = upper ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, off);
+  }
+}
+
+// The warp's sum of each of the BT rows: afterwards v[0] of lane l holds
+// row l >> (5 - log2 BT)'s.
+template <int BT>
+__device__ __forceinline__ int fold_rows(unsigned (&v)[BT], int lane) {
+  constexpr int L = BT >= 8 ? 3 : BT >= 4 ? 2 : BT >= 2 ? 1 : 0;
+  if constexpr (BT >= 2) fold_half<BT>(v, lane, 16);
+  if constexpr (BT >= 4) fold_half<BT / 2>(v, lane, 8);
+  if constexpr (BT >= 8) fold_half<BT / 4>(v, lane, 4);
+#pragma unroll
+  for (int off = 16 >> L; off > 0; off >>= 1)
+    v[0] += __shfl_xor_sync(FULL, v[0], off);
+  return lane >> (5 - L);
+}
+
+template <int BT, bool HAS_DELAY>
+__global__ void __launch_bounds__(COO_THREADS, 1)
+snp_step_sparse_coo_kernel(const int* __restrict__ configs,
+                           const float* __restrict__ stride,
+                           const int* __restrict__ choices,
+                           const float* __restrict__ psi,
+                           const int* __restrict__ tab,
+                           const int* __restrict__ sell_start,
+                           const int* __restrict__ sell_src,
+                           const int* __restrict__ out_neuron,
+                           const int* __restrict__ coo_src,
+                           const int* __restrict__ coo_bounds,
+                           const int* __restrict__ hub_neuron,
+                           const int* __restrict__ dtab,
+                           const int* __restrict__ cd,
+                           const int* __restrict__ pd,
+                           int* __restrict__ out,
+                           unsigned char* __restrict__ valid,
+                           int* __restrict__ emis,
+                           int T, int m, int R, int E, int Ec, int Hn,
+                           int t_tiles) {
+  extern __shared__ __align__(16) unsigned short stage[];  // [m + 1][BT]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int b = blockIdx.x / t_tiles;
+  const int t0 = (blockIdx.x % t_tiles) * BT;
+  const int nt = min(BT, T - t0);
+  const size_t row_b = (size_t)b * m;
+  const int W = HAS_DELAY ? 3 * m : m;         // output row width
+  int* const out_b = out + ((size_t)b * T + t0) * W;
+
+  // 1. the BT emit-now values of each neuron, neuron-major (every load
+  //    of a neuron issued at once: tab's digit-0 entry first, the common
+  //    digit)
+#pragma unroll 4
+  for (int j = tid; j < m; j += COO_THREADS) {
+    const int* tab_j = tab + (row_b + j) * R;
+    const float sf = stride[row_b + j];
+    const int c = choices[row_b + j];
+    const unsigned t_0 = (unsigned)tab_j[0];
+    unsigned pending = 0;
+    if constexpr (HAS_DELAY)
+      if (cd[row_b + j] == 1) pending = (unsigned)pd[row_b + j];
+    Digits dg(t0, sf, c, T);
+    unsigned p = ((dg.d ? (unsigned)tab_j[dg.d] : t_0) & 0xFFFFu) + pending;
+    unsigned v[BT];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) {
+      if (r > 0 && dg.step())
+        p = ((unsigned)tab_j[dg.d] & 0xFFFFu) + pending;
+      v[r] = p;
+    }
+    put_rows<BT>(stage, j, v);
+  }
+  if (tid == 0) {                              // the zero slot
+    unsigned z[BT] = {};
+    put_rows<BT>(stage, m, z);
+  }
+  __syncthreads();
+
+  // 2. a warp a slice of 32 neurons: the sliced lists, then the rows.
+  //    The warp's slices are warp, warp + 32, ...; lane i loads the
+  //    bounds of the i-th of the next 32 at once.
+  const int n_slices = (m + 31) >> 5;
+  for (int g = warp; g < n_slices; g += COO_WARPS * 32) {   // warp-uniform
+    int a_l = 0, e_l = 0;
+    if (g + lane * COO_WARPS < n_slices) {
+      a_l = min(max(sell_start[g + lane * COO_WARPS], 0), E);
+      e_l = min(max(sell_start[g + lane * COO_WARPS + 1], a_l), E);
+    }
+    const int n_here = min(32, (n_slices - g + COO_WARPS - 1) / COO_WARPS);
+    for (int i = 0; i < n_here; ++i) {
+      const int sl = g + i * COO_WARPS;
+      const int a = __shfl_sync(FULL, a_l, i);
+      const int w = (__shfl_sync(FULL, e_l, i) - a) >> 5;
+      const int* src = sell_src + a + lane;
+      // the lane's neuron (lanes past m read neuron m - 1 and store
+      // nothing): its reads go out before the gather, which hides them
+      const int j = (sl << 5) + lane;
+      const size_t at = row_b + min(j, m - 1);
+      const int* tab_j = tab + at * R;
+      const float sf = stride[at];
+      const int c = choices[at];
+      const unsigned cj = (unsigned)configs[at];
+      unsigned pk = (unsigned)tab_j[0];
+      [[maybe_unused]] int cdj = 0, pdj = 0;
+      [[maybe_unused]] unsigned dv = 0;
+      if constexpr (HAS_DELAY) {
+        cdj = cd[at], pdj = pd[at];
+        dv = (unsigned)dtab[at * R];
+      }
+      unsigned acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0;
+      int k = 0;
+      for (; k + 4 <= w; k += 4) {
+        int x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[u] = src[(k + u) * 32];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          add_rows<BT>(stage, in_range(x[u], m), acc);
+      }
+      for (; k < w; ++k) add_rows<BT>(stage, in_range(src[k * 32], m), acc);
+
+      if (j >= m) continue;
+      Digits dg(t0, sf, c, T);
+      int* o = out_b + j;
+      if (dg.d) pk = (unsigned)tab_j[dg.d];
+      if constexpr (HAS_DELAY) {
+        const int* dtab_j = dtab + at * R;
+        const int cd_dec = max((int)((unsigned)cdj - 1u), 0);
+        const int pd_kept = cdj == 1 ? 0 : pdj;
+        if (dg.d) dv = (unsigned)dtab_j[dg.d];
+#pragma unroll
+        for (int r = 0; r < BT; ++r, o += W) {
+          if (r > 0 && dg.step()) {
+            pk = (unsigned)tab_j[dg.d];
+            dv = (unsigned)dtab_j[dg.d];
+          }
+          if (r >= nt) continue;
+          const bool fired_del = dv != 0;
+          const int cd_next = fired_del ? (int)(dv >> 16) : cd_dec;
+          o[0] = (int)(cj - (pk >> 16) + (cd_next == 0 ? acc[r] : 0u));
+          o[m] = cd_next;
+          o[2 * m] = fired_del ? (int)(dv & 0xFFFF) : pd_kept;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < BT; ++r, o += W) {
+          if (r > 0 && dg.step()) pk = (unsigned)tab_j[dg.d];
+          if (r < nt) o[0] = (int)(cj - (pk >> 16) + acc[r]);
+        }
+      }
+    }
+  }
+  __syncthreads();   // every row written: the tail adds onto them
+
+  // 3. the COO tail: chunk i of the hubs' runs (in hub order) to warp i % 32
+  int base = 0;                                // chunks of the hubs before h0
+  for (int h0 = 0; h0 < Hn; h0 += 32) {        // warp-uniform
+    const int h = h0 + lane;
+    int e0 = 0, e1 = 0;
+    if (h < Hn) {
+      e0 = min(max(coo_bounds[h], 0), Ec);
+      e1 = min(max(coo_bounds[h + 1], e0), Ec);
+    }
+    const int n = (e1 - e0 + CHUNK - 1) / CHUNK;
+    int incl = n;                              // inclusive scan of n
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int first = base + incl - n;         // number of h's first chunk
+    base += __shfl_sync(FULL, incl, 31);
+    const int c0 = ((warp - first) % COO_WARPS + COO_WARPS) % COO_WARPS;
+    unsigned mine = __ballot_sync(FULL, c0 < n);
+    while (mine) {
+      const int owner = __ffs(mine) - 1;
+      mine &= mine - 1;
+      const int r0 = __shfl_sync(FULL, e0, owner);
+      const int r1 = __shfl_sync(FULL, e1, owner);
+      const int c = __shfl_sync(FULL, c0, owner);
+      const int j = hub_neuron[h0 + owner];
+      if ((unsigned)j >= (unsigned)m) continue;
+      for (int e = r0 + c * CHUNK; e < r1; e += COO_WARPS * CHUNK) {
+        unsigned v[BT];
+#pragma unroll
+        for (int r = 0; r < BT; ++r) v[r] = 0;
+#pragma unroll
+        for (int u = 0; u < CHUNK / 32; ++u) {
+          const int x = e + u * 32 + lane;
+          if (x < r1) add_rows<BT>(stage, in_range(coo_src[x], m), v);
+        }
+        const int r = fold_rows<BT>(v, lane);
+        if ((lane & (32 / BT - 1)) == 0 && r < nt) {
+          int* o = out_b + (size_t)r * W + j;
+          if (!HAS_DELAY || o[m] == 0)         // cd' == 0: the spikes arrive
+            atomicAdd(reinterpret_cast<unsigned*>(o), v[0]);
+        }
+      }
+    }
+  }
+
+  // 4. emission and validity of the block's rows
+  if (tid < nt) {
+    const int t = t0 + tid;
+    const int o = out_neuron[0];
+    emis[(size_t)b * T + t] =
+        (int)stage[((unsigned)o < (unsigned)m ? o : m) * BT + tid];
+    valid[(size_t)b * T + t] = (float)t < psi[b];
+  }
+}
+
+// Rows per block of the ELL kernel: the largest power of two <= BT_MAX
+// (and <= T) whose stage of w entries a row fits STAGE_TARGET; 1 when even
+// one row is larger.
 int rows_per_block(int w, int T) {
   int bt = BT_MAX;
   while (bt > 1 && (bt > T || (size_t)bt * w * 2 > STAGE_TARGET))
@@ -275,35 +588,71 @@ int rows_per_block(int w, int T) {
   return bt;
 }
 
-template <bool HAS_COO, bool HAS_DELAY, bool HAS_HALO>
+// Rows per block of the hybrid kernel: the largest power of two <= 8 (and
+// <= T) whose stage of m + 1 entries a row fits the opt-in limit.
+int coo_rows_per_block(int m, int T) {
+  int bt = BT_MAX;
+  while (bt > 1 && (bt > T || (size_t)bt * (m + 1) * 2 > SMEM_LIMIT))
+    bt >>= 1;
+  return bt;
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool HAS_DELAY, bool HAS_HALO>
 int launch(const void* configs, const void* stride, const void* choices,
            const void* psi, const void* tab, const void* in_idx,
-           const void* out_neuron, const void* coo_src,
-           const void* coo_bounds, const void* hub_slot, const void* dtab,
-           const void* cd, const void* pd, const void* halo, void* out,
-           void* valid, void* emis, int B, int T, int m, int R, int Kin,
-           int Hn, int H, cudaStream_t stream) {
+           const void* out_neuron, const void* dtab, const void* cd,
+           const void* pd, const void* halo, void* out, void* valid,
+           void* emis, int B, int T, int m, int R, int Kin, int H,
+           cudaStream_t stream) {
   const int bt = rows_per_block(m + H + 1, T);
   const int t_tiles = (T + bt - 1) / bt;
   const size_t smem = (size_t)bt * (m + H + 1) * 2;
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)B * t_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        snp_step_sparse_kernel<HAS_COO, HAS_DELAY, HAS_HALO>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  snp_step_sparse_kernel<HAS_COO, HAS_DELAY, HAS_HALO>
+  const int e = set_smem(snp_step_sparse_kernel<HAS_DELAY, HAS_HALO>, smem);
+  if (e != 0) return e;
+  snp_step_sparse_kernel<HAS_DELAY, HAS_HALO>
       <<<(unsigned)blocks, THREADS, smem, stream>>>(
           (const int*)configs, (const float*)stride, (const int*)choices,
           (const float*)psi, (const int*)tab, (const int*)in_idx,
-          (const int*)out_neuron, (const int*)coo_src,
-          (const int*)coo_bounds, (const int*)hub_slot, (const int*)dtab,
-          (const int*)cd, (const int*)pd, (const int*)halo, (int*)out,
-          (unsigned char*)valid, (int*)emis, T, m, R, Kin, Hn, H, bt,
-          t_tiles);
+          (const int*)out_neuron, (const int*)dtab, (const int*)cd,
+          (const int*)pd, (const int*)halo, (int*)out,
+          (unsigned char*)valid, (int*)emis, T, m, R, Kin, H, bt, t_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int BT, bool HAS_DELAY>
+int launch_coo(const void* configs, const void* stride, const void* choices,
+               const void* psi, const void* tab, const void* sell_start,
+               const void* sell_src, const void* out_neuron,
+               const void* coo_src, const void* coo_bounds,
+               const void* hub_neuron, const void* dtab, const void* cd,
+               const void* pd, void* out, void* valid, void* emis, int B,
+               int T, int m, int R, int E, int Ec, int Hn,
+               cudaStream_t stream) {
+  const int t_tiles = (T + BT - 1) / BT;
+  const size_t smem = (size_t)BT * (m + 1) * 2;
+  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * t_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int e = set_smem(snp_step_sparse_coo_kernel<BT, HAS_DELAY>, smem);
+  if (e != 0) return e;
+  snp_step_sparse_coo_kernel<BT, HAS_DELAY>
+      <<<(unsigned)blocks, COO_THREADS, smem, stream>>>(
+          (const int*)configs, (const float*)stride, (const int*)choices,
+          (const float*)psi, (const int*)tab, (const int*)sell_start,
+          (const int*)sell_src, (const int*)out_neuron, (const int*)coo_src,
+          (const int*)coo_bounds, (const int*)hub_neuron, (const int*)dtab,
+          (const int*)cd, (const int*)pd, (int*)out, (unsigned char*)valid,
+          (int*)emis, T, m, R, E, Ec, Hn, t_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -317,37 +666,55 @@ extern "C" int snp_step_sparse_max_neurons() { return SMEM_LIMIT / 2 - 1; }
 // stream), allocates nothing, and returns cudaGetLastError() (0 on
 // success).  All arrays are contiguous int32 unless noted: configs and
 // choices (B,m), stride (B,m) float32, psi (B,) float32, tab (B,m,R),
-// in_idx (m,Kin), out_neuron (1,); with has_coo != 0 also coo_src (Ec,),
-// coo_bounds (Hn+1,) and hub_slot (m,); with has_delay != 0 also dtab
-// (B,m,R), cd and pd (B,m); with has_halo != 0 (and neither of the other
-// two) halo (B,T,H), in_idx indexing [local | halo | zero] and out_neuron
-// the zero slot m + H.  Outputs: out (B,T,m), or (B,T,3m) with has_delay,
-// valid (B,T) bool, emis (B,T).
+// out_neuron (1,).  With has_coo == 0: in_idx (m,Kin).  With has_coo != 0
+// (the hybrid kernel; in_idx unused): sell_start (ceil(m/32)+1,) and
+// sell_src (E,), the sliced lists, coo_src (Ec,), coo_bounds (Hn+1,) and
+// hub_neuron (Hn,).  With has_delay != 0 also dtab (B,m,R), cd and pd
+// (B,m); with has_halo != 0 (and neither of the other two) halo (B,T,H),
+// in_idx indexing [local | halo | zero] and out_neuron the zero slot
+// m + H.  Outputs: out (B,T,m), or (B,T,3m) with has_delay, valid (B,T)
+// bool, emis (B,T).
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
                                const void* tab, const void* in_idx,
+                               const void* sell_start, const void* sell_src,
                                const void* out_neuron, const void* coo_src,
-                               const void* coo_bounds, const void* hub_slot,
-                               const void* dtab, const void* cd,
-                               const void* pd, const void* halo, void* out,
-                               void* valid, void* emis, int B, int T, int m,
-                               int R, int Kin, int Hn, int H, int has_coo,
-                               int has_delay, int has_halo, void* stream) {
+                               const void* coo_bounds,
+                               const void* hub_neuron, const void* dtab,
+                               const void* cd, const void* pd,
+                               const void* halo, void* out, void* valid,
+                               void* emis, int B, int T, int m, int R,
+                               int Kin, int E, int Ec, int Hn, int H,
+                               int has_coo, int has_delay, int has_halo,
+                               void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (has_halo && (has_coo || has_delay)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define SNP_LAUNCH(COO, DELAY, HALO)                                       \
-  return launch<COO, DELAY, HALO>(configs, stride, choices, psi, tab,      \
-                                  in_idx, out_neuron, coo_src, coo_bounds, \
-                                  hub_slot, dtab, cd, pd, halo, out,       \
-                                  valid, emis, B, T, m, R, Kin, Hn,        \
-                                  HALO ? H : 0, s)
-  if (has_halo) SNP_LAUNCH(false, false, true);
   if (has_coo) {
-    if (has_delay) SNP_LAUNCH(true, true, false);
-    SNP_LAUNCH(true, false, false);
+#define SNP_COO(BT, DELAY)                                                   \
+  return launch_coo<BT, DELAY>(configs, stride, choices, psi, tab,          \
+                               sell_start, sell_src, out_neuron, coo_src,   \
+                               coo_bounds, hub_neuron, dtab, cd, pd, out,   \
+                               valid, emis, B, T, m, R, E, Ec, Hn, s)
+    const int bt = coo_rows_per_block(m, T);
+    if (has_delay) {
+      if (bt == 8) SNP_COO(8, true);
+      if (bt == 4) SNP_COO(4, true);
+      if (bt == 2) SNP_COO(2, true);
+      SNP_COO(1, true);
+    }
+    if (bt == 8) SNP_COO(8, false);
+    if (bt == 4) SNP_COO(4, false);
+    if (bt == 2) SNP_COO(2, false);
+    SNP_COO(1, false);
+#undef SNP_COO
   }
-  if (has_delay) SNP_LAUNCH(false, true, false);
-  SNP_LAUNCH(false, false, false);
+#define SNP_LAUNCH(DELAY, HALO)                                              \
+  return launch<DELAY, HALO>(configs, stride, choices, psi, tab, in_idx,    \
+                             out_neuron, dtab, cd, pd, halo, out, valid,    \
+                             emis, B, T, m, R, Kin, HALO ? H : 0, s)
+  if (has_halo) SNP_LAUNCH(false, true);
+  if (has_delay) SNP_LAUNCH(true, false);
+  SNP_LAUNCH(false, false);
 #undef SNP_LAUNCH
 }

@@ -6,13 +6,15 @@ body of the sparse step.
   delayed-action table and the countdown and pending slices) that the
   kernel takes as input;
 * :func:`snp_step_sparse_ref` computes the kernel's three outputs from
-  exactly those inputs, reading the COO tail the way the kernel reads it:
-  through the per-hub runs ``coo_bounds`` and the neuron→hub map
-  ``hub_slot``; with ``dtab``/``cd``/``pd`` it is the delayed step (the
+  exactly those inputs, reading the in-adjacency through ``in_idx`` and
+  the COO tail through the per-hub runs ``coo_bounds`` and the
+  neuron→hub map ``hub_slot`` (the kernel's hybrid body reads the same
+  entries through the sliced lists and ``hub_neuron``: ``kernel_inputs(...,
+  lists=True)``); with ``dtab``/``cd``/``pd`` it is the delayed step (the
   plain version of B5), with ``halo`` one neuron shard's step over the
   extended space ``[local | halo | zero]`` (the plain version of B7);
-* :func:`sparse_step` chains the two (or the kernel in place of the plain
-  body), masks ``valid`` with ``alive`` and flags overflow.
+* :func:`sparse_step` chains the two, masks ``valid`` with ``alive`` and
+  flags overflow (the wrapper does the same around the kernel).
 
 The plain ``"sparse"`` backend
 (:func:`~repro_torch.core.semantics.sparse_next_configs`) and the
@@ -24,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from ...core.matrix import CompiledSparseSNP, check_coo_metadata, is_delayed
+from ...core.matrix import (CompiledSparseSNP, check_coo_metadata,
+                             check_sliced_lists, is_delayed)
 from ...core.semantics import (delayed_packed_actions, packed_rule_table,
                                sparse_branch_info,
                                sparse_delayed_branch_info, split_state)
@@ -63,15 +66,28 @@ def fired_packed(digits: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     return tab.reshape(B, m * R).gather(-1, flat).reshape(B, T, m)
 
 
-def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP):
+def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP, *,
+                  lists: bool = False):
     """The kernel's inputs for ``configs`` (B, m), or (B, 3m) state rows
     for a delayed encoding, and the branch info they came from: ``(args,
     extra, info)`` with ``extra`` the COO stage's three tensors for a
     hybrid encoding and the delay stage's ``dtab``/``cd``/``pd`` for a
-    delayed one (``{}`` for neither)."""
+    delayed one (``{}`` for neither).  With ``lists`` (what the kernel
+    reads) a hybrid encoding gives ``None`` for ``in_idx`` and its sliced
+    in-lists ``sell_start``/``sell_src`` and ``hub_neuron`` in place of
+    ``hub_slot``, and one without them raises; the plain version reads
+    ``in_idx`` and ``hub_slot``."""
     check_coo_metadata(comp, "sparse step")
-    extra = dict(coo_src=comp.coo_src, coo_bounds=comp.coo_bounds,
-                 hub_slot=comp.hub_slot) if comp.is_hybrid else {}
+    in_idx, extra = comp.in_idx, {}
+    if comp.is_hybrid:
+        extra = dict(coo_src=comp.coo_src, coo_bounds=comp.coo_bounds)
+        if lists:
+            check_sliced_lists(comp, "sparse step kernel")
+            in_idx = None
+            extra.update(hub_neuron=comp.hub_neuron,
+                         sell_start=comp.sell_start, sell_src=comp.sell_src)
+        else:
+            extra["hub_slot"] = comp.hub_slot
     if is_delayed(comp):
         spikes, cd, pd = split_state(configs)
         info = sparse_delayed_branch_info(configs, comp)
@@ -85,7 +101,7 @@ def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP):
         tab = packed_rule_table(info, comp)
     args = (spikes.contiguous(), info.stride.contiguous(),
             info.choices.contiguous(), info.psi.contiguous(), tab,
-            comp.in_idx, comp.out_neuron.reshape(1))
+            in_idx, comp.out_neuron.reshape(1))
     return args, extra, info
 
 
@@ -164,12 +180,12 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
 
 
 def sparse_step(configs: torch.Tensor, comp: CompiledSparseSNP, *,
-                max_branches: int, launch=snp_step_sparse_ref):
-    """One sparse step of ``configs`` (B, m), or (B, 3m) under delays,
-    through ``launch`` (the plain body, or the kernel's launcher, which
-    share a contract): ``(successors (B,T,m|3m) int32, valid (B,T) bool,
-    emissions (B,T) int32, overflow (B,) bool)``."""
+                max_branches: int):
+    """One plain sparse step of ``configs`` (B, m), or (B, 3m) under
+    delays: ``(successors (B,T,m|3m) int32, valid (B,T) bool, emissions
+    (B,T) int32, overflow (B,) bool)``."""
     args, extra, info = kernel_inputs(configs, comp)
-    out, valid, emis = launch(*args, **extra, max_branches=max_branches)
+    out, valid, emis = snp_step_sparse_ref(*args, **extra,
+                                           max_branches=max_branches)
     return (out, valid & info.alive[:, None], emis,
             info.psi > float(max_branches))

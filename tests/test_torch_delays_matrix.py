@@ -35,6 +35,17 @@ def _ref_fields(comp):
             for k, v in comp._asdict().items()}
 
 
+# The sparse encoding's own fields (hybrid only): the sliced in-lists and
+# hub neurons the kernel's COO body reads (tests/test_torch_sparse_matrix.py
+# holds them against in_idx and hub_slot).
+SLICED = ("sell_start", "sell_src", "hub_neuron")
+
+
+def _assert_sliced_lists_present(port):
+    assert all((getattr(port, f) is not None) == port.is_hybrid
+               for f in SLICED)
+
+
 def _assert_fields_equal(port, ref, skip=()):
     for f in port._fields:
         if f in skip:
@@ -98,8 +109,10 @@ def test_sparse_delayed_encoding_matches_reference(name, h):
                                   semantics="delays")
     port = P.compile_system_sparse(_port(system), hub_threshold=h,
                                    semantics="delays", device="cpu")
-    assert port._fields == tuple(f for f in ref._fields if f != "coo_dst")
-    _assert_fields_equal(port, ref)
+    assert tuple(f for f in port._fields if f not in SLICED) == tuple(
+        f for f in ref._fields if f != "coo_dst")
+    _assert_fields_equal(port, ref, skip=SLICED)
+    _assert_sliced_lists_present(port)
     assert port.state_width == ref.state_width
     packed_e, packed_d = P.delayed_packed_actions(port)
     jpe, jpd = J.semantics.delayed_packed_actions(ref)
@@ -115,7 +128,13 @@ def test_delayed_reference_encoding_carries_across(sparse):
         else J.compile_system(system, semantics="delays")
     carried = compiled_from_arrays(_ref_fields(ref), device="cpu")
     assert P.is_delayed(carried)
-    _assert_fields_equal(carried, ref, skip=("adj_in",))
+    _assert_fields_equal(carried, ref, skip=("adj_in",) + SLICED)
+    if sparse:
+        # the sliced lists derived here equal the compiler's own
+        own = P.compile_system_sparse(_port(system), hub_threshold=2,
+                                      semantics="delays", device="cpu")
+        for f in SLICED:
+            assert torch.equal(getattr(carried, f), getattr(own, f)), f
     if not sparse:
         # the port's in-neighbour lists, derived from the adjacency,
         # equal the compiler's own

@@ -263,7 +263,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ops.snp_step_dense_delay(*args, T)
     assert ops.delay_launches == launches
     sc, _ = _sparse(system, 1)
-    args, extra, _ = kernel_inputs(states, sc)
+    args, extra, _ = kernel_inputs(states, sc, lists=True)
     launches = sparse_ops.delay_launches
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(*args, **extra, max_branches=T)

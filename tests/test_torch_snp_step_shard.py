@@ -255,9 +255,13 @@ def test_the_halo_excludes_the_coo_and_delay_stages():
             _t(sh["psi"]), _t(sh["tab"]), port.arrays.in_idx[0],
             torch.tensor([mloc + H], dtype=torch.int32))
     z = torch.zeros_like(args[0])
-    for extra in (dict(coo_src=z[0], coo_bounds=z[0], hub_slot=z[0]),
-                  dict(dtab=_t(sh["tab"]), cd=z, pd=z)):
-        for launch in (snp_step_sparse_ref, sparse_ops.snp_step_sparse_cuda):
+    # the kernel's COO body reads hub_neuron where the plain one reads
+    # hub_slot
+    for hub in ("hub_slot", "hub_neuron"):
+        launch = snp_step_sparse_ref if hub == "hub_slot" \
+            else sparse_ops.snp_step_sparse_cuda
+        for extra in ({"coo_src": z[0], "coo_bounds": z[0], hub: z[0]},
+                      dict(dtab=_t(sh["tab"]), cd=z, pd=z)):
             with pytest.raises(ValueError, match="halo"):
                 launch(*args, **extra, halo=_t(sh["halo"]), max_branches=T)
 

@@ -112,12 +112,108 @@ def test_kernel_launcher_refuses_cpu_tensors():
     pc, _ = _comps(system, 1)
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 2, seed=1))
-    args, coo, _ = kernel_inputs(configs, pc)
+    args, _, _ = kernel_inputs(configs, pc)            # the ELL body's
+    kargs, coo, _ = kernel_inputs(configs, pc, lists=True)   # the COO body's
     launches = sparse_ops.kernel_launches
-    for extra in ({}, coo):
+    for a, extra in ((args, {}), (kargs, coo)):
         with pytest.raises(ValueError, match="CUDA"):
-            sparse_ops.snp_step_sparse_cuda(*args, **extra, max_branches=T)
+            sparse_ops.snp_step_sparse_cuda(*a, **extra, max_branches=T)
     assert sparse_ops.kernel_launches == launches
+
+
+def _launcher_case(case):
+    """Arguments of the COO body's launcher at power-law-40, h=1, with one
+    thing wrong (or ``ok``)."""
+    system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
+    pc, _ = _comps(system, 1)
+    configs = torch.from_numpy(
+        conftest.random_states(system, "no_delays", 2, seed=1))
+    args, coo, _ = kernel_inputs(configs, pc, lists=True)
+    args = list(args)
+    if case == "short-sell-start":
+        coo = dict(coo, sell_start=coo["sell_start"][:-1])
+    elif case == "2d-sell-src":
+        coo = dict(coo, sell_src=coo["sell_src"].reshape(-1, 32))
+    elif case == "in-idx-for-coo":
+        args[5] = pc.in_idx
+    elif case == "tail-without-lists":
+        coo = {k: v for k, v in coo.items() if not k.startswith("sell_")}
+    elif case == "lists-without-tail":
+        coo = {k: v for k, v in coo.items() if k.startswith("sell_")}
+        args[5] = pc.in_idx
+    elif case == "hub-neuron-length":
+        coo = dict(coo, hub_neuron=coo["hub_neuron"][:-1])
+    elif case == "hub-slot-for-hub-neuron":
+        coo = dict(coo, hub_slot=pc.hub_slot)
+        del coo["hub_neuron"]
+    return args, coo, T
+
+
+@pytest.mark.parametrize("case, match", [
+    ("short-sell-start", "sell_start"), ("2d-sell-src", "sell_src"),
+    ("in-idx-for-coo", "sliced lists"), ("tail-without-lists", "sliced lists"),
+    ("lists-without-tail", "COO tail"),
+    ("hub-neuron-length", "hub_neuron"),
+    ("hub-slot-for-hub-neuron", "hub_slot"), ("ok", "CUDA")])
+def test_coo_launcher_checks_the_sliced_lists(case, match):
+    """The COO body's launcher checks the lists' shapes on the host (the
+    kernel skips entries out of range): wrong lengths, ``in_idx`` where
+    the lists belong, the tail without the lists or the lists without the
+    tail, ``hub_slot`` for
+    ``hub_neuron`` are refused before anything launches; well-formed
+    lists on CPU tensors then meet the device check."""
+    args, coo, T = _launcher_case(case)
+    launches = sparse_ops.kernel_launches
+    with pytest.raises((ValueError, TypeError), match=match):
+        sparse_ops.snp_step_sparse_cuda(*args, **coo, max_branches=T)
+    assert sparse_ops.kernel_launches == launches
+
+
+@pytest.mark.parametrize("h", [1, 3, "auto"])
+def test_kernel_inputs_with_lists_differ_only_in_the_adjacency(h):
+    """``kernel_inputs(lists=True)`` hands the kernel the same bookkeeping
+    as the plain version, with the sliced lists in place of ``in_idx``
+    (then ``None``) and ``hub_neuron`` in place of ``hub_slot``; a
+    pure-ELL encoding gets ``in_idx`` either way."""
+    system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
+    if h == "auto":
+        h = J.SystemPlan(encoding="hybrid").resolved_hub_threshold(system)
+    for hh in (h, None):
+        pc, _ = _comps(system, hh)
+        configs = torch.from_numpy(
+            conftest.random_states(system, "no_delays", 3, seed=2))
+        args, extra, _ = kernel_inputs(configs, pc)
+        kargs, kextra, _ = kernel_inputs(configs, pc, lists=True)
+        for i, (a, b) in enumerate(zip(args, kargs)):
+            if i == 5 and pc.is_hybrid:
+                assert b is None
+            else:
+                assert torch.equal(a, b), i
+        if pc.is_hybrid:
+            lists = {"hub_neuron", "sell_start", "sell_src"}
+            assert extra.keys() - {"hub_slot"} == kextra.keys() - lists
+            assert all(kextra[k] is getattr(pc, k) for k in lists)
+        else:
+            assert extra == kextra == {}
+
+
+def test_hybrid_without_sliced_lists_is_refused_on_the_card_path():
+    """A hybrid encoding without the sliced lists (hand-built) is refused
+    where the kernel would run (``kernel_inputs(lists=True)``, what the
+    wrapper asks on a CUDA tensor); the plain version, which reads
+    ``in_idx``, steps it."""
+    system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
+    pc, _ = _comps(system, 1)
+    configs = torch.from_numpy(
+        conftest.random_states(system, "no_delays", 3, seed=4))
+    for f in ("sell_start", "sell_src", "hub_neuron"):
+        bare = pc._replace(**{f: None})
+        with pytest.raises(ValueError, match="sell_start/sell_src"):
+            kernel_inputs(configs, bare, lists=True)
+        _assert_all_equal(sparse_ops.snp_step_sparse(configs, bare,
+                                                     max_branches=T),
+                          sparse_ops.snp_step_sparse(configs, pc,
+                                                     max_branches=T))
 
 
 def test_hybrid_without_coo_metadata_is_refused():

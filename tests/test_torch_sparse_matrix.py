@@ -1,8 +1,9 @@
 """The port's ``compile_system_sparse`` against the reference's, array for
 array (values and dtypes): pure ELL and hybrid (``hub_threshold=1``, 4
 and the auto threshold), on ``EQUIV_SYSTEMS`` and ``power_law(512)``; a
-reference encoding carried across by ``compiled_from_arrays``; and the
-compiler's refusals."""
+reference encoding carried across by ``compiled_from_arrays``; the
+port's own sliced in-lists and hub neurons against lists rebuilt from
+``in_idx`` and ``hub_slot``; and the compiler's refusals."""
 
 import dataclasses
 
@@ -28,8 +29,50 @@ def _thresholds(system):
             .resolved_hub_threshold(system)}
 
 
+# The port's own fields, derived from in_idx and hub_slot (hybrid only).
+PORT_FIELDS = ("sell_start", "sell_src", "hub_neuron")
+
+
+def _assert_sliced_lists(port):
+    """``sell_start``/``sell_src`` hold ``in_idx``'s rows in slices of 32
+    neurons, entry k of neuron 32s + l at ``sell_start[s] + 32k + l``,
+    each slice as wide as its longest row and padded with m; ``hub_neuron``
+    inverts ``hub_slot``.  A pure-ELL encoding carries none of them."""
+    if not port.is_hybrid:
+        assert all(getattr(port, f) is None for f in PORT_FIELDS)
+        return
+    in_idx = port.in_idx.numpy()
+    m = in_idx.shape[0]
+    start, src = port.sell_start.numpy(), port.sell_src.numpy()
+    assert start.dtype == src.dtype == np.int32
+    assert start.shape == (-(-m // 32) + 1,) and start[0] == 0
+    assert start[-1] == src.size and (np.diff(start) % 32 == 0).all()
+    for s in range(start.size - 1):
+        block = src[start[s]:start[s + 1]].reshape(-1, 32).T   # (32, width)
+        rows = in_idx[32 * s:32 * s + 32]
+        lengths = (rows != m).sum(1)
+        assert block.shape[1] == (lengths.max() if lengths.size else 0)
+        for lane, row in enumerate(rows):
+            np.testing.assert_array_equal(block[lane, :lengths[lane]],
+                                          row[:lengths[lane]])
+            assert (row[lengths[lane]:] == m).all()
+        assert (block[rows.shape[0]:] == m).all()   # lanes past m
+        for lane, n in enumerate(lengths):
+            assert (block[lane, n:] == m).all()
+    hubs, slot = port.hub_neuron.numpy(), port.hub_slot.numpy()
+    assert hubs.dtype == np.int32 and hubs.shape == (np.size(
+        port.coo_bounds.numpy()) - 1,)
+    np.testing.assert_array_equal(slot[hubs], np.arange(hubs.size))
+    assert (np.diff(hubs) > 0).all()
+
+
 def _assert_same_encoding(port, ref):
-    assert port._fields == tuple(f for f in ref._fields if f != "coo_dst")
+    assert tuple(f for f in port._fields if f not in PORT_FIELDS) == tuple(
+        f for f in ref._fields if f != "coo_dst")
+    if port.coo_bounds is not None:
+        _assert_sliced_lists(port)
+    else:                              # a hand-built encoding keeps none
+        assert all(getattr(port, f) is None for f in PORT_FIELDS)
     # the reference's per-entry tail targets are the port's per-hub runs
     if port.coo_bounds is not None:
         bounds, slot = port.coo_bounds.numpy(), port.hub_slot.numpy()
@@ -38,6 +81,8 @@ def _assert_same_encoding(port, ref):
             np.repeat(hubs, np.diff(bounds)).astype(np.int32),
             np.asarray(ref.coo_dst))
     for f in port._fields:
+        if f in PORT_FIELDS:           # the port's own; checked above
+            continue
         a, b = getattr(port, f), getattr(ref, f)
         if f == "rule_order":
             assert a == tuple(b)
@@ -91,6 +136,79 @@ def test_reference_sparse_encoding_carries_across(enc):
     bare = compiled_from_arrays({**fields, "coo_bounds": None,
                                  "hub_slot": None}, device="cpu")
     assert bare.coo_bounds is None and bare.hub_slot is None
+    assert all(getattr(bare, f) is None for f in PORT_FIELDS)
+
+
+def _empty_slice_system():
+    """48 neurons (m not a multiple of 32) whose neurons 0..31 have no
+    in-synapse (slice 0 of the sliced lists has width 0), and neuron 40 a
+    hub fed by every neuron below 32."""
+    rules = tuple(J.Rule(neuron=i, consume=1, produce=1, regex_base=1,
+                         regex_period=1) for i in range(48))
+    syn = tuple((i, 32 + (i + k) % 16) for i in range(48) for k in (1, 2)
+                if i != 32 + (i + k) % 16)
+    syn = tuple(sorted(set(syn) | {(i, 40) for i in range(32)}))
+    return J.SNPSystem(48, (1,) * 48, rules, syn, output_neuron=47,
+                       name="empty-slice-48")
+
+
+def _sliced_case(case):
+    """(port encoding, reference encoding or None) for each case of the
+    sliced-lists tests."""
+    if case == "carried":
+        system = SYSTEMS["random-17"]
+        ref = J.compile_system_sparse(system, hub_threshold=2)
+        fields = {k: (v if k == "rule_order" or v is None else np.asarray(v))
+                  for k, v in ref._asdict().items()}
+        return compiled_from_arrays(fields, device="cpu"), ref
+    system, h = {"m45-h2": (J.generators.random_system(45, 3, 0.1, seed=5),
+                            2),
+                 "empty-slice-h3": (_empty_slice_system(), 3),
+                 "paper-pi-h1": (SYSTEMS["paper-pi"], 1),
+                 "power-law-512-auto": (SYSTEMS["power-law-512"], "auto")
+                 }[case]
+    if h == "auto":
+        h = J.SystemPlan(encoding="hybrid").resolved_hub_threshold(system)
+    port = P.compile_system_sparse(
+        system_from_spec(dataclasses.asdict(system)), hub_threshold=h,
+        device="cpu")
+    return port, J.compile_system_sparse(system, hub_threshold=h)
+
+
+@pytest.mark.parametrize("case", ["m45-h2", "empty-slice-h3", "paper-pi-h1",
+                                  "power-law-512-auto", "carried"])
+def test_sliced_in_lists_hold_in_idx(case):
+    port, ref = _sliced_case(case)
+    assert port.is_hybrid
+    _assert_same_encoding(port, ref)
+    start = port.sell_start.numpy()
+    if case == "empty-slice-h3":
+        assert port.num_neurons % 32 and start[1] == start[0] == 0
+    if case == "m45-h2":
+        assert port.num_neurons % 32
+    # the lists match those the lowering builds from the same in_idx
+    own_start, own_src = P.matrix.sliced_in_lists(port.in_idx.numpy())
+    np.testing.assert_array_equal(own_start, start)
+    np.testing.assert_array_equal(own_src, port.sell_src.numpy())
+
+
+def test_sliced_in_lists_of_a_hand_made_in_idx():
+    """33 neurons (a second slice of one neuron), rows of lengths 0..3 and
+    one whole row: widths 3 and 1, lanes past m padded."""
+    m = 33
+    in_idx = np.full((m, 3), m, np.int32)
+    in_idx[1, :1] = [5]
+    in_idx[2, :3] = [0, 4, 9]
+    in_idx[32, :1] = [7]
+    start, src = P.matrix.sliced_in_lists(in_idx)
+    np.testing.assert_array_equal(start, [0, 96, 128])
+    first = src[:96].reshape(3, 32)
+    np.testing.assert_array_equal(first[:, 2], [0, 4, 9])
+    np.testing.assert_array_equal(first[:, 1], [5, m, m])
+    assert (np.delete(first, [1, 2], axis=1) == m).all()
+    np.testing.assert_array_equal(src[96:], [7] + [m] * 31)
+    np.testing.assert_array_equal(
+        P.matrix.hub_neurons(np.array([2, 0, 2, 1]), 2), [1, 3])
 
 
 def test_carrying_a_delayed_sparse_encoding_raises():
