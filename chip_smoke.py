@@ -26,8 +26,9 @@ result line):
    (the yardstick, timed here only: the port never calls it), the bound
    with ``M`` counted by its nonzeros (and, for comparison, dense), and at
    the wave B1's device time from ``torch.profiler``;
-3. the sparse kernel's two bodies, ELL (B2) and hybrid (B3: the sliced
-   in-lists and the COO tail), against their plain version — bit-identical
+3. the sparse step's ELL kernel (B2: ``in_idx``) and the sliced-list
+   kernel's hybrid body (B3: the sliced in-lists and the COO tail),
+   against their plain version — bit-identical
    on every entry at Π, ``nd_chain(10)``, a ragged shape, a random system
    with every in-synapse past the first in the COO tail, a hybrid system
    of 45 neurons (m not a multiple of 32), one whose neurons 32..63 have
@@ -55,14 +56,16 @@ result line):
    and ``"ref"``, and ``run_traces(power_law(8192), policy="random")``
    identical through ``"sparse_cuda"`` and ``"sparse"``;
 9. the delayed kernels against their plain versions — B4 (dense) and B5
-   (the sparse kernel's ELL and hybrid bodies with the delay stage),
-   bit-identical on every entry at small edge shapes (delays 0–3, Ψ > T,
-   a ragged shape, a neuron reopening with 2^16 − 1 pending spikes, no
-   output neuron, spike counts near 2^20; for B5 COO also m not a
-   multiple of 32, a slice of width 0, ``power_law(32768, max_in=64)`` at
-   hub threshold 16 and forged lists, as in phase 3) and at the delayed
-   ``scaled_pi(682)`` and ``power_law(8192)`` waves (B5 COO's device time
-   there from ``torch.profiler``); times of each kernel,
+   (the sliced-list kernel's ELL and hybrid bodies with the delay stage,
+   both walking the sliced lists), bit-identical on every entry at small
+   edge shapes (delays 0–3, Ψ > T, a ragged shape, a neuron reopening
+   with 2^16 − 1 pending spikes, no output neuron, spike counts near
+   2^20; for both B5 bodies m not a multiple of 32, a slice of width 0
+   and forged lists, as in phase 3; for B5 COO also
+   ``power_law(32768, max_in=64)`` at hub threshold 16) and at the
+   delayed ``scaled_pi(682)`` (B5 ELL) and ``power_law(8192)`` (B5 COO)
+   waves (their device times there from ``torch.profiler``, and each
+   body's block shape as the library chooses it); times of each kernel,
    its plain version, its bound and one library call (partial yardsticks:
    ``torch.matmul`` of ``S`` with the ``(n, 4m)`` ``W``, the accumulate
    stage only, for B4; ``torch.sparse.mm`` of ``S`` with ``M``, the
@@ -80,8 +83,9 @@ result line):
    backends, identical; traces of both delayed workloads, first and
    random policies, identical through the kernel and plain backends;
 13. the shard kernels against their plain versions — B6 (the dense
-   kernel's halo body) and B7 (the sparse kernel's), bit-identical on
-   every entry of every shard, on shard operands made by the sharded
+   kernel's halo body) and B7 (the sliced-list kernel's, walking each
+   shard's sliced lists of its extended-space ``in_idx``), bit-identical
+   on every entry of every shard, on shard operands made by the sharded
    explore's own exchange: S=1, ``paper_pi`` over 8 shards (m < S: empty
    slices), Ψ > T, a ragged shape, spikes near 2^20, the degree partition
    of ``power_law(26)`` (asymmetric halos), random halos up to 2^16 − 1,
@@ -90,9 +94,13 @@ result line):
    ``ring_lattice(32768, 8)`` through B7; then B6 alone on a halo slab
    that is not 16-byte aligned, on 30,001 halo slots (past its stage)
    over a hand-made ``hadj``, and on forged lists (rules and halo slots
-   out of range, which it skips); at the waves the times of shard 0's launch,
-   its plain version, its bound (B6: ``M_local`` and ``hadj`` counted by
-   their nonzeros; B6's device time from ``torch.profiler``) and a library
+   out of range, which it skips); B7 alone on forged shard lists (entries
+   above m + H or below 0, slice starts out of range) on both shards of a
+   ``power_law(200)`` of mloc 100 (not a multiple of 32); at the waves the
+   times of shard 0's launch, its plain version, its bound (B6:
+   ``M_local`` and ``hadj`` counted by their nonzeros; B7: the sliced
+   lists in place of ``in_idx``; both kernels' device times from
+   ``torch.profiler``, B7's block shape) and a library
    call (``matmul(S, M_local) +
    matmul(halo, hadj)`` for B6; for B7 the partial ``sparse.mm(S,
    M_local)``, without the halo term);
@@ -213,13 +221,13 @@ KERNELS = {
            "source": "src/repro_torch/kernels/snp_step/csrc/snp_step_dense.cu",
            "replaces": "src/repro/kernels/snp_step/kernel.py:201",
            "body": "_make_kernel(has_halo=True), kernel.py:81-83,113-118; "
-                   "wrapper ops.py:157"},
+                   "wrapper ops.py:284"},
     "B7": {"name": "snp_step_sparse_shard", "route": "cuda",
            "source": "src/repro_torch/kernels/snp_step/csrc/"
                      "snp_step_sparse.cu",
            "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
            "body": "_make_kernel(has_halo=True), sparse_kernel.py:92-93,"
-                   "142-147; wrapper sparse_ops.py:170"},
+                   "142-147; wrapper sparse_ops.py:242"},
     "B8-TC": {"name": "flash_attn_fwd_tc", "route": "cuda",
               "source": "src/repro_torch/kernels/flash_attn/csrc/"
                         "flash_attn_fwd.cu",
@@ -316,9 +324,9 @@ def reset_counts():
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.snp_step import ops, sparse_ops
     ops.kernel_launches = ops.delay_launches = ops.shard_launches = 0
-    sparse_ops.kernel_launches = sparse_ops.coo_launches = 0
-    sparse_ops.delay_launches = sparse_ops.delay_coo_launches = 0
-    sparse_ops.halo_launches = 0
+    sparse_ops.kernel_launches = sparse_ops.ell_launches = 0
+    sparse_ops.coo_launches = sparse_ops.ell_delay_launches = 0
+    sparse_ops.coo_delay_launches = sparse_ops.halo_launches = 0
     attn_ops.kernel_launches = attn_ops.kernel_launches_tc = 0
 
 
@@ -706,13 +714,35 @@ def _empty_slice_system():
                                name="empty-slice-100")
 
 
-def _forged_hybrid(rng, dev, delayed):
-    """The COO body (B3, or B5 COO when ``delayed``) on forged sliced lists
-    and tail equals its plain version without the forged entries: every
-    5th list entry and every 7th tail entry moved above m or below 0 (the
-    kernel skips them; the plain version reads ``m``, the zero slot, in
-    their place), the first slice start below 0 and the last past the
-    lists' end (clamped).  Returns max |err|."""
+def _forge_sliced(start, src, in_idx, zero, rng):
+    """Forged copies of one set of sliced lists ``(start, src)`` over
+    ``in_idx`` (numpy): every 5th entry up to the lists' end moved above
+    the zero slot ``zero`` or below 0, the first start below 0 and the
+    last past the lists' end; and ``in_idx`` with the zero slot in place
+    of each forged entry, which the kernel reads as the zero slot.
+    Returns ``(start, src, in_idx, entries forged)``."""
+    import numpy as np
+    start, src, in_idx = start.copy(), src.copy(), in_idx.copy()
+    pos = np.arange(int(start[-1]))
+    sl = np.searchsorted(start, pos, side="right") - 1
+    neuron, k = 32 * sl + (pos - start[sl]) % 32, (pos - start[sl]) // 32
+    bad = pos[pos % 5 == 0]
+    far = rng.integers(1, 1 << 20, bad.shape[0])
+    src[bad] = np.where(bad % 2 == 0, zero + far, -far)
+    live = neuron[bad] < in_idx.shape[0]
+    in_idx[neuron[bad][live], k[bad][live]] = zero
+    start[0], start[-1] = -5, src.shape[0] + 1000
+    return start, src, in_idx, int(bad.shape[0])
+
+
+def _forged_lists(rng, dev, delayed, hybrid=True):
+    """The sliced-list kernel's B3 (B5 COO when ``delayed``; B5 ELL when
+    ``delayed`` and not ``hybrid``) on forged sliced lists (and tail)
+    equals its plain version without the forged entries: every 5th list
+    entry and every 7th tail entry moved above m or below 0 (the kernel
+    reads them as the zero slot; the plain version reads ``m``, the zero
+    slot, in their place), the first slice start below 0 and the last
+    past the lists' end (clamped).  Returns (kernel, max |err|)."""
     import numpy as np
     import torch
     from repro_torch.core import compile_system_sparse, with_delays
@@ -724,51 +754,46 @@ def _forged_hybrid(rng, dev, delayed):
     system = power_law(1000, 4, seed=9)
     if delayed:
         system = with_delays(system, lambda k, r: k % 3)
-    comp = compile_system_sparse(system, hub_threshold=3, device=dev,
-                                 semantics="delays" if delayed
+    comp = compile_system_sparse(system, hub_threshold=3 if hybrid else None,
+                                 device=dev, semantics="delays" if delayed
                                  else "no_delays")
     m, B, T = comp.num_neurons, 24, 40
     cols = 3 * m if delayed else m
     configs = torch.from_numpy(rng.integers(0, 4, size=(B, cols)).astype(
         np.int32)).to(dev)
-    start, src = comp.sell_start.cpu().numpy(), comp.sell_src.cpu().numpy()
-    in_idx, coo = comp.in_idx.cpu().numpy(), comp.coo_src.cpu().numpy()
-    pos = np.arange(src.shape[0])
-    sl = np.searchsorted(start, pos, side="right") - 1
-    neuron, k = 32 * sl + (pos - start[sl]) % 32, (pos - start[sl]) // 32
-    bad = pos[pos % 5 == 0]
-    far = rng.integers(1, 1 << 20, bad.shape[0])
-    src = src.copy()
-    src[bad] = np.where(bad % 2 == 0, m + far, -far)
-    live = neuron[bad] < m
-    in_idx = in_idx.copy()
-    in_idx[neuron[bad][live], k[bad][live]] = m
-    cbad = np.arange(0, coo.shape[0], 7)
-    coo_k = coo.copy()
-    coo_k[cbad] = m + 1 + rng.integers(0, 1 << 20, cbad.shape[0])
-    coo_p = coo.copy()
-    coo_p[cbad] = m
-    start = start.copy()
-    start[0], start[-1] = -5, src.shape[0] + 1000
+    start, src, in_idx, n_bad = _forge_sliced(
+        comp.sell_start.cpu().numpy(), comp.sell_src.cpu().numpy(),
+        comp.in_idx.cpu().numpy(), m, rng)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    forged = comp._replace(sell_start=t(start), sell_src=t(src),
-                           coo_src=t(coo_k))
-    plain = comp._replace(in_idx=t(in_idx), coo_src=t(coo_p))
+    forged = comp._replace(sell_start=t(start), sell_src=t(src))
+    plain = comp._replace(in_idx=t(in_idx))
+    tail = ""
+    if hybrid:
+        coo = comp.coo_src.cpu().numpy()
+        cbad = np.arange(0, coo.shape[0], 7)
+        coo_k = coo.copy()
+        coo_k[cbad] = m + 1 + rng.integers(0, 1 << 20, cbad.shape[0])
+        coo_p = coo.copy()
+        coo_p[cbad] = m
+        forged = forged._replace(coo_src=t(coo_k))
+        plain = plain._replace(coo_src=t(coo_p))
+        tail = f" and {cbad.shape[0]} tail"
     kargs, kextra, _ = kernel_inputs(configs, forged, lists=True)
     pargs, pextra, _ = kernel_inputs(configs, plain)
     k = sparse_ops.snp_step_sparse_cuda(*kargs, **kextra, max_branches=T)
     p = snp_step_sparse_ref(*pargs, **pextra, max_branches=T)
     torch.cuda.synchronize()
     err = max(int((k[0] - p[0]).abs().max()), int((k[2] - p[2]).abs().max()))
-    kernel = "B5-COO" if delayed else "B3"
+    kernel = ("B5-COO" if hybrid else "B5-ELL") if delayed else "B3"
     check(err == 0 and bool(torch.equal(k[1], p[1])),
           f"forged sliced lists: {kernel} disagrees with its plain version "
           f"without the forged entries (max |err| {err})")
-    log(f"[{9 if delayed else 3}] forged lists (power_law(1000) h=3) "
-        f"{kernel} B={B} T={T} m={m} | {bad.shape[0]} list and "
-        f"{cbad.shape[0]} tail entries out of range, starts below 0 and past "
-        f"the end: {kernel} == plain without them (max |err| {err})")
-    return err
+    log(f"[{9 if delayed else 3}] forged lists (power_law(1000)"
+        f"{' h=3' if hybrid else ''}) {kernel} B={B} T={T} m={m} | "
+        f"{n_bad} list{tail} entries out of range, starts below 0 "
+        f"and past the end: {kernel} == plain without them (max |err| "
+        f"{err})")
+    return kernel, err
 
 
 def phase_sparse_kernel():
@@ -880,7 +905,7 @@ def phase_sparse_kernel():
             rows[name]["device_ms"] = d_ms = device_ms(
                 lambda: sparse_ops.snp_step_sparse_cuda(
                     *kargs, **kcoo, max_branches=T), 20,
-                "snp_step_sparse_coo_kernel")
+                "snp_step_sparse_sell_kernel")
             log(f"[3] {name}: B3's device time by the profiler {d_ms} ms "
                 f"(CUDA events {k_ms:.4f})")
         lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
@@ -894,7 +919,7 @@ def phase_sparse_kernel():
             f"bound")
         del kargs, kcoo, args, coo, info
         torch.cuda.empty_cache()
-    max_err["B3"] = max(max_err["B3"], _forged_hybrid(rng, dev, False))
+    max_err["B3"] = max(max_err["B3"], _forged_lists(rng, dev, False)[1])
     return max_err, rows
 
 
@@ -1269,6 +1294,9 @@ def _delay_cases(rng, dev):
         ("empty slice m=100 h=4 d=k%3",
          with_delays(_empty_slice_system(), k3), 4, 24, 40,
          lambda m: states(m, 24)),
+        ("empty slice m=100 d=k%3",
+         with_delays(_empty_slice_system(), k3), None, 24, 40,
+         lambda m: states(m, 24)),
         ("reopen 2^16-1, no output", _reopen_system(), None, 4, 8,
          lambda m: reopen),
         ("reopen 2^16-1 h=1", _reopen_system(), 1, 4, 8, lambda m: reopen),
@@ -1416,16 +1444,17 @@ def phase_delay_kernels():
             B=B, T=T, n=n, m=m, Kin=comp.max_in_degree,
             Ec=int(comp.coo_src.shape[0]), ms=k_ms, plain_ms=p_ms,
             library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-        if kernel == "B5-COO" and wave:
+        if wave:
             rows[(kernel, name)]["device_ms"] = d_ms = device_ms(
                 lambda: sparse_ops.snp_step_sparse_cuda(
                     *kargs, **kextra, max_branches=T), 20,
-                "snp_step_sparse_coo_kernel")
-            log(f"[9] {name}: B5-COO's device time by the profiler {d_ms} "
-                f"ms (CUDA events {k_ms:.4f})")
+                "snp_step_sparse_sell_kernel")
+            log(f"[9] {name}: {kernel}'s device time by the profiler "
+                f"{d_ms} ms (CUDA events {k_ms:.4f})")
         lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
-        rows_b = (f" sliced entries={comp.sell_src.shape[0]}"
-                  if comp.is_hybrid else "")
+        bt, nt = sparse_ops.sell_block_shape(m, 0, T)
+        rows_b = (f" sliced entries={comp.sell_src.shape[0]} block "
+                  f"{bt} rows x {nt} threads")
         log(f"[9] {name:36s} {kernel} B={B:4d} T={T:3d} n={n:5d} m={m:5d} "
             f"Kin={comp.max_in_degree:3d} Ec={rows[(kernel, name)]['Ec']:6d}"
             f"{rows_b} | kernel == plain (max |err| {err}) | kernel "
@@ -1435,9 +1464,10 @@ def phase_delay_kernels():
             f"bound")
         del comp, args, extra, kargs, kextra, info
         torch.cuda.empty_cache()
-    max_err["B5-COO"] = max(max_err["B5-COO"],
-                            _forged_hybrid(np.random.default_rng(4), dev,
-                                           True))
+    for hybrid in (False, True):
+        kernel, err = _forged_lists(np.random.default_rng(4), dev, True,
+                                    hybrid)
+        max_err[kernel] = max(max_err[kernel], err)
     return max_err, rows
 
 
@@ -1643,11 +1673,71 @@ def _b6_hand_cases(rng, dev, T=33):
 
 
 def _b7_args(sh, f, info, stride, psi, tab, halo):
+    """B7's plain-version arguments (``in_idx``, and the zero slot as the
+    emission index) and its halo."""
     import torch
     mloc, H = f.shape[-1], halo.shape[-1]
     zero = torch.full((1,), mloc + H, dtype=torch.int32, device=f.device)
     return (f, stride.contiguous(), info.choices, psi.contiguous(), tab,
             sh.in_idx, zero), halo
+
+
+def _b7(args, halo, sell, T):
+    """One B7 launch on the plain version's ``args``, with the shard's
+    sliced lists ``sell = (sell_start, sell_src)`` in place of
+    ``in_idx``."""
+    from repro_torch.kernels.snp_step import sparse_ops
+    return sparse_ops.snp_step_sparse_cuda(
+        *args[:5], None, args[6], halo=halo, sell_start=sell[0],
+        sell_src=sell[1], max_branches=T)
+
+
+def _forged_b7(rng, dev):
+    """B7 on forged shard lists equals its plain version without the
+    forged entries, on both shards of ``power_law(200)`` over 2 degree
+    shards (mloc = 100, not a multiple of 32; B=24, T=40): every 5th list
+    entry moved above the zero slot m + H or below 0 (the kernel reads
+    them as the zero slot; the plain version's ``in_idx`` holds the zero
+    slot in their place), the first slice start below 0 and the last past
+    the lists' end (clamped).  Returns max |err|."""
+    import numpy as np
+    import torch
+    from repro_torch.core.generators import power_law
+    from repro_torch.kernels.snp_step.sparse_ref import snp_step_sparse_ref
+    from repro_torch.sharding import neuron_axis
+
+    B, T = 24, 40
+    make = lambda m: torch.from_numpy(                       # noqa: E731
+        rng.integers(0, 4, size=(B, m)).astype(np.int32)).to(dev)
+    comp, shards, frontier, lv = _shard_level(
+        power_law(200, 3, seed=6), neuron_axis(2, partition="degree"), B, T,
+        make, dev, dense=False)
+    mloc = comp.shard_size
+    check(mloc % 32 != 0, "the forged shard case wants mloc % 32 != 0")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    err, n_bad = 0, 0
+    for d, sh in enumerate(shards):
+        a7, h7 = _b7_args(sh, frontier[d], lv.infos[d], lv.strides[d],
+                          lv.psi, lv.tabs[d], lv.halos[d])
+        start, src, in_idx, bad = _forge_sliced(
+            sh.sell[0].cpu().numpy(), sh.sell[1].cpu().numpy(),
+            sh.in_idx.cpu().numpy(), mloc + h7.shape[-1], rng)
+        k_out = _b7(a7, h7, (t(start), t(src)), T)
+        p_out = snp_step_sparse_ref(*a7[:5], t(in_idx), a7[6], halo=h7,
+                                    max_branches=T)
+        torch.cuda.synchronize()
+        err = max(err, int((k_out[0] - p_out[0]).abs().max()),
+                  int((k_out[2] - p_out[2]).abs().max()))
+        check(bool(torch.equal(k_out[1], p_out[1])),
+              "forged shard lists: B7's validity differs")
+        n_bad += bad
+    check(err == 0, f"forged shard lists: B7 disagrees with its plain "
+          f"version without the forged entries (max |err| {err})")
+    log(f"[13] forged lists (power_law(200) degree S=2) mloc={mloc} B={B} "
+        f"T={T} | {n_bad} list entries out of range, starts below 0 and "
+        f"past the end: B7 == plain without them on both shards (max |err| "
+        f"{err})")
+    return err
 
 
 def _halo_adds(halo, in_idx, mloc):
@@ -1693,13 +1783,16 @@ def _shard_dense_bound(args, in_idx, T, cols):
     return bound + (max(t_dense, t_ops),)
 
 
-def _shard_sparse_bound(args, halo, T):
+def _shard_sparse_bound(args, halo, T, sell):
     """Least time of one B7 call (ms) and what binds: ``_sparse_bound``'s
     operations for the local slice plus one add per halo entry and local
-    neuron it feeds; bytes with the halo read once."""
+    neuron it feeds; bytes with the halo read once and the shard's sliced
+    lists ``sell`` (up to their end) in place of ``in_idx``."""
     B, m = args[0].shape
     n_ops = _sparse_bound(args, {}, T)[2] + _halo_adds(halo, args[5], m)
+    start = sell[0]
     in_bytes = sum(x.numel() * x.element_size() for x in args) \
+        - _list_bytes(args[5]) + _list_bytes(start) + 4 * int(start[-1]) \
         + halo.numel() * 4
     t_bytes = (in_bytes + 4 * B * T * m + 5 * B * T) / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -1795,8 +1888,7 @@ def phase_shard_kernels():
                 del k, p
             a7, h7 = _b7_args(sh, f, info, lv.strides[d], psi, lv.tabs[d],
                               halos[d])
-            k = sparse_ops.snp_step_sparse_cuda(*a7, halo=h7,
-                                                max_branches=T)
+            k = _b7(a7, h7, sh.sell, T)
             p = snp_step_sparse_ref(*a7, halo=h7, max_branches=T)
             torch.cuda.synchronize()
             errs["B7"] = max(errs.get("B7", 0), int((k[0] - p[0]).abs().max()),
@@ -1853,8 +1945,9 @@ def phase_shard_kernels():
                          f"{k_ms / b_ms:.1f}x bound")
         a7, h7 = _b7_args(sh, f, info, lv.strides[0], psi, lv.tabs[0],
                           halos[0])
-        k_ms = time_ms(lambda: sparse_ops.snp_step_sparse_cuda(
-            *a7, halo=h7, max_branches=T), iters)
+        k_ms = time_ms(lambda: _b7(a7, h7, sh.sell, T), iters)
+        d7_ms = device_ms(lambda: _b7(a7, h7, sh.sell, T), 20,
+                          "snp_step_sparse_sell_kernel")
         p_ms = time_ms(lambda: snp_step_sparse_ref(
             *a7, halo=h7, max_branches=T), iters)
         l_ms = None
@@ -1866,14 +1959,18 @@ def phase_shard_kernels():
             Mf = sh.M_local.to(torch.float32)
             l_ms = time_ms(lambda: torch.sparse.mm(Sm, Mf), iters)
             del Sm, Mf
-        b_ms, b_by = _shard_sparse_bound(a7, h7, T)
+        b_ms, b_by = _shard_sparse_bound(a7, h7, T, sh.sell)
         rows[("B7", name)] = dict(S=S, B=B, T=T, mloc=mloc, H=H, ms=k_ms,
                                   plain_ms=p_ms, library_ms=l_ms,
-                                  bound_ms=b_ms, bound_by=b_by)
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  device_ms=d7_ms)
         lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
-        parts.append(f"B7 {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                     f"sparse.mm(S,M_local) {lib}, bound {b_ms:.6f} ms "
-                     f"({b_by}) = {k_ms / b_ms:.1f}x bound")
+        bt, nt = sparse_ops.sell_block_shape(mloc, H, T)
+        parts.append(f"B7 {k_ms:.4f} ms (profiler: {d7_ms} ms on the "
+                     f"card; block {bt} rows x {nt} threads, "
+                     f"{int(sh.sell[0][-1])} sliced entries), plain "
+                     f"{p_ms:.4f} ms, sparse.mm(S,M_local) {lib}, bound "
+                     f"{b_ms:.6f} ms ({b_by}) = {k_ms / b_ms:.1f}x bound")
         log(line + " | shard 0: " + "; ".join(parts))
         del comp, shards, frontier, lv, halos
         torch.cuda.empty_cache()
@@ -1889,6 +1986,7 @@ def phase_shard_kernels():
         log(f"[13] {name:32s} H={a6[-1].shape[-1]:5d} halo at byte "
             f"{a6[-1].data_ptr() % 16} mod 16, B={a6[0].shape[0]} T={T} | "
             f"B6 == plain (max |err| {err})")
+    max_err["B7"] = max(max_err["B7"], _forged_b7(rng, dev))
     return max_err, rows
 
 

@@ -14,8 +14,9 @@
 
 The port's own fields that the reference does not carry are derived from
 its matrices: the dense encoding's ``adj_in`` (delays) or column lists
-(no delays), a hybrid sparse encoding's sliced in-lists and hub neurons,
-and the dense shard view's column lists.
+(no delays), a sparse encoding's sliced in-lists (and a hybrid one's hub
+neurons), each shard's sliced in-lists and the dense shard view's column
+lists.
 
 All take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
@@ -31,7 +32,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
                      dense_column_lists, hub_neurons, in_neighbours,
-                     sliced_in_lists)
+                     shard_sliced_lists, sliced_in_lists)
 from .plan import (DenseShardArrays, ShardArrays, ShardedCompiled,
                    SystemPlan, dense_shard_columns)
 from .system import Rule, SNPSystem
@@ -71,8 +72,8 @@ def compiled_from_arrays(fields: Mapping[str, Any],
     """A :class:`CompiledSNP` or :class:`CompiledSparseSNP` on ``device``
     from a reference encoding's fields as numpy arrays (``rule_order`` may
     stay a tuple; a hand-built sparse encoding may lack ``coo_bounds`` and
-    ``hub_slot``, which then stay ``None``, as do the sliced in-lists the
-    kernel's COO body needs)."""
+    ``hub_slot``, which then stay ``None``, as does a hybrid encoding's
+    ``hub_neuron``, which the sliced-list kernel needs)."""
     dev = resolve_device(device)
     cls = CompiledSparseSNP if "in_idx" in fields else CompiledSNP
     known = set(cls._fields) | set(_DERIVED[cls])
@@ -111,15 +112,15 @@ def compiled_from_arrays(fields: Mapping[str, Any],
     if cls is CompiledSNP and not delay_set and out.get("col_start") is None:
         out.update(zip(("col_start", "col_rule", "col_val"),
                        dense_column_lists(out["M"], out["env_produce"])))
-    if cls is CompiledSparseSNP and np.size(fields["coo_src"]) \
-            and out.get("coo_bounds") is not None \
-            and out.get("hub_slot") is not None \
-            and out.get("sell_start") is None:
-        start, src = sliced_in_lists(fields["in_idx"])
-        hubs = hub_neurons(fields["hub_slot"], np.size(fields["coo_bounds"])
-                           - 1)
-        out.update((k, torch.from_numpy(v).to(dev)) for k, v in (
-            ("sell_start", start), ("sell_src", src), ("hub_neuron", hubs)))
+    if cls is CompiledSparseSNP and out.get("sell_start") is None:
+        derived = dict(zip(("sell_start", "sell_src"),
+                           sliced_in_lists(fields["in_idx"])))
+        if np.size(fields["coo_src"]) and out.get("coo_bounds") is not None \
+                and out.get("hub_slot") is not None:
+            derived["hub_neuron"] = hub_neurons(
+                fields["hub_slot"], np.size(fields["coo_bounds"]) - 1)
+        out.update((k, torch.from_numpy(v).to(dev))
+                   for k, v in derived.items())
     return cls(**out)
 
 
@@ -134,7 +135,8 @@ def sharded_from_arrays(arrays: Mapping[str, Any],
     ``dense`` (optional) those of its ``DenseShardArrays``, as numpy
     arrays; the keywords are its static ints and its plan's partition.
     The reference's dense ``onehot`` is accepted and not carried (B6
-    reads ``rule_neuron``)."""
+    reads ``rule_neuron``); each shard's sliced in-lists, which B7 walks,
+    are derived from ``in_idx`` unless given."""
     dev = resolve_device(device)
 
     def build(cls, fields, derived=()):
@@ -155,8 +157,14 @@ def sharded_from_arrays(arrays: Mapping[str, Any],
                 device=dev, dtype=_DTYPES.get(k, torch.int32))
         return cls(**out)
 
+    shards = build(ShardArrays, arrays)
+    if shards.sell_start is None:
+        zero = int(shard_size) + int(num_shards) * int(halo_width)
+        start, src = shard_sliced_lists(shards.in_idx.cpu().numpy(), zero)
+        shards = shards._replace(sell_start=torch.from_numpy(start).to(dev),
+                                 sell_src=torch.from_numpy(src).to(dev))
     return ShardedCompiled(
-        arrays=build(ShardArrays, arrays),
+        arrays=shards,
         plan=SystemPlan(encoding="ell", num_shards=num_shards,
                         partition=partition),
         num_neurons=int(num_neurons), num_rules=int(num_rules),

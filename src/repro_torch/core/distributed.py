@@ -89,6 +89,7 @@ class _Shard(NamedTuple):
     dev: torch.device
     view: ShardView
     in_idx: torch.Tensor        # (mloc, Kin) — extended space
+    sell: Optional[tuple]       # B7's sliced lists of in_idx (start, src)
     send: torch.Tensor          # (S·Hmax,) — local ids, pad mloc
     gidx: torch.Tensor          # (mloc,) — global neuron per column
     M_local: Optional[torch.Tensor]
@@ -103,6 +104,8 @@ def _shards(comp: ShardedCompiled, devices, dense: bool) -> List[_Shard]:
         view = ShardView(*(x.to(dev) for x in shard_view(a, d)))
         out.append(_Shard(
             dev=dev, view=view, in_idx=a.in_idx[d].to(dev),
+            sell=None if a.sell_start is None else _to(
+                (a.sell_start[d], a.sell_src[d]), dev),
             send=a.send_idx[d].reshape(-1).to(dev),
             gidx=a.global_idx[d].to(dev),
             M_local=comp.dense.M_local[d].to(dev) if dense else None,
@@ -199,7 +202,7 @@ def _expand(shards, frontier, T: int, backend):
         if isinstance(backend, SparseCudaBackend):
             out = snp_step_sparse_shard(
                 frontier[d], lv.strides[d], info.choices, psi, lv.tabs[d],
-                sh.in_idx, lv.halos[d], max_branches=T)
+                sh.in_idx, lv.halos[d], sell=sh.sell, max_branches=T)
         elif isinstance(backend, CudaBackend):
             out = snp_step_dense_shard(
                 frontier[d], info.rank, info.app, lv.strides[d],

@@ -30,10 +30,12 @@ The reference's ``neuron_onehot`` (the ``(n, m)`` rule→neuron incidence)
 is not carried: on the TPU it turned the per-rule gather into a matmul,
 while the port gathers through ``rule_neuron`` directly.  Nor is its
 ``coo_dst``: the COO tail's targets are read through ``coo_bounds`` and
-``hub_slot``.  A hybrid sparse encoding also carries its ELL in-adjacency
-in slices of 32 neurons (:func:`sliced_in_lists`) and the inverse of
-``hub_slot`` (:func:`hub_neurons`), which the sparse kernel's COO body
-walks in place of ``in_idx`` and ``hub_slot``.
+``hub_slot``.  Every sparse encoding also carries its ELL in-adjacency in
+slices of 32 neurons (:func:`sliced_in_lists`), and a hybrid one the
+inverse of ``hub_slot`` (:func:`hub_neurons`), which the sparse step's
+sliced-list kernel (B3, B5) walks in place of ``in_idx`` and
+``hub_slot``; the sharded lowering slices each shard's extended-space
+``in_idx`` the same way for B7 (:func:`shard_sliced_lists`).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ __all__ = ["CompiledSNP", "CompiledSparseSNP", "CompiledAny",
            "check_coo_metadata", "check_sliced_lists", "column_lists",
            "compile_system", "compile_system_sparse", "dense_column_lists",
            "hub_neurons", "in_neighbours", "is_compiled", "is_delayed",
-           "shard_column_lists", "sliced_in_lists"]
+           "shard_column_lists", "shard_sliced_lists", "sliced_in_lists"]
 
 _SEMANTICS = ("no_delays", "delays")
 
@@ -169,11 +171,11 @@ class CompiledSparseSNP(NamedTuple):
     # reopening neuron's pending spikes ride the same in-adjacency as the
     # fired produce, so no other array is needed.
     delay: Optional[torch.Tensor] = None       # (n,) int32
-    # What the kernel's COO body (B3, B5 COO) reads in place of in_idx
-    # and hub_slot (not reference fields; built for hybrid encodings only,
-    # None otherwise and on a hand-built encoding, which the kernel then
-    # refuses): the ELL part in slices of 32 neurons (sliced_in_lists) and
-    # each hub's neuron, the inverse of hub_slot (hub_neurons).
+    # What the sliced-list kernel (B3, B5) reads in place of in_idx and
+    # hub_slot (not reference fields): the ELL part in slices of 32
+    # neurons (sliced_in_lists), built for every encoding, and for a
+    # hybrid one each hub's neuron, the inverse of hub_slot (hub_neurons).
+    # None only on a hand-built encoding, which the kernel then refuses.
     sell_start: Optional[torch.Tensor] = None  # (ceil(m/32)+1,) int32
     sell_src: Optional[torch.Tensor] = None    # (E,) int32, pad m
     hub_neuron: Optional[torch.Tensor] = None  # (Hn,) int32
@@ -232,37 +234,55 @@ def check_coo_metadata(comp: CompiledSparseSNP, who: str) -> None:
 
 
 def check_sliced_lists(comp: CompiledSparseSNP, who: str) -> None:
-    """Raise unless a hybrid encoding carries the sliced in-lists and hub
-    neurons (``sell_start``/``sell_src``/``hub_neuron``) that the kernel's
-    COO body walks."""
-    if comp.is_hybrid and (comp.sell_start is None or comp.sell_src is None
-                           or comp.hub_neuron is None):
+    """Raise unless ``comp`` carries the sliced in-lists (``sell_start``/
+    ``sell_src``) and, when hybrid, the hub neurons (``hub_neuron``) that
+    the sliced-list kernel walks."""
+    if comp.sell_start is None or comp.sell_src is None or (
+            comp.is_hybrid and comp.hub_neuron is None):
         raise ValueError(
-            f"{who}: this hybrid ELL+COO encoding lacks the sliced in-lists "
-            "(sell_start/sell_src/hub_neuron) the kernel's COO body walks; "
+            f"{who}: this encoding lacks the sliced in-lists "
+            "(sell_start/sell_src/hub_neuron) the sliced-list kernel walks; "
             "lower the system through compile_system_sparse or "
             "convert.compiled_from_arrays")
 
 
-def sliced_in_lists(in_idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """The rows of ``in_idx`` (m, Kin) (padding ``m``) in slices of 32
-    neurons, stored column by column: ``(sell_start (ceil(m/32)+1,),
-    sell_src (E,))`` int32, entry ``k`` of neuron ``32s + l`` at
-    ``sell_start[s] + 32k + l``.  Slice ``s`` is as wide as its longest
-    row (up to its last entry that is not ``m``); shorter rows and the
-    lanes past ``m`` are padded with ``m``, and each row keeps its order."""
+def sliced_in_lists(in_idx: np.ndarray, pad: Optional[int] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """The rows of ``in_idx`` (m, Kin) (padding ``pad``, by default ``m``;
+    a shard's zero slot ``mloc + S·Hmax``) in slices of 32 neurons, stored
+    column by column: ``(sell_start (ceil(m/32)+1,), sell_src (E,))``
+    int32, entry ``k`` of neuron ``32s + l`` at ``sell_start[s] + 32k +
+    l``.  Slice ``s`` is as wide as its longest row (up to its last entry
+    that is not ``pad``); shorter rows and the lanes past ``m`` are padded
+    with ``pad``, and each row keeps its order."""
     in_idx = np.asarray(in_idx)
     m, kin = in_idx.shape
+    pad = m if pad is None else pad
     n_slices = -(-m // 32)
-    rows = np.full((n_slices * 32, kin), m, np.int32)
+    rows = np.full((n_slices * 32, kin), pad, np.int32)
     rows[:m] = in_idx
-    length = ((rows != m) * np.arange(1, kin + 1)).max(1)
+    length = ((rows != pad) * np.arange(1, kin + 1)).max(1)
     width = length.reshape(n_slices, 32).max(1)
     start = np.zeros((n_slices + 1,), np.int32)
     np.cumsum(32 * width, out=start[1:])
     pos = _ragged_arange(32 * width)
     neuron = 32 * np.repeat(np.arange(n_slices), 32 * width) + pos % 32
     return start, rows[neuron, pos // 32]
+
+
+def shard_sliced_lists(in_idx: np.ndarray, pad: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Each shard's :func:`sliced_in_lists` of its extended-space
+    ``in_idx`` (S, mloc, Kin), padded with the zero slot ``pad``, stacked:
+    ``(sell_start (S, ceil(mloc/32)+1), sell_src (S, Emax))`` int32, each
+    shard's ``sell_src`` padded with ``pad`` past its end to the longest
+    shard's (at least 1)."""
+    lists = [sliced_in_lists(x, pad) for x in np.asarray(in_idx)]
+    width = max(1, max(src.size for _, src in lists))
+    src = np.full((len(lists), width), pad, np.int32)
+    for d, (_, x) in enumerate(lists):
+        src[d, :x.size] = x
+    return np.stack([st for st, _ in lists]), src
 
 
 def hub_neurons(hub_slot: np.ndarray, num_hubs: int) -> np.ndarray:
@@ -474,10 +494,11 @@ def compile_system_sparse(system: SNPSystem, *,
     most ``H`` in-neighbours and every further in-synapse of a hub lands in
     the COO tail, sorted by ``(dst, src)``, with its per-hub run offsets
     ``coo_bounds`` and the neuron→hub map ``hub_slot``, and the port's
-    own ``sell_start``/``sell_src`` (:func:`sliced_in_lists` of
-    ``in_idx``) and ``hub_neuron`` that the kernel's COO body reads.
-    ``None`` is pure ELL (an empty tail).  ``semantics="delays"`` adds the
-    per-rule ``delay`` and the ``3m`` initial state."""
+    own ``hub_neuron`` that the sliced-list kernel reads.  ``None`` is
+    pure ELL (an empty tail).  Either way the encoding carries the port's
+    ``sell_start``/``sell_src`` (:func:`sliced_in_lists` of ``in_idx``).
+    ``semantics="delays"`` adds the per-rule ``delay`` and the ``3m``
+    initial state."""
     delayed = _check_semantics(system, semantics)
     dev = resolve_device(device)
     low = _lower(system)
@@ -526,10 +547,11 @@ def compile_system_sparse(system: SNPSystem, *,
     hub_slot = np.full((m,), hn, np.int32)
     hub_slot[hubs] = np.arange(hn, dtype=np.int32)
 
-    extra = dict(delay=_delay_vector(low)) if delayed else {}
+    extra = dict(zip(("sell_start", "sell_src"), sliced_in_lists(in_idx)))
+    if delayed:
+        extra["delay"] = _delay_vector(low)
     if hn:
-        extra.update(zip(("sell_start", "sell_src"), sliced_in_lists(in_idx)),
-                     hub_neuron=hub_neurons(hub_slot, hn))
+        extra["hub_neuron"] = hub_neurons(hub_slot, hn)
     return CompiledSparseSNP(rule_order=low.order, **_tensors(
         dev, rule_neuron=low.neuron, consume=low.consume,
         produce=low.produce, regex_base=low.regex_base,

@@ -167,7 +167,13 @@ class ShardArrays(NamedTuple):
     ``send_idx[d, p]`` lists the local neurons shard ``d`` ships to shard
     ``p`` (padded with ``mloc``), so one all-to-all moves every halo.
     ``global_idx[d, c]`` is the global neuron of shard ``d``'s column
-    ``c`` (pad columns take the unused ids ``m .. S·mloc − 1``)."""
+    ``c`` (pad columns take the unused ids ``m .. S·mloc − 1``).
+
+    The port's own fields are what B7 walks in place of ``in_idx``
+    (:func:`~.matrix.shard_sliced_lists`): each shard's ``in_idx`` in
+    slices of 32 local neurons, padded with the zero slot, each shard's
+    ``sell_src`` padded with it past its end to the longest shard's.
+    ``None`` only on a hand-built lowering, which B7 then refuses."""
 
     rule_neuron: torch.Tensor   # (S, nloc) — local neuron of each rule
     consume: torch.Tensor       # (S, nloc)
@@ -183,6 +189,8 @@ class ShardArrays(NamedTuple):
     out_local: torch.Tensor     # (S,) — local output neuron, or mloc
     init_loc: torch.Tensor      # (S, mloc) — C_0 slices, zero padded
     global_idx: torch.Tensor    # (S, mloc) — global neuron per column
+    sell_start: Optional[torch.Tensor] = None  # (S, ceil(mloc/32)+1)
+    sell_src: Optional[torch.Tensor] = None    # (S, Emax), pad zero slot
 
 
 class ShardView(NamedTuple):
@@ -374,7 +382,8 @@ def compile_sharded(system: SNPSystem, plan: SystemPlan,
     ``device`` (``None`` = the card).  Host-side numpy; every shard gets
     the same shapes (rules padded with never-applicable dummies, halos to
     the widest pair).  Refuses delays, hybrid and dense plans."""
-    from .matrix import _lower, _ragged_arange   # matrix stays plan-free
+    from .matrix import (_lower, _ragged_arange,   # matrix stays plan-free
+                         shard_sliced_lists)
 
     if plan.semantics == "delays":
         raise ValueError(
@@ -469,6 +478,8 @@ def compile_sharded(system: SNPSystem, plan: SystemPlan,
     init_loc[shard_of, local_of] = np.asarray(system.initial_spikes,
                                               np.int32)
 
+    sell_start, sell_src = shard_sliced_lists(in_idx, z)
+
     def t(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
@@ -479,7 +490,8 @@ def compile_sharded(system: SNPSystem, plan: SystemPlan,
         seg_count=t(seg_count),
         rule_slots=torch.arange(R, dtype=torch.int32, device=dev),
         in_idx=t(in_idx), send_idx=t(send_idx), out_local=t(out_local),
-        init_loc=t(init_loc), global_idx=t(global_idx))
+        init_loc=t(init_loc), global_idx=t(global_idx),
+        sell_start=t(sell_start), sell_src=t(sell_src))
     return ShardedCompiled(arrays=arrays, plan=plan, num_neurons=m,
                            num_rules=n, shard_size=mloc, num_shards=S,
                            halo_width=hmax, occupancy=occupancy)

@@ -7,10 +7,10 @@
 // _make_kernel(has_coo=True) (B2, B3), their delayed bodies
 // (has_delay=True, B5) and the shard body (has_halo=True, B7, wrapper
 // sparse_ops.py::snp_step_sparse_shard).  Two templates: the ELL kernel
-// (B2, B5 ELL, B7; the delay stage and the halo as flags, the halo
-// excluding the delay, as sparse_kernel.py:76 asserts) and the hybrid
-// kernel (B3, B5 COO; the delay stage as a flag).  For every config b and
-// branch id t < T they compute
+// (B2 alone) and the sliced-list kernel (B3, B5 ELL and COO, B7; the COO
+// tail, the delay stage and the halo as inputs and flags, the halo
+// excluding the delay, as sparse_kernel.py:76 asserts).  For every config
+// b and branch id t < T they compute
 //
 //   d[b,t,mu]     = (t / stride[b,mu]) % choices[b,mu]    (float32, exact)
 //   packed[b,t,mu] = tab[b, mu, d]            (produce | consume << 16)
@@ -22,16 +22,16 @@
 //
 // where produce/consume are the fired rule's, and index m (padding, no
 // output neuron) reads a zero slot.  The ELL kernel reads the
-// in-neighbours from in_idx (m, Kin); the hybrid kernel from the sliced
-// lists sell_start/sell_src (below), which hold the same entries.
+// in-neighbours from in_idx (m, Kin); the sliced-list kernel from the
+// sliced lists sell_start/sell_src (below), which hold the same entries.
 //
 // The shard body (HAS_HALO): the neuron axis is one shard's mloc local
-// neurons, and in_idx indexes the extended space [local (m) | halo (H) |
+// neurons, and the lists index the extended space [local (m) | halo (H) |
 // zero]: slot m + s holds halo[b,t,s], the fired produce of a remote
 // in-neighbour that the halo exchange delivered, and m + H is the zero
 // slot, which the wrapper passes as out_neuron (the sharded explore
-// judges emissions).  Halo values are fired produce, below 2^16, so they fit the
-// stage too.
+// judges emissions).  Halo values are fired produce, below 2^16, so they
+// fit the stage too.
 //
 // The delay stage (HAS_DELAY; C is the spikes slice of a [spikes |
 // countdown | pending] state row, tab the emit-now table produce*(d==0) |
@@ -59,8 +59,8 @@
 // gives the argument), and t / +inf = 0 is digit 0.  q and c*floor(q/c)
 // are integers below 2^23, so every product is exact in float32; if nvcc
 // contracts q - c*floor(q/c) into one FMA, the FMA's exact product and
-// single rounding give the same integer.  The hybrid kernel decodes a
-// neuron once for its first row t0 and steps to the next rows in
+// single rounding give the same integer.  The sliced-list kernel decodes
+// a neuron once for its first row t0 and steps to the next rows in
 // integers (struct Digits): a stride is a float32 product of choices
 // (>= 1), exact below 2^24, so a stride below T (< 2^23) is an integer
 // s >= 1, and with p = t0 - s*floor(t0/s) (exact) the digit of t0 + 1 is
@@ -70,67 +70,81 @@
 //
 // What bounds them.  Per call they write B*T*m*4 output bytes (3x under
 // delays); they read the (B, m, R) table, C, the strides and choices per
-// config, and the in-adjacency and the COO arrays once at best.  The
-// operations the data needs are a digit decode per (b, t, neuron), the
-// C - consume per output entry and one add per real in-synapse, on the
-// non-tensor datapath.  At the hybrid explore wave (B=512, T=64, m=8192,
-// 32,768 synapses) that is 1.07 GB of output, 0.32 ms at 3.35 TB/s,
-// against about 2.1 G operations, 0.03 ms at 67 T op/s: bytes bind
-// (chip_smoke.py::_sparse_bound counts both from each call's data).
+// config (and the (B, T, H) halo), and the in-lists and the COO arrays
+// once at best.  The operations the data needs are a digit decode per
+// (b, t, neuron), the C - consume per output entry and one add per real
+// in-synapse, on the non-tensor datapath: bytes bind every body at the
+// smoke's waves (chip_smoke.py::_sparse_bound counts both from each
+// call's data).  B=512, T=64: B3 at power_law(8192) writes 1.07 GB, 0.32
+// ms at 3.35 TB/s, against 2.1 G operations, 0.03 ms at 67 T op/s; B5 at
+// the delayed scaled_pi(682) (m = 2,046) writes 0.80 GB, 0.25 ms; one B7
+// shard at the 4-shard scaled_pi(682) (mloc = 512) 67 MB, 0.022 ms, and
+// at ring_lattice(32768, 8) (mloc = 8,192) 1.07 GB, 0.35 ms.
 //
-// The ELL kernel.  The TPU body keeps (bb, bt, m) resident in VMEM
+// The ELL kernel (B2).  The TPU body keeps (bb, bt, m) resident in VMEM
 // because any in_idx[j,k] may point at any neuron.  Here a block owns one
 // config b and bt branch ids and stages the fired produce of its rows in
 // shared memory as uint16 (compile_system_sparse guarantees produce <
-// 2^16): bt*(m+H+1)*2 bytes (H = 0 but for a shard), bt a power of two up
-// to 8 chosen so the stage stays within 64 KB where m allows (one row at
-// m = 32768 is 64 KB).  The shard body copies its rows' halo into the
-// stage after the local produce; phase 2 then gathers local and remote
-// in-neighbours alike.  Phase 1 decodes and stages; phase 2 gives each
-// thread a neuron j, recomputes its fired consume (a second table read,
-// instead of a second shared array), gathers its in-synapses from shared
-// memory for all bt rows (one in_idx read serves bt branches), and writes
-// bt output entries.
+// 2^16): bt*(m+1)*2 bytes, bt a power of two up to 8 chosen so the stage
+// stays within 64 KB where m allows (one row at m = 32768 is 64 KB).
+// Phase 1 decodes and stages; phase 2 gives each thread a neuron j,
+// recomputes its fired consume (a second table read, instead of a second
+// shared array), gathers its in-synapses from shared memory for all bt
+// rows (one in_idx read serves bt branches), and writes bt output
+// entries.
 //
-// The hybrid kernel (B3, B5 COO).  The ELL part of a hybrid encoding is
-// 6% real entries at the smoke's power_law(8192) (Kin = 36 slots, mean
-// in-degree 2.2), and in_idx read row-major by one thread a neuron is not
-// coalesced.  So the lowering cuts the neurons into slices of 32 and
-// stores slice s's entries column by column at sell_start[s] (entry k of
-// neuron 32s + l at sell_start[s] + 32k + l, width the slice's longest
-// list, padded with m): a warp walks its slice with coalesced loads and
+// The sliced-list kernel (B3, B5, B7).  in_idx read row-major by one
+// thread a neuron is not coalesced, and mostly padding: the ELL part of a
+// hybrid encoding is 6% real entries at the smoke's power_law(8192) (Kin
+// = 36 slots, mean in-degree 2.2).  So the lowering cuts the neurons into
+// slices of 32 and stores slice s's entries column by column at
+// sell_start[s] (entry k of neuron 32s + l at sell_start[s] + 32k + l,
+// width the slice's longest list, padded with m, or with the zero slot
+// m + H for a shard): a warp walks its slice with coalesced loads and
 // stops at the slice's width.  A block owns one config and BT = 8 rows
-// where 8*(m+1)*2 bytes fit the 227 KB opt-in (m <= 14,527; 4, 2 or 1
-// row past that) and stages them neuron-major, stage[src*BT + r], so one
-// 16-byte shared load returns the 8 rows of a source.  1024 threads: one
-// block an SM (the stage takes 131 KB at m = 8192) keeps 32 warps.
-// The hybrid kernel waits on dependent global reads (L2 hits), not on
-// bandwidth, so every step issues its reads together:
-//   1. each thread decodes neurons j = tid, tid + 1024, ... once (Digits;
+// where 8*(m+H+1)*2 bytes fit the 227 KB opt-in (m + H <= 14,527; 4, 2
+// or 1 row past that) and stages them neuron-major, stage[src*BT + r], so
+// one 16-byte shared load returns the 8 rows of a source; the per-config
+// rows (stride, choices, configs, tab) are then read by T/8 blocks of a
+// config, not T/bt with bt down to 2 as in the ELL kernel.  Threads: 1024
+// (32 warps) once every warp has a slice of its own (m >= 1,024: B5's m
+// = 2,046, the ring lattice's shards of mloc = 8,192, B3's m = 8,192);
+// 256 below that, where 32 warps would leave half idle (B7's shards of
+// mloc = 512 have 16 slices), four blocks an SM instead of one.  Measured
+// on the H100 at those waves (probes/sparse_sell_shape.py): each side of
+// the rule is the faster shape there.  Both shapes are held to 64
+// registers a thread.  The kernel waits on dependent global
+// reads (L2 hits), not on bandwidth, so every step sends out its reads
+// together:
+//   1. each thread decodes neurons j = tid, tid + NT, ... once (Digits;
 //      four neurons' reads in flight, the digit-0 table entry read with
 //      the stride, as digit 0 is the common case) and stores their BT
-//      emit-now values in one vector store;
-//   2. each warp walks slices warp, warp + 32, ... (lane i loads the
+//      emit-now values in one vector store; the shard body then stages
+//      its rows' halo after the local produce, one halo slot a thread
+//      (stage[(m+s)*BT + r] = halo[b, t0+r, s], coalesced reads, one
+//      vector store, no divide);
+//   2. each warp walks slices warp, warp + NW, ... (lane i loads the
 //      bounds of the i-th of the next 32 at once): its lanes' per-config
 //      reads go out first, then four list entries at a time, a vector
 //      gather each, BT adds; then the lanes re-derive their digits (no
 //      divide unless the stride is below T and the choices above 1),
 //      re-read the fired consume (and dtab) only where the digit is not
 //      0 or changes, and write the BT rows of their 32 neurons, coalesced;
-//   3. the COO tail, after a barrier: each hub's run of coo_src is cut in
-//      chunks of 64 entries, numbered over the hubs in order, and chunk i
-//      goes to warp i % 32 (108 hubs with runs up to 1,549 entries at the
-//      smoke's system: a hub a warp would leave one warp with most of the
-//      work).  A warp sums a chunk's BT rows lane-wise, folds the 8 sums
-//      across lanes in 9 shuffles (each halving step hands half the rows to
-//      the partner lane), and 8 lanes add the rows onto the hub's outputs
-//      with one atomicAdd each (under delays only where the row's cd' is 0,
-//      read back from the block's own output).  The hub's neuron comes
-//      from hub_neuron, the inverse of hub_slot.
+//   3. the COO tail (B3, B5 COO; Hn = 0 skips it and its barrier): after a
+//      barrier, each hub's run of coo_src is cut in chunks of 64 entries,
+//      numbered over the hubs in order, and chunk i goes to warp i % NW
+//      (108 hubs with runs up to 1,549 entries at the smoke's system: a
+//      hub a warp would leave one warp with most of the work).  A warp
+//      sums a chunk's BT rows lane-wise, folds the 8 sums across lanes in
+//      9 shuffles (each halving step hands half the rows to the partner
+//      lane), and 8 lanes add the rows onto the hub's outputs with one
+//      atomicAdd each (under delays only where the row's cd' is 0, read
+//      back from the block's own output).  The hub's neuron comes from
+//      hub_neuron, the inverse of hub_slot.
 // Integer adds commute, so the atomics leave the result deterministic.
-// The kernel skips a list or tail entry outside [0, m] and clamps slice
-// and run bounds to the lists' lengths, so forged lists read nothing out
-// of bounds (one compare an entry, no host read).
+// The kernel reads a list or tail entry outside [0, m + H] as the zero
+// slot and clamps slice and run bounds to the lists' lengths, so forged
+// lists read nothing out of bounds (one compare an entry, no host read).
 //
 // A system past snp_step_sparse_max_neurons() (one uint16 row no longer
 // fits a block's 227 KB; m + H for a shard) is refused with an error.
@@ -147,8 +161,6 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int BT_MAX = 8;                     // branch rows per block
 constexpr int STAGE_TARGET = 64 * 1024;       // ELL kernel's stage target
 constexpr int SMEM_LIMIT = 232448;            // opt-in max per block (227 KB)
-constexpr int COO_THREADS = 1024;             // hybrid kernel: 32 warps
-constexpr int COO_WARPS = COO_THREADS / 32;
 constexpr int CHUNK = 64;                     // tail entries a warp step
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -157,7 +169,6 @@ __device__ __forceinline__ int digit(int t, float s, float c) {
   return (int)(q - c * floorf(q / c));
 }
 
-template <bool HAS_DELAY, bool HAS_HALO>
 __global__ void __launch_bounds__(THREADS)
 snp_step_sparse_kernel(const int* __restrict__ configs,
                        const float* __restrict__ stride,
@@ -166,52 +177,35 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
                        const int* __restrict__ tab,
                        const int* __restrict__ in_idx,
                        const int* __restrict__ out_neuron,
-                       const int* __restrict__ dtab,
-                       const int* __restrict__ cd,
-                       const int* __restrict__ pd,
-                       const int* __restrict__ halo,
                        int* __restrict__ out,
                        unsigned char* __restrict__ valid,
                        int* __restrict__ emis,
-                       int T, int m, int R, int Kin, int H, int bt,
-                       int t_tiles) {
-  static_assert(!(HAS_HALO && HAS_DELAY),
-                "the shard body has no delay stage");
-  extern __shared__ unsigned short prod_s[];   // [bt][m + H + 1]
+                       int T, int m, int R, int Kin, int bt, int t_tiles) {
+  extern __shared__ unsigned short prod_s[];   // [bt][m + 1]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.x / t_tiles;
   const int t0 = (blockIdx.x % t_tiles) * bt;
   const int nt = min(bt, T - t0);
-  const int ms = m + H + 1;                    // stage row; m + H is zero
+  const int ms = m + 1;                        // stage row; m is zero
   const size_t row_b = (size_t)b * m;
-  const int W = HAS_DELAY ? 3 * m : m;         // output row width
 
-  // 1. fired (emit-now) produce of each (row, neuron) into shared memory
+  // 1. fired produce of each (row, neuron) into shared memory
   for (int j = tid; j < m; j += THREADS) {
     const float s = stride[row_b + j];
     const float c = (float)choices[row_b + j];
     const int* tab_j = tab + (row_b + j) * R;
-    unsigned pending = 0;
-    if constexpr (HAS_DELAY)
-      if (cd[row_b + j] == 1) pending = (unsigned)pd[row_b + j];
 #pragma unroll
     for (int r = 0; r < BT_MAX; ++r)
       if (r < nt)
-        prod_s[r * ms + j] = (unsigned short)(
-            (tab_j[digit(t0 + r, s, c)] & 0xFFFF) + pending);
+        prod_s[r * ms + j] =
+            (unsigned short)(tab_j[digit(t0 + r, s, c)] & 0xFFFF);
   }
-  if constexpr (HAS_HALO) {                    // remote produce after it
-    const int* halo_b = halo + ((size_t)b * T + t0) * H;
-    for (int i = tid; i < nt * H; i += THREADS)
-      prod_s[(i / H) * ms + m + i % H] = (unsigned short)halo_b[i];
-  }
-  if (tid < nt) prod_s[tid * ms + m + H] = 0;  // the zero slot
+  if (tid < nt) prod_s[tid * ms + m] = 0;      // the zero slot
   __syncthreads();
 
-  // 2. one neuron per thread: C - consume + in-synapses; under delays
-  //    acc holds the incoming sum alone until the combine
+  // 2. one neuron per thread: C - consume + in-synapses
   for (int j0 = warp * 32; j0 < m; j0 += NWARPS * 32) {   // warp-uniform
     const int j = j0 + lane;
     const bool active = j < m;
@@ -228,7 +222,7 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
       for (int r = 0; r < BT_MAX; ++r) {
         if (r >= nt) continue;
         dg[r] = digit(t0 + r, s, c);
-        if (!HAS_DELAY) acc[r] = cj - ((unsigned)tab_j[dg[r]] >> 16);
+        acc[r] = cj - ((unsigned)tab_j[dg[r]] >> 16);
       }
       const int* row = in_idx + (size_t)j * Kin;
       for (int k = 0; k < Kin; ++k) {
@@ -239,30 +233,10 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
       }
     }
     if (active) {
-      int* out_j = out + ((size_t)b * T + t0) * W + j;
-      if constexpr (HAS_DELAY) {
-        const unsigned cj = (unsigned)configs[row_b + j];
-        const int cdj = cd[row_b + j], pdj = pd[row_b + j];
-        const int* dtab_j = dtab + (row_b + j) * R;
-        const int cd_dec = max((int)((unsigned)cdj - 1u), 0);
+      int* out_j = out + ((size_t)b * T + t0) * m + j;
 #pragma unroll
-        for (int r = 0; r < BT_MAX; ++r) {
-          if (r >= nt) continue;
-          const unsigned dv = (unsigned)dtab_j[dg[r]];
-          const bool fired_del = dv != 0;
-          const int cd_next = fired_del ? (int)(dv >> 16) : cd_dec;
-          const unsigned cons = (unsigned)tab_j[dg[r]] >> 16;
-          int* o = out_j + (size_t)r * W;
-          o[0] = (int)(cj - cons + (cd_next == 0 ? acc[r] : 0u));
-          o[m] = cd_next;
-          o[2 * m] = fired_del ? (int)(dv & 0xFFFF)
-                               : (cdj == 1 ? 0 : pdj);
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < BT_MAX; ++r)
-          if (r < nt) out_j[(size_t)r * W] = (int)acc[r];
-      }
+      for (int r = 0; r < BT_MAX; ++r)
+        if (r < nt) out_j[(size_t)r * m] = (int)acc[r];
     }
   }
 
@@ -270,13 +244,13 @@ snp_step_sparse_kernel(const int* __restrict__ configs,
   if (tid < nt) {
     const int t = t0 + tid;
     const int o = out_neuron[0];
-    emis[(size_t)b * T + t] = (int)prod_s[tid * ms + (o < m ? o : m + H)];
+    emis[(size_t)b * T + t] = (int)prod_s[tid * ms + (o < m ? o : m)];
     valid[(size_t)b * T + t] = (float)t < psi[b];
   }
 }
 
 // ---------------------------------------------------------------------------
-// The hybrid kernel (B3, B5 COO)
+// The sliced-list kernel (B3, B5, B7)
 // ---------------------------------------------------------------------------
 
 // The digits of one neuron (stride sf, choices c) for rows t0, t0 + 1,
@@ -304,9 +278,9 @@ struct Digits {
   }
 };
 
-// A list entry outside [0, m] reads the zero slot m.
-__device__ __forceinline__ int in_range(int src, int m) {
-  return (unsigned)src > (unsigned)m ? m : src;
+// A list entry outside [0, z] reads the zero slot z.
+__device__ __forceinline__ int in_range(int src, int z) {
+  return (unsigned)src > (unsigned)z ? z : src;
 }
 
 // Neuron j's BT staged values (each below 2^16) in one vector store.
@@ -382,28 +356,32 @@ __device__ __forceinline__ int fold_rows(unsigned (&v)[BT], int lane) {
   return lane >> (5 - L);
 }
 
-template <int BT, bool HAS_DELAY>
-__global__ void __launch_bounds__(COO_THREADS, 1)
-snp_step_sparse_coo_kernel(const int* __restrict__ configs,
-                           const float* __restrict__ stride,
-                           const int* __restrict__ choices,
-                           const float* __restrict__ psi,
-                           const int* __restrict__ tab,
-                           const int* __restrict__ sell_start,
-                           const int* __restrict__ sell_src,
-                           const int* __restrict__ out_neuron,
-                           const int* __restrict__ coo_src,
-                           const int* __restrict__ coo_bounds,
-                           const int* __restrict__ hub_neuron,
-                           const int* __restrict__ dtab,
-                           const int* __restrict__ cd,
-                           const int* __restrict__ pd,
-                           int* __restrict__ out,
-                           unsigned char* __restrict__ valid,
-                           int* __restrict__ emis,
-                           int T, int m, int R, int E, int Ec, int Hn,
-                           int t_tiles) {
-  extern __shared__ __align__(16) unsigned short stage[];  // [m + 1][BT]
+template <int BT, int NT, bool HAS_DELAY, bool HAS_HALO>
+__global__ void __launch_bounds__(NT, 1024 / NT)
+snp_step_sparse_sell_kernel(const int* __restrict__ configs,
+                            const float* __restrict__ stride,
+                            const int* __restrict__ choices,
+                            const float* __restrict__ psi,
+                            const int* __restrict__ tab,
+                            const int* __restrict__ sell_start,
+                            const int* __restrict__ sell_src,
+                            const int* __restrict__ out_neuron,
+                            const int* __restrict__ coo_src,
+                            const int* __restrict__ coo_bounds,
+                            const int* __restrict__ hub_neuron,
+                            const int* __restrict__ dtab,
+                            const int* __restrict__ cd,
+                            const int* __restrict__ pd,
+                            const int* __restrict__ halo,
+                            int* __restrict__ out,
+                            unsigned char* __restrict__ valid,
+                            int* __restrict__ emis,
+                            int T, int m, int R, int E, int Ec, int Hn,
+                            int H, int t_tiles) {
+  static_assert(!(HAS_HALO && HAS_DELAY),
+                "the shard body has no delay stage");
+  constexpr int NW = NT / 32;
+  extern __shared__ __align__(16) unsigned short stage[];  // [m+H+1][BT]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -412,13 +390,14 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
   const int nt = min(BT, T - t0);
   const size_t row_b = (size_t)b * m;
   const int W = HAS_DELAY ? 3 * m : m;         // output row width
+  const int Z = HAS_HALO ? m + H : m;          // the zero slot
   int* const out_b = out + ((size_t)b * T + t0) * W;
 
   // 1. the BT emit-now values of each neuron, neuron-major (every load
   //    of a neuron issued at once: tab's digit-0 entry first, the common
-  //    digit)
+  //    digit); a shard's halo rows after them
 #pragma unroll 4
-  for (int j = tid; j < m; j += COO_THREADS) {
+  for (int j = tid; j < m; j += NT) {
     const int* tab_j = tab + (row_b + j) * R;
     const float sf = stride[row_b + j];
     const int c = choices[row_b + j];
@@ -437,25 +416,35 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
     }
     put_rows<BT>(stage, j, v);
   }
+  if constexpr (HAS_HALO) {
+    const int* halo_b = halo + ((size_t)b * T + t0) * H;
+    for (int s = tid; s < H; s += NT) {
+      unsigned v[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+        v[r] = r < nt ? (unsigned)halo_b[(size_t)r * H + s] : 0u;
+      put_rows<BT>(stage, m + s, v);
+    }
+  }
   if (tid == 0) {                              // the zero slot
     unsigned z[BT] = {};
-    put_rows<BT>(stage, m, z);
+    put_rows<BT>(stage, Z, z);
   }
   __syncthreads();
 
   // 2. a warp a slice of 32 neurons: the sliced lists, then the rows.
-  //    The warp's slices are warp, warp + 32, ...; lane i loads the
+  //    The warp's slices are warp, warp + NW, ...; lane i loads the
   //    bounds of the i-th of the next 32 at once.
   const int n_slices = (m + 31) >> 5;
-  for (int g = warp; g < n_slices; g += COO_WARPS * 32) {   // warp-uniform
+  for (int g = warp; g < n_slices; g += NW * 32) {   // warp-uniform
     int a_l = 0, e_l = 0;
-    if (g + lane * COO_WARPS < n_slices) {
-      a_l = min(max(sell_start[g + lane * COO_WARPS], 0), E);
-      e_l = min(max(sell_start[g + lane * COO_WARPS + 1], a_l), E);
+    if (g + lane * NW < n_slices) {
+      a_l = min(max(sell_start[g + lane * NW], 0), E);
+      e_l = min(max(sell_start[g + lane * NW + 1], a_l), E);
     }
-    const int n_here = min(32, (n_slices - g + COO_WARPS - 1) / COO_WARPS);
+    const int n_here = min(32, (n_slices - g + NW - 1) / NW);
     for (int i = 0; i < n_here; ++i) {
-      const int sl = g + i * COO_WARPS;
+      const int sl = g + i * NW;
       const int a = __shfl_sync(FULL, a_l, i);
       const int w = (__shfl_sync(FULL, e_l, i) - a) >> 5;
       const int* src = sell_src + a + lane;
@@ -484,9 +473,9 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
         for (int u = 0; u < 4; ++u) x[u] = src[(k + u) * 32];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          add_rows<BT>(stage, in_range(x[u], m), acc);
+          add_rows<BT>(stage, in_range(x[u], Z), acc);
       }
-      for (; k < w; ++k) add_rows<BT>(stage, in_range(src[k * 32], m), acc);
+      for (; k < w; ++k) add_rows<BT>(stage, in_range(src[k * 32], Z), acc);
 
       if (j >= m) continue;
       Digits dg(t0, sf, c, T);
@@ -519,9 +508,10 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
       }
     }
   }
-  __syncthreads();   // every row written: the tail adds onto them
 
-  // 3. the COO tail: chunk i of the hubs' runs (in hub order) to warp i % 32
+  // 3. the COO tail: chunk i of the hubs' runs (in hub order) to warp
+  //    i % NW, after every row is written (the tail adds onto them)
+  if (Hn > 0) __syncthreads();                 // block-uniform
   int base = 0;                                // chunks of the hubs before h0
   for (int h0 = 0; h0 < Hn; h0 += 32) {        // warp-uniform
     const int h = h0 + lane;
@@ -539,7 +529,7 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
     }
     const int first = base + incl - n;         // number of h's first chunk
     base += __shfl_sync(FULL, incl, 31);
-    const int c0 = ((warp - first) % COO_WARPS + COO_WARPS) % COO_WARPS;
+    const int c0 = ((warp - first) % NW + NW) % NW;
     unsigned mine = __ballot_sync(FULL, c0 < n);
     while (mine) {
       const int owner = __ffs(mine) - 1;
@@ -549,14 +539,14 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
       const int c = __shfl_sync(FULL, c0, owner);
       const int j = hub_neuron[h0 + owner];
       if ((unsigned)j >= (unsigned)m) continue;
-      for (int e = r0 + c * CHUNK; e < r1; e += COO_WARPS * CHUNK) {
+      for (int e = r0 + c * CHUNK; e < r1; e += NW * CHUNK) {
         unsigned v[BT];
 #pragma unroll
         for (int r = 0; r < BT; ++r) v[r] = 0;
 #pragma unroll
         for (int u = 0; u < CHUNK / 32; ++u) {
           const int x = e + u * 32 + lane;
-          if (x < r1) add_rows<BT>(stage, in_range(coo_src[x], m), v);
+          if (x < r1) add_rows<BT>(stage, in_range(coo_src[x], Z), v);
         }
         const int r = fold_rows<BT>(v, lane);
         if ((lane & (32 / BT - 1)) == 0 && r < nt) {
@@ -573,7 +563,7 @@ snp_step_sparse_coo_kernel(const int* __restrict__ configs,
     const int t = t0 + tid;
     const int o = out_neuron[0];
     emis[(size_t)b * T + t] =
-        (int)stage[((unsigned)o < (unsigned)m ? o : m) * BT + tid];
+        (int)stage[((unsigned)o < (unsigned)m ? o : Z) * BT + tid];
     valid[(size_t)b * T + t] = (float)t < psi[b];
   }
 }
@@ -588,14 +578,19 @@ int rows_per_block(int w, int T) {
   return bt;
 }
 
-// Rows per block of the hybrid kernel: the largest power of two <= 8 (and
-// <= T) whose stage of m + 1 entries a row fits the opt-in limit.
-int coo_rows_per_block(int m, int T) {
+// Rows per block of the sliced-list kernel: the largest power of two <= 8
+// (and <= T) whose stage of w + 1 entries a row (w = m + H) fits the
+// opt-in limit.
+int sell_rows_per_block(int w, int T) {
   int bt = BT_MAX;
-  while (bt > 1 && (bt > T || (size_t)bt * (m + 1) * 2 > SMEM_LIMIT))
+  while (bt > 1 && (bt > T || (size_t)bt * (w + 1) * 2 > SMEM_LIMIT))
     bt >>= 1;
   return bt;
 }
+
+// Threads a block of the sliced-list kernel for m (local) neurons: 1024
+// once each of the 32 warps has a slice of 32 neurons, else 256.
+int sell_threads(int m) { return m >= 32 * 32 ? 1024 : 256; }
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
@@ -604,56 +599,74 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool HAS_DELAY, bool HAS_HALO>
-int launch(const void* configs, const void* stride, const void* choices,
-           const void* psi, const void* tab, const void* in_idx,
-           const void* out_neuron, const void* dtab, const void* cd,
-           const void* pd, const void* halo, void* out, void* valid,
-           void* emis, int B, int T, int m, int R, int Kin, int H,
-           cudaStream_t stream) {
-  const int bt = rows_per_block(m + H + 1, T);
+int launch_ell(const void* configs, const void* stride, const void* choices,
+               const void* psi, const void* tab, const void* in_idx,
+               const void* out_neuron, void* out, void* valid, void* emis,
+               int B, int T, int m, int R, int Kin, cudaStream_t stream) {
+  const int bt = rows_per_block(m + 1, T);
   const int t_tiles = (T + bt - 1) / bt;
-  const size_t smem = (size_t)bt * (m + H + 1) * 2;
+  const size_t smem = (size_t)bt * (m + 1) * 2;
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)B * t_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int e = set_smem(snp_step_sparse_kernel<HAS_DELAY, HAS_HALO>, smem);
+  const int e = set_smem(snp_step_sparse_kernel, smem);
   if (e != 0) return e;
-  snp_step_sparse_kernel<HAS_DELAY, HAS_HALO>
-      <<<(unsigned)blocks, THREADS, smem, stream>>>(
-          (const int*)configs, (const float*)stride, (const int*)choices,
-          (const float*)psi, (const int*)tab, (const int*)in_idx,
-          (const int*)out_neuron, (const int*)dtab, (const int*)cd,
-          (const int*)pd, (const int*)halo, (int*)out,
-          (unsigned char*)valid, (int*)emis, T, m, R, Kin, H, bt, t_tiles);
+  snp_step_sparse_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      (const int*)configs, (const float*)stride, (const int*)choices,
+      (const float*)psi, (const int*)tab, (const int*)in_idx,
+      (const int*)out_neuron, (int*)out, (unsigned char*)valid, (int*)emis,
+      T, m, R, Kin, bt, t_tiles);
   return (int)cudaGetLastError();
 }
 
-template <int BT, bool HAS_DELAY>
-int launch_coo(const void* configs, const void* stride, const void* choices,
-               const void* psi, const void* tab, const void* sell_start,
-               const void* sell_src, const void* out_neuron,
-               const void* coo_src, const void* coo_bounds,
-               const void* hub_neuron, const void* dtab, const void* cd,
-               const void* pd, void* out, void* valid, void* emis, int B,
-               int T, int m, int R, int E, int Ec, int Hn,
-               cudaStream_t stream) {
-  const int t_tiles = (T + BT - 1) / BT;
-  const size_t smem = (size_t)BT * (m + 1) * 2;
+// One call of the sliced-list kernel (H = 0 but for a shard, Hn = 0 but
+// for a hybrid encoding).
+struct SellCall {
+  const void *configs, *stride, *choices, *psi, *tab, *sell_start,
+      *sell_src, *out_neuron, *coo_src, *coo_bounds, *hub_neuron, *dtab, *cd,
+      *pd, *halo;
+  void *out, *valid, *emis;
+  int B, T, m, R, E, Ec, Hn, H;
+  cudaStream_t stream;
+};
+
+template <int BT, int NT, bool HAS_DELAY, bool HAS_HALO>
+int launch_sell(const SellCall& c) {
+  const int t_tiles = (c.T + BT - 1) / BT;
+  const size_t smem = (size_t)BT * (c.m + c.H + 1) * 2;
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)B * t_tiles;
+  const long long blocks = (long long)c.B * t_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int e = set_smem(snp_step_sparse_coo_kernel<BT, HAS_DELAY>, smem);
+  const int e = set_smem(
+      snp_step_sparse_sell_kernel<BT, NT, HAS_DELAY, HAS_HALO>, smem);
   if (e != 0) return e;
-  snp_step_sparse_coo_kernel<BT, HAS_DELAY>
-      <<<(unsigned)blocks, COO_THREADS, smem, stream>>>(
-          (const int*)configs, (const float*)stride, (const int*)choices,
-          (const float*)psi, (const int*)tab, (const int*)sell_start,
-          (const int*)sell_src, (const int*)out_neuron, (const int*)coo_src,
-          (const int*)coo_bounds, (const int*)hub_neuron, (const int*)dtab,
-          (const int*)cd, (const int*)pd, (int*)out, (unsigned char*)valid,
-          (int*)emis, T, m, R, E, Ec, Hn, t_tiles);
+  snp_step_sparse_sell_kernel<BT, NT, HAS_DELAY, HAS_HALO>
+      <<<(unsigned)blocks, NT, smem, c.stream>>>(
+      (const int*)c.configs, (const float*)c.stride, (const int*)c.choices,
+      (const float*)c.psi, (const int*)c.tab, (const int*)c.sell_start,
+      (const int*)c.sell_src, (const int*)c.out_neuron,
+      (const int*)c.coo_src, (const int*)c.coo_bounds,
+      (const int*)c.hub_neuron, (const int*)c.dtab, (const int*)c.cd,
+      (const int*)c.pd, (const int*)c.halo, (int*)c.out,
+      (unsigned char*)c.valid, (int*)c.emis, c.T, c.m, c.R, c.E, c.Ec, c.Hn,
+      c.H, t_tiles);
   return (int)cudaGetLastError();
+}
+
+template <int NT, bool HAS_DELAY, bool HAS_HALO>
+int launch_sell_rows(const SellCall& c, int bt) {
+  if (bt == 8) return launch_sell<8, NT, HAS_DELAY, HAS_HALO>(c);
+  if (bt == 4) return launch_sell<4, NT, HAS_DELAY, HAS_HALO>(c);
+  if (bt == 2) return launch_sell<2, NT, HAS_DELAY, HAS_HALO>(c);
+  return launch_sell<1, NT, HAS_DELAY, HAS_HALO>(c);
+}
+
+template <bool HAS_DELAY, bool HAS_HALO>
+int dispatch_sell(const SellCall& c) {
+  const int bt = sell_rows_per_block(c.m + c.H, c.T);
+  if (sell_threads(c.m) == 256)
+    return launch_sell_rows<256, HAS_DELAY, HAS_HALO>(c, bt);
+  return launch_sell_rows<1024, HAS_DELAY, HAS_HALO>(c, bt);
 }
 
 }  // namespace
@@ -662,18 +675,28 @@ int launch_coo(const void* configs, const void* stride, const void* choices,
 // (one uint16 row of m + 1 entries in 227 KB).
 extern "C" int snp_step_sparse_max_neurons() { return SMEM_LIMIT / 2 - 1; }
 
+// The sliced-list kernel's block shape: rows a block for a system of
+// w = m + H neurons (and halo slots) at T branches, threads a block for
+// m (local) neurons.
+extern "C" int snp_step_sparse_sell_rows(int w, int T) {
+  return sell_rows_per_block(w, T);
+}
+extern "C" int snp_step_sparse_sell_threads(int m) {
+  return sell_threads(m);
+}
+
 // C entry point: launches one kernel on `stream` (PyTorch's current
 // stream), allocates nothing, and returns cudaGetLastError() (0 on
 // success).  All arrays are contiguous int32 unless noted: configs and
 // choices (B,m), stride (B,m) float32, psi (B,) float32, tab (B,m,R),
-// out_neuron (1,).  With has_coo == 0: in_idx (m,Kin).  With has_coo != 0
-// (the hybrid kernel; in_idx unused): sell_start (ceil(m/32)+1,) and
-// sell_src (E,), the sliced lists, coo_src (Ec,), coo_bounds (Hn+1,) and
-// hub_neuron (Hn,).  With has_delay != 0 also dtab (B,m,R), cd and pd
-// (B,m); with has_halo != 0 (and neither of the other two) halo (B,T,H),
-// in_idx indexing [local | halo | zero] and out_neuron the zero slot
-// m + H.  Outputs: out (B,T,m), or (B,T,3m) with has_delay, valid (B,T)
-// bool, emis (B,T).
+// out_neuron (1,).  With has_coo, has_delay and has_halo all 0 (B2, the
+// ELL kernel): in_idx (m,Kin).  Otherwise (the sliced-list kernel; in_idx
+// unused) sell_start (ceil(m/32)+1,) and sell_src (E,), the sliced lists;
+// with has_coo also coo_src (Ec,), coo_bounds (Hn+1,) and hub_neuron
+// (Hn,); with has_delay also dtab (B,m,R), cd and pd (B,m); with has_halo
+// (and neither of the other two) halo (B,T,H), the lists indexing [local
+// | halo | zero] and out_neuron the zero slot m + H.  Outputs: out
+// (B,T,m), or (B,T,3m) with has_delay, valid (B,T) bool, emis (B,T).
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
                                const void* tab, const void* in_idx,
@@ -690,31 +713,14 @@ extern "C" int snp_step_sparse(const void* configs, const void* stride,
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (has_halo && (has_coo || has_delay)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (has_coo) {
-#define SNP_COO(BT, DELAY)                                                   \
-  return launch_coo<BT, DELAY>(configs, stride, choices, psi, tab,          \
-                               sell_start, sell_src, out_neuron, coo_src,   \
-                               coo_bounds, hub_neuron, dtab, cd, pd, out,   \
-                               valid, emis, B, T, m, R, E, Ec, Hn, s)
-    const int bt = coo_rows_per_block(m, T);
-    if (has_delay) {
-      if (bt == 8) SNP_COO(8, true);
-      if (bt == 4) SNP_COO(4, true);
-      if (bt == 2) SNP_COO(2, true);
-      SNP_COO(1, true);
-    }
-    if (bt == 8) SNP_COO(8, false);
-    if (bt == 4) SNP_COO(4, false);
-    if (bt == 2) SNP_COO(2, false);
-    SNP_COO(1, false);
-#undef SNP_COO
-  }
-#define SNP_LAUNCH(DELAY, HALO)                                              \
-  return launch<DELAY, HALO>(configs, stride, choices, psi, tab, in_idx,    \
-                             out_neuron, dtab, cd, pd, halo, out, valid,    \
-                             emis, B, T, m, R, Kin, HALO ? H : 0, s)
-  if (has_halo) SNP_LAUNCH(false, true);
-  if (has_delay) SNP_LAUNCH(true, false);
-  SNP_LAUNCH(false, false);
-#undef SNP_LAUNCH
+  if (!has_coo && !has_delay && !has_halo)
+    return launch_ell(configs, stride, choices, psi, tab, in_idx, out_neuron,
+                      out, valid, emis, B, T, m, R, Kin, s);
+  const SellCall c{configs, stride, choices, psi, tab, sell_start, sell_src,
+                   out_neuron, coo_src, coo_bounds, hub_neuron, dtab, cd, pd,
+                   halo, out, valid, emis, B, T, m, R, E,
+                   has_coo ? Ec : 0, has_coo ? Hn : 0, has_halo ? H : 0, s};
+  if (has_halo) return dispatch_sell<false, true>(c);
+  if (has_delay) return dispatch_sell<true, false>(c);
+  return dispatch_sell<false, false>(c);
 }

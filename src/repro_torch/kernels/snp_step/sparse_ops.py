@@ -5,12 +5,13 @@ bookkeeping (:func:`~.sparse_ref.kernel_inputs`), then
 
 * on a CPU tensor the plain version
   (:func:`~.sparse_ref.snp_step_sparse_ref`);
-* on a CUDA tensor ``csrc/snp_step_sparse.cu`` — its ELL kernel (B2), or
-  its hybrid kernel (B3) for a hybrid encoding, which walks the
-  encoding's sliced in-lists and hub neurons in place of ``in_idx`` and
-  ``hub_slot`` (an encoding without them is refused); for a delayed
-  encoding the same kernels with the delay stage (B5) — or it raises.
-  There is no fallback.
+* on a CUDA tensor ``csrc/snp_step_sparse.cu`` — its ELL kernel (B2) for
+  a delay-free pure-ELL encoding, which reads ``in_idx``; else its
+  sliced-list kernel, which walks the encoding's sliced in-lists (and a
+  hybrid encoding's hub neurons) in place of ``in_idx`` and ``hub_slot``
+  (an encoding without them is refused): B3 for a hybrid encoding, B5
+  with the delay stage for a delayed one — or it raises.  There is no
+  fallback.
 
 and masks ``valid`` with ``alive``.  Its outputs equal
 :func:`~repro_torch.core.semantics.sparse_next_configs` (or, for a
@@ -24,15 +25,16 @@ the argument).
 
 :func:`snp_step_sparse_shard` steps one neuron shard of the sharded
 frontier (its bookkeeping and halo come from the sharded explore,
-:mod:`repro_torch.core.distributed`): the plain version with its
-``halo`` on a CPU tensor, the kernel's shard body (B7) on a CUDA tensor.
+:mod:`repro_torch.core.distributed`): the plain version over the shard's
+``in_idx`` on a CPU tensor, the sliced-list kernel's shard body (B7) over
+the shard's sliced lists on a CUDA tensor.
 
 Counters (plain integers, reset by callers that measure a run):
-``kernel_launches`` counts launches of the kernel, ``coo_launches`` those
-of them that ran the COO stage, ``delay_launches`` those that ran the
-delay stage, ``delay_coo_launches`` those that ran both and
-``halo_launches`` those of the shard body; ``plain_calls`` counts calls
-of the plain version.  :func:`body_counts` splits the launches by body.
+``kernel_launches`` counts every launch, and one counter a body counts
+that body's: ``ell_launches`` (B2), ``coo_launches`` (B3),
+``ell_delay_launches`` and ``coo_delay_launches`` (B5's ELL and COO
+bodies), ``halo_launches`` (B7); ``plain_calls`` counts calls of the
+plain version.  :func:`body_counts` reads the five.
 """
 
 from __future__ import annotations
@@ -47,10 +49,11 @@ from ._build import load_library
 from .sparse_ref import kernel_inputs, snp_step_sparse_ref, sparse_step
 
 __all__ = ["snp_step_sparse", "snp_step_sparse_cuda",
-           "snp_step_sparse_shard", "load_kernel", "max_neurons", "SOURCE",
-           "MAX_BRANCHES", "kernel_launches", "coo_launches",
-           "delay_launches", "delay_coo_launches", "halo_launches",
-           "plain_calls", "body_counts"]
+           "snp_step_sparse_shard", "load_kernel", "max_neurons",
+           "sell_block_shape", "SOURCE", "MAX_BRANCHES", "kernel_launches",
+           "ell_launches", "coo_launches", "ell_delay_launches",
+           "coo_delay_launches", "halo_launches", "plain_calls",
+           "body_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
 
@@ -59,9 +62,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
 MAX_BRANCHES = 1 << 23
 
 kernel_launches = 0
+ell_launches = 0
 coo_launches = 0
-delay_launches = 0
-delay_coo_launches = 0
+ell_delay_launches = 0
+coo_delay_launches = 0
 halo_launches = 0
 plain_calls = 0
 
@@ -70,12 +74,17 @@ def body_counts():
     """Launches per body since the counters were last set to 0: ``ell``
     (B2), ``coo`` (B3), ``ell_delay`` and ``coo_delay`` (B5), ``halo``
     (B7)."""
-    return {"ell": kernel_launches - coo_launches - delay_launches
-            + delay_coo_launches - halo_launches,
-            "coo": coo_launches - delay_coo_launches,
-            "ell_delay": delay_launches - delay_coo_launches,
-            "coo_delay": delay_coo_launches,
+    return {"ell": ell_launches, "coo": coo_launches,
+            "ell_delay": ell_delay_launches, "coo_delay": coo_delay_launches,
             "halo": halo_launches}
+
+
+def _count(body: str) -> None:
+    """One launch of ``body`` (a key of :func:`body_counts`): the total
+    and that body's counter."""
+    global kernel_launches
+    kernel_launches += 1
+    globals()[f"{body}_launches"] += 1
 
 
 def load_kernel():
@@ -87,6 +96,10 @@ def load_kernel():
     fn.restype = ctypes.c_int
     lib.snp_step_sparse_max_neurons.argtypes = []
     lib.snp_step_sparse_max_neurons.restype = ctypes.c_int
+    lib.snp_step_sparse_sell_rows.argtypes = [ctypes.c_int] * 2
+    lib.snp_step_sparse_sell_threads.argtypes = [ctypes.c_int]
+    lib.snp_step_sparse_sell_rows.restype = ctypes.c_int
+    lib.snp_step_sparse_sell_threads.restype = ctypes.c_int
     return lib
 
 
@@ -95,6 +108,15 @@ def max_neurons() -> int:
     slots) the kernel takes: one row of fired produce must fit a block's
     shared memory."""
     return int(load_kernel().snp_step_sparse_max_neurons())
+
+
+def sell_block_shape(m: int, halo: int, max_branches: int):
+    """``(rows, threads)`` a block of the sliced-list kernel takes for a
+    system of ``m`` neurons (a shard's local ones) and ``halo`` halo slots
+    at ``max_branches`` branches, as the library chooses them."""
+    lib = load_kernel()
+    return (int(lib.snp_step_sparse_sell_rows(m + halo, max_branches)),
+            int(lib.snp_step_sparse_sell_threads(m)))
 
 
 def _check_branches(T: int) -> None:
@@ -123,19 +145,18 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
                          max_branches: int):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid
     (B,T) bool, emis (B,T) int32)``, the plain version's contract.
-    ``in_idx`` (m, Kin) is the ELL and shard bodies' in-adjacency.
-    ``coo_src``/``coo_bounds``/``hub_neuron`` (all or none) select the COO
-    body (B3, B5 COO), which walks the sliced lists ``sell_start``/
-    ``sell_src`` in place of ``in_idx`` (then ``None``) and ``hub_neuron``
-    in place of the plain version's ``hub_slot``
-    (``sparse_ref.kernel_inputs(..., lists=True)``).
-    ``dtab``/``cd``/``pd`` (all or none) select the delay
-    stage, whose rows are ``3m`` wide, ``halo`` (B, T, H) the shard body
-    (with neither of the other two; its entries are fired produce, below
-    2^16).  The shapes are checked here; list entries out of range are
-    skipped by the kernel (no host read)."""
-    global kernel_launches, coo_launches, delay_launches, delay_coo_launches
-    global halo_launches
+    ``in_idx`` (m, Kin) is the ELL body's (B2) in-adjacency, and the only
+    body it serves.  Every other body runs the sliced-list kernel, which
+    walks the sliced lists ``sell_start``/``sell_src`` in place of
+    ``in_idx`` (then ``None``; ``sparse_ref.kernel_inputs(...,
+    lists=True)``): ``coo_src``/``coo_bounds``/``hub_neuron`` (all or
+    none) select the COO tail (B3, B5 COO; ``hub_neuron`` in place of the
+    plain version's ``hub_slot``), ``dtab``/``cd``/``pd`` (all or none)
+    the delay stage (B5), whose rows are ``3m`` wide, ``halo`` (B, T, H)
+    the shard body (B7; with neither of the other two, its lists indexing
+    ``[local | halo | zero]``, its entries fired produce, below 2^16).
+    The shapes are checked here; list entries out of range are read as
+    the zero slot by the kernel (no host read)."""
     dev = configs.device
     B, m = configs.shape
     R = tab.shape[-1]
@@ -151,14 +172,15 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
     if has_halo and (has_coo or has_delay):
         raise ValueError("the shard body (halo) has neither a COO nor a "
                          "delay stage")
-    if has_coo != (sell_start is not None) or has_coo != (
-            sell_src is not None) or has_coo != (in_idx is None):
+    sliced = has_coo or has_delay or has_halo
+    if sliced != (sell_start is not None) or sliced != (
+            sell_src is not None) or sliced != (in_idx is None):
         raise ValueError(
-            "the COO body walks the sliced lists (sell_start, sell_src) in "
-            "place of in_idx" if has_coo else
-            "the ELL and shard bodies walk in_idx; the sliced lists "
-            "(sell_start, sell_src) come with the COO tail (coo_src, "
-            "coo_bounds, hub_neuron)")
+            "the COO, delay and shard bodies walk the sliced lists "
+            "(sell_start, sell_src) in place of in_idx" if sliced else
+            "the ELL body (B2) walks in_idx; the sliced lists (sell_start, "
+            "sell_src) come with the COO tail (coo_src, coo_bounds, "
+            "hub_neuron), the delay stage or the halo")
     Hn = coo_bounds.shape[0] - 1 if has_coo else 0
     H = halo.shape[-1] if has_halo else 0
     i32, f32 = torch.int32, torch.float32
@@ -167,16 +189,17 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
               ("choices", choices, i32, (B, m)), ("psi", psi, f32, (B,)),
               ("tab", tab, i32, (B, m, R)),
               ("out_neuron", out_neuron, i32, (1,))]
-    if has_coo:
+    if sliced:
         Kin, E = 0, sell_src.shape[0]
         checks += [("sell_start", sell_start, i32, (-(-m // 32) + 1,)),
-                   ("sell_src", sell_src, i32, (E,)),
-                   ("coo_src", coo_src, i32, (coo_src.shape[0],)),
-                   ("coo_bounds", coo_bounds, i32, (Hn + 1,)),
-                   ("hub_neuron", hub_neuron, i32, (Hn,))]
+                   ("sell_src", sell_src, i32, (E,))]
     else:
         Kin, E = in_idx.shape[-1], 0
         checks += [("in_idx", in_idx, i32, (m, Kin))]
+    if has_coo:
+        checks += [("coo_src", coo_src, i32, (coo_src.shape[0],)),
+                   ("coo_bounds", coo_bounds, i32, (Hn + 1,)),
+                   ("hub_neuron", hub_neuron, i32, (Hn,))]
     if has_delay:
         checks += [("dtab", dtab, i32, (B, m, R)), ("cd", cd, i32, (B, m)),
                    ("pd", pd, i32, (B, m))]
@@ -211,18 +234,15 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
                                  stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_sparse launch failed: CUDA error {rc}")
-    kernel_launches += 1
-    coo_launches += int(has_coo)
-    delay_launches += int(has_delay)
-    delay_coo_launches += int(has_coo and has_delay)
-    halo_launches += int(has_halo)
+    _count("halo" if has_halo else ("coo" if has_coo else "ell")
+           + ("_delay" if has_delay else ""))
     return out, valid, emis
 
 
 def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
                           choices: torch.Tensor, psi: torch.Tensor,
                           tab: torch.Tensor, in_idx: torch.Tensor,
-                          halo: torch.Tensor, *,
+                          halo: torch.Tensor, *, sell=None,
                           max_branches: int) -> torch.Tensor:
     """One shard's candidate slices ``(B, T, mloc)``: the local slice
     ``configs`` minus the fired consume plus the produce gathered over
@@ -230,21 +250,29 @@ def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
     cross-shard float32 ``stride``, the local ``choices`` and packed table
     ``tab`` (B, mloc, R), and ``halo`` (B, T, S·Hmax) the exchanged remote
     produce.  The emission index is the zero slot (the sharded explore
-    judges emissions).  The plain version on a CPU tensor, B7 on a CUDA tensor."""
+    judges emissions).  The plain version over ``in_idx`` on a CPU
+    tensor; B7 on a CUDA tensor, over ``sell = (sell_start, sell_src)``,
+    the shard's sliced lists of ``in_idx`` (``ShardArrays``'; required
+    there)."""
     global plain_calls
     _check_branches(max_branches)
     mloc, H = configs.shape[-1], halo.shape[-1]
     zero = torch.full((1,), mloc + H, dtype=torch.int32,
                       device=configs.device)
     args = (configs.contiguous(), stride.contiguous(), choices.contiguous(),
-            psi.contiguous(), tab.contiguous(), in_idx, zero)
+            psi.contiguous(), tab.contiguous())
     if configs.device.type == "cpu":
         plain_calls += 1
-        launch = snp_step_sparse_ref
-    else:
-        launch = snp_step_sparse_cuda
-    return launch(*args, halo=halo.contiguous(),
-                  max_branches=max_branches)[0]
+        return snp_step_sparse_ref(*args, in_idx, zero,
+                                   halo=halo.contiguous(),
+                                   max_branches=max_branches)[0]
+    if sell is None:
+        raise ValueError("B7 walks the shard's sliced lists (sell_start, "
+                         "sell_src); this shard carries none (a hand-built "
+                         "lowering)")
+    return snp_step_sparse_cuda(*args, None, zero, halo=halo.contiguous(),
+                                sell_start=sell[0], sell_src=sell[1],
+                                max_branches=max_branches)[0]
 
 
 def snp_step_sparse(configs: torch.Tensor, comp: CompiledSparseSNP, *,

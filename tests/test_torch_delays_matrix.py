@@ -35,15 +35,16 @@ def _ref_fields(comp):
             for k, v in comp._asdict().items()}
 
 
-# The sparse encoding's own fields (hybrid only): the sliced in-lists and
-# hub neurons the kernel's COO body reads (tests/test_torch_sparse_matrix.py
-# holds them against in_idx and hub_slot).
+# The sparse encoding's own fields: the sliced in-lists (every encoding)
+# and hub neurons (hybrid only) the sliced-list kernel reads
+# (tests/test_torch_sparse_matrix.py holds them against in_idx and
+# hub_slot).
 SLICED = ("sell_start", "sell_src", "hub_neuron")
 
 
 def _assert_sliced_lists_present(port):
-    assert all((getattr(port, f) is not None) == port.is_hybrid
-               for f in SLICED)
+    assert port.sell_start is not None and port.sell_src is not None
+    assert (port.hub_neuron is not None) == port.is_hybrid
 
 
 def _assert_fields_equal(port, ref, skip=()):

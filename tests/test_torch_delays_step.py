@@ -155,10 +155,10 @@ def test_sparse_wrapper_matches_sparse_pallas_interpret(name, h):
     system, T = _delayed(name)
     pc, jc = _sparse(system, h)
     states = _states(system, 5, seed=17)
-    before = (sparse_ops.plain_calls, sparse_ops.delay_launches)
+    before = (sparse_ops.plain_calls, sparse_ops.kernel_launches)
     port = sparse_ops.snp_step_sparse(torch.from_numpy(states), pc,
                                       max_branches=T)
-    assert (sparse_ops.plain_calls, sparse_ops.delay_launches) == \
+    assert (sparse_ops.plain_calls, sparse_ops.kernel_launches) == \
         (before[0] + 1, before[1])
     ref = jsparse(jnp.asarray(states), jc, max_branches=T, block_b=2,
                   block_t=8, interpret=True)
@@ -264,13 +264,49 @@ def test_kernel_launchers_refuse_cpu_tensors():
     assert ops.delay_launches == launches
     sc, _ = _sparse(system, 1)
     args, extra, _ = kernel_inputs(states, sc, lists=True)
-    launches = sparse_ops.delay_launches
+    launches = sparse_ops.kernel_launches
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(*args, **extra, max_branches=T)
     with pytest.raises(ValueError, match="come together"):
         sparse_ops.snp_step_sparse_cuda(*args, dtab=extra["dtab"],
                                         max_branches=T)
-    assert sparse_ops.delay_launches == launches
+    assert sparse_ops.kernel_launches == launches
+
+
+@pytest.mark.parametrize("h", [None, 1], ids=["ell", "h1"])
+def test_delayed_bodies_walk_the_sliced_lists(h):
+    """Both of B5's bodies run the sliced-list kernel: on the card path
+    (``kernel_inputs(lists=True)``) ``in_idx`` is ``None`` and the
+    encoding's sliced lists take its place (with ``hub_neuron`` for a
+    hybrid one), the rest equal to the plain version's inputs; the
+    launcher refuses ``in_idx`` beside the delay stage and, given the
+    lists on CPU tensors, meets the device check; an encoding without the
+    lists is refused there, while the plain wrapper still steps it."""
+    system, T = _delayed("power-law-40")
+    sc, _ = _sparse(system, h)
+    states = torch.from_numpy(_states(system, 3, seed=5))
+    args, extra, _ = kernel_inputs(states, sc)
+    kargs, kextra, _ = kernel_inputs(states, sc, lists=True)
+    assert kargs[5] is None and args[5] is sc.in_idx
+    assert all(torch.equal(a, b) for i, (a, b) in enumerate(zip(args, kargs))
+               if i != 5)
+    assert kextra["sell_start"] is sc.sell_start
+    assert kextra["sell_src"] is sc.sell_src
+    lists = {"sell_start", "sell_src"} | ({"hub_neuron"} if h else set())
+    assert kextra.keys() - lists == extra.keys() - {"hub_slot"}
+    launches = sparse_ops.kernel_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_ops.snp_step_sparse_cuda(*kargs, **kextra, max_branches=T)
+    in_idx_args = kargs[:5] + (sc.in_idx,) + kargs[6:]
+    with pytest.raises(ValueError, match="sliced lists"):
+        sparse_ops.snp_step_sparse_cuda(*in_idx_args, **kextra,
+                                        max_branches=T)
+    assert sparse_ops.kernel_launches == launches
+    bare = sc._replace(sell_start=None)
+    with pytest.raises(ValueError, match="sell_start/sell_src"):
+        kernel_inputs(states, bare, lists=True)
+    _assert_equal(sparse_ops.snp_step_sparse(states, bare, max_branches=T),
+                  sparse_ops.snp_step_sparse(states, sc, max_branches=T))
 
 
 def test_dense_delayed_step_needs_the_in_neighbour_lists():

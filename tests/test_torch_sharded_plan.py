@@ -31,6 +31,10 @@ SYSTEMS = {
 }
 SHARDS = (1, 2, 3, 4, 8)
 PARTITIONS = ("contiguous", "degree")
+# The port's own ShardArrays fields (B7's sliced lists): no reference
+# field, checked against in_idx instead.
+OWN = ("sell_start", "sell_src")
+REF_FIELDS = tuple(f for f in P.ShardArrays._fields if f not in OWN)
 
 
 def _port(system):
@@ -68,7 +72,7 @@ def test_compile_sharded_matches_reference(name, S, partition):
     ref = J.lower_shard_dense(J.compile_sharded(system, jp))
     got = P.lower_shard_dense(P.compile_sharded(_port(system), pp,
                                                 device=CPU))
-    _assert_arrays(got.arrays, ref.arrays, P.ShardArrays._fields)
+    _assert_arrays(got.arrays, ref.arrays, REF_FIELDS)
     assert (got.num_neurons, got.num_rules, got.shard_size, got.num_shards,
             got.halo_width) == (ref.num_neurons, ref.num_rules,
                                 ref.shard_size, ref.num_shards,
@@ -184,7 +188,7 @@ def test_backends_lower_sharded_plans():
         assert "sharded" not in be.supported_encodings(semantics="delays")
         comp = be.compile(system, plan, device=CPU)
         assert P.is_sharded(comp)
-        _assert_arrays(comp.arrays, want.arrays, P.ShardArrays._fields)
+        _assert_arrays(comp.arrays, want.arrays, REF_FIELDS)
         assert (comp.dense is not None) == (name == "cuda")
         with pytest.raises(ValueError, match="sharded"):
             be.compile(system, P.SystemPlan(num_shards=2,
@@ -217,7 +221,7 @@ def test_sharded_from_arrays_carries_the_reference_lowering(dense):
         shard_size=ref.shard_size, num_shards=ref.num_shards,
         halo_width=ref.halo_width, partition="degree",
         occupancy=ref.occupancy, device=CPU)
-    _assert_arrays(got.arrays, ref.arrays, P.ShardArrays._fields)
+    _assert_arrays(got.arrays, ref.arrays, REF_FIELDS)
     assert got.arrays.covering.dtype == torch.bool
     if dense:
         _assert_arrays(got.dense, ref.dense, ("M_local", "hadj"))
@@ -230,3 +234,59 @@ def test_sharded_from_arrays_carries_the_reference_lowering(dense):
              "bogus": np.zeros(1)},
             num_neurons=1, num_rules=1, shard_size=1, num_shards=4,
             halo_width=1, device=CPU)
+
+
+def _assert_shard_lists(arrays, zero):
+    """Every shard's ``sell_start``/``sell_src`` hold its extended-space
+    ``in_idx`` rows in slices of 32 local neurons (entry k of neuron 32s +
+    l at ``sell_start[d, s] + 32k + l``), each slice as wide as its
+    longest row, padded with the zero slot, and ``sell_src`` padded with
+    it past the shard's end."""
+    in_idx = arrays.in_idx.numpy()
+    start, src = arrays.sell_start.numpy(), arrays.sell_src.numpy()
+    S, mloc, _ = in_idx.shape
+    assert start.dtype == src.dtype == np.int32
+    assert start.shape == (S, -(-mloc // 32) + 1) and src.shape[0] == S
+    assert src.shape[1] == max(1, int(start[:, -1].max()))
+    for d in range(S):
+        assert start[d, 0] == 0 and (np.diff(start[d]) % 32 == 0).all()
+        assert (src[d, start[d, -1]:] == zero).all()
+        for s in range(start.shape[1] - 1):
+            block = src[d, start[d, s]:start[d, s + 1]].reshape(-1, 32).T
+            rows = in_idx[d, 32 * s:32 * s + 32]
+            real = rows != zero
+            assert (real.sum(1) == (real * np.arange(1, real.shape[1] + 1)
+                                    ).max(1)).all()   # entries come first
+            n = real.sum(1)
+            assert block.shape[1] == (n.max() if n.size else 0)
+            for lane, row in enumerate(rows):
+                np.testing.assert_array_equal(block[lane, :n[lane]],
+                                              row[:n[lane]])
+                assert (block[lane, n[lane]:] == zero).all()
+            assert (block[rows.shape[0]:] == zero).all()   # lanes past mloc
+
+
+@pytest.mark.parametrize("partition", PARTITIONS)
+@pytest.mark.parametrize("S", SHARDS)
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_shard_sliced_lists_hold_in_idx(name, S, partition):
+    """B7's per-shard sliced lists match each shard's ``in_idx`` in the
+    extended space ``[local | halo | zero]``, padded with the zero slot
+    ``mloc + S·Hmax`` (``paper_pi`` over 8 shards: empty shards, whose
+    lists are all padding); ``sharded_from_arrays`` of the reference's
+    lowering derives the same lists."""
+    jp, pp = _plans(name, S, partition)
+    system = SYSTEMS[name]
+    got = P.compile_sharded(_port(system), pp, device=CPU)
+    zero = got.shard_size + S * got.halo_width
+    _assert_shard_lists(got.arrays, zero)
+    if name == "paper-pi" and S == 8:
+        assert got.num_neurons < S and (got.arrays.sell_start[-1] == 0).all()
+    ref = J.compile_sharded(system, jp)
+    carried = sharded_from_arrays(
+        {k: np.asarray(v) for k, v in ref.arrays._asdict().items()},
+        num_neurons=ref.num_neurons, num_rules=ref.num_rules,
+        shard_size=ref.shard_size, num_shards=ref.num_shards,
+        halo_width=ref.halo_width, partition=partition, device=CPU)
+    _assert_arrays(carried.arrays, got.arrays, OWN)
+

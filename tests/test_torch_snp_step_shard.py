@@ -211,9 +211,10 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(
             _t(sh["configs"]), _t(sh["stride"]), _t(sh["choices"]),
-            _t(sh["psi"]), _t(sh["tab"]), port.arrays.in_idx[0],
+            _t(sh["psi"]), _t(sh["tab"]), None,
             torch.tensor([mloc + H], dtype=torch.int32), halo=_t(sh["halo"]),
-            max_branches=T)
+            sell_start=port.arrays.sell_start[0],
+            sell_src=port.arrays.sell_src[0], max_branches=T)
     assert (ops.shard_launches, sparse_ops.kernel_launches) == launches
 
 
@@ -239,7 +240,16 @@ def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
             port.dense.M_local[0].to("meta"), port.dense.hadj[0].to("meta"),
             meta["halo"], max_branches=T,
             cols=tuple(x.to("meta") for x in port.dense.shard_columns(0)))
+    sell = (port.arrays.sell_start[0].to("meta"),
+            port.arrays.sell_src[0].to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
+        sparse_ops.snp_step_sparse_shard(
+            meta["configs"], meta["stride"], meta["choices"], meta["psi"],
+            meta["tab"], port.arrays.in_idx[0].to("meta"), meta["halo"],
+            sell=sell, max_branches=T)
+    # B7 walks the shard's sliced lists: a shard without them (a
+    # hand-built lowering) is refused before anything launches
+    with pytest.raises(ValueError, match="sliced lists"):
         sparse_ops.snp_step_sparse_shard(
             meta["configs"], meta["stride"], meta["choices"], meta["psi"],
             meta["tab"], port.arrays.in_idx[0].to("meta"), meta["halo"],

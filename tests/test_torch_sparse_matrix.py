@@ -2,8 +2,9 @@
 array (values and dtypes): pure ELL and hybrid (``hub_threshold=1``, 4
 and the auto threshold), on ``EQUIV_SYSTEMS`` and ``power_law(512)``; a
 reference encoding carried across by ``compiled_from_arrays``; the
-port's own sliced in-lists and hub neurons against lists rebuilt from
-``in_idx`` and ``hub_slot``; and the compiler's refusals."""
+port's own sliced in-lists (every encoding) and hub neurons (hybrid)
+against lists rebuilt from ``in_idx`` and ``hub_slot``; and the
+compiler's refusals."""
 
 import dataclasses
 
@@ -29,18 +30,17 @@ def _thresholds(system):
             .resolved_hub_threshold(system)}
 
 
-# The port's own fields, derived from in_idx and hub_slot (hybrid only).
+# The port's own fields, derived from in_idx (every encoding) and
+# hub_slot (hybrid only).
 PORT_FIELDS = ("sell_start", "sell_src", "hub_neuron")
 
 
 def _assert_sliced_lists(port):
     """``sell_start``/``sell_src`` hold ``in_idx``'s rows in slices of 32
     neurons, entry k of neuron 32s + l at ``sell_start[s] + 32k + l``,
-    each slice as wide as its longest row and padded with m; ``hub_neuron``
-    inverts ``hub_slot``.  A pure-ELL encoding carries none of them."""
-    if not port.is_hybrid:
-        assert all(getattr(port, f) is None for f in PORT_FIELDS)
-        return
+    each slice as wide as its longest row and padded with m, on every
+    encoding; ``hub_neuron`` inverts ``hub_slot`` on a hybrid one and is
+    ``None`` on a pure-ELL one and where the COO metadata is missing."""
     in_idx = port.in_idx.numpy()
     m = in_idx.shape[0]
     start, src = port.sell_start.numpy(), port.sell_src.numpy()
@@ -59,6 +59,9 @@ def _assert_sliced_lists(port):
         assert (block[rows.shape[0]:] == m).all()   # lanes past m
         for lane, n in enumerate(lengths):
             assert (block[lane, n:] == m).all()
+    if not port.is_hybrid or port.coo_bounds is None:
+        assert port.hub_neuron is None
+        return
     hubs, slot = port.hub_neuron.numpy(), port.hub_slot.numpy()
     assert hubs.dtype == np.int32 and hubs.shape == (np.size(
         port.coo_bounds.numpy()) - 1,)
@@ -69,10 +72,7 @@ def _assert_sliced_lists(port):
 def _assert_same_encoding(port, ref):
     assert tuple(f for f in port._fields if f not in PORT_FIELDS) == tuple(
         f for f in ref._fields if f != "coo_dst")
-    if port.coo_bounds is not None:
-        _assert_sliced_lists(port)
-    else:                              # a hand-built encoding keeps none
-        assert all(getattr(port, f) is None for f in PORT_FIELDS)
+    _assert_sliced_lists(port)
     # the reference's per-entry tail targets are the port's per-hub runs
     if port.coo_bounds is not None:
         bounds, slot = port.coo_bounds.numpy(), port.hub_slot.numpy()
@@ -132,11 +132,13 @@ def test_reference_sparse_encoding_carries_across(enc):
     carried = compiled_from_arrays(fields, device="cpu")
     assert isinstance(carried, P.CompiledSparseSNP)
     _assert_same_encoding(carried, ref)
-    # a hand-built encoding without the COO metadata keeps it absent
+    # a hand-built encoding without the COO metadata keeps it absent (and
+    # so lacks hub_neuron); its sliced lists are in_idx's
     bare = compiled_from_arrays({**fields, "coo_bounds": None,
                                  "hub_slot": None}, device="cpu")
     assert bare.coo_bounds is None and bare.hub_slot is None
-    assert all(getattr(bare, f) is None for f in PORT_FIELDS)
+    assert bare.hub_neuron is None
+    _assert_sliced_lists(bare)
 
 
 def _empty_slice_system():
@@ -190,6 +192,38 @@ def test_sliced_in_lists_hold_in_idx(case):
     own_start, own_src = P.matrix.sliced_in_lists(port.in_idx.numpy())
     np.testing.assert_array_equal(own_start, start)
     np.testing.assert_array_equal(own_src, port.sell_src.numpy())
+
+
+@pytest.mark.parametrize("semantics", ["no_delays", "delays"])
+@pytest.mark.parametrize("enc", ["ell", "h1"])
+@pytest.mark.parametrize("name", ["paper-pi", "random-17",
+                                  "power-law-512"])
+def test_every_encoding_carries_sliced_lists(name, enc, semantics):
+    """ELL and delayed-ELL encodings carry sliced lists too (the lists the
+    sliced-list kernel walks for B5's ELL body), as hybrid ones do: the
+    same entries per neuron as ``in_idx``, padded with m, each slice as
+    wide as its longest row; ``compiled_from_arrays`` of the reference's
+    encoding derives lists equal to the port's own lowering."""
+    system = SYSTEMS[name]
+    if semantics == "delays":
+        system = conftest.delayed_variant(system)
+    h = _thresholds(system)[enc]
+    port = P.compile_system_sparse(
+        system_from_spec(dataclasses.asdict(system)), hub_threshold=h,
+        semantics=semantics, device="cpu")
+    _assert_sliced_lists(port)
+    assert port.is_hybrid == (h is not None)
+    assert P.is_delayed(port) == (semantics == "delays")
+    ref = J.compile_system_sparse(system, hub_threshold=h,
+                                  semantics=semantics)
+    carried = compiled_from_arrays(
+        {k: (v if k == "rule_order" or v is None else np.asarray(v))
+         for k, v in ref._asdict().items()}, device="cpu")
+    for f in PORT_FIELDS:
+        a, b = getattr(carried, f), getattr(port, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a, b), f
 
 
 def test_sliced_in_lists_of_a_hand_made_in_idx():
