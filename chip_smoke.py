@@ -10,7 +10,8 @@ result line):
    built from the sources in this checkout (one ``nvcc`` per source, all
    started together, sm_90a: the dense step B1/B6, the dense delayed step
    B4, the sparse step B2/B3/B5/B7 and the forward attention B8, with
-   ``-Xptxas -v``'s registers, spills and performance notes);
+   ``-Xptxas -v``'s registers, spills and performance notes for every
+   instantiation);
 2. the dense kernel (B1) against its plain version on the card —
    bit-identical outputs on the paper's Π, ``nd_chain(10)`` (Ψ > T), a
    2048-neuron random system, a ragged shape, spike counts near 2^20, an
@@ -26,21 +27,23 @@ result line):
    (the yardstick, timed here only: the port never calls it), the bound
    with ``M`` counted by its nonzeros (and, for comparison, dense), and at
    the wave B1's device time from ``torch.profiler``;
-3. the sparse step's ELL kernel (B2: ``in_idx``) and the sliced-list
-   kernel's hybrid body (B3: the sliced in-lists and the COO tail),
-   against their plain version — bit-identical
-   on every entry at Π, ``nd_chain(10)``, a ragged shape, a random system
-   with every in-synapse past the first in the COO tail, a hybrid system
-   of 45 neurons (m not a multiple of 32), one whose neurons 32..63 have
-   no in-synapse (a slice of width 0), spike counts near 2^20,
-   ``ring_lattice(32768, 8)``, ``power_law(32768, max_in=64)`` (ELL, and
-   hybrid at hub threshold 16: 2 rows a block) and the two full-width
-   waves, and B3 on forged lists (list and tail entries above m or below
-   0, slice starts out of range) against the plain version without the
-   forged entries; times of the kernel, its plain version and one
-   ``torch.sparse.mm`` of ``S`` as CSR with a dense ``M`` (where ``M``
-   fits 4 GiB), and at the hybrid wave B3's device time from
-   ``torch.profiler``;
+3. the sparse step's sliced-list kernel, its ELL body (B2) and its
+   hybrid body (B3: the COO tail), both walking the sliced in-lists,
+   against their plain version (which reads ``in_idx``) — bit-identical
+   on every entry at Π, ``nd_chain(10)``, a ragged shape (m = 45, not a
+   multiple of 32, ELL), a random system with every in-synapse past the
+   first in the COO tail, a hybrid system of 45 neurons, one whose
+   neurons 32..63 have no in-synapse (a slice of width 0; ELL and
+   hybrid), spike counts near 2^20, ``ring_lattice(32768, 8)``,
+   ``power_law(32768, max_in=64)`` (ELL, and hybrid at hub threshold 16:
+   2 rows a block) and the three full-width waves (B2 at
+   ``scaled_pi(682)`` and at ``ring_lattice(32768, 8)``, B3 at
+   ``power_law(8192)``), and B2 and B3 on forged lists (list and tail
+   entries above m or below 0, slice starts out of range) against the
+   plain version without the forged entries; times of the kernel, its
+   plain version and one ``torch.sparse.mm`` of ``S`` as CSR with a dense
+   ``M`` (where ``M`` fits 4 GiB), each case's block shape, and at the
+   waves the kernel's device time from ``torch.profiler``;
 4. the paper's §5 run through B1 — the allGenCk list and the ℕ∖{1}
    emission-gap result;
 5. full width, dense — ``explore(scaled_pi(682))`` (m=2046, n=3410,
@@ -55,17 +58,19 @@ result line):
    with ``policy="first"`` and ``"random"`` identical through ``"cuda"``
    and ``"ref"``, and ``run_traces(power_law(8192), policy="random")``
    identical through ``"sparse_cuda"`` and ``"sparse"``;
-9. the delayed kernels against their plain versions — B4 (dense) and B5
-   (the sliced-list kernel's ELL and hybrid bodies with the delay stage,
-   both walking the sliced lists), bit-identical on every entry at small
-   edge shapes (delays 0–3, Ψ > T, a ragged shape, a neuron reopening
-   with 2^16 − 1 pending spikes, no output neuron, spike counts near
-   2^20; for both B5 bodies m not a multiple of 32, a slice of width 0
-   and forged lists, as in phase 3; for B5 COO also
-   ``power_law(32768, max_in=64)`` at hub threshold 16) and at the
-   delayed ``scaled_pi(682)`` (B5 ELL) and ``power_law(8192)`` (B5 COO)
-   waves (their device times there from ``torch.profiler``, and each
-   body's block shape as the library chooses it); times of each kernel,
+9. the delayed kernels against their plain versions — B4 (dense, walking
+   the sliced lists of ``adj_in``) and B5 (the sliced-list kernel's ELL
+   and hybrid bodies with the delay stage, both walking the sliced
+   lists), bit-identical on every entry at small edge shapes (delays 0–3,
+   Ψ > T, a ragged shape, a neuron reopening with 2^16 − 1 pending
+   spikes, no output neuron, spike counts near 2^20; for B4 and both B5
+   bodies m not a multiple of 32, a slice of width 0 and forged lists, as
+   in phase 3; for B5 COO also ``power_law(32768, max_in=64)`` at hub
+   threshold 16) and at the delayed ``scaled_pi(682)`` (B4, B5 ELL) and
+   ``power_law(8192)`` (B5 COO; B4 there at m = 8,192, fewer than 8 rows
+   a block) waves (their device times there from ``torch.profiler``, and
+   each kernel's block shape as the library chooses it); times of each
+   kernel,
    its plain version, its bound and one library call (partial yardsticks:
    ``torch.matmul`` of ``S`` with the ``(n, 4m)`` ``W``, the accumulate
    stage only, for B4; ``torch.sparse.mm`` of ``S`` with ``M``, the
@@ -113,7 +118,7 @@ result line):
    plan=neuron_axis(4))`` (16,384 archive rows a shard) through
    ``"sparse_cuda"`` (B7) and ``"sparse"``, identical, peak allocation
    under 60 GB, and held against the single-device ``"sparse_cuda"``
-   explore at 65,536 rows;
+   explore at 65,536 rows (B2, 8 launches);
 16. the attention kernel's two bodies against their plain version
    (``attention_ref``) — B8-TC (bf16 at D 64/128: wgmma + TMA) and B8-FFMA
    (f32; bf16 at D 16/32), each case counted on the body it runs: the
@@ -189,22 +194,25 @@ KERNELS = {
     "B1": {"name": "snp_step_dense", "route": "cuda",
            "source": "src/repro_torch/kernels/snp_step/csrc/snp_step_dense.cu",
            "replaces": "src/repro/kernels/snp_step/kernel.py:201"},
-    "B2": {"name": "snp_step_sparse_ell", "route": "cuda",
+    "B2": {"name": "snp_step_sparse_sell_ell", "route": "cuda",
            "source": "src/repro_torch/kernels/snp_step/csrc/"
                      "snp_step_sparse.cu",
            "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
-           "body": "_make_kernel(has_coo=False), sparse_kernel.py:71"},
+           "body": "_make_kernel(has_coo=False), sparse_kernel.py:71",
+           "kernel": "snp_step_sparse_sell_kernel<BT, NT, false, false>, "
+                     "Hn = 0"},
     "B3": {"name": "snp_step_sparse_coo", "route": "cuda",
            "source": "src/repro_torch/kernels/snp_step/csrc/"
                      "snp_step_sparse.cu",
            "replaces": "src/repro/kernels/snp_step/sparse_kernel.py:197",
            "body": "_make_kernel(has_coo=True), sparse_kernel.py:155-167"},
-    "B4": {"name": "snp_step_dense_delay", "route": "cuda",
+    "B4": {"name": "snp_step_dense_delay_sell", "route": "cuda",
            "source": "src/repro_torch/kernels/snp_step/csrc/"
                      "snp_step_dense_delay.cu",
            "replaces": "src/repro/kernels/snp_step/kernel.py:201",
            "body": "_make_kernel(has_halo=False, has_delay=True), "
-                   "kernel.py:154-192"},
+                   "kernel.py:154-192",
+           "kernel": "snp_step_dense_delay_sell_kernel<BT, NT>"},
     "B5-ELL": {"name": "snp_step_sparse_delay_ell", "route": "cuda",
                "source": "src/repro_torch/kernels/snp_step/csrc/"
                          "snp_step_sparse.cu",
@@ -698,7 +706,7 @@ def _sparse_library_ms(system, comp, configs, info, T, iters,
 
 def _kernel_read(kargs, kextra):
     """The tensors the kernel reads, from its launcher's arguments."""
-    return [a for a in kargs if a is not None] + list(kextra.values())
+    return list(kargs) + list(kextra.values())
 
 
 def _empty_slice_system():
@@ -736,8 +744,9 @@ def _forge_sliced(start, src, in_idx, zero, rng):
 
 
 def _forged_lists(rng, dev, delayed, hybrid=True):
-    """The sliced-list kernel's B3 (B5 COO when ``delayed``; B5 ELL when
-    ``delayed`` and not ``hybrid``) on forged sliced lists (and tail)
+    """The sliced-list kernel's B3 (B5 COO when ``delayed``; B2, or B5
+    ELL when ``delayed``, when not ``hybrid``) on forged sliced lists (and
+    tail)
     equals its plain version without the forged entries: every 5th list
     entry and every 7th tail entry moved above m or below 0 (the kernel
     reads them as the zero slot; the plain version reads ``m``, the zero
@@ -784,7 +793,8 @@ def _forged_lists(rng, dev, delayed, hybrid=True):
     p = snp_step_sparse_ref(*pargs, **pextra, max_branches=T)
     torch.cuda.synchronize()
     err = max(int((k[0] - p[0]).abs().max()), int((k[2] - p[2]).abs().max()))
-    kernel = ("B5-COO" if hybrid else "B5-ELL") if delayed else "B3"
+    kernel = ("B5-COO" if hybrid else "B5-ELL") if delayed else (
+        "B3" if hybrid else "B2")
     check(err == 0 and bool(torch.equal(k[1], p[1])),
           f"forged sliced lists: {kernel} disagrees with its plain version "
           f"without the forged entries (max |err| {err})")
@@ -797,9 +807,9 @@ def _forged_lists(rng, dev, delayed, hybrid=True):
 
 
 def phase_sparse_kernel():
-    """B2 (ELL body) and B3 (COO stage) == their plain version on the
-    card, on every entry; returns (max |err| per kernel, timing rows keyed
-    by case name)."""
+    """B2 (the ELL body) and B3 (the COO tail) of the sliced-list kernel
+    == their plain version on the card, on every entry; returns (max |err|
+    per kernel, timing rows keyed by case name)."""
     import numpy as np
     import torch
     from repro_torch.core import (SystemPlan, compile_system_sparse,
@@ -833,6 +843,8 @@ def phase_sparse_kernel():
          13, 37, lambda m: rand(13, m, 0, 4)),
         ("empty slice m=100 h=4", _empty_slice_system(), 4, 24, 40,
          lambda m: rand(24, m, 0, 4)),
+        ("empty slice m=100", _empty_slice_system(), None, 24, 40,
+         lambda m: rand(24, m, 0, 4)),
         ("spikes~2^20", random_system(64, 2, 0.1, seed=2), None, 32, 32,
          lambda m: rand(32, m, 2 ** 20 - 8, 2 ** 20 + 8)),
         ("ring_lattice(32768,8)", ring_lattice(32768, 8, seed=2), None, 64,
@@ -845,6 +857,8 @@ def phase_sparse_kernel():
          lambda m: rand(64, m, 0, 4)),
         ("scaled_pi(682) wave", scaled_pi(682), None, 512, 64,
          lambda m: rand(512, m, 0, 3)),
+        ("ring_lattice(32768,8) wave", ring_lattice(32768, 8, seed=2), None,
+         512, 64, lambda m: rand(512, m, 0, 4)),
         ("power_law(8192) hybrid wave", hybrid_system, "auto", 512, 64,
          lambda m: rand(512, m, 0, 4)),
     ]
@@ -876,6 +890,7 @@ def phase_sparse_kernel():
         check(err == 0 and bool(torch.equal(k_valid, p_valid)),
               f"{name}: {kernel} disagrees with its plain version "
               f"(max |err| {err})")
+        del k_out, p_out
         # the wrapper on the card against the plain step, every entry
         w = sparse_ops.snp_step_sparse(configs, comp, max_branches=T)
         ref = sparse_next_configs(configs, comp, T)
@@ -892,7 +907,6 @@ def phase_sparse_kernel():
             *kargs, **kcoo, max_branches=T), iters)
         p_ms = time_ms(lambda: snp_step_sparse_ref(
             *args, **coo, max_branches=T), iters)
-        del k_out, p_out
         l_ms = _sparse_library_ms(system, comp, configs, info, T, iters)
         b_ms, b_by, b_ops = _sparse_bound(args, coo, T,
                                           _kernel_read(kargs, kcoo))
@@ -901,16 +915,19 @@ def phase_sparse_kernel():
                           Ec=int(comp.coo_src.shape[0]), ms=k_ms,
                           plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                           bound_by=b_by)
-        if kernel == "B3" and "wave" in name:
+        bt, nt = sparse_ops.sell_block_shape(m, 0, T)
+        rows[name]["block"] = [bt, nt]
+        if "wave" in name:
             rows[name]["device_ms"] = d_ms = device_ms(
                 lambda: sparse_ops.snp_step_sparse_cuda(
                     *kargs, **kcoo, max_branches=T), 20,
                 "snp_step_sparse_sell_kernel")
-            log(f"[3] {name}: B3's device time by the profiler {d_ms} ms "
-                f"(CUDA events {k_ms:.4f})")
+            log(f"[3] {name}: {kernel}'s device time by the profiler "
+                f"{d_ms} ms (CUDA events {k_ms:.4f}), bound {b_ms:.6f} ms, "
+                f"block {bt} rows x {nt} threads")
         lib = "—" if l_ms is None else f"{l_ms:.4f} ms"
-        rows_b = (f" sliced entries={comp.sell_src.shape[0]}"
-                  if comp.is_hybrid else "")
+        rows_b = (f" sliced entries={comp.sell_src.shape[0]} block {bt} "
+                  f"rows x {nt} threads")
         log(f"[3] {name:27s} {kernel} B={B:4d} T={T:3d} n={n:6d} m={m:6d} "
             f"Kin={comp.max_in_degree:3d} Ec={rows[name]['Ec']:6d}{rows_b} | "
             f"kernel == plain (max |err| {err}) | kernel {k_ms:.4f} ms, "
@@ -919,7 +936,9 @@ def phase_sparse_kernel():
             f"bound")
         del kargs, kcoo, args, coo, info
         torch.cuda.empty_cache()
-    max_err["B3"] = max(max_err["B3"], _forged_lists(rng, dev, False)[1])
+    for hybrid in (False, True):
+        kernel, err = _forged_lists(rng, dev, False, hybrid)
+        max_err[kernel] = max(max_err[kernel], err)
     return max_err, rows
 
 
@@ -1116,7 +1135,7 @@ def _wave_breakdown(tag, comp, archive, backends):
                                                     max_branches=T))
     elif is_delayed(comp):
         stages["· delay_inputs (all bookkeeping)"], (args, _) = timed(
-            lambda: ops.delay_inputs(frontier, comp))
+            lambda: ops.delay_inputs(frontier, comp, lists=True))
         stages["· kernel launch"], _ = timed(
             lambda: ops.snp_step_dense_delay(*args, T))
     cand = out.configs.reshape(F * T, -1)
@@ -1217,10 +1236,12 @@ def _reopen_system():
         output_neuron=-1, name="reopen-top")
 
 
-def _dense_delay_bound(args, T):
+def _dense_delay_bound(args, T, read=None):
     """Least time for one B4 call (ms), what binds, and the operations
-    counted, from this call's inputs.  Bytes: each input read once and
-    each output (3m-wide rows) written once, over HBM bandwidth.
+    counted, from this call's inputs (the plain version's ``args``).
+    Bytes: each input the kernel reads (``read``; by default the plain
+    version's inputs) read once and each output (3m-wide rows) written
+    once, over HBM bandwidth.
     Operations: what these inputs need, over the f32/int32 datapath peak:
     a digit decode per neuron and branch, a compare per applicable rule
     and branch, the combine (three outputs) per neuron and branch, and
@@ -1233,7 +1254,8 @@ def _dense_delay_bound(args, T):
      produce, delay, adj_in, out_neuron) = args
     B, m = spikes.shape
     n = rank.shape[-1]
-    in_bytes = sum(x.numel() * x.element_size() for x in args)
+    in_bytes = sum(x.numel() * x.element_size()
+                   for x in (args if read is None else read))
     out_bytes = 4 * B * T * 3 * m + 5 * B * T
     rule_neuron = torch.repeat_interleave(
         torch.arange(m, device=spikes.device, dtype=torch.int32),
@@ -1318,6 +1340,48 @@ def _max_err(k, p):
     return max(int((k[0] - p[0]).abs().max()), int((k[2] - p[2]).abs().max()))
 
 
+def _forged_b4(rng, dev):
+    """B4 on forged sliced lists of ``adj_in`` equals its plain version
+    without the forged entries: every 5th list entry moved above m or
+    below 0 (the kernel reads them as the zero slot; the plain version's
+    ``adj_in`` holds ``m``, the zero slot, in their place), the first
+    slice start below 0 and the last past the lists' end (clamped), on a
+    delayed ``power_law(1000)`` (m not a multiple of 32).  Returns max
+    |err|."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compile_system, with_delays
+    from repro_torch.core.generators import power_law
+    from repro_torch.kernels.snp_step import ops
+    from repro_torch.kernels.snp_step.ref import snp_step_dense_delay_ref
+
+    system = with_delays(power_law(1000, 4, seed=9), lambda k, r: k % 3)
+    comp = compile_system(system, semantics="delays", device=dev)
+    m, B, T = comp.num_neurons, 24, 40
+    configs = torch.from_numpy(np.concatenate(
+        [rng.integers(0, 4, (B, m)), rng.integers(0, 4, (B, m)),
+         rng.integers(0, 3, (B, m))], 1).astype(np.int32)).to(dev)
+    start, src, adj_in, n_bad = _forge_sliced(
+        comp.sell_start.cpu().numpy(), comp.sell_src.cpu().numpy(),
+        comp.adj_in.cpu().numpy(), m, rng)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    kargs, _ = ops.delay_inputs(
+        configs, comp._replace(sell_start=t(start), sell_src=t(src)),
+        lists=True)
+    pargs, _ = ops.delay_inputs(configs, comp._replace(adj_in=t(adj_in)))
+    k = ops.snp_step_dense_delay(*kargs, T)
+    p = snp_step_dense_delay_ref(*pargs, T)
+    torch.cuda.synchronize()
+    err = _max_err(k, p)
+    check(err == 0 and bool(torch.equal(k[1], p[1])),
+          f"forged sliced lists: B4 disagrees with its plain version "
+          f"without the forged entries (max |err| {err})")
+    log(f"[9] forged lists (power_law(1000) d=k%3) B4 B={B} T={T} m={m} | "
+        f"{n_bad} list entries out of range, starts below 0 and past the "
+        f"end: B4 == plain without them (max |err| {err})")
+    return err
+
+
 def phase_delay_kernels():
     """B4 and B5 (ELL and COO bodies) == their plain versions on the card,
     on every entry, at the phase-9 shapes; the wrappers against the
@@ -1353,7 +1417,12 @@ def phase_delay_kernels():
             comp = compile_system(system, semantics="delays", device=dev)
             n = comp.num_rules
             args, info = ops.delay_inputs(configs, comp)
-            k = ops.snp_step_dense_delay(*args, T)
+            kargs, _ = ops.delay_inputs(configs, comp, lists=True)
+            if name.startswith("empty slice"):
+                st = comp.sell_start
+                check(m % 32 != 0 and bool((st[1:] == st[:-1]).any()),
+                      f"{name}: expected a slice of width 0 in B4's lists")
+            k = ops.snp_step_dense_delay(*kargs, T)
             p = snp_step_dense_delay_ref(*args, T)
             torch.cuda.synchronize()
             err = _max_err(k, p)
@@ -1362,6 +1431,8 @@ def phase_delay_kernels():
                   f"{name}: B4 disagrees with its plain version "
                   f"(max |err| {err})")
             del k, p
+            bt4, nt4 = ops.delay_block_shape(m, T)
+            shape4 = f"block {bt4} rows x {nt4} threads"
             if not hybrid_wave:   # the (n, 4m) W product would be huge
                 w = ops.snp_step(configs, comp, max_branches=T)
                 ref = delayed_next_configs(configs, comp, T)
@@ -1377,7 +1448,7 @@ def phase_delay_kernels():
                       "delayed_next_configs")
                 if name.startswith("nd_chain"):
                     check(bool(w[3].all()), f"{name} should overflow T")
-                k_ms = time_ms(lambda: ops.snp_step_dense_delay(*args, T),
+                k_ms = time_ms(lambda: ops.snp_step_dense_delay(*kargs, T),
                                iters)
                 p_ms = time_ms(lambda: snp_step_dense_delay_ref(*args, T),
                                iters)
@@ -1385,19 +1456,30 @@ def phase_delay_kernels():
                 W = delayed_weight_matrix(comp)
                 l_ms = time_ms(lambda: torch.matmul(S, W), iters)
                 del S, W, ref, w
-                b_ms, b_by, b_ops = _dense_delay_bound(args, T)
+                b_ms, b_by, b_ops = _dense_delay_bound(args, T, kargs)
                 rows[("B4", name)] = dict(
                     B=B, T=T, n=n, m=m, ms=k_ms, plain_ms=p_ms,
-                    library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+                    library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                    block=[bt4, nt4])
+                if wave:
+                    rows[("B4", name)]["device_ms"] = d_ms = device_ms(
+                        lambda: ops.snp_step_dense_delay(*kargs, T), 20,
+                        "snp_step_dense_delay_sell_kernel")
+                    log(f"[9] {name}: B4's device time by the profiler "
+                        f"{d_ms} ms (CUDA events {k_ms:.4f}), {shape4}")
                 log(f"[9] {name:36s} B4     B={B:4d} T={T:3d} n={n:5d} "
-                    f"m={m:5d} | kernel == plain (max |err| {err}) | kernel "
-                    f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul(S,W) "
-                    f"{l_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {b_ops} "
-                    f"ops) = {k_ms / b_ms:.1f}x bound")
+                    f"m={m:5d} {shape4} | kernel == plain (max |err| "
+                    f"{err}) | kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                    f"matmul(S,W) {l_ms:.4f} ms, bound {b_ms:.6f} ms "
+                    f"({b_by}; {b_ops} ops) = {k_ms / b_ms:.1f}x bound")
             else:
+                # past m = 7,263 a block stages fewer than 8 rows
+                check(m <= 7263 or bt4 < 8,
+                      f"{name}: B4 staged 8 rows of m={m} a block")
                 log(f"[9] {name:36s} B4     B={B:4d} T={T:3d} n={n:5d} "
-                    f"m={m:5d} | kernel == plain (max |err| {err})")
-            del comp, args, info
+                    f"m={m:5d} {shape4} | kernel == plain (max |err| "
+                    f"{err})")
+            del comp, args, kargs, info
             torch.cuda.empty_cache()
         # B5 (sparse, ELL or COO body)
         comp = compile_system_sparse(system, hub_threshold=h,
@@ -1468,6 +1550,8 @@ def phase_delay_kernels():
         kernel, err = _forged_lists(np.random.default_rng(4), dev, True,
                                     hybrid)
         max_err[kernel] = max(max_err[kernel], err)
+    max_err["B4"] = max(max_err["B4"],
+                        _forged_b4(np.random.default_rng(5), dev))
     return max_err, rows
 
 
@@ -1688,8 +1772,7 @@ def _b7(args, halo, sell, T):
     ``in_idx``."""
     from repro_torch.kernels.snp_step import sparse_ops
     return sparse_ops.snp_step_sparse_cuda(
-        *args[:5], None, args[6], halo=halo, sell_start=sell[0],
-        sell_src=sell[1], max_branches=T)
+        *args[:5], *sell, args[6], halo=halo, max_branches=T)
 
 
 def _forged_b7(rng, dev):
@@ -2091,8 +2174,8 @@ def phase_sharded(single_dense):
 def phase_sharded_large():
     """Phase 15: ``explore_distributed(ring_lattice(32768, 8, seed=2),
     neuron_axis(4))`` through ``"sparse_cuda"`` (B7) and ``"sparse"``,
-    identical; against the single-device ``"sparse_cuda"`` explore at a
-    65,536-row archive.  Returns B7's launches."""
+    identical; against the single-device ``"sparse_cuda"`` explore (B2)
+    at a 65,536-row archive.  Returns B7's and B2's launches."""
     import torch
     from repro_torch.core.generators import ring_lattice
     from repro_torch.sharding import neuron_axis
@@ -2113,11 +2196,11 @@ def phase_sharded_large():
         f"allocation {peak / 2**30:.3f} / {peak_plain / 2**30:.3f} GiB")
     del b
     torch.cuda.empty_cache()
-    single, _, _ = _timed_explore(
+    single, b2, _ = _timed_explore(
         "15", "explore(ring_lattice(32768, 8))", system, "sparse_cuda", "B2",
         caps=dict(RING, visited_cap=65536))
     _against_single("15", a, single, "ring_lattice(32768, 8)")
-    return b7
+    return b7, b2
 
 
 # Phases 16-17: the LM serving slice, SmolLM-360M through kernel B8.
@@ -2585,7 +2668,8 @@ def main() -> int:
         shard_err, shard_rows = phase_shard_kernels()
         sharded = phase_sharded(dense_res)
         del dense_res
-        sharded["B7"]["sharded_large_explore"] = phase_sharded_large()
+        (sharded["B7"]["sharded_large_explore"],
+         b2["ring_lattice_explore"]) = phase_sharded_large()
         attn_errs, attn_rows = phase_attention_kernel()
         served = phase_serving()
     except Exception:
@@ -2615,10 +2699,12 @@ def main() -> int:
              "B6": shard_rows[("B6", "scaled_pi(682) wave S=4")],
              "B7": shard_rows[("B7", "scaled_pi(682) wave S=4")],
              **attn_rows}
-    # the shard kernels' other waves, beside their main path's
+    # B2's and the shard kernels' other waves, beside their main path's
     other_waves = {k: {name: row for (kk, name), row in shard_rows.items()
                        if kk == k and row is not waves[k]}
                    for k in ("B6", "B7")}
+    other_waves["B2"] = {"ring_lattice(32768,8) wave":
+                         sparse_rows["ring_lattice(32768,8) wave"]}
     errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err,
             **{k: max(e.values()) for k, e in attn_errs.items()}}
     # B8's extras, per body: its error per dtype, the f32-pipe figure, the
@@ -2643,6 +2729,7 @@ def main() -> int:
             **({"bound_ms_matrices_dense": w["bound_dense_ms"]}
                if "bound_dense_ms" in w else {}),
             **({"device_ms": w["device_ms"]} if "device_ms" in w else {}),
+            **({"block": w["block"]} if "block" in w else {}),
             **extras.get(k, {})))
         log(f"[18] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "

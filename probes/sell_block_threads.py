@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Time the kernels that walk sliced in-lists at 256 and at 1024 threads
+a block, at the waves where the thread rule of ``csrc/sliced_lists.cuh``
+(shared by both sources) makes its choice: the sparse source's B2 (the
+ELL body) at the ``scaled_pi(682)`` and ``ring_lattice(32768, 8)``
+waves, B5's ELL body at the delayed ``scaled_pi(682)`` wave and B7
+(shard 0) at the 4-shard ``scaled_pi(682)`` waves, contiguous and
+degree, and at the ``ring_lattice(32768, 8)`` wave; the dense delayed
+source's B4 at the delayed ``scaled_pi(682)`` wave (B=512, T=64, the
+smoke's inputs; B2's drawn here from a fixed seed).
+
+    python3 probes/sell_block_threads.py
+
+on one NVIDIA GPU, from the root of a checkout (it reuses the helpers
+of ``chip_smoke.py`` that make the waves).  It builds each source as it
+is and two copies with ``SELL_THREADS`` defined to 256 and to 1024,
+which forces the header's rule to that shape (into the git-ignored build
+directory, each copy beside a copy of the header), checks that both
+copies give the library's outputs bit for bit, and times them in turns
+(256, 1024, 1024, 256): the kernel's own device time from
+``torch.profiler``, a mean over 20 launches after a warm-up each, so
+that the launcher's host time does not hide the kernel at the small
+waves.  The last line is one JSON object of the times, with the card's
+name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+SPARSE_KERNEL = "snp_step_sparse_sell_kernel"
+DELAY_KERNEL = "snp_step_dense_delay_sell_kernel"
+
+
+def _variants():
+    """{(module, attribute): {threads: source copy}} for the two
+    sources, all built together."""
+    from repro_torch.kernels.snp_step import _build, ops, sparse_ops
+    out = {}
+    for mod, attr in ((sparse_ops, "SOURCE"), (ops, "DELAY_SOURCE")):
+        source = getattr(mod, attr)
+        for nt in (256, 1024):
+            where = _build.BUILD_DIR / "variants" / f"nt{nt}"
+            where.mkdir(parents=True, exist_ok=True)
+            for header in source.parent.glob("*.cuh"):
+                shutil.copy(header, where / header.name)
+            copy = where / source.name
+            copy.write_text(f"#define SELL_THREADS {nt}\n"
+                            + source.read_text())
+            out.setdefault((mod, attr), {})[nt] = copy
+    _build.build_all([c for v in out.values() for c in v.values()])
+    return out
+
+
+def _waves(dev):
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import compile_system, compile_system_sparse
+    from repro_torch.core.generators import ring_lattice, scaled_pi
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+    from repro_torch.kernels.snp_step.sparse_ref import kernel_inputs
+    from repro_torch.sharding import neuron_axis
+
+    rng = np.random.default_rng(3)
+    for label, system, hi in (("scaled_pi(682) wave", scaled_pi(682), 3),
+                              ("ring_lattice(32768,8) wave",
+                               ring_lattice(32768, 8, seed=2), 4)):
+        comp = compile_system_sparse(system, device=dev)
+        configs = torch.from_numpy(rng.integers(
+            0, hi, size=(512, comp.num_neurons)).astype(np.int32)).to(dev)
+        kargs, kextra, _ = kernel_inputs(configs, comp, lists=True)
+        yield ("B2 " + label, "sparse", comp.num_neurons, 0, 64,
+               lambda kargs=kargs, kextra=kextra:
+               sparse_ops.snp_step_sparse_cuda(*kargs, **kextra,
+                                               max_branches=64))
+        del comp, configs
+    for name, system, _, B, T, make in cs._delay_cases(rng, dev):
+        if name == "scaled_pi(682) delayed wave":
+            states = make(system.num_neurons)
+            comp = compile_system_sparse(system, semantics="delays",
+                                         device=dev)
+            kargs, kextra, _ = kernel_inputs(states, comp, lists=True)
+            yield ("B5-ELL " + name, "sparse", comp.num_neurons, 0, T,
+                   lambda: sparse_ops.snp_step_sparse_cuda(
+                       *kargs, **kextra, max_branches=T))
+            dense = compile_system(system, semantics="delays", device=dev)
+            dargs, _ = ops.delay_inputs(states, dense, lists=True)
+            yield ("B4 " + name, "delay", dense.num_neurons, 0, T,
+                   lambda: ops.snp_step_dense_delay(*dargs, T))
+
+    def rand(m):
+        return torch.from_numpy(rng.integers(0, 3, size=(512, m)).astype(
+            np.int32)).to(dev)
+
+    for label, system, plan in (
+            ("scaled_pi(682) wave S=4", scaled_pi(682), neuron_axis(4)),
+            ("scaled_pi(682) degree wave S=4", scaled_pi(682),
+             neuron_axis(4, partition="degree")),
+            ("ring_lattice(32768,8) wave S=4", ring_lattice(32768, 8, seed=2),
+             neuron_axis(4))):
+        comp, shards, frontier, lv = cs._shard_level(system, plan, 512, 64,
+                                                     rand, dev, dense=False)
+        sh = shards[0]
+        a7, h7 = cs._b7_args(sh, frontier[0], lv.infos[0], lv.strides[0],
+                             lv.psi, lv.tabs[0], lv.halos[0])
+        yield ("B7 " + label, "sparse", comp.shard_size, h7.shape[-1], 64,
+               lambda a7=a7, h7=h7, sell=sh.sell: cs._b7(a7, h7, sell, 64))
+
+
+def main() -> int:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+
+    if not torch.cuda.is_available():
+        print("sell_block_threads: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    cs.phase_card_and_build()
+    variants = _variants()
+    source = {"sparse": (sparse_ops, "SOURCE", SPARSE_KERNEL,
+                         sparse_ops.sell_block_shape),
+              "delay": (ops, "DELAY_SOURCE", DELAY_KERNEL,
+                        lambda m, H, T: ops.delay_block_shape(m, T))}
+    dev = torch.device("cuda")
+    rows = {}
+    for name, which, m, H, T, fn in _waves(dev):
+        mod, attr, kernel, shape = source[which]
+        library = getattr(mod, attr)
+        want = fn()
+        chosen = shape(m, H, T)
+        times = {256: [], 1024: []}
+        for nt in (256, 1024, 1024, 256):
+            setattr(mod, attr, variants[(mod, attr)][nt])
+            try:
+                got = fn()
+                torch.cuda.synchronize()
+                cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                         f"{name}: the {nt}-thread copy differs")
+                times[nt].append(cs.device_ms(fn, 20, kernel))
+            finally:
+                setattr(mod, attr, library)
+        rows[name] = dict(m=m, H=H, chosen=list(chosen),
+                          ms_256=times[256], ms_1024=times[1024])
+        cs.log(f"[probe] {name}: m={m} H={H}, the library's block "
+               f"{chosen[0]} rows x {chosen[1]} threads | on the card, 256 "
+               f"threads {times[256]} ms, 1024 threads {times[1024]} ms "
+               f"(turns 256, 1024, 1024, 256)")
+        del want
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "sell_threads": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

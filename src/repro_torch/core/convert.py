@@ -13,10 +13,10 @@
   optionally its ``dense`` view) as numpy arrays, plus its static ints.
 
 The port's own fields that the reference does not carry are derived from
-its matrices: the dense encoding's ``adj_in`` (delays) or column lists
-(no delays), a sparse encoding's sliced in-lists (and a hybrid one's hub
-neurons), each shard's sliced in-lists and the dense shard view's column
-lists.
+its matrices: the dense encoding's ``adj_in`` and its sliced lists
+(delays) or column lists (no delays), a sparse encoding's sliced
+in-lists (and a hybrid one's hub neurons), each shard's sliced in-lists
+and the dense shard view's column lists.
 
 All take plain Python and numpy values only, so this module never needs
 JAX; the parity tests use it to feed the two packages the same state.
@@ -44,7 +44,8 @@ __all__ = ["system_from_spec", "compiled_from_arrays", "sharded_from_arrays"]
 # tail's per-entry targets (coo_bounds/hub_slot hold them).
 _DERIVED = {CompiledSNP: ("neuron_onehot",), CompiledSparseSNP: ("coo_dst",)}
 # The delayed tier's fields: all set, or none.  The dense encoding's
-# adj_in is the port's own, derived here from adjacency.
+# adj_in and its sliced lists are the port's own, derived here from
+# adjacency.
 _DELAY_FIELDS = {CompiledSNP: ("delay", "adjacency", "out_neuron"),
                  CompiledSparseSNP: ("delay",)}
 
@@ -112,6 +113,9 @@ def compiled_from_arrays(fields: Mapping[str, Any],
     if cls is CompiledSNP and not delay_set and out.get("col_start") is None:
         out.update(zip(("col_start", "col_rule", "col_val"),
                        dense_column_lists(out["M"], out["env_produce"])))
+    if cls is CompiledSNP and delay_set and out.get("sell_start") is None:
+        out.update((k, torch.from_numpy(v).to(dev)) for k, v in zip(
+            ("sell_start", "sell_src"), sliced_in_lists(fields["adj_in"])))
     if cls is CompiledSparseSNP and out.get("sell_start") is None:
         derived = dict(zip(("sell_start", "sell_src"),
                            sliced_in_lists(fields["in_idx"])))

@@ -18,8 +18,10 @@ a system with a delayed rule, as the reference does.  ``"delays"`` widens
 ``init_config`` to the ``3m`` state row ``[spikes | countdown | pending]``
 and adds the per-rule ``delay``; the dense encoding also carries the 0/1
 synapse ``adjacency`` (which moves a reopening neuron's pending spikes),
-the output neuron, and ``adj_in``, the in-neighbour lists of
-``adjacency`` that the dense delayed kernel reads in its place.  Without
+the output neuron, ``adj_in``, the in-neighbour lists of ``adjacency``
+that the plain delayed step reads in its place, and ``adj_in`` in
+slices of 32 neurons (:func:`sliced_in_lists`), which the dense delayed
+kernel B4 walks.  Without
 delays the dense encoding carries the column lists of ``[M_Π |
 env_produce]`` (:func:`dense_column_lists`), which the dense step kernel
 B1 walks in place of the ``(n, m)`` matrix.  This module is the one that
@@ -33,7 +35,7 @@ while the port gathers through ``rule_neuron`` directly.  Nor is its
 ``hub_slot``.  Every sparse encoding also carries its ELL in-adjacency in
 slices of 32 neurons (:func:`sliced_in_lists`), and a hybrid one the
 inverse of ``hub_slot`` (:func:`hub_neurons`), which the sparse step's
-sliced-list kernel (B3, B5) walks in place of ``in_idx`` and
+sliced-list kernel (B2, B3, B5) walks in place of ``in_idx`` and
 ``hub_slot``; the sharded lowering slices each shard's extended-space
 ``in_idx`` the same way for B7 (:func:`shard_sliced_lists`).
 """
@@ -104,11 +106,16 @@ class CompiledSNP(NamedTuple):
     adj_in: Optional[torch.Tensor] = None     # (m, Kin) int32
     # The column lists of [M | env_produce] (n, m+1), column m being
     # env's (:func:`dense_column_lists`), which B1 walks; not reference
-    # fields.  None under delays (B4 reads adj_in) and on a hand-built
-    # encoding, which B1 then refuses.
+    # fields.  None under delays and on a hand-built encoding, which B1
+    # then refuses.
     col_start: Optional[torch.Tensor] = None  # (m+2,) int32
     col_rule: Optional[torch.Tensor] = None   # (nnz,) int32
     col_val: Optional[torch.Tensor] = None    # (nnz,) int32
+    # adj_in in slices of 32 neurons (:func:`sliced_in_lists`), which B4
+    # walks; not reference fields.  Under delays only (as col_* exist only
+    # without), None on a hand-built encoding, which B4 then refuses.
+    sell_start: Optional[torch.Tensor] = None  # (ceil(m/32)+1,) int32
+    sell_src: Optional[torch.Tensor] = None    # (E,) int32, pad m
 
     @property
     def num_rules(self) -> int:
@@ -171,7 +178,7 @@ class CompiledSparseSNP(NamedTuple):
     # reopening neuron's pending spikes ride the same in-adjacency as the
     # fired produce, so no other array is needed.
     delay: Optional[torch.Tensor] = None       # (n,) int32
-    # What the sliced-list kernel (B3, B5) reads in place of in_idx and
+    # What the sliced-list kernel (B2, B3, B5) reads in place of in_idx and
     # hub_slot (not reference fields): the ELL part in slices of 32
     # neurons (sliced_in_lists), built for every encoding, and for a
     # hybrid one each hub's neuron, the inverse of hub_slot (hub_neurons).
@@ -466,9 +473,11 @@ def compile_system(system: SNPSystem, *, semantics: str = "no_delays",
     if delayed:
         adj = np.zeros((m, m), np.int32)
         adj[low.src, low.dst] = 1
+        adj_in = in_neighbours(low.src, low.dst, m)
         extra = dict(delay=_delay_vector(low), adjacency=adj,
-                     out_neuron=_out_neuron(system),
-                     adj_in=in_neighbours(low.src, low.dst, m))
+                     out_neuron=_out_neuron(system), adj_in=adj_in)
+        extra.update(zip(("sell_start", "sell_src"),
+                         sliced_in_lists(adj_in)))
     else:
         lists = dense_column_lists(torch.from_numpy(M),
                                    torch.from_numpy(low.env_produce))

@@ -3,8 +3,9 @@ B8 in ``kernels/flash_attn``).
 
 Each ``csrc/*.cu`` has a plain C entry point and is compiled by ``nvcc``
 into its own shared library under ``kernels/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  The wrappers load the
+``.gitignore``), named by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  The wrappers load the
 libraries with ``ctypes`` (no PyTorch headers: a build takes seconds, not
 minutes).  :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
@@ -47,9 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:

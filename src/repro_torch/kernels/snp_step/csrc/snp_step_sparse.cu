@@ -3,14 +3,14 @@
 //
 // Replaces the bodies of the TPU kernel
 // src/repro/kernels/snp_step/sparse_kernel.py::snp_step_sparse_pallas:
-// the ELL body _make_kernel(has_coo=False), the hybrid body
-// _make_kernel(has_coo=True) (B2, B3), their delayed bodies
-// (has_delay=True, B5) and the shard body (has_halo=True, B7, wrapper
-// sparse_ops.py::snp_step_sparse_shard).  Two templates: the ELL kernel
-// (B2 alone) and the sliced-list kernel (B3, B5 ELL and COO, B7; the COO
-// tail, the delay stage and the halo as inputs and flags, the halo
-// excluding the delay, as sparse_kernel.py:76 asserts).  For every config
-// b and branch id t < T they compute
+// the ELL body _make_kernel(has_coo=False) (B2), the hybrid body
+// _make_kernel(has_coo=True) (B3), their delayed bodies (has_delay=True,
+// B5) and the shard body (has_halo=True, B7, wrapper
+// sparse_ops.py::snp_step_sparse_shard).  One template, the sliced-list
+// kernel, runs them all: the COO tail, the delay stage and the halo are
+// inputs and flags (the halo excluding the delay, as sparse_kernel.py:76
+// asserts), and B2 is the body with none of the three.  For every config
+// b and branch id t < T it computes
 //
 //   d[b,t,mu]     = (t / stride[b,mu]) % choices[b,mu]    (float32, exact)
 //   packed[b,t,mu] = tab[b, mu, d]            (produce | consume << 16)
@@ -21,9 +21,10 @@
 //   valid[b,t]    = (float)t < psi[b]
 //
 // where produce/consume are the fired rule's, and index m (padding, no
-// output neuron) reads a zero slot.  The ELL kernel reads the
-// in-neighbours from in_idx (m, Kin); the sliced-list kernel from the
-// sliced lists sell_start/sell_src (below), which hold the same entries.
+// output neuron) reads a zero slot.  The in-neighbours are those of the
+// plain version's in_idx (m, Kin), read through the sliced lists
+// sell_start/sell_src (below), which hold the same entries; in_idx itself
+// reaches no kernel.
 //
 // The shard body (HAS_HALO): the neuron axis is one shard's mloc local
 // neurons, and the lists index the extended space [local (m) | halo (H) |
@@ -50,7 +51,7 @@
 // The fired produce is < 2^16 (compile_system_sparse checks it), and so
 // is a pending count, which is only ever set to a fired delayed rule's
 // produce or reset to 0.  States that break that invariant (pending >=
-// 2^16, which no compiled system reaches) are outside the kernels'
+// 2^16, which no compiled system reaches) are outside the kernel's
 // domain; the plain version sums in int32.
 //
 // The decode stays exact.  Division is IEEE-rounded `/` (nvcc's default
@@ -59,63 +60,58 @@
 // gives the argument), and t / +inf = 0 is digit 0.  q and c*floor(q/c)
 // are integers below 2^23, so every product is exact in float32; if nvcc
 // contracts q - c*floor(q/c) into one FMA, the FMA's exact product and
-// single rounding give the same integer.  The sliced-list kernel decodes
-// a neuron once for its first row t0 and steps to the next rows in
-// integers (struct Digits): a stride is a float32 product of choices
-// (>= 1), exact below 2^24, so a stride below T (< 2^23) is an integer
-// s >= 1, and with p = t0 - s*floor(t0/s) (exact) the digit of t0 + 1 is
-// the digit of t0, advanced by one modulo c when p + 1 reaches s.  A
-// stride >= T (+inf included) gives floor(t/stride) = 0 for every t < T,
-// and choices 1 give digit 0: both skip the divides.
+// single rounding give the same integer.  The kernel decodes a neuron
+// once for its first row t0 and steps to the next rows in integers
+// (struct Digits): a stride is a float32 product of choices (>= 1), exact
+// below 2^24, so a stride below T (< 2^23) is an integer s >= 1, and with
+// p = t0 - s*floor(t0/s) (exact) the digit of t0 + 1 is the digit of t0,
+// advanced by one modulo c when p + 1 reaches s.  A stride >= T (+inf
+// included) gives floor(t/stride) = 0 for every t < T, and choices 1
+// give digit 0: both skip the divides.
 //
-// What bounds them.  Per call they write B*T*m*4 output bytes (3x under
-// delays); they read the (B, m, R) table, C, the strides and choices per
+// What bounds it.  Per call it writes B*T*m*4 output bytes (3x under
+// delays); it reads the (B, m, R) table, C, the strides and choices per
 // config (and the (B, T, H) halo), and the in-lists and the COO arrays
 // once at best.  The operations the data needs are a digit decode per
 // (b, t, neuron), the C - consume per output entry and one add per real
 // in-synapse, on the non-tensor datapath: bytes bind every body at the
 // smoke's waves (chip_smoke.py::_sparse_bound counts both from each
-// call's data).  B=512, T=64: B3 at power_law(8192) writes 1.07 GB, 0.32
-// ms at 3.35 TB/s, against 2.1 G operations, 0.03 ms at 67 T op/s; B5 at
-// the delayed scaled_pi(682) (m = 2,046) writes 0.80 GB, 0.25 ms; one B7
-// shard at the 4-shard scaled_pi(682) (mloc = 512) 67 MB, 0.022 ms, and
-// at ring_lattice(32768, 8) (mloc = 8,192) 1.07 GB, 0.35 ms.
+// call's data).  B=512, T=64: B2 at scaled_pi(682) (m = 2,046) writes
+// 268 MB, 0.086 ms at 3.35 TB/s, and at ring_lattice(32768, 8) 4.29 GB,
+// 1.28 ms; B3 at power_law(8192) 1.07 GB, 0.32 ms, against 2.1 G
+// operations, 0.03 ms at 67 T op/s; B5 at the delayed scaled_pi(682)
+// 0.80 GB, 0.25 ms; one B7 shard at the 4-shard scaled_pi(682) (mloc =
+// 512) 67 MB, 0.022 ms, and at ring_lattice(32768, 8) (mloc = 8,192)
+// 1.07 GB, 0.35 ms.
 //
-// The ELL kernel (B2).  The TPU body keeps (bb, bt, m) resident in VMEM
-// because any in_idx[j,k] may point at any neuron.  Here a block owns one
-// config b and bt branch ids and stages the fired produce of its rows in
-// shared memory as uint16 (compile_system_sparse guarantees produce <
-// 2^16): bt*(m+1)*2 bytes, bt a power of two up to 8 chosen so the stage
-// stays within 64 KB where m allows (one row at m = 32768 is 64 KB).
-// Phase 1 decodes and stages; phase 2 gives each thread a neuron j,
-// recomputes its fired consume (a second table read, instead of a second
-// shared array), gathers its in-synapses from shared memory for all bt
-// rows (one in_idx read serves bt branches), and writes bt output
-// entries.
-//
-// The sliced-list kernel (B3, B5, B7).  in_idx read row-major by one
-// thread a neuron is not coalesced, and mostly padding: the ELL part of a
-// hybrid encoding is 6% real entries at the smoke's power_law(8192) (Kin
-// = 36 slots, mean in-degree 2.2).  So the lowering cuts the neurons into
-// slices of 32 and stores slice s's entries column by column at
-// sell_start[s] (entry k of neuron 32s + l at sell_start[s] + 32k + l,
-// width the slice's longest list, padded with m, or with the zero slot
-// m + H for a shard): a warp walks its slice with coalesced loads and
-// stops at the slice's width.  A block owns one config and BT = 8 rows
-// where 8*(m+H+1)*2 bytes fit the 227 KB opt-in (m + H <= 14,527; 4, 2
-// or 1 row past that) and stages them neuron-major, stage[src*BT + r], so
-// one 16-byte shared load returns the 8 rows of a source; the per-config
-// rows (stride, choices, configs, tab) are then read by T/8 blocks of a
-// config, not T/bt with bt down to 2 as in the ELL kernel.  Threads: 1024
-// (32 warps) once every warp has a slice of its own (m >= 1,024: B5's m
-// = 2,046, the ring lattice's shards of mloc = 8,192, B3's m = 8,192);
-// 256 below that, where 32 warps would leave half idle (B7's shards of
-// mloc = 512 have 16 slices), four blocks an SM instead of one.  Measured
-// on the H100 at those waves (probes/sparse_sell_shape.py): each side of
-// the rule is the faster shape there.  Both shapes are held to 64
-// registers a thread.  The kernel waits on dependent global
-// reads (L2 hits), not on bandwidth, so every step sends out its reads
-// together:
+// What the design does about it.  The TPU body keeps (bb, bt, m)
+// resident in VMEM because any in-neighbour may be any neuron; here a
+// block owns one config and BT rows and stages their fired produce in
+// shared memory as uint16.  in_idx read row-major by one thread a neuron
+// is not coalesced, and mostly padding: the ELL part of a hybrid encoding
+// is 6% real entries at the smoke's power_law(8192) (Kin = 36 slots, mean
+// in-degree 2.2).  So the lowering cuts the neurons into slices of 32 and
+// stores slice s's entries column by column at sell_start[s] (entry k of
+// neuron 32s + l at sell_start[s] + 32k + l, width the slice's longest
+// list, padded with m, or with the zero slot m + H for a shard): a warp
+// walks its slice with coalesced loads and stops at the slice's width.
+// A block owns one config and BT = 8 rows where 8*(m+H+1)*2 bytes fit the
+// 227 KB opt-in (m + H <= 14,527; 4, 2 or 1 row past that: 2 at m =
+// 32,768) and stages them neuron-major, stage[src*BT + r], so one 16-byte
+// shared load returns the 8 rows of a source; the per-config rows
+// (stride, choices, configs, tab) are then read by T/8 blocks of a
+// config.  Threads: 1024 (32 warps) once every warp has a slice of its
+// own (m >= 1,024: B2's and B5's m = 2,046, the ring lattice's m =
+// 32,768 and its shards of mloc = 8,192, B3's m = 8,192); 256 below that,
+// where 32 warps would leave half idle (B7's shards of mloc = 512 have 16
+// slices), four blocks an SM instead of one.  The block shape, the
+// stage's loads and stores and the walk over the slices come from
+// sliced_lists.cuh, which B4's source shares; measured on the H100 at
+// those waves (probes/sell_block_threads.py), each side of the thread
+// rule is the faster shape there but for B2 at m = 2,046, where 256
+// threads win by 3.5%.  Both shapes are held to 64 registers a thread.
+// The kernel waits on dependent global reads (L2 hits), not on
+// bandwidth, so every step sends out its reads together:
 //   1. each thread decodes neurons j = tid, tid + NT, ... once (Digits;
 //      four neurons' reads in flight, the digit-0 table entry read with
 //      the stride, as digit 0 is the common case) and stores their BT
@@ -130,17 +126,18 @@
 //      divide unless the stride is below T and the choices above 1),
 //      re-read the fired consume (and dtab) only where the digit is not
 //      0 or changes, and write the BT rows of their 32 neurons, coalesced;
-//   3. the COO tail (B3, B5 COO; Hn = 0 skips it and its barrier): after a
-//      barrier, each hub's run of coo_src is cut in chunks of 64 entries,
-//      numbered over the hubs in order, and chunk i goes to warp i % NW
-//      (108 hubs with runs up to 1,549 entries at the smoke's system: a
-//      hub a warp would leave one warp with most of the work).  A warp
-//      sums a chunk's BT rows lane-wise, folds the 8 sums across lanes in
-//      9 shuffles (each halving step hands half the rows to the partner
-//      lane), and 8 lanes add the rows onto the hub's outputs with one
-//      atomicAdd each (under delays only where the row's cd' is 0, read
-//      back from the block's own output).  The hub's neuron comes from
-//      hub_neuron, the inverse of hub_slot.
+//   3. the COO tail (B3, B5 COO; B2, B5 ELL and B7 have Hn = 0, which
+//      skips it and its barrier): after a barrier, each hub's run of
+//      coo_src is cut in chunks of 64 entries, numbered over the hubs in
+//      order, and chunk i goes to warp i % NW (108 hubs with runs up to
+//      1,549 entries at the smoke's system: a hub a warp would leave one
+//      warp with most of the work).  A warp sums a chunk's BT rows
+//      lane-wise, folds the 8 sums across lanes in 9 shuffles (each
+//      halving step hands half the rows to the partner lane), and 8 lanes
+//      add the rows onto the hub's outputs with one atomicAdd each (under
+//      delays only where the row's cd' is 0, read back from the block's
+//      own output).  The hub's neuron comes from hub_neuron, the inverse
+//      of hub_slot.
 // Integer adds commute, so the atomics leave the result deterministic.
 // The kernel reads a list or tail entry outside [0, m + H] as the zero
 // slot and clamps slice and run bounds to the lists' lengths, so forged
@@ -154,104 +151,13 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "sliced_lists.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;                  // ELL kernel: 8 warps
-constexpr int NWARPS = THREADS / 32;
-constexpr int BT_MAX = 8;                     // branch rows per block
-constexpr int STAGE_TARGET = 64 * 1024;       // ELL kernel's stage target
-constexpr int SMEM_LIMIT = 232448;            // opt-in max per block (227 KB)
+using namespace sell;
+
 constexpr int CHUNK = 64;                     // tail entries a warp step
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ int digit(int t, float s, float c) {
-  const float q = floorf((float)t / s);
-  return (int)(q - c * floorf(q / c));
-}
-
-__global__ void __launch_bounds__(THREADS)
-snp_step_sparse_kernel(const int* __restrict__ configs,
-                       const float* __restrict__ stride,
-                       const int* __restrict__ choices,
-                       const float* __restrict__ psi,
-                       const int* __restrict__ tab,
-                       const int* __restrict__ in_idx,
-                       const int* __restrict__ out_neuron,
-                       int* __restrict__ out,
-                       unsigned char* __restrict__ valid,
-                       int* __restrict__ emis,
-                       int T, int m, int R, int Kin, int bt, int t_tiles) {
-  extern __shared__ unsigned short prod_s[];   // [bt][m + 1]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.x / t_tiles;
-  const int t0 = (blockIdx.x % t_tiles) * bt;
-  const int nt = min(bt, T - t0);
-  const int ms = m + 1;                        // stage row; m is zero
-  const size_t row_b = (size_t)b * m;
-
-  // 1. fired produce of each (row, neuron) into shared memory
-  for (int j = tid; j < m; j += THREADS) {
-    const float s = stride[row_b + j];
-    const float c = (float)choices[row_b + j];
-    const int* tab_j = tab + (row_b + j) * R;
-#pragma unroll
-    for (int r = 0; r < BT_MAX; ++r)
-      if (r < nt)
-        prod_s[r * ms + j] =
-            (unsigned short)(tab_j[digit(t0 + r, s, c)] & 0xFFFF);
-  }
-  if (tid < nt) prod_s[tid * ms + m] = 0;      // the zero slot
-  __syncthreads();
-
-  // 2. one neuron per thread: C - consume + in-synapses
-  for (int j0 = warp * 32; j0 < m; j0 += NWARPS * 32) {   // warp-uniform
-    const int j = j0 + lane;
-    const bool active = j < m;
-    unsigned acc[BT_MAX];
-    int dg[BT_MAX];
-#pragma unroll
-    for (int r = 0; r < BT_MAX; ++r) acc[r] = 0, dg[r] = 0;
-    const int* tab_j = tab + (row_b + j) * R;
-    if (active) {
-      const float s = stride[row_b + j];
-      const float c = (float)choices[row_b + j];
-      const unsigned cj = (unsigned)configs[row_b + j];
-#pragma unroll
-      for (int r = 0; r < BT_MAX; ++r) {
-        if (r >= nt) continue;
-        dg[r] = digit(t0 + r, s, c);
-        acc[r] = cj - ((unsigned)tab_j[dg[r]] >> 16);
-      }
-      const int* row = in_idx + (size_t)j * Kin;
-      for (int k = 0; k < Kin; ++k) {
-        const int src = row[k];
-#pragma unroll
-        for (int r = 0; r < BT_MAX; ++r)
-          if (r < nt) acc[r] += prod_s[r * ms + src];
-      }
-    }
-    if (active) {
-      int* out_j = out + ((size_t)b * T + t0) * m + j;
-#pragma unroll
-      for (int r = 0; r < BT_MAX; ++r)
-        if (r < nt) out_j[(size_t)r * m] = (int)acc[r];
-    }
-  }
-
-  // 3. emission and validity of the block's rows (prod_s is still live)
-  if (tid < nt) {
-    const int t = t0 + tid;
-    const int o = out_neuron[0];
-    emis[(size_t)b * T + t] = (int)prod_s[tid * ms + (o < m ? o : m)];
-    valid[(size_t)b * T + t] = (float)t < psi[b];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The sliced-list kernel (B3, B5, B7)
-// ---------------------------------------------------------------------------
 
 // The digits of one neuron (stride sf, choices c) for rows t0, t0 + 1,
 // ... (one step a row), exact as the header argues.  s == 0: every row's
@@ -277,57 +183,6 @@ struct Digits {
     return true;
   }
 };
-
-// A list entry outside [0, z] reads the zero slot z.
-__device__ __forceinline__ int in_range(int src, int z) {
-  return (unsigned)src > (unsigned)z ? z : src;
-}
-
-// Neuron j's BT staged values (each below 2^16) in one vector store.
-template <int BT>
-__device__ __forceinline__ void put_rows(unsigned short* stage, int j,
-                                         const unsigned (&v)[BT]) {
-  if constexpr (BT == 1) {
-    stage[j] = (unsigned short)v[0];
-  } else {
-    unsigned w[BT / 2];
-#pragma unroll
-    for (int i = 0; i < BT / 2; ++i)
-      w[i] = (v[2 * i] & 0xFFFFu) | (v[2 * i + 1] << 16);
-    if constexpr (BT == 8)
-      reinterpret_cast<uint4*>(stage)[j] = make_uint4(w[0], w[1], w[2], w[3]);
-    else if constexpr (BT == 4)
-      reinterpret_cast<uint2*>(stage)[j] = make_uint2(w[0], w[1]);
-    else
-      reinterpret_cast<unsigned*>(stage)[j] = w[0];
-  }
-}
-
-// acc[r] += stage value of source src in row r, for the BT rows (one
-// vector load).
-template <int BT>
-__device__ __forceinline__ void add_rows(const unsigned short* stage,
-                                         int src, unsigned (&acc)[BT]) {
-  if constexpr (BT == 1) {
-    acc[0] += stage[src];
-  } else {
-    unsigned w[BT / 2];
-    if constexpr (BT == 8) {
-      const uint4 q = reinterpret_cast<const uint4*>(stage)[src];
-      w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
-    } else if constexpr (BT == 4) {
-      const uint2 q = reinterpret_cast<const uint2*>(stage)[src];
-      w[0] = q.x, w[1] = q.y;
-    } else {
-      w[0] = reinterpret_cast<const unsigned*>(stage)[src];
-    }
-#pragma unroll
-    for (int i = 0; i < BT / 2; ++i) {
-      acc[2 * i] += w[i] & 0xFFFFu;
-      acc[2 * i + 1] += w[i] >> 16;
-    }
-  }
-}
 
 // Lanes `off` apart swap halves of their N sums: the lower lane keeps the
 // first N/2 rows, the upper the last, each summed over the pair.
@@ -432,25 +287,17 @@ snp_step_sparse_sell_kernel(const int* __restrict__ configs,
   }
   __syncthreads();
 
-  // 2. a warp a slice of 32 neurons: the sliced lists, then the rows.
-  //    The warp's slices are warp, warp + NW, ...; lane i loads the
-  //    bounds of the i-th of the next 32 at once.
+  // 2. a warp a slice of 32 neurons (sell::SliceBounds): the sliced
+  //    lists, then the rows
   const int n_slices = (m + 31) >> 5;
   for (int g = warp; g < n_slices; g += NW * 32) {   // warp-uniform
-    int a_l = 0, e_l = 0;
-    if (g + lane * NW < n_slices) {
-      a_l = min(max(sell_start[g + lane * NW], 0), E);
-      e_l = min(max(sell_start[g + lane * NW + 1], a_l), E);
-    }
-    const int n_here = min(32, (n_slices - g + NW - 1) / NW);
-    for (int i = 0; i < n_here; ++i) {
-      const int sl = g + i * NW;
-      const int a = __shfl_sync(FULL, a_l, i);
-      const int w = (__shfl_sync(FULL, e_l, i) - a) >> 5;
-      const int* src = sell_src + a + lane;
+    const SliceBounds sb(sell_start, g, NW, n_slices, E, lane);
+    for (int i = 0; i < sb.n; ++i) {
+      int w;
+      const int* src = sb.entries(i, sell_src, lane, w);
+      const int j = SliceBounds::neuron(i, g, NW, lane);
       // the lane's neuron (lanes past m read neuron m - 1 and store
       // nothing): its reads go out before the gather, which hides them
-      const int j = (sl << 5) + lane;
       const size_t at = row_b + min(j, m - 1);
       const int* tab_j = tab + at * R;
       const float sf = stride[at];
@@ -464,18 +311,7 @@ snp_step_sparse_sell_kernel(const int* __restrict__ configs,
         dv = (unsigned)dtab[at * R];
       }
       unsigned acc[BT];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0;
-      int k = 0;
-      for (; k + 4 <= w; k += 4) {
-        int x[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) x[u] = src[(k + u) * 32];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          add_rows<BT>(stage, in_range(x[u], Z), acc);
-      }
-      for (; k < w; ++k) add_rows<BT>(stage, in_range(src[k * 32], Z), acc);
+      gather<BT>(stage, src, w, Z, acc);
 
       if (j >= m) continue;
       Digits dg(t0, sf, c, T);
@@ -568,57 +404,6 @@ snp_step_sparse_sell_kernel(const int* __restrict__ configs,
   }
 }
 
-// Rows per block of the ELL kernel: the largest power of two <= BT_MAX
-// (and <= T) whose stage of w entries a row fits STAGE_TARGET; 1 when even
-// one row is larger.
-int rows_per_block(int w, int T) {
-  int bt = BT_MAX;
-  while (bt > 1 && (bt > T || (size_t)bt * w * 2 > STAGE_TARGET))
-    bt >>= 1;
-  return bt;
-}
-
-// Rows per block of the sliced-list kernel: the largest power of two <= 8
-// (and <= T) whose stage of w + 1 entries a row (w = m + H) fits the
-// opt-in limit.
-int sell_rows_per_block(int w, int T) {
-  int bt = BT_MAX;
-  while (bt > 1 && (bt > T || (size_t)bt * (w + 1) * 2 > SMEM_LIMIT))
-    bt >>= 1;
-  return bt;
-}
-
-// Threads a block of the sliced-list kernel for m (local) neurons: 1024
-// once each of the 32 warps has a slice of 32 neurons, else 256.
-int sell_threads(int m) { return m >= 32 * 32 ? 1024 : 256; }
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-int launch_ell(const void* configs, const void* stride, const void* choices,
-               const void* psi, const void* tab, const void* in_idx,
-               const void* out_neuron, void* out, void* valid, void* emis,
-               int B, int T, int m, int R, int Kin, cudaStream_t stream) {
-  const int bt = rows_per_block(m + 1, T);
-  const int t_tiles = (T + bt - 1) / bt;
-  const size_t smem = (size_t)bt * (m + 1) * 2;
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)B * t_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int e = set_smem(snp_step_sparse_kernel, smem);
-  if (e != 0) return e;
-  snp_step_sparse_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      (const int*)configs, (const float*)stride, (const int*)choices,
-      (const float*)psi, (const int*)tab, (const int*)in_idx,
-      (const int*)out_neuron, (int*)out, (unsigned char*)valid, (int*)emis,
-      T, m, R, Kin, bt, t_tiles);
-  return (int)cudaGetLastError();
-}
-
 // One call of the sliced-list kernel (H = 0 but for a shard, Hn = 0 but
 // for a hybrid encoding).
 struct SellCall {
@@ -663,8 +448,8 @@ int launch_sell_rows(const SellCall& c, int bt) {
 
 template <bool HAS_DELAY, bool HAS_HALO>
 int dispatch_sell(const SellCall& c) {
-  const int bt = sell_rows_per_block(c.m + c.H, c.T);
-  if (sell_threads(c.m) == 256)
+  const int bt = rows_per_block(c.m + c.H, c.T, 2);
+  if (threads(c.m) == 256)
     return launch_sell_rows<256, HAS_DELAY, HAS_HALO>(c, bt);
   return launch_sell_rows<1024, HAS_DELAY, HAS_HALO>(c, bt);
 }
@@ -673,53 +458,49 @@ int dispatch_sell(const SellCall& c) {
 
 // The largest m (m + H for a shard) one block's shared-memory stage holds
 // (one uint16 row of m + 1 entries in 227 KB).
-extern "C" int snp_step_sparse_max_neurons() { return SMEM_LIMIT / 2 - 1; }
+extern "C" int snp_step_sparse_max_neurons() {
+  return sell::SMEM_LIMIT / 2 - 1;
+}
 
 // The sliced-list kernel's block shape: rows a block for a system of
 // w = m + H neurons (and halo slots) at T branches, threads a block for
 // m (local) neurons.
 extern "C" int snp_step_sparse_sell_rows(int w, int T) {
-  return sell_rows_per_block(w, T);
+  return sell::rows_per_block(w, T, 2);
 }
 extern "C" int snp_step_sparse_sell_threads(int m) {
-  return sell_threads(m);
+  return sell::threads(m);
 }
 
 // C entry point: launches one kernel on `stream` (PyTorch's current
 // stream), allocates nothing, and returns cudaGetLastError() (0 on
 // success).  All arrays are contiguous int32 unless noted: configs and
 // choices (B,m), stride (B,m) float32, psi (B,) float32, tab (B,m,R),
-// out_neuron (1,).  With has_coo, has_delay and has_halo all 0 (B2, the
-// ELL kernel): in_idx (m,Kin).  Otherwise (the sliced-list kernel; in_idx
-// unused) sell_start (ceil(m/32)+1,) and sell_src (E,), the sliced lists;
-// with has_coo also coo_src (Ec,), coo_bounds (Hn+1,) and hub_neuron
-// (Hn,); with has_delay also dtab (B,m,R), cd and pd (B,m); with has_halo
-// (and neither of the other two) halo (B,T,H), the lists indexing [local
-// | halo | zero] and out_neuron the zero slot m + H.  Outputs: out
-// (B,T,m), or (B,T,3m) with has_delay, valid (B,T) bool, emis (B,T).
+// sell_start (ceil(m/32)+1,) and sell_src (E,), the sliced lists,
+// out_neuron (1,); with has_coo also coo_src (Ec,), coo_bounds (Hn+1,)
+// and hub_neuron (Hn,); with has_delay also dtab (B,m,R), cd and pd
+// (B,m); with has_halo (and neither of the other two) halo (B,T,H), the
+// lists indexing [local | halo | zero] and out_neuron the zero slot m +
+// H.  With none of the three (B2) the tail is empty (Hn = 0).  Outputs:
+// out (B,T,m), or (B,T,3m) with has_delay, valid (B,T) bool, emis (B,T).
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
-                               const void* tab, const void* in_idx,
-                               const void* sell_start, const void* sell_src,
-                               const void* out_neuron, const void* coo_src,
-                               const void* coo_bounds,
+                               const void* tab, const void* sell_start,
+                               const void* sell_src, const void* out_neuron,
+                               const void* coo_src, const void* coo_bounds,
                                const void* hub_neuron, const void* dtab,
                                const void* cd, const void* pd,
                                const void* halo, void* out, void* valid,
-                               void* emis, int B, int T, int m, int R,
-                               int Kin, int E, int Ec, int Hn, int H,
-                               int has_coo, int has_delay, int has_halo,
-                               void* stream) {
+                               void* emis, int B, int T, int m, int R, int E,
+                               int Ec, int Hn, int H, int has_coo,
+                               int has_delay, int has_halo, void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (has_halo && (has_coo || has_delay)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!has_coo && !has_delay && !has_halo)
-    return launch_ell(configs, stride, choices, psi, tab, in_idx, out_neuron,
-                      out, valid, emis, B, T, m, R, Kin, s);
   const SellCall c{configs, stride, choices, psi, tab, sell_start, sell_src,
                    out_neuron, coo_src, coo_bounds, hub_neuron, dtab, cd, pd,
                    halo, out, valid, emis, B, T, m, R, E,
-                   has_coo ? Ec : 0, has_coo ? Hn : 0, has_halo ? H : 0, s};
+                   has_coo ? Ec : 0, has_coo ? Hn : 0, has_halo ? H : 0,
+                   (cudaStream_t)stream};
   if (has_halo) return dispatch_sell<false, true>(c);
   if (has_delay) return dispatch_sell<true, false>(c);
   return dispatch_sell<false, false>(c);

@@ -34,7 +34,11 @@ shard_columns`' of ``M_local`` and ``hadj``; both built at lowering by
 one source of what the kernel adds.  The host checks their shapes; the
 kernel skips an entry that points outside the matrix or past the lists'
 end, so no list reads out of bounds.  The plain versions read the
-matrices.
+matrices.  B4 likewise walks the sliced lists of ``adj_in``
+(``CompiledSNP.sell_start``/``sell_src``, :func:`delay_inputs` with
+``lists=True``) in place of ``adj_in``, which its plain version reads;
+the kernel reads an entry outside ``[0, m]`` as the zero slot and clamps
+slice starts to the lists' length.
 
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` and ``plain_calls`` count launches of B1 and calls of
@@ -55,14 +59,15 @@ from ...core.semantics import (branch_info, clamp_stride,
 from ._build import load_library
 from .ref import (snp_step_dense_delay_ref, snp_step_dense_ref,
                   snp_step_dense_shard_ref)
-from .sparse_ops import _check
+from .sparse_ops import _check, _check_shape, _check_sliced_lists
 
 __all__ = ["snp_step", "snp_step_dense", "snp_step_dense_delay",
            "snp_step_dense_shard", "snp_step_dense_shard_cuda",
            "delay_inputs", "load_kernel", "load_delay_kernel",
-           "delay_max_neurons", "SOURCE", "DELAY_SOURCE", "kernel_launches",
-           "plain_calls", "delay_launches", "delay_plain_calls",
-           "shard_launches", "shard_plain_calls", "RULE_CHUNK"]
+           "delay_max_neurons", "delay_block_shape", "SOURCE",
+           "DELAY_SOURCE", "kernel_launches", "plain_calls",
+           "delay_launches", "delay_plain_calls", "shard_launches",
+           "shard_plain_calls", "RULE_CHUNK"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
 DELAY_SOURCE = SOURCE.with_name("snp_step_dense_delay.cu")
@@ -97,11 +102,15 @@ def load_delay_kernel():
     """Build (at first use) and load B4's shared library."""
     lib = load_library(DELAY_SOURCE)
     fn = lib.snp_step_dense_delay
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snp_step_dense_delay_max_neurons.argtypes = []
     lib.snp_step_dense_delay_max_neurons.restype = ctypes.c_int
+    lib.snp_step_dense_delay_rows.argtypes = [ctypes.c_int] * 2
+    lib.snp_step_dense_delay_rows.restype = ctypes.c_int
+    lib.snp_step_dense_delay_threads.argtypes = [ctypes.c_int]
+    lib.snp_step_dense_delay_threads.restype = ctypes.c_int
     return lib
 
 
@@ -109,6 +118,14 @@ def delay_max_neurons() -> int:
     """The largest system (neurons) B4 takes: one int32 row of emit-now
     spikes must fit a block's shared memory."""
     return int(load_delay_kernel().snp_step_dense_delay_max_neurons())
+
+
+def delay_block_shape(m: int, max_branches: int):
+    """``(rows, threads)`` a block of B4 takes for ``m`` neurons at
+    ``max_branches`` branches, as the library chooses them."""
+    lib = load_delay_kernel()
+    return (int(lib.snp_step_dense_delay_rows(m, max_branches)),
+            int(lib.snp_step_dense_delay_threads(m)))
 
 
 _INPUTS = (("configs", torch.int32, 2), ("rank", torch.int32, 2),
@@ -188,28 +205,35 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
 
 
 def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
-                         rule_bounds, consume, produce, delay, adj_in,
-                         out_neuron, max_branches: int):
+                         rule_bounds, consume, produce, delay, sell_start,
+                         sell_src, out_neuron, max_branches: int):
     """Launch B4 on CUDA tensors: ``(out (B,T,3m) int32, valid (B,T) bool,
     emis (B,T) int32)``, the contract of
-    :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_delay_ref`."""
+    :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_delay_ref` for
+    the ``adj_in`` whose sliced lists ``sell_start (ceil(m/32)+1,)`` and
+    ``sell_src`` hold (:func:`~repro_torch.core.matrix.sliced_in_lists`),
+    taken in ``adj_in``'s place."""
     global delay_launches
     dev = spikes.device
     B, m = spikes.shape
     n = rank.shape[-1]
-    Kin = adj_in.shape[-1]
     T = int(max_branches)
     i32 = torch.int32
-    for name, x, dtype, shape in (
-            ("spikes", spikes, i32, (B, m)), ("cd", cd, i32, (B, m)),
-            ("pd", pd, i32, (B, m)), ("rank", rank, i32, (B, n)),
-            ("app", app, torch.bool, (B, n)), ("stride", stride, i32, (B, m)),
-            ("choices", choices, i32, (B, m)),
-            ("psi", psi, torch.float32, (B,)),
-            ("rule_bounds", rule_bounds, i32, (m + 1,)),
-            ("consume", consume, i32, (n,)), ("produce", produce, i32, (n,)),
-            ("delay", delay, i32, (n,)), ("adj_in", adj_in, i32, (m, Kin)),
-            ("out_neuron", out_neuron, i32, (1,))):
+    _check_sliced_lists("B4", "adj_in", sell_start, sell_src)
+    checks = (
+        ("spikes", spikes, i32, (B, m)), ("cd", cd, i32, (B, m)),
+        ("pd", pd, i32, (B, m)), ("rank", rank, i32, (B, n)),
+        ("app", app, torch.bool, (B, n)), ("stride", stride, i32, (B, m)),
+        ("choices", choices, i32, (B, m)), ("psi", psi, torch.float32, (B,)),
+        ("rule_bounds", rule_bounds, i32, (m + 1,)),
+        ("consume", consume, i32, (n,)), ("produce", produce, i32, (n,)),
+        ("delay", delay, i32, (n,)),
+        ("sell_start", sell_start, i32, (-(-m // 32) + 1,)),
+        ("sell_src", sell_src, i32, (sell_src.shape[0],)),
+        ("out_neuron", out_neuron, i32, (1,)))
+    for name, x, dtype, shape in checks:    # every shape, then devices
+        _check_shape(name, x, dtype, shape)
+    for name, x, dtype, shape in checks:
         _check(name, x, dtype, shape, dev)
     if T < 1:
         raise ValueError(f"max_branches must be >= 1, got {T}")
@@ -229,8 +253,8 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
         rc = lib.snp_step_dense_delay(
             *(x.data_ptr() for x in (
                 spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds,
-                consume, produce, delay, adj_in, out_neuron, out, valid,
-                emis)), B, T, n, m, Kin, stream)
+                consume, produce, delay, sell_start, sell_src, out_neuron,
+                out, valid, emis)), B, T, n, m, sell_src.shape[0], stream)
     if rc != 0:
         raise RuntimeError(
             f"snp_step_dense_delay launch failed: CUDA error {rc}")
@@ -307,14 +331,27 @@ def snp_step_dense_shard(configs: torch.Tensor, rank: torch.Tensor,
                                      max_branches)
 
 
-def delay_inputs(configs: torch.Tensor, comp: CompiledSNP):
+def delay_inputs(configs: torch.Tensor, comp: CompiledSNP, *,
+                 lists: bool = False):
     """B4's inputs for state rows ``configs`` (B, 3m) of a delayed dense
-    encoding, and the branch info they came from: ``(args, info)``."""
+    encoding, and the branch info they came from: ``(args, info)``.  The
+    plain version's take ``adj_in``; with ``lists`` (what the kernel
+    reads) its sliced lists ``sell_start, sell_src`` stand in its place,
+    two arguments for one, and an encoding without them raises."""
     if comp.adj_in is None:
         raise ValueError(
             "dense delayed step: this encoding lacks adj_in (the "
             "in-neighbour lists of its adjacency); lower the system "
             "through compile_system / backend.compile")
+    adj = (comp.adj_in,)
+    if lists:
+        if comp.sell_start is None or comp.sell_src is None:
+            raise ValueError(
+                "dense delayed step kernel: this encoding lacks the sliced "
+                "lists of adj_in (sell_start/sell_src) that B4 walks; lower "
+                "the system through compile_system or "
+                "convert.compiled_from_arrays")
+        adj = (comp.sell_start, comp.sell_src)
     spikes, cd, pd = split_state(configs)
     info = delayed_branch_info(configs, comp)
     m = comp.num_neurons
@@ -325,7 +362,7 @@ def delay_inputs(configs: torch.Tensor, comp: CompiledSNP):
     args = (spikes.contiguous(), cd.contiguous(), pd.contiguous(),
             info.rank, info.app, clamp_stride(info.stride), info.choices,
             info.psi.contiguous(), rule_bounds, comp.consume, comp.produce,
-            comp.delay, comp.adj_in, comp.out_neuron.reshape(1))
+            comp.delay, *adj, comp.out_neuron.reshape(1))
     return args, info
 
 
@@ -340,7 +377,8 @@ def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
     if configs.dim() != 2:
         raise ValueError(f"configs must be (B, m), got {tuple(configs.shape)}")
     if is_delayed(comp):
-        args, info = delay_inputs(configs, comp)
+        args, info = delay_inputs(configs, comp,
+                                  lists=configs.device.type != "cpu")
         if configs.device.type == "cpu":
             delay_plain_calls += 1
             out, valid, emis = snp_step_dense_delay_ref(*args, max_branches)

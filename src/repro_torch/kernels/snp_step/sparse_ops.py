@@ -5,13 +5,12 @@ bookkeeping (:func:`~.sparse_ref.kernel_inputs`), then
 
 * on a CPU tensor the plain version
   (:func:`~.sparse_ref.snp_step_sparse_ref`);
-* on a CUDA tensor ``csrc/snp_step_sparse.cu`` — its ELL kernel (B2) for
-  a delay-free pure-ELL encoding, which reads ``in_idx``; else its
+* on a CUDA tensor ``csrc/snp_step_sparse.cu``'s one kernel, the
   sliced-list kernel, which walks the encoding's sliced in-lists (and a
   hybrid encoding's hub neurons) in place of ``in_idx`` and ``hub_slot``
-  (an encoding without them is refused): B3 for a hybrid encoding, B5
-  with the delay stage for a delayed one — or it raises.  There is no
-  fallback.
+  (an encoding without them is refused): B2 for a delay-free pure-ELL
+  encoding, B3 for a hybrid one, B5 with the delay stage for a delayed
+  one — or it raises.  There is no fallback.
 
 and masks ``valid`` with ``alive``.  Its outputs equal
 :func:`~repro_torch.core.semantics.sparse_next_configs` (or, for a
@@ -91,7 +90,7 @@ def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
     lib = load_library(SOURCE)
     fn = lib.snp_step_sparse
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 12 \
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snp_step_sparse_max_neurons.argtypes = []
@@ -138,33 +137,49 @@ def _check(name, x, dtype, shape, dev):
     _check_shape(name, x, dtype, shape)
 
 
-def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
-                         out_neuron, coo_src=None, coo_bounds=None,
+def _check_sliced_lists(kernel, adjacency, sell_start, sell_src):
+    """Refuse anything but two 1-D tensors where a launcher takes sliced
+    lists (its plain version takes ``adjacency`` there)."""
+    def kind(x):
+        return (f"a {x.dim()}-D tensor" if isinstance(x, torch.Tensor)
+                else type(x).__name__)
+    if not all(isinstance(x, torch.Tensor) and x.dim() == 1
+               for x in (sell_start, sell_src)):
+        raise ValueError(
+            f"{kernel} walks the sliced lists sell_start, sell_src (two 1-D "
+            f"tensors) in place of {adjacency}; got {kind(sell_start)} and "
+            f"{kind(sell_src)}")
+
+
+def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
+                         sell_src, out_neuron, coo_src=None, coo_bounds=None,
                          hub_neuron=None, dtab=None, cd=None, pd=None,
-                         halo=None, *, sell_start=None, sell_src=None,
-                         max_branches: int):
+                         halo=None, *, max_branches: int):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid
-    (B,T) bool, emis (B,T) int32)``, the plain version's contract.
-    ``in_idx`` (m, Kin) is the ELL body's (B2) in-adjacency, and the only
-    body it serves.  Every other body runs the sliced-list kernel, which
-    walks the sliced lists ``sell_start``/``sell_src`` in place of
-    ``in_idx`` (then ``None``; ``sparse_ref.kernel_inputs(...,
-    lists=True)``): ``coo_src``/``coo_bounds``/``hub_neuron`` (all or
-    none) select the COO tail (B3, B5 COO; ``hub_neuron`` in place of the
-    plain version's ``hub_slot``), ``dtab``/``cd``/``pd`` (all or none)
-    the delay stage (B5), whose rows are ``3m`` wide, ``halo`` (B, T, H)
-    the shard body (B7; with neither of the other two, its lists indexing
-    ``[local | halo | zero]``, its entries fired produce, below 2^16).
-    The shapes are checked here; list entries out of range are read as
-    the zero slot by the kernel (no host read)."""
+    (B,T) bool, emis (B,T) int32)``, the plain version's contract.  Every
+    body walks the sliced lists ``sell_start``/``sell_src`` in place of
+    the plain version's ``in_idx``, two arguments for one
+    (``sparse_ref.kernel_inputs(..., lists=True)`` gives them):
+    ``coo_src``/``coo_bounds``/``hub_neuron`` (all or none) select the COO
+    tail (B3, B5 COO; ``hub_neuron`` in place of the plain version's
+    ``hub_slot``), ``dtab``/``cd``/``pd`` (all or none) the delay stage
+    (B5), whose rows are ``3m`` wide, ``halo`` (B, T, H) the shard body
+    (B7; with neither of the other two, its lists indexing ``[local | halo
+    | zero]``, its entries fired produce, below 2^16); none of the three is
+    the ELL body (B2).  The shapes are checked here; list entries out of
+    range are read as the zero slot by the kernel (no host read)."""
     dev = configs.device
     B, m = configs.shape
     R = tab.shape[-1]
     T = int(max_branches)
+    _check_sliced_lists("every body of the sparse step kernel (B2 as "
+                        "well as those with the COO tail, the delay stage "
+                        "or the halo)", "in_idx", sell_start, sell_src)
     has_coo = coo_src is not None
     if has_coo != (coo_bounds is not None) or has_coo != (hub_neuron
                                                          is not None):
-        raise ValueError("coo_src, coo_bounds and hub_neuron come together")
+        raise ValueError("the COO tail: coo_src, coo_bounds and hub_neuron "
+                         "come together")
     has_delay = dtab is not None
     if has_delay != (cd is not None) or has_delay != (pd is not None):
         raise ValueError("dtab, cd and pd come together")
@@ -172,15 +187,6 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
     if has_halo and (has_coo or has_delay):
         raise ValueError("the shard body (halo) has neither a COO nor a "
                          "delay stage")
-    sliced = has_coo or has_delay or has_halo
-    if sliced != (sell_start is not None) or sliced != (
-            sell_src is not None) or sliced != (in_idx is None):
-        raise ValueError(
-            "the COO, delay and shard bodies walk the sliced lists "
-            "(sell_start, sell_src) in place of in_idx" if sliced else
-            "the ELL body (B2) walks in_idx; the sliced lists (sell_start, "
-            "sell_src) come with the COO tail (coo_src, coo_bounds, "
-            "hub_neuron), the delay stage or the halo")
     Hn = coo_bounds.shape[0] - 1 if has_coo else 0
     H = halo.shape[-1] if has_halo else 0
     i32, f32 = torch.int32, torch.float32
@@ -189,13 +195,9 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
               ("choices", choices, i32, (B, m)), ("psi", psi, f32, (B,)),
               ("tab", tab, i32, (B, m, R)),
               ("out_neuron", out_neuron, i32, (1,))]
-    if sliced:
-        Kin, E = 0, sell_src.shape[0]
-        checks += [("sell_start", sell_start, i32, (-(-m // 32) + 1,)),
-                   ("sell_src", sell_src, i32, (E,))]
-    else:
-        Kin, E = in_idx.shape[-1], 0
-        checks += [("in_idx", in_idx, i32, (m, Kin))]
+    E = sell_src.shape[0]
+    checks += [("sell_start", sell_start, i32, (-(-m // 32) + 1,)),
+               ("sell_src", sell_src, i32, (E,))]
     if has_coo:
         checks += [("coo_src", coo_src, i32, (coo_src.shape[0],)),
                    ("coo_bounds", coo_bounds, i32, (Hn + 1,)),
@@ -226,10 +228,10 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, in_idx,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = (None if x is None else x.data_ptr() for x in (
-            configs, stride, choices, psi, tab, in_idx, sell_start, sell_src,
+            configs, stride, choices, psi, tab, sell_start, sell_src,
             out_neuron, coo_src, coo_bounds, hub_neuron, dtab, cd, pd, halo,
             out, valid, emis))
-        rc = lib.snp_step_sparse(*ptrs, B, T, m, R, Kin, E, Ec, Hn, H,
+        rc = lib.snp_step_sparse(*ptrs, B, T, m, R, E, Ec, Hn, H,
                                  int(has_coo), int(has_delay), int(has_halo),
                                  stream)
     if rc != 0:
@@ -270,8 +272,8 @@ def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
         raise ValueError("B7 walks the shard's sliced lists (sell_start, "
                          "sell_src); this shard carries none (a hand-built "
                          "lowering)")
-    return snp_step_sparse_cuda(*args, None, zero, halo=halo.contiguous(),
-                                sell_start=sell[0], sell_src=sell[1],
+    return snp_step_sparse_cuda(*args, sell[0], sell[1], zero,
+                                halo=halo.contiguous(),
                                 max_branches=max_branches)[0]
 
 

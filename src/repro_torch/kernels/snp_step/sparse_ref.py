@@ -9,7 +9,7 @@ body of the sparse step.
   exactly those inputs, reading the in-adjacency through ``in_idx`` and
   the COO tail through the per-hub runs ``coo_bounds`` and the
   neuron→hub map ``hub_slot`` (the sliced-list kernel, which runs every
-  body but B2, reads the same entries through the sliced lists and
+  body, reads the same entries through the sliced lists and
   ``hub_neuron``: ``kernel_inputs(..., lists=True)``); with ``dtab``/
   ``cd``/``pd`` it is the delayed step (the plain version of B5), with
   ``halo`` one neuron shard's step over the extended space ``[local |
@@ -74,22 +74,19 @@ def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP, *,
     extra, info)`` with ``extra`` the COO stage's three tensors for a
     hybrid encoding and the delay stage's ``dtab``/``cd``/``pd`` for a
     delayed one (``{}`` for neither).  With ``lists`` (what the kernel
-    reads) a hybrid or delayed encoding, which the sliced-list kernel
-    steps, gives ``None`` for ``in_idx`` and its sliced in-lists
-    ``sell_start``/``sell_src`` (and ``hub_neuron`` in place of
-    ``hub_slot``), and one without them raises; a delay-free pure-ELL
-    encoding (B2) and the plain version read ``in_idx`` and
+    reads; every body) the encoding's sliced in-lists ``sell_start,
+    sell_src`` stand in ``in_idx``'s place in ``args``, two for one (and
+    ``hub_neuron`` takes ``hub_slot``'s place in ``extra``), and an
+    encoding without them raises; the plain version reads ``in_idx`` and
     ``hub_slot``."""
     check_coo_metadata(comp, "sparse step")
-    in_idx, extra = comp.in_idx, {}
-    sliced = lists and (comp.is_hybrid or is_delayed(comp))
-    if sliced:
+    adj, extra = (comp.in_idx,), {}
+    if lists:
         check_sliced_lists(comp, "sparse step kernel")
-        in_idx = None
-        extra.update(sell_start=comp.sell_start, sell_src=comp.sell_src)
+        adj = (comp.sell_start, comp.sell_src)
     if comp.is_hybrid:
         extra.update(coo_src=comp.coo_src, coo_bounds=comp.coo_bounds)
-        if sliced:
+        if lists:
             extra["hub_neuron"] = comp.hub_neuron
         else:
             extra["hub_slot"] = comp.hub_slot
@@ -106,7 +103,7 @@ def kernel_inputs(configs: torch.Tensor, comp: CompiledSparseSNP, *,
         tab = packed_rule_table(info, comp)
     args = (spikes.contiguous(), info.stride.contiguous(),
             info.choices.contiguous(), info.psi.contiguous(), tab,
-            in_idx, comp.out_neuron.reshape(1))
+            *adj, comp.out_neuron.reshape(1))
     return args, extra, info
 
 

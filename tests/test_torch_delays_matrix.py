@@ -65,6 +65,20 @@ def _assert_fields_equal(port, ref, skip=()):
         np.testing.assert_array_equal(a, b, err_msg=f)
 
 
+# The dense delayed encoding's own fields beside adj_in: its sliced lists,
+# which B4 walks.
+DENSE_SLICED = ("sell_start", "sell_src")
+
+
+def _assert_dense_sliced_lists(port):
+    """``sell_start``/``sell_src`` are ``sliced_in_lists(adj_in)``, int32,
+    padded with m."""
+    start, src = P.matrix.sliced_in_lists(port.adj_in.numpy())
+    assert port.sell_start.dtype == port.sell_src.dtype == torch.int32
+    np.testing.assert_array_equal(port.sell_start.numpy(), start)
+    np.testing.assert_array_equal(port.sell_src.numpy(), src)
+
+
 def _assert_adj_in(port, adjacency):
     """``adj_in`` row j is j's in-neighbours in ``adjacency``, ascending,
     padded with m."""
@@ -84,8 +98,9 @@ def test_dense_delayed_encoding_matches_reference(name):
     system = SYSTEMS[name]
     ref = J.compile_system(system, semantics="delays")
     port = P.compile_system(_port(system), semantics="delays", device="cpu")
-    _assert_fields_equal(port, ref, skip=("adj_in",))
+    _assert_fields_equal(port, ref, skip=("adj_in",) + DENSE_SLICED)
     _assert_adj_in(port, ref.adjacency)
+    _assert_dense_sliced_lists(port)
     m = system.num_neurons
     assert port.state_width == ref.state_width == 3 * m
     assert P.is_delayed(port) and J.is_delayed(ref)
@@ -129,7 +144,8 @@ def test_delayed_reference_encoding_carries_across(sparse):
         else J.compile_system(system, semantics="delays")
     carried = compiled_from_arrays(_ref_fields(ref), device="cpu")
     assert P.is_delayed(carried)
-    _assert_fields_equal(carried, ref, skip=("adj_in",) + SLICED)
+    _assert_fields_equal(carried, ref, skip=("adj_in",) + SLICED
+                         + DENSE_SLICED)
     if sparse:
         # the sliced lists derived here equal the compiler's own
         own = P.compile_system_sparse(_port(system), hub_threshold=2,
@@ -143,6 +159,30 @@ def test_delayed_reference_encoding_carries_across(sparse):
         own = P.compile_system(_port(system), semantics="delays",
                                device="cpu")
         assert torch.equal(carried.adj_in, own.adj_in)
+        # and so are its sliced lists, which B4 walks
+        _assert_dense_sliced_lists(carried)
+        for f in DENSE_SLICED:
+            assert torch.equal(getattr(carried, f), getattr(own, f)), f
+
+
+@pytest.mark.parametrize("name", ["paper-pi", "power-law-40", "pi-x5"])
+def test_dense_delayed_sliced_lists_move_with_the_encoding(name):
+    """The dense delayed encoding's sliced lists of ``adj_in`` are
+    ``sliced_in_lists(adj_in)``, a delay-free dense encoding has none, and
+    ``.to()`` moves them with the rest (here to the meta device and
+    back)."""
+    system = SYSTEMS[name]
+    port = P.compile_system(_port(system), semantics="delays", device="cpu")
+    _assert_dense_sliced_lists(port)
+    assert port.sell_start.shape == (-(-system.num_neurons // 32) + 1,)
+    free = P.compile_system(_port(conftest.EQUIV_SYSTEMS["paper-pi"][0]),
+                            device="cpu")
+    assert free.sell_start is None and free.sell_src is None
+    moved = port.to(torch.device("meta"))
+    assert moved.sell_start.device.type == moved.sell_src.device.type \
+        == "meta"
+    assert moved.sell_src.shape == port.sell_src.shape
+    assert port.to("cpu") is port
 
 
 def test_no_delays_still_refuses_a_delayed_system():

@@ -257,7 +257,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
     system, T = _delayed("power-law-40")
     states = torch.from_numpy(_states(system, 2, seed=1))
     pc, _ = _dense(system)
-    args, _ = ops.delay_inputs(states, pc)
+    args, _ = ops.delay_inputs(states, pc, lists=True)
     launches = ops.delay_launches
     with pytest.raises(ValueError, match="CUDA"):
         ops.snp_step_dense_delay(*args, T)
@@ -276,8 +276,8 @@ def test_kernel_launchers_refuse_cpu_tensors():
 @pytest.mark.parametrize("h", [None, 1], ids=["ell", "h1"])
 def test_delayed_bodies_walk_the_sliced_lists(h):
     """Both of B5's bodies run the sliced-list kernel: on the card path
-    (``kernel_inputs(lists=True)``) ``in_idx`` is ``None`` and the
-    encoding's sliced lists take its place (with ``hub_neuron`` for a
+    (``kernel_inputs(lists=True)``) the encoding's sliced lists take
+    ``in_idx``'s place, two arguments for one (with ``hub_neuron`` for a
     hybrid one), the rest equal to the plain version's inputs; the
     launcher refuses ``in_idx`` beside the delay stage and, given the
     lists on CPU tensors, meets the device check; an encoding without the
@@ -287,13 +287,13 @@ def test_delayed_bodies_walk_the_sliced_lists(h):
     states = torch.from_numpy(_states(system, 3, seed=5))
     args, extra, _ = kernel_inputs(states, sc)
     kargs, kextra, _ = kernel_inputs(states, sc, lists=True)
-    assert kargs[5] is None and args[5] is sc.in_idx
-    assert all(torch.equal(a, b) for i, (a, b) in enumerate(zip(args, kargs))
-               if i != 5)
-    assert kextra["sell_start"] is sc.sell_start
-    assert kextra["sell_src"] is sc.sell_src
-    lists = {"sell_start", "sell_src"} | ({"hub_neuron"} if h else set())
-    assert kextra.keys() - lists == extra.keys() - {"hub_slot"}
+    assert args[5] is sc.in_idx
+    assert kargs[5] is sc.sell_start and kargs[6] is sc.sell_src
+    assert all(torch.equal(a, b)
+               for a, b in zip(args[:5] + args[6:], kargs[:5] + kargs[7:]))
+    assert kextra.keys() - {"hub_neuron"} == extra.keys() - {"hub_slot"}
+    assert ("hub_neuron" in kextra) == bool(h)
+    assert kextra.get("hub_neuron") is sc.hub_neuron
     launches = sparse_ops.kernel_launches
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(*kargs, **kextra, max_branches=T)
@@ -315,6 +315,85 @@ def test_dense_delayed_step_needs_the_in_neighbour_lists():
     bare = pc._replace(adj_in=None)
     with pytest.raises(ValueError, match="adj_in"):
         ops.snp_step(bare.init_config[None], bare, max_branches=T)
+
+
+@pytest.mark.parametrize("f", ["sell_start", "sell_src"])
+def test_dense_delayed_without_sliced_lists_is_refused_on_the_card_path(f):
+    """A delayed dense encoding without the sliced lists of ``adj_in``
+    (hand-built) is refused where B4 would run (``delay_inputs(...,
+    lists=True)``, what the wrapper asks on a CUDA tensor); the plain
+    version, which reads ``adj_in``, steps it."""
+    system, T = _delayed("power-law-40")
+    pc, _ = _dense(system)
+    bare = pc._replace(**{f: None})
+    states = torch.from_numpy(_states(system, 3, seed=6))
+    with pytest.raises(ValueError, match="sell_start/sell_src"):
+        ops.delay_inputs(states, bare, lists=True)
+    _assert_equal(ops.snp_step(states, bare, max_branches=T),
+                  ops.snp_step(states, pc, max_branches=T))
+
+
+@pytest.mark.parametrize("name", ["paper-pi", "power-law-40",
+                                  "ring-lattice-12"])
+def test_delay_inputs_with_lists_differ_only_in_the_adjacency(name):
+    """``delay_inputs(lists=True)`` hands B4 the plain version's inputs
+    with the encoding's sliced lists ``sell_start, sell_src`` in place of
+    ``adj_in`` (two arguments for one), and nothing else changed."""
+    system, T = _delayed(name)
+    pc, _ = _dense(system)
+    states = torch.from_numpy(_states(system, 4, seed=2))
+    args, _ = ops.delay_inputs(states, pc)
+    kargs, _ = ops.delay_inputs(states, pc, lists=True)
+    assert len(args) == 14 and len(kargs) == 15
+    assert args[12] is pc.adj_in
+    assert kargs[12] is pc.sell_start and kargs[13] is pc.sell_src
+    for i, (a, b) in enumerate(zip(args[:12] + args[13:],
+                                   kargs[:12] + kargs[14:])):
+        assert torch.equal(a, b), i
+
+
+def _dense_launcher_case(case):
+    """B4's launcher arguments at power-law-40 with one thing wrong (or
+    ``ok``), and T.  The launcher takes the lists in ``adj_in``'s place:
+    args[12] is ``sell_start``, args[13] ``sell_src``."""
+    system, T = _delayed("power-law-40")
+    pc, _ = _dense(system)
+    states = torch.from_numpy(_states(system, 2, seed=3))
+    args, _ = ops.delay_inputs(states, pc, lists=True)
+    args = list(args)
+    start, src = args[12:14]
+    if case == "adj-in-for-lists":
+        args[12] = pc.adj_in
+    elif case == "no-lists":
+        args[12] = args[13] = None
+    elif case == "one-list":
+        args[13] = None
+    elif case == "short-sell-start":
+        args[12] = start[:-1]
+    elif case == "2d-sell-src":
+        args[13] = src.reshape(-1, 32)
+    elif case == "int64-sell-src":
+        args[13] = src.to(torch.int64)
+    return args, T
+
+
+@pytest.mark.parametrize("case, match", [
+    ("adj-in-for-lists", "sliced lists"), ("no-lists", "sliced lists"),
+    ("one-list", "sliced lists"), ("short-sell-start", "sell_start"),
+    ("2d-sell-src", "sell_src"), ("int64-sell-src", "sell_src"),
+    ("ok", "CUDA")])
+def test_dense_delay_launcher_checks_the_sliced_lists(case, match):
+    """B4's launcher takes the sliced lists of ``adj_in`` in its place
+    and checks their shapes on the host (the kernel reads entries out of
+    range as the zero slot): ``adj_in`` itself, no lists, one list, a
+    short ``sell_start``, a 2-D or int64 ``sell_src`` are refused before
+    anything launches; well-formed lists on CPU tensors then meet the
+    device check."""
+    args, T = _dense_launcher_case(case)
+    launches = ops.delay_launches
+    with pytest.raises(ValueError, match=match):
+        ops.snp_step_dense_delay(*args, T)
+    assert ops.delay_launches == launches
 
 
 def test_kernel_sources_ship_beside_the_wrappers():

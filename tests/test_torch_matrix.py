@@ -16,6 +16,7 @@ from repro_torch.core import CompiledSNP  # noqa: E402
 from repro_torch.core import compile_system as pcompile  # noqa: E402
 from repro_torch.core.convert import (compiled_from_arrays,  # noqa: E402
                                       system_from_spec)
+from repro_torch.core.matrix import sliced_in_lists  # noqa: E402
 
 SYSTEMS = {**{k: s for k, (s, _) in conftest.EQUIV_SYSTEMS.items()},
            "pi-x5": scaled_pi(5)}
@@ -31,7 +32,8 @@ def _fields(comp):
 
 
 # The port's own fields, derived from the reference's.
-PORT_FIELDS = ("adj_in", "col_start", "col_rule", "col_val")
+PORT_FIELDS = ("adj_in", "col_start", "col_rule", "col_val", "sell_start",
+               "sell_src")
 
 
 def _assert_column_lists(port, M, env):
@@ -68,12 +70,16 @@ def _assert_same_encoding(port, ref):
     onehot[np.arange(port.num_rules), port.rule_neuron.numpy()] = 1
     np.testing.assert_array_equal(onehot, ref_f["neuron_onehot"])
     # without delays the column lists rebuild [M | env_produce]; a delayed
-    # encoding carries none (B4 reads adj_in, not M)
+    # encoding carries none (B4 reads adj_in's sliced lists, not M)
     if "adjacency" not in ref_f:
         _assert_column_lists(port, ref_f["M"], ref_f["env_produce"])
         assert port.adj_in is None
+        assert port.sell_start is None and port.sell_src is None
         return
     assert (port.col_start, port.col_rule, port.col_val) == (None,) * 3
+    start, src = sliced_in_lists(port.adj_in.numpy())
+    np.testing.assert_array_equal(port.sell_start.numpy(), start)
+    np.testing.assert_array_equal(port.sell_src.numpy(), src)
     # adj_in lists each neuron's in-neighbours in the reference adjacency
     adj, m = ref_f["adjacency"], port.num_neurons
     adj_in = port.adj_in.numpy()

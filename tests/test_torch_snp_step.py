@@ -150,6 +150,25 @@ def test_kernel_library_is_named_by_source_hash(tmp_path):
     assert ops.SOURCE.is_file()
 
 
+def test_kernel_library_hash_covers_the_headers_beside_it(tmp_path):
+    """A header beside a source (``csrc/*.cuh``, which the source may
+    include) is part of the library's name: editing it rebuilds, and the
+    step sources that share ``sliced_lists.cuh`` include it."""
+    from repro_torch.kernels.snp_step import _build, sparse_ops
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\nextern "C" int f() { return g(); }\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("inline int g() { return 0; }\n")
+    first = _build.library_path(src)
+    header.write_text("inline int g() { return 1; }\n")
+    assert _build.library_path(src) != first
+    shared = ops.DELAY_SOURCE.with_name("sliced_lists.cuh")
+    assert shared.is_file()
+    for source in (ops.DELAY_SOURCE, sparse_ops.SOURCE):
+        assert '#include "sliced_lists.cuh"' in source.read_text()
+
+
 def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
     from repro_torch.kernels.snp_step import _build
 

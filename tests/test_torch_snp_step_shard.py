@@ -211,10 +211,10 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(
             _t(sh["configs"]), _t(sh["stride"]), _t(sh["choices"]),
-            _t(sh["psi"]), _t(sh["tab"]), None,
+            _t(sh["psi"]), _t(sh["tab"]), port.arrays.sell_start[0],
+            port.arrays.sell_src[0],
             torch.tensor([mloc + H], dtype=torch.int32), halo=_t(sh["halo"]),
-            sell_start=port.arrays.sell_start[0],
-            sell_src=port.arrays.sell_src[0], max_branches=T)
+            max_branches=T)
     assert (ops.shard_launches, sparse_ops.kernel_launches) == launches
 
 
@@ -264,16 +264,19 @@ def test_the_halo_excludes_the_coo_and_delay_stages():
     args = (_t(sh["configs"]), _t(sh["stride"]), _t(sh["choices"]),
             _t(sh["psi"]), _t(sh["tab"]), port.arrays.in_idx[0],
             torch.tensor([mloc + H], dtype=torch.int32))
+    kargs = args[:5] + (port.arrays.sell_start[0],
+                        port.arrays.sell_src[0]) + args[6:]
     z = torch.zeros_like(args[0])
-    # the kernel's COO body reads hub_neuron where the plain one reads
+    # the kernel reads the sliced lists where the plain version reads
+    # in_idx, and its COO body hub_neuron where the plain one reads
     # hub_slot
     for hub in ("hub_slot", "hub_neuron"):
-        launch = snp_step_sparse_ref if hub == "hub_slot" \
-            else sparse_ops.snp_step_sparse_cuda
+        launch, a = (snp_step_sparse_ref, args) if hub == "hub_slot" \
+            else (sparse_ops.snp_step_sparse_cuda, kargs)
         for extra in ({"coo_src": z[0], "coo_bounds": z[0], hub: z[0]},
                       dict(dtab=_t(sh["tab"]), cd=z, pd=z)):
             with pytest.raises(ValueError, match="halo"):
-                launch(*args, **extra, halo=_t(sh["halo"]), max_branches=T)
+                launch(*a, **extra, halo=_t(sh["halo"]), max_branches=T)
 
 
 def test_shard_kernels_ship_in_their_sources():

@@ -110,37 +110,41 @@ def test_kernel_launcher_refuses_cpu_tensors():
     instead of falling back."""
     system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
     pc, _ = _comps(system, 1)
+    ell, _ = _comps(system, None)
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 2, seed=1))
-    args, _, _ = kernel_inputs(configs, pc)            # the ELL body's
+    args, lists, _ = kernel_inputs(configs, ell, lists=True)  # the ELL body's
     kargs, coo, _ = kernel_inputs(configs, pc, lists=True)   # the COO body's
     launches = sparse_ops.kernel_launches
-    for a, extra in ((args, {}), (kargs, coo)):
+    for a, extra in ((args, lists), (kargs, coo)):
         with pytest.raises(ValueError, match="CUDA"):
             sparse_ops.snp_step_sparse_cuda(*a, **extra, max_branches=T)
     assert sparse_ops.kernel_launches == launches
 
 
 def _launcher_case(case):
-    """Arguments of the COO body's launcher at power-law-40, h=1, with one
-    thing wrong (or ``ok``)."""
+    """Arguments of the COO body's launcher at power-law-40, h=1 (the ELL
+    body's, h=None, for the ``ell-`` cases), with one thing wrong (or
+    ``ok``).  The launcher takes the lists in ``in_idx``'s place: args[5]
+    is ``sell_start``, args[6] ``sell_src``."""
     system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
-    pc, _ = _comps(system, 1)
+    pc, _ = _comps(system, None if case.startswith("ell-") else 1)
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 2, seed=1))
     args, coo, _ = kernel_inputs(configs, pc, lists=True)
     args = list(args)
-    if case == "short-sell-start":
-        coo = dict(coo, sell_start=coo["sell_start"][:-1])
+    if case in ("short-sell-start", "ell-short-sell-start"):
+        args[5] = args[5][:-1]
+    elif case in ("in-idx-for-coo", "ell-in-idx-for-lists"):
+        args[5] = pc.in_idx
+    elif case == "ell-in-idx-beside-lists":
+        args.insert(5, pc.in_idx)
     elif case == "2d-sell-src":
-        coo = dict(coo, sell_src=coo["sell_src"].reshape(-1, 32))
-    elif case == "in-idx-for-coo":
-        args[5] = pc.in_idx
+        args[6] = args[6].reshape(-1, 32)
     elif case == "tail-without-lists":
-        coo = {k: v for k, v in coo.items() if not k.startswith("sell_")}
+        args[5] = args[6] = None
     elif case == "lists-without-tail":
-        coo = {k: v for k, v in coo.items() if k.startswith("sell_")}
-        args[5] = pc.in_idx
+        coo = {"coo_src": coo["coo_src"]}
     elif case == "hub-neuron-length":
         coo = dict(coo, hub_neuron=coo["hub_neuron"][:-1])
     elif case == "hub-slot-for-hub-neuron":
@@ -154,14 +158,19 @@ def _launcher_case(case):
     ("in-idx-for-coo", "sliced lists"), ("tail-without-lists", "sliced lists"),
     ("lists-without-tail", "COO tail"),
     ("hub-neuron-length", "hub_neuron"),
-    ("hub-slot-for-hub-neuron", "hub_slot"), ("ok", "CUDA")])
+    ("hub-slot-for-hub-neuron", "hub_slot"), ("ok", "CUDA"),
+    ("ell-in-idx-for-lists", "sliced lists"),
+    ("ell-in-idx-beside-lists", "sliced lists"),
+    ("ell-short-sell-start", "sell_start"), ("ell-ok", "CUDA")])
 def test_coo_launcher_checks_the_sliced_lists(case, match):
     """The COO body's launcher checks the lists' shapes on the host (the
     kernel skips entries out of range): wrong lengths, ``in_idx`` where
-    the lists belong, the tail without the lists or the lists without the
-    tail, ``hub_slot`` for
-    ``hub_neuron`` are refused before anything launches; well-formed
-    lists on CPU tensors then meet the device check."""
+    the lists belong, the tail without the lists, part of the tail
+    without the rest, ``hub_slot`` for ``hub_neuron`` are refused before
+    anything launches; well-formed lists on CPU tensors then meet the
+    device check.  The ELL body (B2) walks the same lists: ``in_idx`` in
+    their place or before them, or a short ``sell_start``, is refused the
+    same way."""
     args, coo, T = _launcher_case(case)
     launches = sparse_ops.kernel_launches
     with pytest.raises((ValueError, TypeError), match=match):
@@ -172,9 +181,10 @@ def test_coo_launcher_checks_the_sliced_lists(case, match):
 @pytest.mark.parametrize("h", [1, 3, "auto"])
 def test_kernel_inputs_with_lists_differ_only_in_the_adjacency(h):
     """``kernel_inputs(lists=True)`` hands the kernel the same bookkeeping
-    as the plain version, with the sliced lists in place of ``in_idx``
-    (then ``None``) and ``hub_neuron`` in place of ``hub_slot``; a
-    pure-ELL encoding gets ``in_idx`` either way."""
+    as the plain version, with the sliced lists ``sell_start, sell_src``
+    in place of ``in_idx`` (two arguments for one) and ``hub_neuron`` in
+    place of ``hub_slot``; a pure-ELL encoding (B2) gets the sliced lists
+    too, and nothing else."""
     system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
     if h == "auto":
         h = J.SystemPlan(encoding="hybrid").resolved_hub_threshold(system)
@@ -184,15 +194,15 @@ def test_kernel_inputs_with_lists_differ_only_in_the_adjacency(h):
             conftest.random_states(system, "no_delays", 3, seed=2))
         args, extra, _ = kernel_inputs(configs, pc)
         kargs, kextra, _ = kernel_inputs(configs, pc, lists=True)
-        for i, (a, b) in enumerate(zip(args, kargs)):
-            if i == 5 and pc.is_hybrid:
-                assert b is None
-            else:
-                assert torch.equal(a, b), i
+        assert len(args) == 7 and len(kargs) == 8
+        assert args[5] is pc.in_idx
+        assert kargs[5] is pc.sell_start and kargs[6] is pc.sell_src
+        for i, (a, b) in enumerate(zip(args[:5] + args[6:],
+                                       kargs[:5] + kargs[7:])):
+            assert torch.equal(a, b), i
+        assert extra.keys() - {"hub_slot"} == kextra.keys() - {"hub_neuron"}
         if pc.is_hybrid:
-            lists = {"hub_neuron", "sell_start", "sell_src"}
-            assert extra.keys() - {"hub_slot"} == kextra.keys() - lists
-            assert all(kextra[k] is getattr(pc, k) for k in lists)
+            assert kextra["hub_neuron"] is pc.hub_neuron
         else:
             assert extra == kextra == {}
 
@@ -201,18 +211,22 @@ def test_hybrid_without_sliced_lists_is_refused_on_the_card_path():
     """A hybrid encoding without the sliced lists (hand-built) is refused
     where the kernel would run (``kernel_inputs(lists=True)``, what the
     wrapper asks on a CUDA tensor); the plain version, which reads
-    ``in_idx``, steps it."""
+    ``in_idx``, steps it.  So is a pure-ELL encoding without them: B2
+    walks the same lists."""
     system, T = conftest.EQUIV_SYSTEMS["power-law-40"]
     pc, _ = _comps(system, 1)
+    ell, _ = _comps(system, None)
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 3, seed=4))
-    for f in ("sell_start", "sell_src", "hub_neuron"):
-        bare = pc._replace(**{f: None})
+    for comp, f in ((pc, "sell_start"), (pc, "sell_src"),
+                    (pc, "hub_neuron"), (ell, "sell_start"),
+                    (ell, "sell_src")):
+        bare = comp._replace(**{f: None})
         with pytest.raises(ValueError, match="sell_start/sell_src"):
             kernel_inputs(configs, bare, lists=True)
         _assert_all_equal(sparse_ops.snp_step_sparse(configs, bare,
                                                      max_branches=T),
-                          sparse_ops.snp_step_sparse(configs, pc,
+                          sparse_ops.snp_step_sparse(configs, comp,
                                                      max_branches=T))
 
 
