@@ -120,31 +120,38 @@ result line):
    under 60 GB, and held against the single-device ``"sparse_cuda"``
    explore at 65,536 rows (B2, 8 launches);
 16. the attention kernel's two bodies against their plain version
-   (``attention_ref``) — B8-TC (bf16 at D 64/128: wgmma + TMA) and B8-FFMA
-   (f32; bf16 at D 16/32), each case counted on the body it runs: the
-   reference tests' edge shapes (GQA 8/8, 8/2, 8/1, 15/5, ragged axes,
-   ``Sq != Skv``, a single query, ``D`` in {16, 32, 64, 128}, ``kv_len``
-   with zeros, rows of exact zeros), the same edges in bf16 at D 64 and
-   128, both causal and not, and the main paths' launches, unpadded: the
-   serving prefill's (q (8, 15, 1960, 64), k/v (8, 5, 1960, 64), bf16,
-   causal, B8-TC) and its f32 twin at batch 2 (B8-FFMA); f32 max |err| <=
-   2e-5, bf16 within atol 1e-3 and rtol 8e-3 in f32; at the two launches
-   the times of the body (and its TFLOP/s), its plain version and one
+   (``attention_ref``) — B8-TC (bf16 at D 64/128: wgmma + TMA) and B8-TF32
+   (f32; bf16 at D 16/32: mma.sync on TF32 with every f32 operand split in
+   two terms), each case counted on the body it runs: the reference tests'
+   edge shapes (GQA 8/8, 8/2, 8/1, 15/5, ragged axes, ``Sq != Skv``, a
+   single query, ``D`` in {16, 32, 64, 128}, ``kv_len`` with zeros, rows of
+   exact zeros), the same edges in bf16 at D 64 and 128, the split-TF32
+   body's own edges (f32 at D 32 and 128 with ``Sq`` no multiple of 16, f32
+   at D 16 with GQA 8/1, bf16 at D 16 and 32 with ``kv_len`` zeros), both
+   causal and not, and the main paths' launches, unpadded: the serving
+   prefill's (q (8, 15, 1960, 64), k/v (8, 5, 1960, 64), bf16, causal,
+   B8-TC) and its f32 twin at batch 2 (B8-TF32); f32 max |err| <= 2e-5,
+   bf16 within atol 1e-3 and rtol 8e-3 in f32; at the two launches the
+   times of the body (and its TFLOP/s), its plain version and one
    ``scaled_dot_product_attention(q, k, v, is_causal=True,
-   enable_gqa=True)`` (the yardstick, never called by the port);
+   enable_gqa=True)`` (the yardstick, never called by the port), and the
+   bound (for f32 the lesser of the split products on the TF32 tensor
+   cores and the FLOPs on the f32 pipe, both printed);
 17. serving, the slice's main path — SmolLM-360M at full width and depth
    (32 layers, d 960, 15/5 heads, vocab 49,152, bf16, random weights drawn
    on the card from ``PRNGKey(0)``, the reference's values): prefill of 8
    x 1960 tokens through ``attn_impl="cuda"`` (32 B8-TC launches), then 64
    greedy decode steps; its last logits against the ``"ref"`` prefill (0
    launches) within 2% of max |logit|, an f32 prefill at batch 2 (32
-   B8-FFMA launches) within 1e-4 relative, decode of token S+1 against a
+   B8-TF32 launches) within 1e-4 relative, decode of token S+1 against a
    prefill of S+1 tokens (teacher forcing), the caches' ``len``, finite
    logits; prefill tokens/s, decode ms/step and tokens/s, peak
    allocation, a profiler split of device time; then the port's launcher
    end to end (``repro_torch.launch.serve.main(["--arch", "smollm-360m",
    "--gen", "32"])``, batch 4, prompt 64), greedy once and twice at
-   ``--temperature 0.8 --seed 3`` (identical tokens, in range);
+   ``--temperature 0.8 --seed 3`` (identical tokens, in range), and once
+   with ``--smoke --gen 8`` (the reduced sibling: f32 at D 16, one B8-TF32
+   launch a layer, tokens in its vocabulary);
 18. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -156,7 +163,7 @@ explores: phase 5 for B1, phase 6 for B2, phase 7 for B3, phase 10 for
 B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``), phase 11
 for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
 and B7 (via ``"sparse_cuda"``), S launches a level, and phase 17's
-full-width bf16 prefill for B8-TC and its f32 prefill for B8-FFMA (one
+full-width bf16 prefill for B8-TC and its f32 prefill for B8-TF32 (one
 launch a layer); their counts are the kernels line's ``launches``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -178,8 +185,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # the float32 rate outside the tensor cores (the int32/f32 datapath).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# ... and the dense bf16 tensor-core rate (B8's inputs are bf16 when serving).
+# ... and the dense bf16 and TF32 tensor-core rates (B8's inputs are bf16
+# when serving; its f32 body runs split TF32 products).
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 # The paper's printed allGenCk (§5); it lists '1-0-8' twice.
 PAPER_ALLGENCK = """
@@ -243,13 +252,15 @@ KERNELS = {
               "body": "_kernel, kernel.py:29; pallas_call kernel.py:117; "
                       "the tensor-core body (bf16, D 64/128: wgmma + TMA), "
                       "tc::flash_attn_fwd_tc_kernel; wrapper ops.py:75"},
-    "B8-FFMA": {"name": "flash_attn_fwd_ffma", "route": "cuda",
+    "B8-TF32": {"name": "flash_attn_fwd_tf32", "route": "cuda",
                 "source": "src/repro_torch/kernels/flash_attn/csrc/"
                           "flash_attn_fwd.cu",
                 "replaces": "src/repro/kernels/flash_attn/kernel.py:90",
                 "body": "_kernel, kernel.py:29; pallas_call kernel.py:117; "
-                        "the FFMA body (f32; bf16 at D 16/32), "
-                        "flash_attn_fwd_kernel; wrapper ops.py:75"},
+                        "the split-TF32 body (f32; bf16 at D 16/32: "
+                        "mma.sync m16n8k8 TF32, three products a step for "
+                        "f32), tf32::flash_attn_fwd_tf32_kernel; wrapper "
+                        "ops.py:75"},
 }
 
 # What each kernel's library_ms times (one PyTorch call, never used by the
@@ -269,7 +280,7 @@ LIBRARY_CALL = {
           "halo term",
     "B8-TC": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
              "is_causal=True, enable_gqa=True), bf16",
-    "B8-FFMA": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+    "B8-TF32": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
                "is_causal=True, enable_gqa=True), f32",
 }
 
@@ -306,10 +317,11 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, kernel):
+def device_ms(fn, iters, kernel=None):
     """Mean device time (ms) of the kernels whose name holds ``kernel`` in
     ``iters`` calls of ``fn``, from ``torch.profiler``: beside
-    :func:`time_ms`, it shows whether the host kept the card waiting.  A
+    :func:`time_ms`, it shows whether the host kept the card waiting.  With
+    ``kernel`` None, the device time a call of every event on the card.  A
     failure here, or a trace without such a kernel, fails the smoke."""
     import torch
     from torch.autograd import DeviceType
@@ -322,9 +334,10 @@ def device_ms(fn, iters, kernel):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
+          if e.device_type == DeviceType.CUDA
+          and (kernel is None or kernel in e.name)]
     check(len(us) > 0, f"the profiler shows no kernel named {kernel!r}")
-    return sum(us) / len(us) / 1e3
+    return sum(us) / (iters if kernel is None else len(us)) / 1e3
 
 
 def reset_counts():
@@ -348,7 +361,7 @@ def read_counts():
             "B4": ops.delay_launches, "B5-ELL": body["ell_delay"],
             "B5-COO": body["coo_delay"], "B6": ops.shard_launches,
             "B7": body["halo"], "B8-TC": attn_ops.kernel_launches_tc,
-            "B8-FFMA": attn_ops.kernel_launches}
+            "B8-TF32": attn_ops.kernel_launches}
 
 
 def check_counts(path, counts, **want):
@@ -2223,20 +2236,31 @@ def _attn_pairs(Sq, kv_len, causal):
 
 
 def _attn_bound(q, k, kv_len, causal):
-    """Least time of one attention call (ms), what binds, the f32-pipe
-    figure and the FLOPs, at these (unpadded) inputs: 4·D FLOPs a valid
-    pair and head (``q·k`` and ``p·v``), over the peak for the inputs'
-    type (bf16: the tensor cores); bytes: q, k, v and ``kv_len`` read once,
+    """Least time of one attention call at these (unpadded) inputs: a dict
+    of the bound (ms), what binds (``bound_by``: operations or bytes), the
+    way of computing that binds (``ops_route``), the f32-pipe and
+    split-TF32 figures (ms) and the FLOPs.  4·D FLOPs a valid pair and
+    head (``q·k`` and ``p·v``); bf16 over the bf16 tensor-core peak; f32
+    over the lesser of the f32 pipe (67 TFLOP/s) and three TF32 products
+    a product on the tensor cores (3x the FLOPs at 495 TFLOP/s), the least
+    that keeps f32 accuracy there; bytes: q, k, v and ``kv_len`` read once,
     o written once."""
     import torch
     B, Hq, Sq, D = q.shape
     flops = 4 * Hq * D * _attn_pairs(Sq, kv_len.tolist(), causal)
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * B
-    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_ops = flops / peak * 1e3
+    f32_ms = flops / FP32_OPS_PER_S * 1e3
+    tf32x3_ms = 3 * flops / TF32_OPS_PER_S * 1e3
+    # 3 / 495e12 < 1 / 67e12: for f32 the split products are always the
+    # lesser of the two
+    if q.dtype == torch.bfloat16:
+        t_ops, route = flops / BF16_OPS_PER_S * 1e3, "bf16_tensor_cores"
+    else:
+        t_ops, route = tf32x3_ms, "tf32x3_tensor_cores"
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    return bound + (flops / FP32_OPS_PER_S * 1e3, flops)
+    return dict(bound_ms=bound[0], bound_by=bound[1], ops_route=route,
+                f32_pipe_ms=f32_ms, tf32x3_ms=tf32x3_ms, flops=flops)
 
 
 def _attn_cases():
@@ -2244,7 +2268,10 @@ def _attn_cases():
     reference tests' shapes, a D=16 head (the reduced models), their edge
     shapes again at D = 64 and 128 in bf16 (the tensor-core body), the
     serving prefill's launch (unpadded, as the main path launches it) and
-    its f32 twin at batch 2 (the FFMA body's main-path launch)."""
+    its f32 twin at batch 2 (the split-TF32 body's main-path launch), and
+    that body's own edges: f32 at D 32 and 128 with Sq no multiple of 16
+    (its rows a warp) or 64 (its rows a block), f32 at D 16 with GQA 8/1,
+    bf16 at D 16 and 32 with kv_len zeros."""
     f32, bf, both = ("float32",), ("bfloat16",), ("float32", "bfloat16")
     S = SERVE["prompt"]
     return [
@@ -2264,6 +2291,15 @@ def _attn_cases():
         ("kv_len 0/57/128", 3, 4, 2, 32, 128, 32, False, [0, 57, 128], both),
         ("kv_len 0 causal", 2, 2, 2, 200, 200, 64, True, [0, 131], both),
         ("512 causal", 1, 2, 1, 512, 512, 64, True, None, f32),
+        # the split-TF32 body's edges (f32; bf16 at D in {16, 32})
+        ("TF32 15/5 333 D=32", 1, 15, 5, 333, 333, 32, True, None, f32),
+        ("TF32 15/5 333 D=128", 1, 15, 5, 333, 333, 128, True, None, f32),
+        ("TF32 8/1 D=128 not causal", 1, 8, 1, 77, 333, 128, False,
+         [333], f32),
+        ("TF32 GQA 8/1 D=16", 1, 8, 1, 200, 200, 16, True, None, f32),
+        ("TF32 kv_len 0 D=16", 2, 4, 2, 150, 150, 16, True, [0, 97], bf),
+        ("TF32 kv_len 0 D=32", 3, 6, 2, 45, 130, 32, False, [0, 130, 7],
+         bf),
         # the tensor-core body's edges (bf16, D in {64, 128})
         ("TC basic D=64", 2, 4, 2, 64, 64, 64, False, None, bf),
         ("TC GQA 15/5 D=64", 1, 15, 5, 300, 300, 64, True, None, bf),
@@ -2286,7 +2322,7 @@ def _attn_cases():
 def _body(dtype, D):
     """The B8 body the kernel's entry point runs for these inputs."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
-    return "B8-TC" if attn_ops.uses_tensor_cores(dtype, D) else "B8-FFMA"
+    return "B8-TC" if attn_ops.uses_tensor_cores(dtype, D) else "B8-TF32"
 
 
 def phase_attention_kernel():
@@ -2300,7 +2336,7 @@ def phase_attention_kernel():
     dev = torch.device(CARD)
     gen = torch.Generator(device=dev).manual_seed(16)
     errs = {"B8-TC": {"bfloat16": 0.0},
-            "B8-FFMA": {"float32": 0.0, "bfloat16": 0.0}}
+            "B8-TF32": {"float32": 0.0, "bfloat16": 0.0}}
     rows = {}
     for (name, B, Hq, Hkv, Sq, Skv, D, causal, kl,
          dtypes) in _attn_cases():
@@ -2370,20 +2406,27 @@ def _time_attention(q, k, v, kv_len, body, attn_ops, attention_ref, F):
         q, ke, ve, is_causal=True), 20)
     again = time_ms(lambda: attn_ops.flash_attention_cuda(
         q, k, v, kv_len, causal=True), 20)
-    b_ms, b_by, f32_ms, flops = _attn_bound(q, k, kv_len, True)
+    bd = _attn_bound(q, k, kv_len, True)
+    flops, b_ms = bd["flops"], bd["bound_ms"]
+    dev_ms = device_ms(lambda: attn_ops.flash_attention_cuda(
+        q, k, v, kv_len, causal=True), 20, KERNELS[body]["name"])
     log(f"[16] {body} at its main-path launch q {tuple(q.shape)} k "
         f"{tuple(k.shape)} {str(q.dtype)[6:]} causal, kv_len {Sq}: "
         f"{k_ms:.4f} / {again:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s of "
-        f"{flops / 1e9:.2f} GFLOP), plain {p_ms:.4f} ms, SDPA (GQA) "
-        f"{l_ms:.4f} ms, SDPA on repeated k/v {mha_ms:.4f} ms; bound "
-        f"{b_ms:.6f} ms ({b_by}) = {k_ms / b_ms:.1f}x bound, "
+        f"{flops / 1e9:.2f} GFLOP), {dev_ms:.4f} ms on the card by the "
+        f"profiler, plain {p_ms:.4f} ms, SDPA (GQA) {l_ms:.4f} ms, SDPA on "
+        f"repeated k/v {mha_ms:.4f} ms; bound {b_ms:.6f} ms ({bd['bound_by']}"
+        f", {bd['ops_route']}) = {k_ms / b_ms:.1f}x bound, "
         f"{k_ms / l_ms:.2f}x SDPA (GQA), {k_ms / mha_ms:.2f}x SDPA on "
-        f"repeated k/v; {f32_ms:.4f} ms on the f32 pipe")
+        f"repeated k/v; {bd['f32_pipe_ms']:.6f} ms on the f32 pipe, "
+        f"{bd['tf32x3_ms']:.6f} ms as three TF32 products")
     del ke, ve
     return dict(B=B, Hq=Hq, Hkv=k.shape[1], Sq=Sq, D=D,
                 dtype=str(q.dtype)[6:], ms=k_ms, ms_again=again,
-                plain_ms=p_ms, library_ms=l_ms, library_mha_ms=mha_ms,
-                bound_ms=b_ms, bound_by=b_by, f32_pipe_ms=f32_ms,
+                device_ms=dev_ms, plain_ms=p_ms, library_ms=l_ms,
+                library_mha_ms=mha_ms, bound_ms=b_ms,
+                bound_by=bd["bound_by"], ops_route=bd["ops_route"],
+                f32_pipe_ms=bd["f32_pipe_ms"], tf32x3_ms=bd["tf32x3_ms"],
                 gflop=flops / 1e9, tflops=flops / k_ms / 1e9)
 
 
@@ -2443,6 +2486,25 @@ def _device_time(fn, wall_ms, label, tag="17"):
                 idle_share=max(0.0, 1 - busy / wall_ms))
 
 
+def time_prefill(prefill, params, batch, label, tag="17"):
+    """Wall times (ms, host clock) of 3 calls of a warmed-up ``prefill``,
+    then the device split of one more (:func:`_device_time`, against the
+    least wall time): the split's dict (empty if the profiler showed no
+    device time) with ``wall_runs_ms``."""
+    import torch
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"[{tag}] {label}: {', '.join(f'{t:.3f}' for t in walls)} ms wall")
+    split = _device_time(lambda: prefill(params, batch), min(walls), label,
+                         tag=tag)
+    return dict(split or {}, wall_runs_ms=walls)
+
+
 def phase_serving():
     """Phase 17: SmolLM-360M served at full width and depth through B8.
     Returns the launches of each B8 body per path."""
@@ -2452,6 +2514,7 @@ def phase_serving():
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.smoke import reduced
     from repro_torch.core import prng
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import init_params, param_count
@@ -2485,7 +2548,7 @@ def phase_serving():
     prefill(params, batch)            # first use: cuBLAS handles, caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = {"B8-TC": {}, "B8-FFMA": {}}
+    launches = {"B8-TC": {}, "B8-TF32": {}}
     # the main path: counts set to 0 just before, read just after
     reset_counts()
     t0 = time.perf_counter()
@@ -2581,13 +2644,13 @@ def phase_serving():
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = init_params(prng.PRNGKey(SERVE["seed"]), cfg32, device=dev)
     b2 = {k: t[:2] for k, t in batch.items()}
+    pf32 = make_prefill_step(cfg32, max_len=max_len, attn_impl="cuda")
     reset_counts()
-    l32, c32 = make_prefill_step(cfg32, max_len=max_len,
-                                 attn_impl="cuda")(p32, b2)
+    l32, c32 = pf32(p32, b2)
     torch.cuda.synchronize()
     counts = read_counts()
-    check_counts("[17] f32 prefill via 'cuda'", counts, **{"B8-FFMA": L})
-    launches["B8-FFMA"]["f32_prefill"] = counts["B8-FFMA"]
+    check_counts("[17] f32 prefill via 'cuda'", counts, **{"B8-TF32": L})
+    launches["B8-TF32"]["f32_prefill"] = counts["B8-TF32"]
     r32, _ = make_prefill_step(cfg32, max_len=max_len,
                                attn_impl="ref")(p32, b2)
     rel32 = _rel_err(l32, r32)
@@ -2596,14 +2659,15 @@ def phase_serving():
     nxt = l32[:, -1].argmax(-1).to(torch.int32)[:, None]
     _, d32, _ = make_decode_step(cfg32)(
         p32, c32, nxt, torch.full((2, 1), S, dtype=torch.int32, device=dev))
-    t32, _ = make_prefill_step(cfg32, max_len=max_len, attn_impl="cuda")(
-        p32, {"tokens": torch.cat([b2["tokens"], nxt], 1),
-              "positions": torch.arange(S + 1, dtype=torch.int32,
-                                        device=dev).expand(2, S + 1)})
+    t32, _ = pf32(p32, {"tokens": torch.cat([b2["tokens"], nxt], 1),
+                        "positions": torch.arange(
+                            S + 1, dtype=torch.int32,
+                            device=dev).expand(2, S + 1)})
     tf32 = _rel_err(d32, t32)
     check(tf32 <= 1e-4, f"[17] f32 teacher forcing {tf32:.3g} > 1e-4")
     log(f"[17] f32, batch 2: 'cuda' vs 'ref' prefill {rel32:.3g} relative "
         f"(<= 1e-4); decode of token S+1 vs prefill of S+1 {tf32:.3g}")
+    time_prefill(pf32, p32, b2, f"f32 prefill 2x{S} via 'cuda'")
     del p32, l32, c32, r32, d32, t32
     torch.cuda.empty_cache()
 
@@ -2637,6 +2701,28 @@ def phase_serving():
         f"tokens (4 x 32, in [0, {cfg.vocab_size})); {float((a != gens[
             'launcher_serve_lm']).mean()):.3f} of them differ from the "
         f"greedy run's")
+
+    # the launcher's reduced sibling: f32 at D 16, through B8-TF32
+    small = reduced(cfg)
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        gen = serve_main(argv[:2] + ["--smoke", "--gen", "8"] + argv[4:])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("[17] launcher_smoke", counts,
+                 **{"B8-TF32": small.num_layers})
+    launches["B8-TF32"]["launcher_smoke"] = counts["B8-TF32"]
+    check(gen.shape == (4, 8) and bool(((gen >= 0)
+                                        & (gen < small.vocab_size)).all()),
+          f"[17] launcher_smoke returned {gen.shape} tokens, or ids out of "
+          f"[0, {small.vocab_size})")
+    for line in out.getvalue().splitlines():
+        log(f"[17] launcher_smoke | {line}")
+    log(f"[17] launcher --smoke ({small.name}: {small.num_layers} layers, "
+        f"{small.dtype}, heads {small.num_heads}/{small.num_kv_heads} x "
+        f"{small.head_dim}): {counts['B8-TF32']} B8-TF32 launches, tokens "
+        f"(4 x 8) in [0, {small.vocab_size})")
     return launches
 
 
@@ -2686,7 +2772,7 @@ def main() -> int:
                  "B5-COO": "full_width_delayed_hybrid_explore",
                  "B6": "sharded_contiguous_explore",
                  "B7": "sharded_contiguous_explore",
-                 "B8-TC": "full_width_prefill", "B8-FFMA": "f32_prefill"}
+                 "B8-TC": "full_width_prefill", "B8-TF32": "f32_prefill"}
     by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
                **served}
     waves = {"B1": rows["scaled_pi(682) wave"],
@@ -2707,10 +2793,13 @@ def main() -> int:
                          sparse_rows["ring_lattice(32768,8) wave"]}
     errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err,
             **{k: max(e.values()) for k, e in attn_errs.items()}}
-    # B8's extras, per body: its error per dtype, the f32-pipe figure, the
-    # rate, a second timing, SDPA on repeated k/v, the launch
+    # B8's extras, per body: its error per dtype, the f32-pipe and
+    # split-TF32 figures and which way binds, the rate, a second timing,
+    # SDPA on repeated k/v, the launch
     extras = {k: dict(max_abs_err_by_dtype=attn_errs[k],
-                      f32_pipe_ms=row["f32_pipe_ms"], tflops=row["tflops"],
+                      f32_pipe_ms=row["f32_pipe_ms"],
+                      tf32x3_ms=row["tf32x3_ms"], ops_route=row["ops_route"],
+                      tflops=row["tflops"],
                       ms_again=row["ms_again"],
                       library_mha_ms=row["library_mha_ms"],
                       launch={f: row[f] for f in (

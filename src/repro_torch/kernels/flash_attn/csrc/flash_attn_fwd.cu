@@ -12,11 +12,11 @@
 // fallback between them; flash_attn_fwd_tensor_cores says which runs):
 //
 // The tensor-core body: bf16 at D in {64, 128} (SmolLM-360M's 64,
-// Command-R's and Qwen2-VL's 128).  It takes those inputs from the FFMA
-// body below, which ran them at 3.5 ms at the serving prefill's launch,
-// 59x its bound (f32 FFMA at a quarter of that pipe's peak, f32 tiles in
-// shared memory at 3 loads per 8 FFMA, plain per-element loads, 8% of its
-// work on padded rows).
+// Command-R's and Qwen2-VL's 128).  It took those inputs from the FFMA
+// body of the first port, which ran them at 3.5 ms at the serving
+// prefill's launch, 59x its bound (f32 FFMA at a quarter of that pipe's
+// peak, f32 tiles in shared memory at 3 loads per 8 FFMA, plain
+// per-element loads, 8% of its work on padded rows).
 // * What bounds it: 4·D FLOPs a valid (query, key) pair and head, read
 //   once: at the serving prefill (B=8, Hq=15, Hkv=5, S=1960, D=64, causal)
 //   59 GFLOP, 0.060 ms at the bf16 tensor-core peak, against 0.012 ms of
@@ -74,23 +74,69 @@
 //   own S before its softmax and for its P·V before the next S (the two
 //   consumers overlap each other, not their own stages).
 //
-// The FFMA body: f32 inputs (TF32 would break the f32 contract: 2e-5
-// against the plain version, 1e-4 on logits) and bf16 at D in {16, 32}.
-// * one block of 128 threads per (q tile of BQ=64 rows, query head, batch
-//   row); it loops over the KV tiles of BK=64 keys in order and stops at the
-//   last one with a valid key: at kv_len, and for a causal mask at the
-//   block's last row, so tiles above the diagonal are never read;
-// * q (pre-scaled, as kernel.py:50 scales q before the dot), the K and V
-//   tiles and the tile of scores live in shared memory as f32; row strides
-//   are padded by one float so a warp's rows fall in different banks;
-// * the running max, normaliser and this tile's rescale factor per row sit
-//   in shared memory, the output accumulator in f32 registers (each thread
-//   holds 4 of the D columns in D/8 of the rows);
-// * masked scores are -1e30 and their probabilities are set to exactly 0
-//   after the exponential, as in the tensor-core body;
-// * no fast math: expf and IEEE division.  The products run on the f32
-//   pipe (FFMA): 67 TFLOP/s at most on the H100, and this body's
-//   shared-memory loads (about 3 per 8 FFMA) hold it to about a quarter.
+// The split-TF32 body: f32 at D in {16, 32, 64, 128} and bf16 at D in
+// {16, 32}, on the tensor cores through mma.sync m16n8k8 TF32 with f32
+// accumulation.  It replaces the FFMA body of the first port (every
+// product on the f32 pipe, scores through shared memory, scalar
+// synchronous loads: 1.11 ms at the f32 serving launch, 1.8x SDPA on k/v
+// repeated to every head).
+// * Why split: one TF32 product (10 mantissa bits) misses the f32
+//   contract, 2e-5 against the plain version and 1e-4 on logits, by 25-50x
+//   (tests/test_torch_flash_attn.py emulates it).  So every f32 operand x
+//   is split as hi = tf32(x), rounded to nearest, and lo = x - hi, exact in
+//   f32, of which the tensor core reads the top 19 bits (it ignores the low
+//   13, as CUTLASS's fast-f32 GEMMs rely on); a product a·b runs as
+//   lo_a·hi_b + hi_a·lo_b + hi_a·hi_b into one accumulator (lo·lo, about
+//   2^-22 of it, is dropped).  bf16 values are exact in TF32: Q·Kᵀ then
+//   takes one product and P·V two (P's lo and hi times V).  No f32 value
+//   enters a product as a single TF32 term.
+// * What bounds it: 4·D FLOPs a valid (query, key) pair and head; split
+//   three ways, 12·D TF32 FLOPs.  At the f32 serving launch (B=2, Hq=15,
+//   Hkv=5, S=1960, D=64, causal) that is 44.3 GFLOP, 0.0895 ms at the 495
+//   TFLOP/s TF32 peak, against 0.2203 ms for the 14.76 GFLOP on the f32
+//   pipe (67 TFLOP/s) and 0.009 ms of bytes: the split products bind.
+// * Tiles: a block of 32·WARPS threads (WARPS = 4) per (q tile of 16·WARPS
+//   rows, query head, batch row), 16 query rows a warp; the grid is (Hq,
+//   B, q tiles) with the q tile taken in reverse (longest causal rows
+//   first).  A warp keeps its scores, its running max and sum and its
+//   output in registers: the scores never touch shared memory, and no
+//   barrier separates the softmax from P·V.  KV tiles are BK = 64 keys (32
+//   at D = 128), in 2 stages of shared memory.
+// * Loads: cp.async 16-byte copies of each K and V tile, issued a tile
+//   ahead; rows at or past kv_len are filled with zeros (no read).  Rows
+//   are padded to D + 8 elements for K (and Q) and D + 4 f32 (D + 8 bf16)
+//   for V, so that a warp's fragment reads hit 32 distinct banks.  Q's
+//   fragments are read once from device memory into registers (split into
+//   hi and lo) at D <= 64; at D = 128 Q is staged in shared memory and its
+//   fragments re-read and split each tile (O alone is 64 registers there).
+//   K and V are split per fragment, as they are read.
+// * S = Q·Kᵀ: the sum over d runs in any order, so k-index t of a k-step
+//   takes dim 2t and t + 4 takes dim 2t + 1 of its 8 dims: Q's and K's
+//   fragments are pairs of neighbouring floats (one 8-byte load).
+// * P·V with no shuffles: in the m16n8 accumulator a thread holds keys 2t
+//   and 2t + 1 of each 8; taking k-index t as key 2t and t + 4 as key
+//   2t + 1, S's c0..c3 are P's a0, a2, a1, a3 and V's B fragment reads
+//   rows 2t and 2t + 1 (the sum over keys does not care about their order).
+// * Softmax: as the tensor-core body (a row's max and sum over a quad by
+//   shuffles, exp2f with the scale times log2(e) on the scores, masks only
+//   on tiles that reach kv_len or cross a warp's diagonal, -1e30 scores and
+//   exactly-0 probabilities); a warp skips the tiles above its own
+//   diagonal.  Epilogue: O / l (IEEE division) where l > 0, else 0, stored
+//   as pairs in q's type; rows past Sq are not written.
+// * Registers (-Xptxas -v, CUDA 12.8, sm_90a): 124 / 152 / 205 / 165 at
+//   f32 D 16 / 32 / 64 / 128, 102 / 128 at bf16 D 16 / 32, no spill; at f32
+//   D 64 two blocks an SM (registers; shared memory, 70 KiB a block, would
+//   allow three).  Capping registers for three blocks spilled and ran
+//   slower, and 8 warps a block ran 7% slower;
+//   splitting K and V once a tile into hi and lo tiles in shared memory,
+//   a third barrier a tile and twice the fragment loads, ran slower.
+// * Measured (H100 80GB HBM3, 700 W; chip_smoke.py phase 16 and
+//   probes/attn_device_times.py; PERF.md): 0.275-0.282 ms on the card at
+//   the f32 serving launch, 3.1x its bound, 52 TFLOP/s of f32 work (161
+//   of split TF32 work), against 1.12 ms for the FFMA body in turns (4.0x)
+//   and 0.62 ms for SDPA on k/v repeated to every head; an f32 SmolLM-360M
+//   prefill of 2 x 1960 tokens takes 76.0 ms of device time, 102.4 with the
+//   FFMA body.
 
 #include <cuda.h>  // CUtensorMap types only; libcuda is not linked
 #include <cuda_bf16.h>
@@ -100,220 +146,351 @@
 #include <cstdint>
 #include <type_traits>
 
-namespace {
-
 // ---------------------------------------------------------------------------
-// The FFMA body (f32; bf16 at D in {16, 32})
+// The split-TF32 body (f32; bf16 at D in {16, 32})
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per KV tile
-constexpr int THREADS = 128;  // four warps
-constexpr float NEG_INF = -1e30f;
+namespace tf32 {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared-memory layout for head dim D (floats).
-template <int D>
-struct Layout {
-  static constexpr int QS = D + 1;   // row stride of the q tile
-  static constexpr int KS = D + 1;   // ... of the K tile
-  static constexpr int VS = D;       // ... of the V tile (read along d)
-  static constexpr int PS = BK + 1;  // ... of the score/probability tile
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * QS;
-  static constexpr int V = K + BK * KS;
-  static constexpr int P = V + BK * VS;
-  static constexpr int M = P + BQ * PS;  // running max
-  static constexpr int L = M + BQ;       // running normaliser
-  static constexpr int A = L + BQ;       // this tile's rescale factor
-  static constexpr int FLOATS = A + BQ;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-};
+constexpr int WARPS = 4;  // 16 query rows each; 8 ran 7% slower
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // query rows per block
+constexpr int STAGES = 2;       // K/V tiles in flight
+constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const int* __restrict__ kv_len, T* __restrict__ out,
-                          int Hq, int Hkv, int Sq, int Skv, int causal,
-                          float scale) {
-  static_assert(D % 4 == 0 && THREADS % (D / 4) == 0, "head dim");
-  using Lay = Layout<D>;
-  extern __shared__ float smem[];
-  float* Qs = smem + Lay::Q;
-  float* Ks = smem + Lay::K;
-  float* Vs = smem + Lay::V;
-  float* Ps = smem + Lay::P;
-  float* m_s = smem + Lay::M;
-  float* l_s = smem + Lay::L;
-  float* a_s = smem + Lay::A;
+struct Cfg {
+  static constexpr bool WIDE = std::is_same<T, float>::value;  // f32: split
+  static constexpr int BK = D == 128 ? 32 : 64;  // keys per KV tile
+  static constexpr bool Q_REGS = D <= 64;  // Q's fragments kept in registers
+  static constexpr int ES = sizeof(T);
+  static constexpr int KS = D + 8;                 // K (and Q) row stride
+  static constexpr int VS = WIDE ? D + 4 : D + 8;  // V row stride
+  static constexpr int K_BYTES = BK * KS * ES;
+  static constexpr int STAGE = K_BYTES + BK * VS * ES;
+  static constexpr int Q_OFF = STAGES * STAGE;
+  static constexpr int SMEM = Q_OFF + (Q_REGS ? 0 : BQ * KS * ES);
+  static_assert(KS * ES % 16 == 0 && VS * ES % 16 == 0, "16-byte rows");
+};
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);  // GQA: kv head = q head // group
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros (and no
+// read) when `bytes` is 0.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// x = hi + lo: hi is x rounded to nearest (ties away from zero) to TF32's
+// 10 mantissa bits, lo the exact rest (the tensor core reads its top 19
+// bits).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a·b, m16n8k8, TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two neighbouring elements, and one element, as f32 (bf16 widened).
+__device__ __forceinline__ float2 pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float one(const float* p) { return *p; }
+__device__ __forceinline__ float one(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) << 16);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x,
+                                           float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// A fragment (a0..a3) of 16 rows x 8 k-indices from the pairs (k-index t,
+// t + 4) of rows g and g + 8: as TF32 hi and lo terms (f32), or as the
+// exact values (bf16: lo unused).
+template <bool WIDE>
+__device__ __forceinline__ void a_frag(float2 r0, float2 r8, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  if constexpr (WIDE) {
+    split(r0.x, hi[0], lo[0]);
+    split(r8.x, hi[1], lo[1]);
+    split(r0.y, hi[2], lo[2]);
+    split(r8.y, hi[3], lo[3]);
+  } else {
+    hi[0] = __float_as_uint(r0.x);
+    hi[1] = __float_as_uint(r8.x);
+    hi[2] = __float_as_uint(r0.y);
+    hi[3] = __float_as_uint(r8.y);
+  }
+}
+
+// d += a·b with B's two values b0, b1 (f32 or exact bf16): three products
+// when both sides are f32, one when both are exact.
+template <bool WIDE>
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], float b0,
+                                          float b1) {
+  if constexpr (WIDE) {
+    uint32_t bh0, bl0, bh1, bl1;
+    split(b0, bh0, bl0);
+    split(b1, bh1, bl1);
+    mma(d, al, bh0, bh1);
+    mma(d, ah, bl0, bl1);
+    mma(d, ah, bh0, bh1);
+  } else {
+    mma(d, ah, __float_as_uint(b0), __float_as_uint(b1));
+  }
+}
+
+// Fragment coordinates (m16n8 accumulator): element i of a thread's tile j
+// lies in row g + 8·(i >> 1) of its warp's 16 and in column 8·j + 2·t +
+// (i & 1), with g = lane / 4 and t = lane % 4.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_attn_fwd_tf32_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const int* __restrict__ kv_len,
+                               T* __restrict__ out, int Hq, int Hkv, int Sq,
+                               int Skv, int causal, float scale_log2) {
+  using C = Cfg<T, D>;
+  constexpr bool WIDE = C::WIDE;
+  constexpr int BK = C::BK, NK = BK / 8, ND = D / 8;
+  constexpr int CPR = D * C::ES / 16;  // 16-byte chunks a row
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest rows first
+  const int hk = h / (Hq / Hkv);                      // GQA
   const int len = min(kv_len[b], Skv);
+  // Tiles from n_tiles on hold no valid key (all at or past kv_len, or, for
+  // a causal mask, above every row of this block): skipping them is exact.
+  const int k_end = causal ? min(len, q0 + BQ) : len;
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + 16 * warp;  // this warp's first query row
+  // this warp's tiles: none past Sq, none above its last row when causal
+  const int n_warp =
+      w0 >= Sq ? 0 : causal ? min(n_tiles, (w0 + 16 + BK - 1) / BK) : n_tiles;
 
   const T* qb = q + (size_t)(b * Hq + h) * Sq * D;
-  const T* kb = k + (size_t)(b * Hkv + hk) * Skv * D;
-  const T* vb = v + (size_t)(b * Hkv + hk) * Skv * D;
+  const uint8_t* kb =
+      reinterpret_cast<const uint8_t*>(k + (size_t)(b * Hkv + hk) * Skv * D);
+  const uint8_t* vb =
+      reinterpret_cast<const uint8_t*>(v + (size_t)(b * Hkv + hk) * Skv * D);
+  const uint32_t base = smem_u32(smem);
+
+  // KV tile n (keys n·BK ...) into its stage; rows at or past len are zeros
+  auto load_kv = [&](int n) {
+    const uint32_t ks = base + (n % STAGES) * C::STAGE, vs = ks + C::K_BYTES;
+    for (int i = tid; i < BK * CPR; i += THREADS) {
+      const int r = i / CPR, c = i % CPR, key = n * BK + r;
+      const bool in = key < len;
+      const size_t off = in ? (size_t)key * D * C::ES + c * 16 : 0;
+      cp_async16(ks + (r * C::KS * C::ES + c * 16), kb + off, in ? 16 : 0);
+      cp_async16(vs + (r * C::VS * C::ES + c * 16), vb + off, in ? 16 : 0);
+    }
+  };
+
+  // Q's A fragments, k-step kk: dims 8kk + 2t (k-index t) and 8kk + 2t + 1
+  // (t + 4) of rows w0 + g and w0 + g + 8
+  uint32_t qh[C::Q_REGS ? ND : 1][4], ql[C::Q_REGS && WIDE ? ND : 1][4];
+  if constexpr (C::Q_REGS) {
+    const int ra = w0 + g, rb = w0 + g + 8;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      const float2 x = ra < Sq ? pair(qb + (size_t)ra * D + 8 * kk + 2 * t)
+                               : make_float2(0.f, 0.f);
+      const float2 y = rb < Sq ? pair(qb + (size_t)rb * D + 8 * kk + 2 * t)
+                               : make_float2(0.f, 0.f);
+      a_frag<WIDE>(x, y, qh[kk], ql[WIDE ? kk : 0]);
+    }
+  } else if (n_tiles > 0) {
+    // staged once, with the first KV tile; rows past Sq are zeros
+    const uint8_t* qbytes = reinterpret_cast<const uint8_t*>(qb);
+    for (int i = tid; i < BQ * CPR; i += THREADS) {
+      const int r = i / CPR, c = i % CPR;
+      const bool in = q0 + r < Sq;
+      const size_t off = in ? (size_t)(q0 + r) * D * C::ES + c * 16 : 0;
+      cp_async16(base + C::Q_OFF + (r * C::KS * C::ES + c * 16),
+                 qbytes + off, in ? 16 : 0);
+    }
+  }
+  const T* Qs = reinterpret_cast<const T*>(smem + C::Q_OFF) +
+                (16 * warp + g) * C::KS + 2 * t;
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+  for (int n = 0; n < n_tiles; ++n) {
+    if (n + 1 < n_tiles) load_kv(n + 1);
+    cp_async_commit();
+    cp_async_wait_1();  // tile n (and Q) has landed for this thread ...
+    __syncthreads();    // ... and for every thread
+    if (n < n_warp) {
+      const int k0 = n * BK;
+      const uint8_t* stage = smem + (n % STAGES) * C::STAGE;
+      const T* Ks = reinterpret_cast<const T*>(stage);
+      const T* Vs = reinterpret_cast<const T*>(stage + C::K_BYTES);
+
+      // S = Q Kᵀ (16 x BK a warp, f32)
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        uint32_t ah[4], al[4];
+        if constexpr (C::Q_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ah[i] = qh[kk][i];
+            al[i] = ql[WIDE ? kk : 0][i];
+          }
+        } else {
+          a_frag<WIDE>(pair(Qs + 8 * kk), pair(Qs + 8 * C::KS + 8 * kk), ah,
+                       al);
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const float2 x = pair(Ks + (8 * j + g) * C::KS + 8 * kk + 2 * t);
+          mma_split<WIDE>(s[j], ah, al, x.x, x.y);
+        }
+      }
+
+      // online softmax in base 2; masks only where the tile needs them
+      const bool masked = k0 + BK > len || (causal && k0 + BK - 1 > w0);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 8 * j + 2 * t + (i & 1);
+            const int row = w0 + g + 8 * (i >> 1);
+            const bool ok = key < len && (!causal || key <= row);
+            s[j][i] = ok ? s[j][i] * scale_log2 : NEG;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[j][i] *= scale_log2;
+      }
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mt[i >> 1] = fmaxf(mt[i >> 1], s[j][i]);
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 1));
+        mt[hh] = fmaxf(mt[hh], __shfl_xor_sync(0xffffffffu, mt[hh], 2));
+        // 1 while the row has no valid key (m stays -1e30), else <= 1
+        alpha[hh] = exp2f(m[hh] - mt[hh]);
+        m[hh] = mt[hh];
+        l[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = exp2f(s[j][i] - m[i >> 1]);
+      if (masked) {  // masked probabilities are exactly 0
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 8 * j + 2 * t + (i & 1);
+            const int row = w0 + g + 8 * (i >> 1);
+            if (!(key < len && (!causal || key <= row))) s[j][i] = 0.f;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i >> 1] += s[j][i];
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[j][i] *= alpha[i >> 1];
+
+      // O += P V: P's A fragment of keys 8j.. is S's tile j as (c0, c2, c1,
+      // c3); V's B fragment is rows 8j + 2t and 8j + 2t + 1
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        uint32_t ph[4], pl[4];
+        a_frag<true>(make_float2(s[j][0], s[j][1]),
+                     make_float2(s[j][2], s[j][3]), ph, pl);
+        const T* v0 = Vs + (8 * j + 2 * t) * C::VS + g;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          const float b0 = one(v0 + 8 * nd), b1 = one(v0 + C::VS + 8 * nd);
+          if constexpr (WIDE) {
+            mma_split<true>(o[nd], ph, pl, b0, b1);
+          } else {  // V exact: P's two terms
+            mma(o[nd], pl, __float_as_uint(b0), __float_as_uint(b1));
+            mma(o[nd], ph, __float_as_uint(b0), __float_as_uint(b1));
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage n % STAGES is free for tile n + STAGES
+  }
+
+  // O / l (0 for a row without a valid key), pairs in T
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
   T* ob = out + (size_t)(b * Hq + h) * Sq * D;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    Qs[r * Lay::QS + d] =
-        q0 + r < Sq ? to_f(qb[(size_t)(q0 + r) * D + d]) * scale : 0.f;
-  }
-  for (int r = tid; r < BQ; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-
-  // Score micro-tile of this thread: rows sr + 16·i, columns sc + 8·j.
-  const int sr = tid / 8, sc = tid % 8;
-  // Accumulator of this thread: rows tr + TR·i, columns tc + TC·j.
-  constexpr int TC = D / 4;
-  constexpr int TR = THREADS / TC;
-  constexpr int RPT = BQ / TR;
-  const int tc = tid % TC, tr = tid / TC;
-  float acc[RPT][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = w0 + g + 8 * hh;
+    if (row >= Sq) continue;
+    const float lr = l[hh];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int warp = tid / 32, lane = tid % 32;
-  // Tiles from k_end on hold no valid key (all at or past kv_len, or, for a
-  // causal mask, above every row of this block): skipping them is exact.
-  const int k_end = causal ? min(len, q0 + BQ) : len;
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < Skv;
-      const size_t g = (size_t)(k0 + r) * D + d;
-      Ks[r * Lay::KS + d] = in ? to_f(kb[g]) : 0.f;
-      Vs[r * Lay::VS + d] = in ? to_f(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
-    // s = (q·scale) k^T on this thread's 4 x 8 micro-tile.
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(sr + 16 * i) * Lay::QS + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bk[j] = Ks[(sc + 8 * j) * Lay::KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = sr + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = sc + 8 * j, jk = k0 + c;
-        const bool valid = jk < len && (!causal || jk <= q0 + r);
-        Ps[r * Lay::PS + c] = valid ? s[i][j] : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // Online softmax: warp w takes rows w, w+4, ...; lane the columns lane
-    // and lane+32.
-    for (int r = warp; r < BQ; r += THREADS / 32) {
-      const int iq = q0 + r;
-      const int j0 = k0 + lane, j1 = k0 + lane + 32;
-      const bool v0 = j0 < len && (!causal || j0 <= iq);
-      const bool v1 = j1 < len && (!causal || j1 <= iq);
-      const float x0 = Ps[r * Lay::PS + lane];
-      const float x1 = Ps[r * Lay::PS + lane + 32];
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      // masked entries are exactly 0, also when m_new is still -1e30
-      const float p0 = v0 ? expf(x0 - m_new) : 0.f;
-      const float p1 = v1 ? expf(x1 - m_new) : 0.f;
-      Ps[r * Lay::PS + lane] = p0;
-      Ps[r * Lay::PS + lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc · alpha + P V.
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float alpha = a_s[tr + TR * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[c * Lay::VS + tc + TC * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float p = Ps[(tr + TR * i) * Lay::PS + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();  // the normalisers are final (and set, if no tile ran)
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = tr + TR * i;
-    if (q0 + r >= Sq) continue;
-    const float l = l_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float o = l > 0.f ? acc[i][j] / fmaxf(l, 1e-30f) : 0.f;
-      ob[(size_t)(q0 + r) * D + tc + TC * j] = from_f<T>(o);
+    for (int nd = 0; nd < ND; ++nd) {
+      const float x = lr > 0.f ? o[nd][2 * hh] / fmaxf(lr, 1e-30f) : 0.f;
+      const float y = lr > 0.f ? o[nd][2 * hh + 1] / fmaxf(lr, 1e-30f) : 0.f;
+      store_pair(ob + (size_t)row * D + 8 * nd + 2 * t, x, y);
     }
   }
 }
@@ -323,52 +500,51 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_len, void* out, int B, int Hq, int Hkv,
                    int Sq, int Skv, int causal, float scale,
                    cudaStream_t stream) {
-  constexpr size_t bytes = Layout<D>::BYTES;
-  auto kernel = flash_attn_fwd_kernel<T, D>;
-  if (bytes > 48 * 1024) {
+  if (reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorMisalignedAddress;
+  const int tiles = (Sq + BQ - 1) / BQ;
+  if (tiles > 65535) return cudaErrorInvalidConfiguration;
+  constexpr int smem = Cfg<T, D>::SMEM;
+  auto kernel = flash_attn_fwd_tf32_kernel<T, D>;
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(
+  kernel<<<dim3(Hq, B, tiles), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), Hq, Hkv, Sq, Skv, causal, scale);
+      static_cast<T*>(out), Hq, Hkv, Sq, Skv, causal, scale * LOG2E);
   return cudaGetLastError();
 }
 
-// bf16 at D 64/128 belongs to the tensor-core body: only f32 builds the
-// FFMA body there, so each (type, head dim) has exactly one body.
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* kv_len, void* out, int B, int Hq, int Hkv,
-                     int Sq, int Skv, int causal, float scale,
-                     cudaStream_t stream) {
-  constexpr bool kWide = std::is_same<T, float>::value;
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, causal,
-                           scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, causal,
-                           scale, stream);
-    case 64:
-      if constexpr (kWide)
-        return launch<T, 64>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
-                             causal, scale, stream);
-      return cudaErrorInvalidValue;
-    case 128:
-      if constexpr (kWide)
-        return launch<T, 128>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
-                              causal, scale, stream);
-      return cudaErrorInvalidValue;
-    default:
-      return cudaErrorInvalidValue;
-  }
+// f32 at every head dim; bf16 at D 16/32 (D 64/128 belong to the
+// tensor-core body), so each (type, head dim) has exactly one body.
+cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
+                     const void* v, const void* kv_len, void* out, int B,
+                     int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+                     cudaStream_t s) {
+#define B8_TF32(T, DD)                                                    \
+  launch<T, DD>(q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, causal, scale, \
+                s)
+  if (dtype == 0) switch (D) {
+      case 16: return B8_TF32(float, 16);
+      case 32: return B8_TF32(float, 32);
+      case 64: return B8_TF32(float, 64);
+      case 128: return B8_TF32(float, 128);
+    }
+  if (dtype == 1) switch (D) {
+      case 16: return B8_TF32(__nv_bfloat16, 16);
+      case 32: return B8_TF32(__nv_bfloat16, 32);
+    }
+#undef B8_TF32
+  return cudaErrorInvalidValue;
 }
 
-}  // namespace
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // The tensor-core body (bf16, D in {64, 128})
@@ -925,11 +1101,6 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                                           Sq, Skv, causal, scale, s)
                          : tc::launch<128>(q, k, v, kv_len, out, B, Hq, Hkv,
                                            Sq, Skv, causal, scale, s));
-  if (dtype == 0)
-    return (int)dispatch<float>(D, q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv,
-                                causal, scale, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(D, q, k, v, kv_len, out, B, Hq, Hkv,
-                                        Sq, Skv, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)tf32::dispatch(D, dtype, q, k, v, kv_len, out, B, Hq, Hkv, Sq,
+                             Skv, causal, scale, s);
 }

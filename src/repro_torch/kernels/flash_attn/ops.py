@@ -17,12 +17,14 @@
   backward kernel in either package).
 
 B8 has two bodies, picked by type and head dim inside the kernel's entry
-point (:func:`uses_tensor_cores`): bf16 at D in {64, 128} runs on the
-tensor cores (wgmma and TMA), f32 and bf16 at D in {16, 32} on the FFMA
-body.  Counters (plain integers, reset by callers that measure a run):
-``kernel_launches_tc`` counts launches of the tensor-core body,
-``kernel_launches`` of the FFMA body, ``plain_calls`` calls of the plain
-version through this wrapper.
+point (:func:`uses_tensor_cores`), both on the tensor cores: bf16 at D in
+{64, 128} runs the wgmma body fed by TMA; f32 at every head dim and bf16
+at D in {16, 32} run the split-TF32 body (``mma.sync`` on TF32, every f32
+operand split in a hi and a lo term, three products a step, so that f32
+inputs keep f32 accuracy).  Counters (plain integers, reset by callers
+that measure a run): ``kernel_launches_tc`` counts launches of the wgmma
+body, ``kernel_launches`` of the split-TF32 body, ``plain_calls`` calls
+of the plain version through this wrapper.
 """
 
 from __future__ import annotations
@@ -47,8 +49,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attn_fwd.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: launches of the split-TF32 body (f32; bf16 at D 16/32)
 kernel_launches = 0
+#: launches of the wgmma body (bf16 at D 64/128)
 kernel_launches_tc = 0
+#: calls of the plain version through :func:`flash_attention`
 plain_calls = 0
 
 
@@ -66,8 +71,9 @@ def load_kernel():
 
 
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether B8 runs its tensor-core body for this type and head dim (the
-    kernel's entry point decides; this asks it)."""
+    """Whether B8 runs its wgmma body (bf16 at D 64/128) for this type and
+    head dim, rather than its split-TF32 body (the kernel's entry point
+    decides; this asks it)."""
     return bool(load_kernel().flash_attn_fwd_tensor_cores(
         head_dim, _DTYPES[dtype]))
 

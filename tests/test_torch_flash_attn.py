@@ -189,3 +189,136 @@ def test_unpadded_equals_the_padded_route(dtype, B, Hq, Hkv, Sq, Skv, D,
     if kv_len is not None and 0 in kv_len:
         assert bool((padded[[i for i, n in enumerate(kv_len) if n == 0]]
                      == 0).all())
+
+
+# --- the arithmetic of B8's split-TF32 body ----------------------------------
+#
+# The body runs every product on the tensor cores in TF32 (10 mantissa
+# bits).  An f32 operand x goes in as two terms: hi = x rounded to nearest
+# TF32 (ties away from zero: ``(bits + 0x1000) & 0xffffe000``) and lo =
+# x - hi (exact in f32), of which the tensor core reads the top 19 bits; a
+# product a·b is lo_a·hi_b + hi_a·lo_b + hi_a·hi_b.  bf16 values are exact
+# in TF32: Q·Kᵀ then takes one product and P·V two (P's lo and hi times
+# V).  The emulation below splits the products as the body does (each
+# product exact, in float64, the sum rounded to f32), runs the body's
+# softmax (scores times scale·log2(e), exp2) and must agree with the plain
+# version within the kernel's tolerances: 2e-5 for f32 and atol 1e-3 /
+# rtol 8e-3 for bf16 outputs.  One TF32 term instead misses 2e-5.
+
+_LOG2E = 1.4426950408889634
+
+
+def _tf32_rna(x):
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(x):
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _terms(x, split):
+    """The TF32 terms an operand enters the tensor core as: one (exact bf16
+    values, or ``split=False``: one rounded term) or two (hi, lo)."""
+    x = np.asarray(x, np.float32)
+    hi = _tf32_rna(x)
+    if not split:
+        return [hi]
+    return [hi, _tf32_trunc(x - hi)]
+
+
+def _tc_matmul(a, b, split_a, split_b):
+    """a @ b as the body's products: every pair of terms but lo·lo, each
+    product exact (float64), the sum rounded to f32."""
+    ta, tb = _terms(a, split_a), _terms(b, split_b)
+    out = 0.0
+    for i, x in enumerate(ta):
+        for j, y in enumerate(tb):
+            if i + j < 2:           # drop lo·lo
+                out = out + np.matmul(x.astype(np.float64),
+                                      y.astype(np.float64))
+    return np.asarray(out, np.float32)
+
+
+def _split_tf32_attention(q, k, v, kv_len, causal, wide, split=True):
+    """The split-TF32 body's arithmetic on numpy f32 arrays (``wide``: f32
+    inputs, every operand split; else bf16 values: Q·Kᵀ one product, P·V
+    P's two terms times V); ``split=False`` runs one TF32 term each."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    k = np.repeat(k, group, axis=1)
+    v = np.repeat(v, group, axis=1)
+    s = _tc_matmul(q, np.swapaxes(k, -1, -2), wide and split, wide and split)
+    s = (s * np.float32(_LOG2E / np.sqrt(D))).astype(np.float32)
+    keys = np.arange(Skv)
+    ok = keys[None, None, None, :] < np.minimum(kv_len, Skv)[:, None, None,
+                                                             None]
+    if causal:
+        ok = ok & (keys[None, :] <= np.arange(Sq)[:, None])[None, None]
+    s = np.where(ok, s, np.float32(-1e30))
+    m = s.max(-1, keepdims=True)
+    p = np.where(ok, np.exp2(s - m), np.float32(0)).astype(np.float32)
+    l = p.sum(-1, keepdims=True, dtype=np.float32)
+    o = _tc_matmul(p, v, split, wide and split)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(l > 0, o / l, np.float32(0)).astype(np.float32)
+
+
+def _split_inputs(seed, B, Hq, Hkv, Sq, Skv, D, tdt):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(tdt) for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                               (B, Hkv, Skv, D))]
+
+
+@pytest.mark.parametrize("dtype,D,causal,B,Hq,Hkv,Sq,Skv,kv_len", [
+    ("float32", 16, True, 2, 15, 5, 50, 50, None),
+    ("float32", 16, False, 1, 8, 1, 77, 130, [130]),
+    ("float32", 32, True, 1, 15, 5, 133, 133, None),
+    ("float32", 32, False, 3, 4, 2, 45, 130, [0, 130, 7]),
+    ("float32", 64, True, 1, 15, 5, 200, 200, None),
+    ("float32", 64, True, 2, 8, 1, 97, 97, [0, 60]),
+    ("float32", 64, False, 1, 8, 1, 33, 201, None),
+    ("float32", 128, True, 1, 8, 1, 150, 150, None),
+    ("float32", 128, False, 2, 15, 5, 40, 72, [72, 0]),
+    ("bfloat16", 16, True, 2, 15, 5, 150, 150, [0, 97]),
+    ("bfloat16", 16, False, 1, 8, 1, 64, 200, None),
+    ("bfloat16", 32, True, 1, 15, 5, 133, 133, None),
+    ("bfloat16", 32, False, 3, 6, 2, 45, 130, [0, 130, 7]),
+])
+def test_split_tf32_arithmetic_meets_the_tolerance(dtype, D, causal, B, Hq,
+                                                   Hkv, Sq, Skv, kv_len):
+    """The split-TF32 body's products (three terms for f32, 1 + 2 for bf16)
+    against the plain version: within 2e-5 (f32), or atol 1e-3 and rtol
+    8e-3 (bf16); rows with kv_len 0 exactly 0."""
+    tdt = getattr(torch, dtype)
+    q, k, v = _split_inputs(Sq * 31 + Skv + D, B, Hq, Hkv, Sq, Skv, D, tdt)
+    kl = np.array(kv_len if kv_len is not None else [Skv] * B, np.int32)
+    want = attention_ref(q, k, v, torch.from_numpy(kl), causal=causal)
+    got = _split_tf32_attention(*(t.float().numpy() for t in (q, k, v)), kl,
+                                causal, wide=dtype == "float32")
+    got = torch.from_numpy(got).to(tdt)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                                   rtol=0)
+    else:
+        assert torch.allclose(got.float(), want.float(), atol=1e-3,
+                              rtol=8e-3)
+    for i, n in enumerate(kl):
+        if n == 0:
+            assert bool((got[i] == 0).all())
+
+
+def test_one_tf32_term_misses_the_f32_tolerance():
+    """Why the body splits: the same products with one TF32 term each miss
+    2e-5 against the plain version (f32, D 64, causal, GQA 15/5)."""
+    q, k, v = _split_inputs(22, 1, 15, 5, 200, 200, 64, torch.float32)
+    kl = np.array([200], np.int32)
+    want = attention_ref(q, k, v, torch.from_numpy(kl), causal=True).numpy()
+    args = [t.numpy() for t in (q, k, v)]
+    split = _split_tf32_attention(*args, kl, True, wide=True)
+    one = _split_tf32_attention(*args, kl, True, wide=True, split=False)
+    assert np.abs(split - want).max() <= 2e-5
+    assert np.abs(one - want).max() > 2e-5
