@@ -152,7 +152,31 @@ result line):
    ``--temperature 0.8 --seed 3`` (identical tokens, in range), and once
    with ``--smoke --gen 8`` (the reduced sibling: f32 at D 16, one B8-TF32
    launch a layer, tokens in its vocabulary);
-18. summary — the kernels with their launch counts, then one JSON line of
+18. SNP trace serving and its failure domain — the async
+   ``SNPTraceService`` at full width: 1,024 random traces of 64 steps in
+   batches of 256 (``max_delay_ms`` 5, the burst submitted at once) on
+   ``scaled_pi(682)`` through ``"cuda"`` (B1) and on the hybrid
+   ``power_law(8192)`` through ``"sparse_cuda"`` (B3), 4 device calls
+   each, every result identical to ``run_traces`` of its seed, traces/s
+   and p50/p99 completion latency; the dense burst again under ``fail=2
+   poison=17`` with one retry (only seed 17 fails, with PoisonError; the
+   rest equal the clean run; ``stats()`` equal to :data:`FAULT_STATS`, the
+   CPU tests' prediction); no plain fallback on the card: the hybrid
+   service naming ``"sparse_cuda"`` and the dense one on its own choice
+   (``"cuda"``) with a runner that fails the kernel backends fail every
+   request with that error and degrade nothing, no kernel backend has a
+   plain fallback, and a planned ``"cuda"`` failure raises itself (a
+   listener watches every phase: the run records no degradation);
+   ``explore(scaled_pi(682))`` through ``"cuda"`` at phase 5's caps and
+   ``explore_distributed`` at phase 14's through ``"cuda"`` (B6) and
+   ``"sparse_cuda"`` (B7), each checkpointed every 2 levels, killed at its
+   second chunk under ``run_supervised`` and resumed (one restart,
+   archives and flags identical to phases 5 and 14; snapshot MB and save
+   and restore ms); then the launcher ``repro_torch.launch.serve
+   --snp`` (256 requests, batch 64, 32 steps): 256/256 served, and 255/256
+   with one PoisonError under ``--inject 'fail=2 poison=17'
+   --max-retries 1``;
+19. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -165,6 +189,8 @@ for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
 and B7 (via ``"sparse_cuda"``), S launches a level, and phase 17's
 full-width bf16 prefill for B8-TC and its f32 prefill for B8-TF32 (one
 launch a layer); their counts are the kernels line's ``launches``.
+Phase 18's service, fault, checkpoint and launcher paths are counted the
+same way and listed in each kernel's ``launches_by_path``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -2180,8 +2206,10 @@ def phase_sharded(single_dense):
             f"'sparse_cuda', 'ref' and 'sparse' ({a.num_discovered} rows x "
             f"{a.configs.shape[1]} neurons)")
         _against_single("14", a, single_dense, f"{part} partition")
+        if part == "contiguous":
+            contiguous = a
         del res, a
-    return launches
+    return launches, contiguous
 
 
 def phase_sharded_large():
@@ -2726,6 +2754,375 @@ def phase_serving():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: SNP trace serving and its failure domain
+# ---------------------------------------------------------------------------
+
+# The service's full-width bursts: 1,024 random traces of 64 steps.
+SERVICE = dict(requests=1024, batch=256, steps=64, max_delay_ms=5.0)
+# The fault run: the burst under `fail=2 poison=17` with one retry.  The
+# stats are those both packages' services give for this schedule on the
+# CPU (tests/test_torch_snp_service.py): seed 17's chunk fails at call 1,
+# its bisection's first half takes the transient fault at call 2, and the
+# other three chunks serve at once.  (``branch_overflow_traces``, the
+# other stat, depends on the system: it is held against the clean run.)
+FAULT_RUN = dict(requests=1024, batch=256,
+                 policy=dict(max_retries=1, backoff_ms=0.0),
+                 inject=dict(fail_calls=(2,), poison_seeds=(17,)))
+FAULT_STATS = {"device_calls": 11, "traces_served": 1023, "retries": 0,
+               "bisections": 8, "degraded": 0, "deadline_exceeded": 0,
+               "rejected": 0, "failed_calls": 9, "failed_requests": 1}
+
+
+#: Every degradation the run records (a listener installed before phase
+#: 1): only phase 18's forced one may appear.
+DEGRADES = []
+
+
+def _burst(svc, requests):
+    """Submit ``requests`` to an async service as one burst — while the
+    drain thread waits on the service's lock, so it takes the burst in
+    full chunks, in ticket order, as the CPU tests predict — then wait for
+    every future.  Returns ({seed: TraceResult or exception}, seconds,
+    completion latencies in ms)."""
+    done = {}
+    t0 = time.perf_counter()
+    with svc._cv:
+        futs = []
+        for r in requests:
+            fut = svc.submit(r)
+            fut.add_done_callback(
+                lambda f, s=r.seed: done.setdefault(s, time.perf_counter()))
+            futs.append(fut)
+    out = {}
+    for r, fut in zip(requests, futs):
+        try:
+            out[r.seed] = fut.result(timeout=600)
+        except Exception as e:
+            out[r.seed] = e
+    secs = time.perf_counter() - t0
+    svc.close()            # joins the drain thread: every callback ran
+    return out, secs, [(done[r.seed] - t0) * 1e3 for r in requests]
+
+
+def _serve(tag, label, comp, backend, kernel, requests, *, policy=None,
+           injector=None, runner=None, want_launches=None):
+    """One full-width async service burst through ``backend`` with its
+    launch counts (set to 0 just before, read just after)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import SNPTraceService, TraceRequest
+
+    reqs = [TraceRequest(comp, steps=SERVICE["steps"], policy="random",
+                         seed=s) for s in range(requests)]
+    svc = SNPTraceService(batch_size=SERVICE["batch"], backend=backend,
+                          async_mode=True,
+                          max_delay_ms=SERVICE["max_delay_ms"],
+                          policy=policy, fault_injector=injector,
+                          runner=runner, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    out, secs, lat = _burst(svc, reqs)
+    torch.cuda.synchronize()
+    counts, stats = read_counts(), svc.stats()
+    if kernel is not None:
+        check_counts(f"[{tag}] {label}", counts, **{kernel: want_launches})
+    else:
+        check_counts(f"[{tag}] {label}", counts)
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    log(f"[{tag}] {label} via {svc.backend.name!r}: {requests} requests x "
+        f"{SERVICE['steps']} steps in {secs:.3f} s = {requests / secs:.1f} "
+        f"traces/s, completion latency p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+        f"{stats['device_calls']} device calls, stats {json.dumps(stats)}, "
+        f"launches {json.dumps(counts)}")
+    return out, stats, counts, dict(
+        traces_per_s=requests / secs, p50_ms=p50, p99_ms=p99,
+        flush_ms=secs * 1e3 / max(stats["device_calls"], 1))
+
+
+def _same_traces(tag, label, got, comp, backend, seeds, flush_ms):
+    """Every served result against ``run_traces`` of the same seeds (in
+    the service's chunks), bit for bit; with the host-clock milliseconds
+    (synchronised) of those calls and of one ``policy="first"`` chunk,
+    beside the service's mean flush (``flush_ms``): what the trace loop,
+    its random branch draws and the service around it each take."""
+    import torch
+    from repro_torch.core import run_traces
+    B, ms = SERVICE["batch"], []
+
+    def timed(part, policy):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_traces(comp, steps=SERVICE["steps"], seeds=part,
+                         policy=policy, backend=backend)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for lo in range(0, len(seeds), B):
+        part = seeds[lo:lo + B]
+        want, t = timed(part, "random")
+        ms.append(t)
+        want = [x.cpu().numpy() for x in want]
+        for i, s in enumerate(part):
+            r = got[s]
+            check(not isinstance(r, Exception),
+                  f"[{tag}] {label}: seed {s} failed: {r!r}")
+            for f, w in zip(("configs", "emissions", "alive",
+                             "branch_overflow"), want):
+                check((getattr(r, f) == w[i]).all(),
+                      f"[{tag}] {label}: seed {s}'s {f} differs from "
+                      "run_traces")
+    _, first_ms = timed(seeds[:B], "first")
+    split = dict(flush_ms=flush_ms, run_traces_ms=sum(ms) / len(ms),
+                 first_policy_ms=first_ms)
+    log(f"[{tag}] {label}: all {len(seeds)} results identical to "
+        f"run_traces of the same seeds via {backend!r}; a chunk of {B} "
+        f"(host clock, synchronised): service flush {flush_ms:.3f} ms, "
+        f"run_traces random {split['run_traces_ms']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in ms)}), first policy "
+        f"{first_ms:.3f} ms")
+    return split
+
+
+def _same_results(a, b):
+    return all((getattr(a, f) == getattr(b, f)).all() for f in (
+        "configs", "emissions", "alive", "branch_overflow"))
+
+
+def _supervised(tag, label, run, kernel, want):
+    """``run(checkpoint_dir, injector)`` killed at its second chunk under
+    ``run_supervised`` and resumed from its snapshot, with the launch
+    counts, the snapshot size and the save/restore milliseconds."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import engine
+    from repro_torch.runtime import FaultInjector, run_supervised
+
+    times = {"save": [], "restore": []}
+    saved, restored = engine.save_checkpoint, engine._restore
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return wrapped
+
+    d = tempfile.mkdtemp(prefix="snp-ckpt-")
+    engine.save_checkpoint = timed(saved, "save")
+    engine._restore = timed(restored, "restore")
+    try:
+        inj = FaultInjector(fail_calls=(2,))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res, restarts = run_supervised(lambda: run(d, inj), max_restarts=3)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        last = Path(d) / f"step_{latest_step(d):08d}"
+        mb = sum(f.stat().st_size for f in last.iterdir()) / 1e6
+    finally:
+        engine.save_checkpoint, engine._restore = saved, restored
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    check(restarts == 1, f"[{tag}] {label}: {restarts} restarts, expected 1")
+    check_counts(f"[{tag}] {label}", counts, **{kernel: want})
+    log(f"[{tag}] {label}: killed at chunk 2, resumed: {restarts} restart, "
+        f"{secs:.3f} s in all, {len(times['save'])} snapshots of "
+        f"{mb:.3f} MB (the last), save ms "
+        f"{', '.join(f'{t:.3f}' for t in times['save'])}, restore ms "
+        f"{', '.join(f'{t:.3f}' for t in times['restore'])}, launches "
+        f"{json.dumps(counts)}")
+    return res, counts[kernel], dict(snapshot_mb=mb, save_ms=times["save"],
+                                     restore_ms=times["restore"])
+
+
+def phase_snp_service(dense_result, sharded_result):
+    """Phase 18: the SNP trace service at full width through B1 and B3,
+    its fault schedule and its forced kernel failures (no plain
+    fallback); the checkpointed
+    explores through B1, B6 and B7 against phases 5 and 14; the
+    launcher's ``--snp``.  Returns ({kernel: {path: launches}}, figures)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.core import (SystemPlan, compile_system,
+                                  compile_system_sparse, explore, failover,
+                                  get_backend, run_traces)
+    from repro_torch.core.distributed import explore_distributed
+    from repro_torch.core.generators import power_law, scaled_pi
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.runtime import (FaultInjector, FaultPolicy,
+                                     PoisonError)
+    from repro_torch.sharding import neuron_axis
+
+    check(DEGRADES == [], f"[18] degradations before phase 18: {DEGRADES}")
+    n, steps = SERVICE["requests"], SERVICE["steps"]
+    calls = n // SERVICE["batch"]
+    launches = {"B1": {}, "B3": {}, "B6": {}, "B7": {}}
+    figures = {}
+
+    dense = compile_system(scaled_pi(682), device="cuda")
+    clean, stats, counts, figures["service_dense"] = _serve(
+        "18", "service scaled_pi(682)", dense, "cuda", "B1", n,
+        want_launches=calls * steps)
+    check(stats["device_calls"] == calls and stats["traces_served"] == n,
+          f"[18] dense service stats {stats}")
+    launches["B1"]["service_dense"] = counts["B1"]
+    figures["service_dense"].update(_same_traces(
+        "18", "service scaled_pi(682)", clean, dense, "cuda", list(range(n)),
+        figures["service_dense"]["flush_ms"]))
+
+    hubby = power_law(8192, 4, seed=2)
+    plan = SystemPlan.for_system(hubby)
+    hybrid = compile_system_sparse(hubby, hub_threshold=plan.hub_threshold,
+                                   device="cuda")
+    hyb, stats, counts, figures["service_hybrid"] = _serve(
+        "18", "service power_law(8192) hybrid", hybrid, "sparse_cuda", "B3",
+        n, want_launches=calls * steps)
+    check(stats["device_calls"] == calls and stats["traces_served"] == n,
+          f"[18] hybrid service stats {stats}")
+    launches["B3"]["service_hybrid"] = counts["B3"]
+    figures["service_hybrid"].update(_same_traces(
+        "18", "service power_law(8192) hybrid", hyb, hybrid, "sparse_cuda",
+        list(range(n)), figures["service_hybrid"]["flush_ms"]))
+
+    # the fault schedule on the dense service
+    fr = FAULT_RUN
+    faulty, stats, counts, figures["service_fault"] = _serve(
+        "18", f"service scaled_pi(682) under {fr['inject']}", dense, "cuda",
+        "B1", fr["requests"], policy=FaultPolicy(**fr["policy"]),
+        injector=FaultInjector(**fr["inject"]),
+        want_launches=FAULT_STATS["device_calls"] * steps)
+    launches["B1"]["service_fault"] = counts["B1"]
+    bad = {s for s, r in faulty.items() if isinstance(r, Exception)}
+    check(bad == {17} and isinstance(faulty[17], PoisonError),
+          f"[18] failed seeds {sorted(bad)}, expected only 17 with "
+          f"PoisonError ({faulty.get(17)!r})")
+    check(all(_same_results(faulty[s], clean[s]) for s in faulty if s != 17),
+          "[18] a fault-run result differs from the clean run's")
+    truncated = sum(r.truncated for s, r in clean.items() if s != 17)
+    check({k: stats[k] for k in FAULT_STATS} == FAULT_STATS
+          and stats["branch_overflow_traces"] == truncated,
+          f"[18] fault-run stats {stats}, the CPU tests predict "
+          f"{FAULT_STATS} and {truncated} truncated traces")
+    log(f"[18] fault run: only seed 17 failed (PoisonError), the other "
+        f"{fr['requests'] - 1} identical to the clean run; stats equal the "
+        "CPU tests' prediction")
+    del faulty, clean
+
+    # no plain fallback on the card: a kernel backend that fails raises
+    # its failure, on the service's own choice too, and degrades nothing
+    def broken(comp, *, backend=None, **kw):
+        be = get_backend(backend)
+        if be.name in failover.KERNEL_BACKENDS:
+            raise RuntimeError(f"forced failure of {be.name!r}")
+        return run_traces(comp, backend=be, **kw)
+
+    forced_n = SERVICE["batch"]
+    for name, comp, backend in (("named_hybrid", hybrid, "sparse_cuda"),
+                                ("chosen_dense", dense, None)):
+        forced, stats, _, figures[f"service_forced_{name}"] = _serve(
+            "18", f"service, its {name.split('_')[0]} kernel backend "
+            "forced to fail", comp, backend, None, forced_n,
+            policy=FaultPolicy(max_retries=0, backoff_ms=0.0, bisect=False),
+            runner=broken)
+        check(all(isinstance(r, RuntimeError) and "forced failure" in str(r)
+                  for r in forced.values()) and stats["degraded"] == 0
+              and stats["failed_requests"] == forced_n,
+              f"[18] {name}: a forced kernel failure did not fail every "
+              f"request with its own error (stats {stats})")
+    for top, plan in (("cuda", SystemPlan()),
+                      ("sparse_cuda", SystemPlan(encoding="hybrid")),
+                      ("sparse_cuda", SystemPlan(encoding="ell"))):
+        cands = failover.degrade_candidates(get_backend(top), plan,
+                                            device="cuda")
+        check(cands == [], f"[18] {top!r} under {plan.encoding!r} has "
+              f"fallbacks on the card: {[c.name for c, _ in cands]}")
+
+    def attempt(be, plan):
+        raise RuntimeError(f"forced failure of {be.name!r}")
+
+    raised = None
+    try:
+        failover.run_with_failover(attempt, get_backend("cuda"),
+                                   SystemPlan(backend="cuda"),
+                                   degradable=True, device="cuda")
+    except RuntimeError as e:
+        raised = e
+    check("forced failure of 'cuda'" in str(raised),
+          f"[18] a planned 'cuda' failure raised {raised!r}")
+    check(DEGRADES == [], f"[18] degradations recorded: {DEGRADES}")
+    log("[18] no plain fallback on the card: a named 'sparse_cuda' and the "
+        "service's own 'cuda' forced to fail each failed all "
+        f"{forced_n} requests with their own error, 0 degraded; no "
+        "fallback for 'cuda' (dense, auto) or 'sparse_cuda' (ell, hybrid); "
+        "a planned 'cuda' failure raised itself; 0 degradation events")
+    del forced, hyb
+
+    # checkpointed explores, killed at the second chunk, resumed
+    pi = scaled_pi(682)
+    res, n_b1, figures["checkpointed_explore"] = _supervised(
+        "18", "explore(scaled_pi(682)) via 'cuda', checkpoint_every=2",
+        lambda d, inj: explore(pi, backend="cuda", checkpoint_dir=d,
+                               checkpoint_every=2, fault_injector=inj,
+                               **FULL_WIDTH), "B1", dense_result.steps)
+    check(_same_explore(res, dense_result),
+          "[18] the resumed explore differs from phase 5's")
+    launches["B1"]["checkpointed_explore"] = n_b1
+    log(f"[18] resumed explore identical to phase 5's "
+        f"({res.num_discovered} rows)")
+    for backend, kernel in (("cuda", "B6"), ("sparse_cuda", "B7")):
+        res, n_k, figures[f"checkpointed_sharded_{kernel}"] = _supervised(
+            "18", f"explore_distributed(scaled_pi(682), neuron_axis(4)) via "
+            f"{backend!r}, checkpoint_every=2",
+            lambda d, inj, b=backend: explore_distributed(
+                pi, plan=neuron_axis(4), backend=b, checkpoint_dir=d,
+                checkpoint_every=2, fault_injector=inj, **SHARDED),
+            kernel, 4 * sharded_result.steps)
+        check(_same_explore(res, sharded_result),
+              f"[18] the resumed sharded explore via {backend!r} differs "
+              "from phase 14's")
+        launches[kernel]["checkpointed_sharded_explore"] = n_k
+        log(f"[18] resumed sharded explore via {backend!r} identical to "
+            f"phase 14's ({res.num_discovered} rows)")
+        torch.cuda.empty_cache()
+
+    # the launcher
+    argv = ["--snp", "--requests", "256", "--batch", "64", "--gen", "32"]
+    for name, extra, served, failed in (
+            ("launcher_snp", [], 256, []),
+            ("launcher_snp_inject", ["--inject", "fail=2 poison=17",
+                                     "--max-retries", "1"], 255,
+             ["PoisonError"])):
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            got = serve_main(argv + extra)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(f"[18] {name}", counts, B1=None)
+        launches["B1"][name] = counts["B1"]
+        for line in out.getvalue().splitlines():
+            log(f"[18] {name} | {line}")
+        check(got["served"] == served and got["failed"] == failed
+              and f"{served}/256 traces" in out.getvalue(),
+              f"[18] {name} served {got['served']}/256, failed "
+              f"{got['failed']}")
+        figures[name] = {k: got[k] for k in ("traces_per_s", "p50_ms",
+                                              "p99_ms")}
+    log(f"[18] launcher --snp: 256/256 clean, 255/256 and one PoisonError "
+        "under 'fail=2 poison=17'")
+    check(DEGRADES == [], f"[18] degradations recorded: {DEGRADES}")
+    return launches, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2738,6 +3135,8 @@ def main() -> int:
         print(f"chip_smoke: cannot import repro_torch from {ROOT / 'src'}: "
               f"{e}", file=sys.stderr)
         return 1
+    from repro_torch.core import failover
+    failover.add_degrade_listener(DEGRADES.append)
     try:
         card = phase_card_and_build()
         dense_err, rows = phase_kernel()
@@ -2752,12 +3151,14 @@ def main() -> int:
         b4, b5e, b5c = phase_delay_full_width()
         delayed = phase_delay_paper_and_traces()
         shard_err, shard_rows = phase_shard_kernels()
-        sharded = phase_sharded(dense_res)
-        del dense_res
+        sharded, sharded_res = phase_sharded(dense_res)
         (sharded["B7"]["sharded_large_explore"],
          b2["ring_lattice_explore"]) = phase_sharded_large()
         attn_errs, attn_rows = phase_attention_kernel()
         served = phase_serving()
+        snp_paths, snp_figures = phase_snp_service(dense_res, sharded_res)
+        del dense_res, sharded_res
+        check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2775,6 +3176,8 @@ def main() -> int:
                  "B8-TC": "full_width_prefill", "B8-TF32": "f32_prefill"}
     by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
                **served}
+    for k, paths in snp_paths.items():
+        by_path[k].update(paths)
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
              "B3": sparse_rows["power_law(8192) hybrid wave"],
@@ -2820,10 +3223,11 @@ def main() -> int:
             **({"device_ms": w["device_ms"]} if "device_ms" in w else {}),
             **({"block": w["block"]} if "block" in w else {}),
             **extras.get(k, {})))
-        log(f"[18] {k} {meta['name']} ({meta['route']}): "
+        log(f"[19] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[18] card: {card}")
+    log(f"[19] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[19] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,17 +15,27 @@
 * :mod:`.prng` — JAX's threefry2x32 keys, for random traces;
 * :func:`explore`, :func:`successor_set`, :func:`emission_gaps`,
   :func:`run_traces`, :func:`run_trace` — the entry points
-  (:mod:`.engine`), which run on the card unless ``device`` names another.
+  (:mod:`.engine`), which run on the card unless ``device`` names another;
+  :func:`explore` checkpoints and resumes its :class:`ExploreState`;
+* :mod:`.failover` — the degrade chain an entry point walks when a backend
+  it chose itself fails (:func:`resolve_entry_info`'s ``planned`` flag);
+  on the card only between the kernel backends.
 """
 
 from .backend import (CudaBackend, RefBackend, SparseBackend,
                       SparseCudaBackend, StepBackend, get_backend,
-                      resolve_entry, supports_sharded)
+                      lower_with_backend, resolve_entry, resolve_entry_info,
+                      supports_sharded)
 from .convert import (compiled_from_arrays, sharded_from_arrays,
                       system_from_spec)
 from .generators import with_delays
-from .engine import (ExploreResult, TraceOut, emission_gaps, explore,
-                     resolve_dedup, run_trace, run_traces, successor_set)
+from .engine import (ExploreResult, ExploreState, TraceOut, emission_gaps,
+                     explore, resolve_dedup, run_trace, run_traces,
+                     successor_set)
+from .failover import (DEGRADE_ORDER, KERNEL_BACKENDS, DegradeEvent,
+                       add_degrade_listener, degrade_candidates,
+                       is_backend_failure, record_degradation,
+                       remove_degrade_listener, run_with_failover)
 from .hashtable import (HashTable, first_occurrence, insert_if_absent,
                         insert_unique, lookup, make_table, table_slots)
 from .matrix import (CompiledSNP, CompiledSparseSNP, compile_system,
@@ -60,6 +70,11 @@ __all__ = [
     "delayed_next_configs", "sparse_delayed_next_configs",
     "StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
     "SparseCudaBackend", "get_backend", "resolve_entry", "supports_sharded",
-    "explore", "resolve_dedup", "ExploreResult", "TraceOut", "successor_set",
-    "emission_gaps", "run_trace", "run_traces",
+    "resolve_entry_info", "lower_with_backend",
+    "DEGRADE_ORDER", "KERNEL_BACKENDS", "DegradeEvent",
+    "degrade_candidates", "is_backend_failure",
+    "run_with_failover", "record_degradation", "add_degrade_listener",
+    "remove_degrade_listener",
+    "explore", "resolve_dedup", "ExploreResult", "ExploreState", "TraceOut",
+    "successor_set", "emission_gaps", "run_trace", "run_traces",
 ]

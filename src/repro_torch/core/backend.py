@@ -36,6 +36,7 @@ reinterpreted.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Protocol, Tuple, Union, runtime_checkable
 
@@ -53,7 +54,8 @@ from .system import SNPSystem
 
 __all__ = ["StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
            "SparseCudaBackend", "REFERENCE_NAME", "get_backend",
-           "resolve_entry", "supports_sharded"]
+           "resolve_entry", "resolve_entry_info", "lower_with_backend",
+           "supports_sharded"]
 
 #: port backend name -> the reference backend it must match bit for bit
 REFERENCE_NAME = {"ref": "ref", "cuda": "pallas", "sparse": "sparse",
@@ -264,15 +266,49 @@ def get_backend(name: BackendLike) -> StepBackend:
     raise TypeError(f"expected backend name or StepBackend, got {type(name)}")
 
 
+def lower_with_backend(backend: StepBackend, compiled: CompiledAny,
+                       plan: Optional[SystemPlan]) -> CompiledAny:
+    """``backend.lower`` of a built encoding under ``plan`` (``None``: the
+    default plan).  The trace service re-lowers a chunk's encoding
+    through it when it degrades a backend."""
+    return backend.lower(compiled, SystemPlan() if plan is None else plan)
+
+
+def resolve_entry_info(system, backend: BackendLike,
+                       plan: Optional[SystemPlan],
+                       ) -> Tuple[StepBackend, Optional[SystemPlan], bool]:
+    """:func:`resolve_entry` and who chose: ``(backend, plan, planned)``.
+
+    The backend is the one named by the caller, else by ``plan.backend``,
+    else the port's encoding rule: ``"sparse_cuda"`` for a sparse
+    encoding or an ``"ell"``/``"hybrid"`` plan, else ``"cuda"``.
+    ``planned`` is True exactly when the entry point chose it for an
+    :class:`SNPSystem` — neither the caller nor the plan named a backend
+    or an encoding, and the plan's ``mode`` is ``"auto"`` — the cases
+    where the reference's query planner picks; a failure may then degrade
+    down :data:`~.failover.DEGRADE_ORDER`.  A pinned backend's failure
+    raises.  The returned plan is then the caller's plan (or the default)
+    with the chosen backend pinned; otherwise the caller's, unchanged.
+    The reference's planner also takes the workload (batch, branches);
+    the port adds that argument with the planner (ROADMAP item 5)."""
+    if backend is not None:
+        return get_backend(backend), plan, False
+    if plan is not None and plan.backend is not None:
+        return get_backend(plan.backend), plan, False
+    sparse = isinstance(system, CompiledSparseSNP) or (
+        plan is not None and plan.encoding in ("ell", "hybrid"))
+    be = get_backend("sparse_cuda" if sparse else "cuda")
+    planned = isinstance(system, SNPSystem) and (
+        plan is None or (plan.mode == "auto" and plan.encoding == "auto"))
+    if planned:
+        plan = dataclasses.replace(SystemPlan() if plan is None else plan,
+                                   backend=be.name)
+    return be, plan, planned
+
+
 def resolve_entry(system, backend: BackendLike,
                   plan: Optional[SystemPlan]) -> StepBackend:
-    """The backend an entry point runs: the one named, else
-    ``"sparse_cuda"`` for a sparse encoding or an ``"ell"``/``"hybrid"``
-    plan, else ``"cuda"``.  (The reference's query planner is not ported,
-    so nothing is measured or looked up.)"""
-    if backend is not None:
-        return get_backend(backend)
-    if isinstance(system, CompiledSparseSNP) or (
-            plan is not None and plan.encoding in ("ell", "hybrid")):
-        return get_backend("sparse_cuda")
-    return get_backend("cuda")
+    """The backend an entry point runs (:func:`resolve_entry_info`'s
+    first element).  The reference's query planner is not ported, so
+    nothing is measured or looked up."""
+    return resolve_entry_info(system, backend, plan)[0]

@@ -12,6 +12,7 @@ report its host reads per wave.
 
 from __future__ import annotations
 
+import threading
 from typing import Union
 
 import torch
@@ -23,6 +24,7 @@ DeviceLike = Union[str, torch.device, None]
 #: Host reads of device values made by the port since import (a plain
 #: integer; callers reset it to 0 before the run they measure).
 host_reads = 0
+_reads_lock = threading.Lock()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -36,7 +38,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def host_read(x: torch.Tensor) -> int:
-    """One counted device-to-host read of a scalar (bool or int)."""
+    """One counted device-to-host read of a scalar (bool or int).  The
+    count is bumped under a lock: the trace service reads from its drain
+    thread."""
     global host_reads
-    host_reads += 1
+    with _reads_lock:
+        host_reads += 1
     return int(x.item())

@@ -53,7 +53,8 @@ import torch
 from .backend import (BackendLike, CudaBackend, SparseCudaBackend,
                       resolve_entry, supports_sharded)
 from .device import DeviceLike, host_read, resolve_device
-from .engine import ExploreResult
+from .engine import (ExploreResult, ExploreState, _check_checkpointing,
+                     _run_chunked)
 from .hashing import M32, SENTINEL, zobrist_hash
 from .hashtable import first_occurrence, insert_unique, lookup, make_table
 from .plan import (ShardedCompiled, ShardView, SystemPlan, compile_sharded,
@@ -220,19 +221,13 @@ def _expand(shards, frontier, T: int, backend):
     return cands, lv.psi, lv.alive
 
 
-def _explore_neuron_sharded(comp: ShardedCompiled, devices, backend, *,
-                            max_steps: int, frontier_cap: int,
-                            visited_cap: int, max_branches: int,
-                            init: Optional[Sequence[int]]) -> ExploreResult:
-    """The level loop.  ``frontier_cap`` is the global frontier width
-    (its bookkeeping is replicated; only the neuron slices are per
-    shard), ``visited_cap`` is per shard (each shard's table holds the
-    hashes it owns); the archive holds ``S·visited_cap`` rows, each as
-    ``S`` slices."""
+def _init_sharded(comp: ShardedCompiled, shards, F: int, V: int,
+                  init: Optional[Sequence[int]]) -> ExploreState:
+    """The initial configuration as archive row 0 and frontier row 0 of
+    every shard's slice, its hash in the table of the shard that owns
+    it.  The state's fields are per-shard tuples where the single-device
+    state holds one tensor."""
     S, mloc, m = comp.num_shards, comp.shard_size, comp.num_neurons
-    F, V, T = frontier_cap, visited_cap, max_branches
-    A = S * V
-    shards = _shards(comp, devices, isinstance(backend, CudaBackend))
     home = shards[0].dev
     a = comp.arrays
     gidx = a.global_idx.reshape(-1).to(home)
@@ -243,16 +238,13 @@ def _explore_neuron_sharded(comp: ShardedCompiled, devices, backend, *,
         init_g[:m] = torch.as_tensor(list(init), dtype=torch.int32)
         init_cols = init_g[gidx.to(torch.int64)]
     init_slices = init_cols.reshape(S, mloc)
-
-    # the initial configuration: archive row 0, frontier row 0, and its
-    # hash in the table of the shard that owns it
     hi0, lo0 = zobrist_hash(init_cols, positions=gidx)
     owner0 = host_read(hi0 % S)
     frontier, archive, tables = [], [], []
     for d, sh in enumerate(shards):
         fr = torch.zeros((F, mloc), dtype=torch.int32, device=sh.dev)
         fr[0] = init_slices[d]
-        ar = torch.zeros((A, mloc), dtype=torch.int32, device=sh.dev)
+        ar = torch.zeros((S * V, mloc), dtype=torch.int32, device=sh.dev)
         ar[0] = init_slices[d]
         table = make_table(V, sh.dev)
         if d == owner0:
@@ -263,79 +255,114 @@ def _explore_neuron_sharded(comp: ShardedCompiled, devices, backend, *,
         frontier.append(fr)
         archive.append(ar)
         tables.append(table)
-    archive_n = 1
-    fvalid = torch.zeros((F,), dtype=torch.bool, device=home)
-    fvalid[0] = True
     false = torch.zeros((), dtype=torch.bool, device=home)
-    branch_ovf = frontier_ovf = visited_ovf = false
+    return ExploreState(tuple(frontier), 1, tuple(tables), tuple(archive),
+                        1, 0, false, false, false)
+
+
+def _sharded_level(st: ExploreState, shards, backend, T: int, V: int
+                   ) -> ExploreState:
+    """One level over the shards (module docstring, steps 1–5)."""
+    S = len(shards)
+    home = shards[0].dev
+    F = st.frontier[0].shape[0]
+    A = st.archive[0].shape[0]
     take = torch.arange(F, device=home)
     t = torch.arange(T, device=home).to(torch.float32)
+    fvalid = take < st.frontier_n
+    cands, psi, alive = _expand(shards, st.frontier, T, backend)
+    valid = ((t[None, :] < psi[:, None]) & alive[:, None]
+             & fvalid[:, None]).reshape(F * T)
+    branch_ovf = st.branch_overflow | ((psi > float(T)) & fvalid).any()
 
-    step, total_new = 0, 1
-    while step < max_steps and total_new > 0:
-        cands, psi, alive = _expand(shards, frontier, T, backend)
-        valid = ((t[None, :] < psi[:, None]) & alive[:, None]
-                 & fvalid[:, None]).reshape(F * T)
-        branch_ovf = branch_ovf | ((psi > float(T)) & fvalid).any()
+    # global hashes from the slices' additive partials
+    parts = [zobrist_hash(c, positions=sh.gidx)
+             for c, sh in zip(cands, shards)]
+    hi = torch.where(valid, _psum_u32([p[0] for p in parts], home),
+                     SENTINEL)
+    lo = torch.where(valid, _psum_u32([p[1] for p in parts], home),
+                     SENTINEL)
 
-        # global hashes from the slices' additive partials
-        parts = [zobrist_hash(c, positions=sh.gidx)
-                 for c, sh in zip(cands, shards)]
-        hi = torch.where(valid, _psum_u32([p[0] for p in parts], home),
-                         SENTINEL)
-        lo = torch.where(valid, _psum_u32([p[1] for p in parts], home),
-                         SENTINEL)
+    # each shard judges the candidates it owns against its own table
+    owner = torch.where(valid, hi % S, S)
+    new_mask = torch.zeros((F * T,), dtype=torch.bool, device=home)
+    mine, probe_ovf = [], []
+    for d, (sh, table) in enumerate(zip(shards, st.visited)):
+        mine_d = owner == d
+        h, lw, md = hi.to(sh.dev), lo.to(sh.dev), mine_d.to(sh.dev)
+        found, _ = lookup(table, h, lw, md)
+        first, ovf_f = first_occurrence(h, lw, md)
+        new_mask = new_mask | (md & first & ~found).to(home)
+        mine.append(mine_d)
+        probe_ovf.append(ovf_f)
 
-        # each shard judges the candidates it owns against its own table
-        owner = torch.where(valid, hi % S, S)
-        new_mask = torch.zeros((F * T,), dtype=torch.bool, device=home)
-        mine, probe_ovf = [], []
-        for d, (sh, table) in enumerate(zip(shards, tables)):
-            mine_d = owner == d
-            h, lw, md = hi.to(sh.dev), lo.to(sh.dev), mine_d.to(sh.dev)
-            found, _ = lookup(table, h, lw, md)
-            first, ovf_f = first_occurrence(h, lw, md)
-            new_mask = new_mask | (md & first & ~found).to(home)
-            mine.append(mine_d)
-            probe_ovf.append(ovf_f)
+    # replicated selection: new candidates first, in index order
+    n_new = new_mask.sum()
+    sel = torch.sort((~new_mask).to(torch.uint8), stable=True).indices[:F]
+    n_ins = host_read(n_new.clamp(max=F))    # the one read per level
+    ins = take < n_ins
+    frontier_ovf = st.frontier_overflow | (n_new > F)
+    visited_ovf = st.visited_overflow
+    k = min(n_ins, A - st.archive_n)
+    payload = (st.archive_n + take).to(torch.int32)
+    frontier, tables = [], []
+    for d, sh in enumerate(shards):
+        s_d = sel.to(sh.dev)
+        frontier.append(cands[d][s_d])
+        sel_mine = (mine[d][sel] & ins).to(sh.dev)
+        full = st.visited[d].count + sel_mine.sum() > V
+        table, _, ovf_i = insert_unique(
+            st.visited[d], hi[sel].to(sh.dev), lo[sel].to(sh.dev), sel_mine,
+            payload.to(sh.dev))
+        tables.append(table)
+        visited_ovf = visited_ovf | (probe_ovf[d] | ovf_i | full).to(home)
+        st.archive[d][st.archive_n:st.archive_n + k] = frontier[d][:k]
+    return ExploreState(tuple(frontier), n_ins, tuple(tables), st.archive,
+                        st.archive_n + k, st.step + 1, branch_ovf,
+                        frontier_ovf, visited_ovf)
 
-        # replicated selection: new candidates first, in index order
-        n_new = new_mask.sum()
-        sel = torch.sort((~new_mask).to(torch.uint8),
-                         stable=True).indices[:F]
-        n_ins = host_read(n_new.clamp(max=F))    # the one read per level
-        ins = take < n_ins
-        frontier_ovf = frontier_ovf | (n_new > F)
-        k = min(n_ins, A - archive_n)
-        payload = (archive_n + take).to(torch.int32)
-        for d, sh in enumerate(shards):
-            s_d = sel.to(sh.dev)
-            frontier[d] = cands[d][s_d]
-            sel_mine = (mine[d][sel] & ins).to(sh.dev)
-            full = tables[d].count + sel_mine.sum() > V
-            tables[d], _, ovf_i = insert_unique(
-                tables[d], hi[sel].to(sh.dev), lo[sel].to(sh.dev), sel_mine,
-                payload.to(sh.dev))
-            visited_ovf = visited_ovf | (probe_ovf[d] | ovf_i | full).to(home)
-            archive[d][archive_n:archive_n + k] = frontier[d][:k]
-        del cands
-        archive_n += k
-        fvalid = ins
-        total_new = n_ins
-        step += 1
 
+def _explore_neuron_sharded(comp: ShardedCompiled, devices, backend, *,
+                            max_steps: int, frontier_cap: int,
+                            visited_cap: int, max_branches: int,
+                            init: Optional[Sequence[int]],
+                            checkpoint_dir: Optional[str],
+                            checkpoint_every: int,
+                            fault_injector) -> ExploreResult:
+    """The level loop.  ``frontier_cap`` is the global frontier width
+    (its bookkeeping is replicated; only the neuron slices are per
+    shard), ``visited_cap`` is per shard (each shard's table holds the
+    hashes it owns); the archive holds ``S·visited_cap`` rows, each as
+    ``S`` slices.  Checkpointing and the fault injector run as in
+    :func:`~.engine.explore` (:func:`~.engine._run_chunked`)."""
+    S, mloc, m = comp.num_shards, comp.shard_size, comp.num_neurons
+    V, T = visited_cap, max_branches
+    shards = _shards(comp, devices, isinstance(backend, CudaBackend))
+    home = shards[0].dev
+
+    def run(st, bound):
+        while st.step < bound and st.frontier_n > 0:
+            st = _sharded_level(st, shards, backend, T, V)
+        return st
+
+    st = _run_chunked(
+        _init_sharded(comp, shards, frontier_cap, V, init), run,
+        max_steps=max_steps, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, fault_injector=fault_injector)
     b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
-        [branch_ovf, frontier_ovf, visited_ovf]).tolist())
+        [st.branch_overflow, st.frontier_overflow, st.visited_overflow]
+    ).tolist())
     # columns back to global neuron order through global_idx
-    cols = torch.cat([ar[:archive_n].to(home) for ar in archive], 1)
-    configs = torch.zeros((archive_n, S * mloc), dtype=torch.int32,
-                          device=home)
+    n = st.archive_n
+    gidx = comp.arrays.global_idx.reshape(-1).to(home)
+    cols = torch.cat([ar[:n].to(home) for ar in st.archive], 1)
+    configs = torch.zeros((n, S * mloc), dtype=torch.int32, device=home)
     configs[:, gidx.to(torch.int64)] = cols
     return ExploreResult(
         configs=configs[:, :m].cpu().numpy(),
-        num_discovered=archive_n,
-        steps=step,
-        exhausted=total_new == 0 and not (b_ovf or f_ovf or v_ovf),
+        num_discovered=n,
+        steps=st.step,
+        exhausted=st.frontier_n == 0 and not (b_ovf or f_ovf or v_ovf),
         branch_overflow=b_ovf, frontier_overflow=f_ovf,
         visited_overflow=v_ovf,
     )
@@ -354,6 +381,7 @@ def explore_distributed(
     plan: Optional[SystemPlan] = None,
     device: DeviceLike = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 32,
     fault_injector=None,
 ) -> ExploreResult:
     """Neuron-sharded BFS of ``system`` (an :class:`SNPSystem` with a
@@ -370,14 +398,13 @@ def explore_distributed(
     :func:`~.backend.resolve_entry` (``"sparse_cuda"`` for the ELL plan
     :func:`~repro_torch.sharding.neuron_axis` makes).
 
+    ``checkpoint_dir``, ``checkpoint_every`` and ``fault_injector`` work
+    as in :func:`~.engine.explore`: the per-shard state is snapshotted
+    every ``checkpoint_every`` levels and restored on entry (onto each
+    shard's device), and the injector is called once per chunk.
+
     Not ported yet: the dense-row hash-partitioned scheme (a call without a
-    sharded plan), ROADMAP item 7; ``checkpoint_dir`` and
-    ``fault_injector``, ROADMAP item 6.  Each raises
-    ``NotImplementedError``."""
-    if checkpoint_dir is not None or fault_injector is not None:
-        raise NotImplementedError(
-            "explore_distributed: checkpoint_dir and fault_injector are not "
-            "ported yet (ROADMAP item 6)")
+    sharded plan), ROADMAP item 7; it raises ``NotImplementedError``."""
     if not (is_sharded(system) or (plan is not None
                                    and plan.num_shards > 1)):
         raise NotImplementedError(
@@ -388,6 +415,7 @@ def explore_distributed(
     if mesh is not None and device is not None:
         raise ValueError("pass mesh (one device per shard) or device, "
                          "not both")
+    _check_checkpointing(checkpoint_dir, checkpoint_every)
     be = resolve_entry(system, backend, plan)
     if is_sharded(system):
         comp = system
@@ -417,4 +445,6 @@ def explore_distributed(
     comp = be.lower(comp, comp.plan)
     return _explore_neuron_sharded(
         comp, devices, be, max_steps=max_steps, frontier_cap=frontier_cap,
-        visited_cap=visited_cap, max_branches=max_branches, init=init)
+        visited_cap=visited_cap, max_branches=max_branches, init=init,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        fault_injector=fault_injector)

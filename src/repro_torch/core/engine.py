@@ -11,6 +11,14 @@ of new configurations, which both ends the loop and sizes the archive
 append), plus the hash table's probe-loop reads.  Every read is counted
 in :data:`repro_torch.core.device.host_reads`.
 
+The level loop's state is one :class:`ExploreState`; with
+``checkpoint_dir`` the loop runs in chunks of levels and snapshots it
+between chunks (:mod:`repro_torch.checkpoint`), so a killed run resumes
+where its last snapshot left off and returns the uninterrupted archive.
+An entry point that chose its backend itself degrades it when it fails
+to build, lower or launch (:mod:`.failover`; on the card only to another
+kernel backend).
+
 Overflow conditions are reported, never silently dropped:
 
 * ``branch_overflow``   — some config had Ψ > T (only its first T branches
@@ -34,21 +42,28 @@ modes, every backend and both semantics tiers.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence, Set, Tuple
+from typing import (Callable, List, NamedTuple, Optional, Sequence, Set,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
+from ..checkpoint.checkpoint import (latest_step, read_manifest,
+                                     restore_checkpoint, save_checkpoint)
 from . import prng
-from .backend import BackendLike, StepBackend, resolve_entry
+from .backend import (BackendLike, StepBackend, resolve_entry,
+                      resolve_entry_info)
 from .device import DeviceLike, host_read, resolve_device
+from .failover import run_with_failover
 from .hashing import M32, SENTINEL, config_hash
-from .hashtable import first_occurrence, insert_unique, lookup, make_table
+from .hashtable import (HashTable, first_occurrence, insert_unique, lookup,
+                        make_table)
 from .matrix import CompiledAny, is_compiled, is_delayed
 from .plan import SystemPlan
 
-__all__ = ["ExploreResult", "TraceOut", "explore", "resolve_dedup",
-           "successor_set", "emission_gaps", "run_trace", "run_traces"]
+__all__ = ["ExploreState", "ExploreResult", "TraceOut", "explore",
+           "resolve_dedup", "successor_set", "emission_gaps", "run_trace",
+           "run_traces"]
 
 
 def _resolve_comp(system, be: StepBackend, plan: Optional[SystemPlan],
@@ -137,6 +152,179 @@ def _sort_dedup_verdict(visited_key: torch.Tensor, key: torch.Tensor,
     return new_sorted[inv[V:]]
 
 
+class ExploreState(NamedTuple):
+    """The BFS level loop's whole state: what a checkpoint snapshots and a
+    resume restores.  ``frontier_n``, ``archive_n`` and ``step`` are host
+    integers (the level loop reads the level's new-configuration count
+    anyway), so a chunk boundary reads nothing from the device.
+    ``visited`` is the open-addressing table under ``dedup="hash"``, the
+    sorted ``(V,)`` int64 keys under ``"sort"`` (whose live count is
+    ``archive_n``: both grow by each level's insertions, capped at V)."""
+
+    frontier: torch.Tensor            # (F, w) int32
+    frontier_n: int                   # valid prefix length
+    visited: Union[HashTable, torch.Tensor]
+    archive: torch.Tensor             # (V, w) int32, discovery order
+    archive_n: int
+    step: int
+    branch_overflow: torch.Tensor     # () bool
+    frontier_overflow: torch.Tensor   # () bool
+    visited_overflow: torch.Tensor    # () bool
+
+
+def _init_state(comp: CompiledAny, F: int, V: int, init, dedup: str
+                ) -> ExploreState:
+    dev = comp.device
+    m = comp.state_width          # row width: m, or 3m under delays
+    c0 = comp.init_config if init is None else \
+        torch.as_tensor(list(init), dtype=torch.int32, device=dev)
+    frontier = torch.zeros((F, m), dtype=torch.int32, device=dev)
+    frontier[0] = c0
+    archive = torch.zeros((V, m), dtype=torch.int32, device=dev)
+    archive[0] = c0
+    hi0, lo0 = config_hash(c0)
+    if dedup == "hash":
+        visited, _, _ = insert_unique(
+            make_table(V, dev), hi0[None], lo0[None],
+            torch.ones(1, dtype=torch.bool, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    else:
+        visited = torch.full((V,), _SENTINEL_KEY, dtype=torch.int64,
+                             device=dev)
+        visited[0] = _sort_key(hi0, lo0)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    return ExploreState(frontier, 1, visited, archive, 1, 0, false, false,
+                        false)
+
+
+def _explore_level(s: ExploreState, comp: CompiledAny, be: StepBackend,
+                   T: int, dedup: str) -> ExploreState:
+    """One BFS level: expand, hash, dedup, compact, append."""
+    (F, m), V, dev = s.frontier.shape, s.archive.shape[0], s.frontier.device
+    take = torch.arange(F, device=dev)
+    live = take < s.frontier_n
+    out = be.expand(s.frontier, comp, T)
+    cand = out.configs.reshape(F * T, m)
+    cand_valid = (out.valid & live[:, None]).reshape(F * T)
+    branch_ovf = s.branch_overflow | (out.overflow & live).any()
+
+    hi, lo = config_hash(cand)
+    hi = torch.where(cand_valid, hi, SENTINEL)
+    lo = torch.where(cand_valid, lo, SENTINEL)
+    if dedup == "hash":
+        found, _ = lookup(s.visited, hi, lo, cand_valid)
+        first, probe_ovf = first_occurrence(hi, lo, cand_valid)
+        new_mask = cand_valid & first & ~found
+    else:
+        new_mask = _sort_dedup_verdict(s.visited, _sort_key(hi, lo),
+                                       cand_valid)
+
+    n_new = new_mask.sum()
+    # new candidates first, in index order (stable), then the rest
+    sel = torch.sort((~new_mask).to(torch.uint8), stable=True).indices[:F]
+    n_ins = host_read(n_new.clamp(max=F))   # the one read per level
+    next_frontier = cand[sel]
+    ins_mask = take < n_ins
+    frontier_ovf = s.frontier_overflow | (n_new > F)
+
+    if dedup == "hash":
+        # insert the selected prefix only (payload = archive row), so
+        # excess discoveries are not marked visited and regenerate
+        full = s.visited.count + n_ins > V
+        visited, _, ovf_i = insert_unique(
+            s.visited, hi[sel], lo[sel], ins_mask,
+            (s.archive_n + take).to(torch.int32))
+        visited_ovf = s.visited_overflow | probe_ovf | ovf_i | full
+    else:
+        # visited merge: entries beyond capacity fall off the sorted tail
+        ins_key = torch.where(ins_mask, _sort_key(hi[sel], lo[sel]),
+                              _SENTINEL_KEY)
+        visited = torch.sort(torch.cat([s.visited, ins_key])).values[:V]
+        visited_ovf = s.visited_overflow | (s.archive_n + n_ins > V)
+
+    # archive append in discovery order (rows past V are dropped)
+    k = min(n_ins, V - s.archive_n)
+    archive = s.archive
+    archive[s.archive_n:s.archive_n + k] = next_frontier[:k]
+    return ExploreState(next_frontier, n_ins, visited, archive,
+                        s.archive_n + k, s.step + 1, branch_ovf,
+                        frontier_ovf, visited_ovf)
+
+
+def _explore_loop(state: ExploreState, comp, be, bound: int, T: int,
+                  dedup: str) -> ExploreState:
+    """Levels until the frontier drains or the absolute step ``bound``."""
+    while state.step < bound and state.frontier_n > 0:
+        state = _explore_level(state, comp, be, T, dedup)
+    return state
+
+
+def _archive_prefix(archive, n: int):
+    if isinstance(archive, torch.Tensor):
+        return archive[:n]
+    return tuple(a[:n] for a in archive)       # one slice per shard
+
+
+def _restore(checkpoint_dir: str, state):
+    """The latest snapshot on the live (fresh) state's devices, its
+    archive prefix (one tensor, or one per shard) written into the fresh
+    archive, whose other rows are zero."""
+    step, manifest = read_manifest(checkpoint_dir)
+    rows = next(v["shape"][0] for k, v in manifest["arrays"].items()
+                if k == ".archive" or k.startswith(".archive/"))
+    template = state._replace(archive=_archive_prefix(state.archive, rows))
+    got, _, _ = restore_checkpoint(checkpoint_dir, template, step=step)
+
+    def pad(live, prefix):
+        live[:rows] = prefix
+        return live
+
+    if isinstance(state.archive, torch.Tensor):
+        return got._replace(archive=pad(state.archive, got.archive))
+    return got._replace(archive=tuple(
+        pad(a, p) for a, p in zip(state.archive, got.archive)))
+
+
+def _check_checkpointing(checkpoint_dir: Optional[str],
+                         checkpoint_every: int) -> None:
+    """Refuse a checkpoint interval below 1 before anything runs."""
+    if checkpoint_dir is not None and checkpoint_every < 1:
+        raise ValueError("checkpoint_every must be >= 1")
+
+
+def _run_chunked(state, run: Callable, *, max_steps: int,
+                 checkpoint_dir: Optional[str], checkpoint_every: int,
+                 fault_injector):
+    """Drive a level loop ``run(state, bound)`` (levels until the frontier
+    drains or the absolute step ``bound``) with checkpoint/resume.
+
+    Without a ``checkpoint_dir`` this is one uninterrupted run.  With one,
+    the BFS runs in chunks of ``checkpoint_every`` levels to absolute step
+    bounds, snapshotting the state after each chunk (its archive's filled
+    prefix only; atomic rename, content-verified,
+    :mod:`repro_torch.checkpoint`), and the latest snapshot is restored on
+    entry.  So a chunked run equals an uninterrupted one, and a run killed
+    mid-chunk resumes from its last snapshot and re-runs only that chunk.
+    ``fault_injector`` (:class:`~repro_torch.runtime.faults.FaultInjector`)
+    is called once before an uninterrupted run and once before every
+    chunk, as the reference calls it, so a schedule kills the same chunk
+    in both.  The state's step and frontier count are host integers: a
+    chunk boundary reads nothing from the device."""
+    if checkpoint_dir is None:
+        if fault_injector is not None:
+            fault_injector.on_device_call()
+        return run(state, max_steps)
+    if latest_step(checkpoint_dir) is not None:
+        state = _restore(checkpoint_dir, state)
+    while state.step < max_steps and state.frontier_n > 0:
+        if fault_injector is not None:
+            fault_injector.on_device_call()
+        state = run(state, min(max_steps, state.step + checkpoint_every))
+        save_checkpoint(checkpoint_dir, state.step, state._replace(
+            archive=_archive_prefix(state.archive, state.archive_n)))
+    return state
+
+
 def explore(
     system,
     *,
@@ -149,106 +337,57 @@ def explore(
     plan: Optional[SystemPlan] = None,
     device: DeviceLike = None,
     dedup: str = "auto",
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 32,
+    fault_injector=None,
 ) -> ExploreResult:
     """BFS-explore the computation tree (paper Algorithm 1) until the
     frontier drains or ``max_steps`` levels.
 
     ``backend`` selects the transition (``"cuda"``, ``"ref"``,
     ``"sparse_cuda"``, ``"sparse"``; ``None`` applies
-    :func:`~.backend.resolve_entry`), ``plan`` the encoding it lowers to,
-    ``device`` where it runs (``None`` = the card, which must be
+    :func:`~.backend.resolve_entry_info`), ``plan`` the encoding it lowers
+    to, ``device`` where it runs (``None`` = the card, which must be
     present).  ``dedup="hash"`` keeps the device-resident open-addressing
     table, ``"sort"`` re-sorts the visited keys with each wave, ``"auto"``
-    applies :func:`resolve_dedup`."""
+    applies :func:`resolve_dedup`.
+
+    ``checkpoint_dir`` snapshots the BFS state every ``checkpoint_every``
+    levels and restores the latest snapshot on entry, so a killed run
+    called again with the same arguments (e.g. under
+    :func:`repro_torch.runtime.faults.run_supervised`) resumes and
+    returns what an uninterrupted run returns (the capacities must match
+    the snapshot's, else ``ValueError``).  ``fault_injector`` kills
+    scheduled chunks.  A backend the entry point chose (``planned``) that
+    fails to build, lower or launch degrades down
+    :data:`~.failover.DEGRADE_ORDER` with a warning, on the card only to
+    another kernel backend; a named backend raises."""
     dedup = resolve_dedup(dedup, frontier_cap=frontier_cap,
                           visited_cap=visited_cap, max_branches=max_branches)
-    be = resolve_entry(system, backend, plan)
-    comp = _resolve_comp(system, be, plan, device)
-    dev = comp.device
-    F, V, T = frontier_cap, visited_cap, max_branches
-    m = comp.state_width          # row width: m, or 3m under delays
-    c0 = comp.init_config if init is None else \
-        torch.as_tensor(list(init), dtype=torch.int32, device=dev)
+    _check_checkpointing(checkpoint_dir, checkpoint_every)
+    dev = resolve_device(device)      # no card: the caller's error
+    be, plan, planned = resolve_entry_info(system, backend, plan)
+    if plan is not None and plan.num_shards > 1:
+        _resolve_comp(system, be, plan, dev)   # caller error: raise
+    T = max_branches
 
-    frontier = torch.zeros((F, m), dtype=torch.int32, device=dev)
-    frontier[0] = c0
-    archive = torch.zeros((V, m), dtype=torch.int32, device=dev)
-    archive[0] = c0
-    archive_n = 1
-    hi0, lo0 = config_hash(c0)
-    ones = torch.ones(1, dtype=torch.bool, device=dev)
-    if dedup == "hash":
-        table, _, _ = insert_unique(
-            make_table(V, dev), hi0[None], lo0[None], ones,
-            torch.zeros(1, dtype=torch.int32, device=dev))
-    else:
-        visited_key = torch.full((V,), _SENTINEL_KEY, dtype=torch.int64,
-                                 device=dev)
-        visited_key[0] = _sort_key(hi0, lo0)
-        visited_n = 1
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-    branch_ovf = frontier_ovf = visited_ovf = false
-    take = torch.arange(F, device=dev)
+    def attempt(be, plan):
+        comp = _resolve_comp(system, be, plan, dev)
+        return _run_chunked(
+            _init_state(comp, frontier_cap, visited_cap, init, dedup),
+            lambda st, bound: _explore_loop(st, comp, be, bound, T, dedup),
+            max_steps=max_steps, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, fault_injector=fault_injector)
 
-    step, frontier_n = 0, 1
-    while step < max_steps and frontier_n > 0:
-        live = take < frontier_n
-        out = be.expand(frontier, comp, T)
-        cand = out.configs.reshape(F * T, m)
-        cand_valid = (out.valid & live[:, None]).reshape(F * T)
-        branch_ovf = branch_ovf | (out.overflow & live).any()
-
-        hi, lo = config_hash(cand)
-        hi = torch.where(cand_valid, hi, SENTINEL)
-        lo = torch.where(cand_valid, lo, SENTINEL)
-        if dedup == "hash":
-            found, _ = lookup(table, hi, lo, cand_valid)
-            first, probe_ovf = first_occurrence(hi, lo, cand_valid)
-            new_mask = cand_valid & first & ~found
-        else:
-            new_mask = _sort_dedup_verdict(visited_key, _sort_key(hi, lo),
-                                           cand_valid)
-
-        n_new = new_mask.sum()
-        # new candidates first, in index order (stable), then the rest
-        sel = torch.sort((~new_mask).to(torch.uint8),
-                         stable=True).indices[:F]
-        n_ins = host_read(n_new.clamp(max=F))   # the one read per level
-        next_frontier = cand[sel]
-        ins_mask = take < n_ins
-        frontier_ovf = frontier_ovf | (n_new > F)
-
-        if dedup == "hash":
-            # insert the selected prefix only (payload = archive row), so
-            # excess discoveries are not marked visited and regenerate
-            full = table.count + n_ins > V
-            table, _, ovf_i = insert_unique(
-                table, hi[sel], lo[sel], ins_mask,
-                (archive_n + take).to(torch.int32))
-            visited_ovf = visited_ovf | probe_ovf | ovf_i | full
-        else:
-            # visited merge: entries beyond capacity fall off the sorted tail
-            ins_key = torch.where(ins_mask, _sort_key(hi[sel], lo[sel]),
-                                  _SENTINEL_KEY)
-            visited_key = torch.sort(torch.cat([visited_key, ins_key])
-                                     ).values[:V]
-            visited_ovf = visited_ovf | (visited_n + n_ins > V)
-            visited_n = min(visited_n + n_ins, V)
-
-        # archive append in discovery order (rows past V are dropped)
-        k = min(n_ins, V - archive_n)
-        archive[archive_n:archive_n + k] = next_frontier[:k]
-        archive_n += k
-        frontier, frontier_n = next_frontier, n_ins
-        step += 1
-
+    s = run_with_failover(attempt, be, plan, degradable=planned, device=dev)
     b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
-        [branch_ovf, frontier_ovf, visited_ovf]).tolist())
+        [s.branch_overflow, s.frontier_overflow, s.visited_overflow]
+    ).tolist())
     return ExploreResult(
-        configs=archive[:archive_n].cpu().numpy(),
-        num_discovered=archive_n,
-        steps=step,
-        exhausted=frontier_n == 0 and not (b_ovf or f_ovf or v_ovf),
+        configs=s.archive[:s.archive_n].cpu().numpy(),
+        num_discovered=s.archive_n,
+        steps=s.step,
+        exhausted=s.frontier_n == 0 and not (b_ovf or f_ovf or v_ovf),
         branch_overflow=b_ovf, frontier_overflow=f_ovf,
         visited_overflow=v_ovf,
     )
@@ -366,14 +505,30 @@ def run_traces(system, *, steps: int, seeds, policy: str = "first",
     carries the key ``PRNGKey(seed)`` (seeds as uint32) and, every step,
     splits it and draws ``randint(subkey, (), 0, max(n_valid, 1))``, as
     the reference's scan does, so row b equals the reference's trace of
-    ``seeds[b]`` bit for bit (:mod:`.prng`)."""
+    ``seeds[b]`` bit for bit (:mod:`.prng`).  A backend the entry point
+    chose degrades on a failure to build, lower or launch
+    (:mod:`.failover`; on the card only to another kernel backend); a
+    named one raises."""
     if policy not in ("first", "random"):
         raise ValueError(f"unknown policy {policy!r}")
     seeds = np.asarray(seeds)
     if seeds.ndim != 1:
         raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
-    be = resolve_entry(system, backend, plan)
-    comp = _resolve_comp(system, be, plan, device)
+    dev = resolve_device(device)      # no card: the caller's error
+    be, plan, planned = resolve_entry_info(system, backend, plan)
+    if plan is not None and plan.num_shards > 1:
+        _resolve_comp(system, be, plan, dev)   # caller error: raise
+
+    def attempt(be, plan):
+        return _traces(_resolve_comp(system, be, plan, dev), be, seeds,
+                       steps, policy, max_branches)
+
+    return run_with_failover(attempt, be, plan, degradable=planned,
+                             device=dev)
+
+
+def _traces(comp, be, seeds: np.ndarray, steps: int, policy: str,
+            max_branches: int) -> TraceOut:
     B, m, dev = int(seeds.shape[0]), comp.state_width, comp.device
     res = TraceOut(
         torch.empty((B, steps, m), dtype=torch.int32, device=dev),

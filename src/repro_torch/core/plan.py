@@ -30,8 +30,12 @@ ceil(m/S)`` neurons, or ``"degree"``, a greedy bin-packing by degree that
 spreads hubs across shards (:func:`partition_neurons`).  Every array
 equals the reference's, array for array.
 
-The reference's other plan fields (``mode``, ``backend``, ``kernel``)
-arrive with the planner (ROADMAP queue 1, items 3 and 5).
+``mode`` and ``backend`` are the reference's planning fields.  The port
+has no query planner yet (ROADMAP item 5), so ``mode="auto"`` (the
+default) and ``"static"`` both resolve to the port's encoding rule
+(:func:`~.backend.resolve_entry`), ``"static"`` pinned, and
+``mode="measure"`` raises ``NotImplementedError``.  The reference's
+``kernel`` block shape arrives with the autotuner (item 5).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ __all__ = ["SystemPlan", "auto_hub_threshold", "ShardArrays", "ShardView",
 _ENCODINGS = ("auto", "dense", "ell", "hybrid")
 _SEMANTICS = ("no_delays", "delays")
 _PARTITIONS = ("contiguous", "degree")
+_MODES = ("auto", "measure", "static")
 
 # Dummy padding rules of the sharded lowering use this regex base: they
 # apply only at 2^24 spikes, which the spike-count contract (< 2^24) makes
@@ -73,7 +78,13 @@ class SystemPlan:
       :func:`compile_sharded` and is consumed by ``explore_distributed``
       only;
     * ``partition`` — ``"contiguous"`` or ``"degree"``
-      (:func:`partition_neurons`).
+      (:func:`partition_neurons`);
+    * ``mode`` — ``"auto"`` (the entry point picks the backend by the
+      encoding rule and may degrade it on failure,
+      :mod:`.failover`), ``"static"`` (the same pick, pinned) or
+      ``"measure"`` (not ported: raises ``NotImplementedError``);
+    * ``backend`` — a step backend's registry name the plan pins, or
+      ``None``.
     """
 
     encoding: str = "auto"
@@ -81,6 +92,8 @@ class SystemPlan:
     semantics: str = "no_delays"
     num_shards: int = 1
     partition: str = "contiguous"
+    mode: str = "auto"
+    backend: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.encoding not in _ENCODINGS:
@@ -98,6 +111,14 @@ class SystemPlan:
         if self.partition not in _PARTITIONS:
             raise ValueError(
                 f"unknown partition {self.partition!r}; one of {_PARTITIONS}")
+        if self.mode not in _MODES:
+            raise ValueError(
+                f"unknown mode {self.mode!r}; one of {_MODES}")
+        if self.mode == "measure":
+            raise NotImplementedError(
+                "SystemPlan(mode='measure') times candidate configurations "
+                "with the query planner, which is not ported yet (ROADMAP "
+                "item 5); use mode='auto' or 'static'")
 
     @staticmethod
     def for_system(system: SNPSystem, *, num_shards: int = 1,

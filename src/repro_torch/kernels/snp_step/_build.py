@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
@@ -34,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 build_logs: Dict[Path, str] = {}
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -98,9 +100,11 @@ def build(source: Path) -> Tuple[Path, str]:
 
 def load_library(source: Path) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed (once per
-    process)."""
-    lib = _loaded.get(source)
-    if lib is None:
-        path, _ = build(source)
-        lib = _loaded[source] = ctypes.CDLL(str(path))
-    return lib
+    process, also when threads ask at once: the trace service launches
+    from its drain thread)."""
+    with _load_lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            path, _ = build(source)
+            lib = _loaded[source] = ctypes.CDLL(str(path))
+        return lib

@@ -1,12 +1,17 @@
-"""Batched LM serving launcher: prefill, then streamed greedy or sampled
-decode (the port of the LM path of the JAX package's
-``repro.launch.serve``).
+"""Batched serving launcher (the port of the JAX package's
+``repro.launch.serve``): the LM path (prefill, then streamed greedy or
+sampled decode) and the SNP trace path (``--snp``: a burst of random
+traces through the async :class:`~repro_torch.serve.SNPTraceService`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --batch 4 --prompt-len 64 --gen 32          # on the card
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --device cpu                        # reduced, on the CPU
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --snp \
+        --batch 64 --requests 256 --gen 32 --max-delay-ms 5 \
+        --inject 'fail=2 poison=17' --max-retries 1  # on the card
 
 The weights are random, drawn from ``PRNGKey(--seed)`` at the published
 shapes, and sampled tokens from the same key split once a step, as the
@@ -30,14 +35,112 @@ from ..core import prng
 from ..core.device import resolve_device
 from ..data import DataConfig, make_batch
 from ..models import init_params
-from ..serve import make_decode_step, make_prefill_step
+from ..serve import (SNPTraceService, TraceRequest, make_decode_step,
+                     make_prefill_step, make_trace_runner)
 
-__all__ = ["serve_lm", "main"]
+__all__ = ["serve_lm", "serve_snp", "parse_inject", "main"]
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def parse_inject(spec: str):
+    """``"fail=2,4 poison=17 slow=3:0.05"`` -> a
+    :class:`~repro_torch.runtime.FaultInjector` with that schedule."""
+    from ..runtime import FaultInjector
+    kw = {}
+    for part in spec.split():
+        k, _, v = part.partition("=")
+        if k == "fail":
+            kw["fail_calls"] = [int(x) for x in v.split(",") if x]
+        elif k == "poison":
+            kw["poison_seeds"] = [int(x) for x in v.split(",") if x]
+        elif k == "slow":
+            kw["slow_calls"] = {int(o): float(t) for o, t in
+                                (pair.split(":") for pair in v.split(","))}
+        else:
+            raise SystemExit(f"unknown --inject term {part!r}")
+    return FaultInjector(**kw)
+
+
+def serve_snp(args) -> dict:
+    """Stand up the async SNP trace service on one device and serve a
+    burst of ``--requests`` random traces of the paper's Π (covering
+    mode), ``--gen`` steps each, seeds 0 .. requests−1.
+
+    The runner is :func:`~repro_torch.serve.make_trace_runner`'s
+    single-device :func:`~repro_torch.core.engine.run_traces`.  The
+    reference launches the mesh runner over a one-axis trace mesh; on one
+    device it computes the same traces, and the mesh runner is not ported
+    yet (ROADMAP item 7).  Any fault flag turns on a
+    :class:`~repro_torch.runtime.FaultPolicy`.  Prints the set-up line,
+    the served count with traces/s, the completion latency p50/p99, then
+    the fault stats (under a policy) and one sample spike train; returns
+    those figures."""
+    from ..core import paper_pi
+    from ..runtime import FaultPolicy
+
+    dev = resolve_device(args.device)
+    system = paper_pi(covering=True)
+    policy = None
+    if (args.max_retries is not None or args.deadline_ms is not None
+            or args.max_pending is not None or args.inject):
+        policy = FaultPolicy(
+            max_retries=2 if args.max_retries is None else args.max_retries,
+            backoff_ms=args.backoff_ms, deadline_ms=args.deadline_ms,
+            max_pending=args.max_pending)
+    injector = parse_inject(args.inject) if args.inject else None
+
+    n, G = args.requests, args.gen
+    with SNPTraceService(batch_size=args.batch, step_bucket=8,
+                         backend=args.backend, runner=make_trace_runner(),
+                         async_mode=True, max_delay_ms=args.max_delay_ms,
+                         policy=policy, fault_injector=injector,
+                         device=dev) as svc:
+        print(f"[serve-snp] device {svc.device}, batch {args.batch}, "
+              f"max_delay {args.max_delay_ms} ms, backend {svc.backend.name}"
+              + (f", policy {policy}" if policy else ""))
+        done = {}
+        t0 = time.perf_counter()
+        futs = []
+        for s in range(n):
+            fut = svc.submit(TraceRequest(system, steps=G, policy="random",
+                                          seed=s))
+            # completion times by callback: waiting on the futures in
+            # order would charge earlier futures' wait to later ones
+            fut.add_done_callback(
+                lambda f, s=s: done.setdefault(s, time.perf_counter()))
+            futs.append(fut)
+        failed = []
+        for f in futs:
+            try:
+                f.result()
+            except Exception as e:
+                failed.append(type(e).__name__)
+                print(f"[serve-snp] request failed: {type(e).__name__}: {e}")
+        dt = time.perf_counter() - t0
+        calls = svc.num_device_calls
+        stats = svc.stats()
+    # after close(): the drain thread is joined, so every done-callback
+    # has run
+    lat_ms = np.asarray([done[s] - t0 for s in range(n)]) * 1e3
+    p50, p99 = (float(np.percentile(lat_ms, q)) for q in (50, 99))
+    print(f"[serve-snp] {n - len(failed)}/{n} traces x {G} steps in "
+          f"{dt*1e3:.1f} ms ({n / dt:.0f} traces/s, {calls} device calls)")
+    print(f"[serve-snp] completion latency p50={p50:.1f} ms "
+          f"p99={p99:.1f} ms")
+    if policy is not None or injector is not None:
+        print("[serve-snp] fault stats: " + ", ".join(
+            f"{k}={v}" for k, v in stats.items() if v))
+    ok = next((f for f in futs if not f.exception()), None)
+    if ok is not None:
+        print(f"[serve-snp] sample spike train: "
+              f"{ok.result().emissions.tolist()}")
+    return {"served": n - len(failed), "requests": n, "failed": failed,
+            "traces_per_s": n / dt, "p50_ms": p50, "p99_ms": p99,
+            "stats": stats}
 
 
 def serve_lm(args) -> np.ndarray:
@@ -93,24 +196,49 @@ def serve_lm(args) -> np.ndarray:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--snp", action="store_true",
-                    help="serve SNP traces (not ported yet)")
-    ap.add_argument("--arch", default=None, help="LM config name")
+                    help="serve SNP traces (the async trace service) "
+                         "instead of the LM path")
+    ap.add_argument("--arch", default=None,
+                    help="LM config name (required without --snp)")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced sibling of --arch")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="request batch (default: 4 for the LM path, 256 — "
+                         "the service batch_size — for --snp)")
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    # SNP service knobs
+    ap.add_argument("--requests", type=int, default=256)
+    ap.add_argument("--max-delay-ms", type=float, default=5.0)
+    ap.add_argument("--backend", default=None,
+                    help="step backend of --snp (default: the service "
+                         "chooses 'cuda')")
+    # failure-domain knobs: any of these turns on the FaultPolicy path
+    ap.add_argument("--max-retries", type=int, default=None,
+                    help="retries per flush before degrade/bisect "
+                         "(default 2 once any fault flag is set)")
+    ap.add_argument("--backoff-ms", type=float, default=10.0,
+                    help="base retry backoff (exponential, jittered)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline; expired requests fail "
+                         "fast with DeadlineExceeded")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="admission control: reject submits past this "
+                         "queue depth")
+    ap.add_argument("--inject", default=None,
+                    help="deterministic fault schedule, e.g. "
+                         "'fail=2,4 poison=17 slow=3:0.05'")
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 256 if args.snp else 4
     if args.snp:
-        raise NotImplementedError(
-            "the SNP trace service (--snp) is not ported yet (ROADMAP "
-            "item 6)")
+        return serve_snp(args)
     if args.arch is None:
-        ap.error("--arch is required")
+        ap.error("--arch is required without --snp")
     return serve_lm(args)
 
 

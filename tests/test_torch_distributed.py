@@ -180,12 +180,9 @@ def test_refusals():
         explore_distributed(system, device=CPU)
     with pytest.raises(NotImplementedError, match="item 7"):
         explore_distributed(system, plan=neuron_axis(1), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="checkpoint_every"):
         explore_distributed(system, plan=plan, device=CPU,
-                            checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        explore_distributed(system, plan=plan, device=CPU,
-                            fault_injector=object())
+                            checkpoint_dir="ckpt", checkpoint_every=0)
     with pytest.raises(ValueError, match="single-device encoding"):
         explore_distributed(P.compile_system_sparse(system, device=CPU),
                             plan=plan, backend="sparse", device=CPU)

@@ -50,6 +50,10 @@ def test_port_has_modules():
                  "repro_torch/models/model.py",
                  "repro_torch/models/convert.py",
                  "repro_torch/serve/serve_step.py",
+                 "repro_torch/serve/snp_service.py",
+                 "repro_torch/runtime/faults.py",
+                 "repro_torch/checkpoint/checkpoint.py",
+                 "repro_torch/core/failover.py",
                  "repro_torch/launch/serve.py"):
         assert want in names
     kernels = SRC / "repro_torch/kernels"
@@ -83,7 +87,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.distributed, repro_torch.sharding.specs\n"
         "import repro_torch.configs, repro_torch.data, repro_torch.models\n"
         "import repro_torch.kernels.flash_attn.ops, repro_torch.serve\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.runtime\n"
+        "import repro_torch.checkpoint, repro_torch.core.failover\n"
         "repro_torch.configs.get_config('smollm-360m')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"

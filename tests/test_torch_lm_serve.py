@@ -230,8 +230,8 @@ def test_launcher_runs_on_cpu():
 
 
 def test_launcher_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        main(["--snp"])
+    with pytest.raises(SystemExit, match="unknown --inject term"):
+        main(["--snp", "--device", "cpu", "--inject", "bogus=1"])
     with pytest.raises(SystemExit):
         with contextlib.redirect_stderr(io.StringIO()):
             main(["--smoke", "--device", "cpu"])
