@@ -176,7 +176,33 @@ result line):
    --snp`` (256 requests, batch 64, 32 steps): 256/256 served, and 255/256
    with one PoisonError under ``--inject 'fail=2 poison=17'
    --max-retries 1``;
-19. summary — the kernels with their launch counts, then one JSON line of
+19. the query planner and block autotuner — (a) every kernel at every
+   block shape it takes, against its plain version on every entry: B1 at
+   8, 16 and 32 rows, B6 at 1, 2, 4 and 8, B4 and the sliced-list
+   kernel's B2, B3, B5 ELL, B5 COO and B7 bodies at 1, 2, 4 and 8 rows
+   by 256 and 1024 threads, at edge shapes of phases 2, 3, 9 and 13 and
+   at the full-width waves; a shape whose stage passes 227 KB (the ring
+   lattice's B2 at 4 and 8 rows) must be refused before any launch, and
+   the shape counters (``block_launches``) must show one launch at
+   exactly the requested shape; (b) ``SystemPlan.for_system(mode=
+   "measure")`` at B = 1, 64, 256 and 512 (T = 64) on ``scaled_pi(682)``,
+   the hybrid ``power_law(8192)`` and the delayed ``scaled_pi(682)``:
+   every candidate's µs (the median of 5 ``be.expand`` calls, timed in
+   interleaved rounds) with its spread, and the winner, which must be a
+   kernel backend; (c) ``explore`` under each full-width measured plan,
+   twice, its archive equal to phase 5's, 7's and 10's and every launch
+   at the winner's shape; (d) a second ``mode="auto"`` plan, the cached
+   winner; (e) the seed rows (``core/autotune_seed.json``'s format) as
+   JSON lines; (f) open plans, with a fresh cache: the committed seed
+   rows decide the three workloads at (512, 64) and the cost model
+   ``scaled_pi(682)`` at (128, 64); each open-plan explore launches the
+   chosen kernel at the chosen shape (the library's rule where the
+   choice names none) every wave, with the archive of phases 5, 7 and 10,
+   or, unseeded, of the rule's ``"cuda"`` explore, timed beside it.  The
+   whole smoke runs with ``REPRO_TORCH_AUTOTUNE_CACHE`` in a temporary
+   directory, so no cache on the machine steers a phase; phase 4 pins
+   ``"cuda"``, whose launches it counts, and (f) drives the open plan;
+20. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -371,6 +397,8 @@ def reset_counts():
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.snp_step import ops, sparse_ops
     ops.kernel_launches = ops.delay_launches = ops.shard_launches = 0
+    ops.block_launches.clear()
+    sparse_ops.block_launches.clear()
     sparse_ops.kernel_launches = sparse_ops.ell_launches = 0
     sparse_ops.coo_launches = sparse_ops.ell_delay_launches = 0
     sparse_ops.coo_delay_launches = sparse_ops.halo_launches = 0
@@ -984,10 +1012,12 @@ def phase_sparse_kernel():
 def phase_paper():
     from repro_torch.core import emission_gaps, explore, paper_pi
 
+    # "cuda" pinned: the phase counts B1's launches, and an open plan
+    # would let the planner pick the backend (phase 19)
     launches = {}
     reset_counts()
     res = explore(paper_pi(True), max_steps=16, frontier_cap=128,
-                  visited_cap=2048, max_branches=16)
+                  visited_cap=2048, max_branches=16, backend="cuda")
     launches["s5_explore"] = read_counts()["B1"]
     check_counts("§5 explore", read_counts(), B1=res.steps)
     mine = res.as_strings()
@@ -995,8 +1025,10 @@ def phase_paper():
     check(mine[:45] == paper[:45], "allGenCk prefix differs from the paper")
     check(set(paper) <= set(mine), "allGenCk misses a paper entry")
     reset_counts()
-    gaps = emission_gaps(paper_pi(False), max_time=30, max_gap=14)
-    covering = emission_gaps(paper_pi(True), max_time=16, max_gap=8)
+    gaps = emission_gaps(paper_pi(False), max_time=30, max_gap=14,
+                         backend="cuda")
+    covering = emission_gaps(paper_pi(True), max_time=16, max_gap=8,
+                             backend="cuda")
     counts = read_counts()
     launches["s5_emission_gaps"] = counts["B1"]
     check_counts("§5 emission gaps", counts, B1=None)
@@ -1047,6 +1079,21 @@ def _timed_explore(tag, label, system, backend, kernel, plan=None,
     return res, (counts[kernel] if kernel else 0), peak
 
 
+# Digests of the main-path archives (phases 5, 7 and 10), which phase 19
+# holds the planner's explores to.
+ARCHIVES = {}
+
+
+def _digest(res):
+    """sha256 of an explore's archive, with its steps and flags."""
+    import hashlib
+
+    import numpy as np
+    return (hashlib.sha256(np.ascontiguousarray(res.configs).tobytes())
+            .hexdigest(), res.num_discovered, res.steps, res.exhausted,
+            res.branch_overflow, res.frontier_overflow, res.visited_overflow)
+
+
 def _same_explore(a, b):
     import numpy as np
     return np.array_equal(a.configs, b.configs) and \
@@ -1070,6 +1117,7 @@ def phase_full_width():
                              None)
     check(_same_explore(a, b),
           "full-width archives or flags differ between 'cuda' and 'ref'")
+    ARCHIVES["scaled_pi(682)"] = _digest(a)
     log(f"[5] archives identical through 'cuda' and 'ref' "
         f"({a.num_discovered} rows x {a.configs.shape[1]} neurons)")
     _wave_breakdown("5", compile_system(system, device="cuda"), a.configs,
@@ -1117,6 +1165,7 @@ def phase_full_width_hybrid():
                              "sparse", None, plan)
     check(_same_explore(a, b), "hybrid full-width archives or flags differ "
           "between 'sparse_cuda' and 'sparse'")
+    ARCHIVES["power_law(8192)"] = _digest(a)
     log(f"[7] archives identical through 'sparse_cuda' and 'sparse' "
         f"({a.num_discovered} rows x {a.configs.shape[1]} neurons)")
     _wave_breakdown("7", comp, a.configs, ("sparse_cuda", "sparse"))
@@ -1624,6 +1673,7 @@ def phase_delay_full_width():
     m = system.num_neurons
     check(a.configs.shape[1] == 3 * m and bool((a.configs[:, m:] != 0).any()),
           "delayed archive rows should be 3m wide with live countdowns")
+    ARCHIVES["scaled_pi(682) d=k%3"] = _digest(a)
     log(f"[10] archives identical through 'cuda', 'ref' and 'sparse_cuda' "
         f"({a.num_discovered} rows x {a.configs.shape[1]} columns)")
     _wave_breakdown("10", compile_system(system, semantics="delays",
@@ -3123,6 +3173,455 @@ def phase_snp_service(dense_result, sharded_result):
     return launches, figures
 
 
+# ---------------------------------------------------------------------------
+# The planner and block autotuner (phase 19)
+# ---------------------------------------------------------------------------
+
+# Shapes each kernel takes: B1 (rows; 256 threads), B6 (rows; 256
+# threads), B4 and the sliced-list kernel (rows x threads).
+B1_SHAPES = [(8, None), (16, None), (32, None)]
+B6_SHAPES = [(1, None), (2, None), (4, None), (8, None)]
+SELL_SHAPES = [(r, t) for t in (256, 1024) for r in (1, 2, 4, 8)]
+
+# The workloads phase 19 plans (B, T = 512, 64), with the kernel each
+# (backend, encoding, tier) runs and the phase whose archive it must equal.
+PLANNED = [("scaled_pi(682)", "5"), ("power_law(8192)", "7"),
+           ("scaled_pi(682) d=k%3", "10")]
+KERNEL_OF = {("cuda", "dense", "no_delays"): "B1",
+             ("sparse_cuda", "ell", "no_delays"): "B2",
+             ("sparse_cuda", "hybrid", "no_delays"): "B3",
+             ("cuda", "dense", "delays"): "B4",
+             ("sparse_cuda", "ell", "delays"): "B5-ELL",
+             ("sparse_cuda", "hybrid", "delays"): "B5-COO"}
+
+
+def _every_shape(label, kernel, mod, body, run, want, shapes, width=None,
+                 nbytes=2):
+    """``run(rows, threads)``, one launch of ``kernel`` (``body`` in
+    ``mod.block_launches``), at every shape of ``shapes``: bit-identical
+    to ``want``, the plain version's outputs, and, by the shape counters,
+    one launch at exactly the requested shape.  A shape whose stage of
+    ``width + 1`` values of ``nbytes`` bytes a row passes 227 KB must be
+    refused (``ValueError``) before any launch.  Returns the shapes run
+    and refused."""
+    import torch
+    from repro_torch.kernels.snp_step import sparse_ops
+
+    ran, refused = [], []
+    for rows, threads in shapes:
+        fits = width is None or \
+            rows * (width + 1) * nbytes <= sparse_ops.SMEM_LIMIT
+        before = dict(mod.block_launches)
+        try:
+            got = run(rows, threads)
+        except ValueError as e:
+            check(not fits, f"{label}: {kernel} refused {rows} x {threads}, "
+                  f"whose stage fits: {e}")
+            check(mod.block_launches == before,
+                  f"{label}: a refused shape launched")
+            refused.append([rows, threads])
+            continue
+        check(fits, f"{label}: {kernel} ran {rows} rows, past its stage")
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        delta = {k: v - before.get(k, 0) for k, v in mod.block_launches.items()
+                 if v != before.get(k, 0)}
+        shape = (body, rows, 256 if threads is None else threads)
+        check(delta == {shape: 1}, f"{label}: asked {kernel} for {rows} x "
+              f"{threads}, the counters saw {delta}")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{label}: {kernel} at {rows} rows x {shape[2]} threads "
+              f"disagrees with its plain version")
+        ran.append([rows, shape[2]])
+        del got
+    log(f"[19] {label}: {kernel} bit-identical to its plain version at "
+        f"{len(ran)} shapes {ran}" + (f"; refused (stage past 227 KB) "
+                                      f"{refused}" if refused else ""))
+    return ran, refused
+
+
+def phase_planner_kernels():
+    """Phase 19 (a): every kernel at every block shape it takes ==
+    its plain version, at edge shapes of phases 2, 3, 9 and 13 and at the
+    full-width waves; the shape counters show the requested shape ran.
+    Returns {kernel: shapes run}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (SystemPlan, compile_system,
+                                  compile_system_sparse, with_delays)
+    from repro_torch.core.generators import (nd_chain, power_law,
+                                             random_system, ring_lattice,
+                                             scaled_pi)
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+    from repro_torch.kernels.snp_step.ref import (snp_step_dense_delay_ref,
+                                                  snp_step_dense_ref,
+                                                  snp_step_dense_shard_ref)
+    from repro_torch.kernels.snp_step.sparse_ref import (kernel_inputs,
+                                                         snp_step_sparse_ref)
+    from repro_torch.sharding import neuron_axis
+
+    rng = np.random.default_rng(19)
+    dev = torch.device("cuda")
+    lim = sparse_ops.SMEM_LIMIT
+    check(sparse_ops.max_neurons() == lim // 2 - 1
+          and ops.delay_max_neurons() == lim // 4 - 1,
+          f"the library's limits {sparse_ops.max_neurons()} / "
+          f"{ops.delay_max_neurons()} differ from SMEM_LIMIT {lim}")
+
+    def rand(B, lo=0, hi=4):
+        return lambda m: torch.from_numpy(
+            rng.integers(lo, hi, size=(B, m)).astype(np.int32)).to(dev)
+
+    shapes = {}
+
+    def note(kernel, ran):
+        for r in ran[0]:
+            if r not in shapes.setdefault(kernel, []):
+                shapes[kernel].append(r)
+
+    for name, system, B, T, make in (
+            ("ragged B13 T37", random_system(45, 3, 0.1, seed=5), 13, 37,
+             rand(13)),
+            ("nd_chain(10)", nd_chain(10), 16, 64,
+             lambda m: torch.ones((16, m), dtype=torch.int32, device=dev)),
+            ("unaligned slab m1023 T33", scaled_pi(341), 37, 33,
+             rand(37, 0, 3)),
+            ("scaled_pi(682) wave", scaled_pi(682), 512, 64, rand(512, 0, 3))):
+        comp = compile_system(system, device=dev)
+        args, _ = _step_inputs(comp, make(comp.num_neurons))
+        cols = (comp.col_start, comp.col_rule, comp.col_val)
+        note("B1", _every_shape(
+            name, "B1", ops, "B1",
+            lambda r, t: ops.snp_step_dense(*args[:7], cols, T, rows=r,
+                                            threads=t),
+            snp_step_dense_ref(*args, T), B1_SHAPES))
+        del comp, args, cols
+
+    hybrid = power_law(8192, 4, seed=2)
+    for name, system, h, B, T, make in (
+            ("ragged B13 T37", random_system(45, 3, 0.1, seed=5), None, 13,
+             37, rand(13)),
+            ("empty slice m=100", _empty_slice_system(), None, 24, 40,
+             rand(24)),
+            ("ragged m=45 h=2 B13 T37", random_system(45, 3, 0.1, seed=5), 2,
+             13, 37, rand(13)),
+            ("scaled_pi(682) wave", scaled_pi(682), None, 512, 64,
+             rand(512, 0, 3)),
+            ("power_law(8192) hybrid wave", hybrid,
+             SystemPlan.for_system(hybrid).hub_threshold, 512, 64, rand(512)),
+            ("ring_lattice(32768,8) wave", ring_lattice(32768, 8, seed=2),
+             None, 512, 64, rand(512))):
+        comp = compile_system_sparse(system, hub_threshold=h, device=dev)
+        configs = make(comp.num_neurons)
+        args, coo, _ = kernel_inputs(configs, comp)
+        kargs, kcoo, _ = kernel_inputs(configs, comp, lists=True)
+        kernel, body = ("B3", "coo") if comp.is_hybrid else ("B2", "ell")
+        note(kernel, _every_shape(
+            name, kernel, sparse_ops, body,
+            lambda r, t: sparse_ops.snp_step_sparse_cuda(
+                *kargs, **kcoo, max_branches=T, rows=r, threads=t),
+            snp_step_sparse_ref(*args, **coo, max_branches=T), SELL_SHAPES,
+            comp.num_neurons))
+        del comp, configs, args, coo, kargs, kcoo
+        torch.cuda.empty_cache()
+
+    for name, system, h, B, T, make in _delay_cases(rng, dev):
+        if name not in ("ragged B13 T37 d=k%4",
+                        "ragged m=45 h=2 B13 T37 d=k%4",
+                        "reopen 2^16-1, no output",
+                        "scaled_pi(682) delayed wave",
+                        "power_law(8192) delayed hybrid wave"):
+            continue
+        m = system.num_neurons
+        states = make(m)
+        if h == "auto":
+            h = SystemPlan.for_system(system,
+                                      semantics="delays").hub_threshold
+        if h is None:
+            comp = compile_system(system, semantics="delays", device=dev)
+            pargs, _ = ops.delay_inputs(states, comp)
+            dargs, _ = ops.delay_inputs(states, comp, lists=True)
+            note("B4", _every_shape(
+                name, "B4", ops, "B4",
+                lambda r, t: ops.snp_step_dense_delay(*dargs, T, rows=r,
+                                                      threads=t),
+                snp_step_dense_delay_ref(*pargs, T), SELL_SHAPES, m, 4))
+            del comp, pargs, dargs
+        comp = compile_system_sparse(system, hub_threshold=h,
+                                     semantics="delays", device=dev)
+        args, extra, _ = kernel_inputs(states, comp)
+        kargs, kextra, _ = kernel_inputs(states, comp, lists=True)
+        kernel, body = ("B5-COO", "coo_delay") if comp.is_hybrid \
+            else ("B5-ELL", "ell_delay")
+        note(kernel, _every_shape(
+            name, kernel, sparse_ops, body,
+            lambda r, t: sparse_ops.snp_step_sparse_cuda(
+                *kargs, **kextra, max_branches=T, rows=r, threads=t),
+            snp_step_sparse_ref(*args, **extra, max_branches=T), SELL_SHAPES,
+            m))
+        del comp, states, args, extra, kargs, kextra
+        torch.cuda.empty_cache()
+
+    for name, system, plan, B, T in (
+            ("power_law(26) degree S=4", power_law(26, 3, seed=6),
+             neuron_axis(4, partition="degree"), 24, 33),
+            ("scaled_pi(682) wave S=4", scaled_pi(682), neuron_axis(4), 512,
+             64)):
+        comp, shards, frontier, lv = _shard_level(system, plan, B, T,
+                                                  rand(B, 0, 3), dev)
+        for d in (0, comp.num_shards - 1):
+            sh, info, f = shards[d], lv.infos[d], frontier[d]
+            a6 = _b6_args(sh, f, info, lv.strides[d], lv.psi, lv.halos[d])
+            note("B6", _every_shape(
+                f"{name} shard {d}", "B6", ops, "B6",
+                lambda r, t: ops.snp_step_dense_shard_cuda(
+                    *a6[:7], sh.cols, a6[9], T, rows=r, threads=t),
+                (snp_step_dense_shard_ref(*a6, T),), B6_SHAPES))
+            a7, h7 = _b7_args(sh, f, info, lv.strides[d], lv.psi, lv.tabs[d],
+                              lv.halos[d])
+            note("B7", _every_shape(
+                f"{name} shard {d}", "B7", sparse_ops, "halo",
+                lambda r, t: sparse_ops.snp_step_sparse_cuda(
+                    *a7[:5], *sh.sell, a7[6], halo=h7, max_branches=T,
+                    rows=r, threads=t)[0],
+                (snp_step_sparse_ref(*a7, halo=h7, max_branches=T)[0],),
+                SELL_SHAPES, f.shape[1] + h7.shape[-1]))
+        del comp, shards, frontier, lv
+        torch.cuda.empty_cache()
+    log(f"[19] shapes held against the plain versions: {json.dumps(shapes)}")
+    return shapes
+
+
+def _launched_shape(plan, kernel, m, T):
+    """The ``block_launches`` key ``plan``'s ``kernel`` launches under at
+    ``m`` neurons and ``T`` branches: the plan's block shape, the
+    library's rule where it names none."""
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+    bt = None if plan is None or plan.kernel is None else plan.kernel.block_t
+    nt = None if plan is None or plan.kernel is None else plan.kernel.threads
+    if kernel == "B1":
+        return ("B1", *ops.dense_block_shape(bt, nt))
+    if kernel == "B4":
+        return ("B4", *ops.delay_block_shape(m, T, bt, nt))
+    body = {"B2": "ell", "B3": "coo", "B5-ELL": "ell_delay",
+            "B5-COO": "coo_delay"}[kernel]
+    return (body, *sparse_ops.sell_block_shape(m, 0, T, bt, nt))
+
+
+def _check_shapes(label, plan, kernel, m, T, waves):
+    """Every launch of the explore just run was ``kernel`` at the shape
+    ``plan`` gives it; returns that shape."""
+    from repro_torch.kernels.snp_step import ops, sparse_ops
+    key = _launched_shape(plan, kernel, m, T)
+    seen = {**ops.block_launches, **sparse_ops.block_launches}
+    check(seen == {key: waves}, f"{label}: the explore launched {seen}, "
+          f"not {waves} x {key}")
+    return list(key[1:])
+
+
+# The batches phase 19 (b) sweeps at T = 64: what the entry points serve
+# (successor_set 1, emission_gaps 64, the full-width explore 512).
+PLAN_BATCHES = (1, 64, 256, 512)
+
+
+def phase_planner():
+    """Phase 19 (b)-(e): ``SystemPlan.for_system(mode="measure")`` on the
+    three main-path workloads at each batch of :data:`PLAN_BATCHES` (every
+    candidate timed through ``be.expand`` in interleaved rounds, the
+    winner a kernel backend), ``explore`` under each full-width measured
+    plan, twice (archive equal to phases 5, 7 and 10, the winner's kernel
+    launched at the winner's shape), a second ``mode="auto"`` plan from
+    the cache, and the seed rows as JSON lines.  Returns ({workload:
+    figures}, seed rows)."""
+    import torch
+    from repro_torch.core import SystemPlan, autotune, failover, with_delays
+    from repro_torch.core.generators import power_law, scaled_pi
+
+    systems = {"scaled_pi(682)": scaled_pi(682),
+               "power_law(8192)": power_law(8192, 4, seed=2),
+               "scaled_pi(682) d=k%3": with_delays(scaled_pi(682),
+                                                   lambda k, r: k % 3)}
+    B, T = FULL_WIDTH["frontier_cap"], FULL_WIDTH["max_branches"]
+    figures, seeds = {}, []
+    for label, phase in PLANNED:
+        system = systems[label]
+        semantics = "delays" if "d=" in label else "no_delays"
+        tier = "snp_step_delays" if semantics == "delays" else "snp_step"
+        sweeps = {}
+        for b in PLAN_BATCHES:
+            sig = autotune.signature_of(system, workload=(b, T),
+                                        semantics=semantics)
+            t0 = time.perf_counter()
+            plan = SystemPlan.for_system(system, workload=(b, T),
+                                         mode="measure", semantics=semantics)
+            secs = time.perf_counter() - t0
+            sweep = list(autotune.last_sweep)
+            for row in sweep:
+                log(f"[19] measure {label} B={b}: {row['backend']} block_t="
+                    f"{row['block_t']} threads={row['threads']}: "
+                    + (f"{row['us']:.1f} us a step, spread "
+                       f"{row['spread_us']:.1f}"
+                       if row["refused"] is None else
+                       f"refused: {row['refused']}"))
+            check(all(r["refused"] is None for r in sweep),
+                  f"{label} B={b}: a candidate of the card's grid was "
+                  "refused")
+            check(plan.backend in failover.KERNEL_BACKENDS
+                  and plan.mode == "measure",
+                  f"{label} B={b}: the measured winner is {plan}")
+            kernel = KERNEL_OF[(plan.backend, "dense"
+                                if plan.backend == "cuda" else plan.encoding,
+                                semantics)]
+            log(f"[19] measure {label} B={b}: winner {plan.backend} "
+                f"({kernel}) encoding {plan.encoding}, kernel {plan.kernel}, "
+                f"{len(sweep)} candidates in {secs:.1f} s")
+            for row in sweep:
+                seeds.append({
+                    "name": f"{tier}/{row['backend']}/m{sig.m}_n{sig.n}"
+                            f"_B{b}_T{T}", "us_per_call": row["us"],
+                    "block_t": row["block_t"], "threads": row["threads"],
+                    "spread_us": row["spread_us"]})
+            sweeps[b] = dict(
+                winner=[plan.backend, kernel, plan.encoding,
+                        None if plan.kernel is None else plan.kernel.block_t,
+                        None if plan.kernel is None else plan.kernel.threads],
+                candidates=[[r["backend"], r["block_t"], r["threads"],
+                             r["us"], r["spread_us"]] for r in sweep],
+                sweep_s=secs)
+        # (c) the explore under the full-width measured plan, twice
+        runs = []
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            res, launches, _ = _timed_explore(
+                "19", f"explore({label}) under the measured plan, run {n}",
+                system, None, kernel, plan)
+            runs.append(res.steps / (time.perf_counter() - t0))
+            check(_digest(res) == ARCHIVES[label],
+                  f"{label}: the measured plan's archive differs from phase "
+                  f"{phase}'s")
+            shape = _check_shapes(label, plan, kernel, system.num_neurons, T,
+                                  res.steps)
+            del res
+        log(f"[19] explore({label}) under the measured plan: archive equal "
+            f"to phase {phase}'s, {kernel} at {shape} every wave")
+        # (d) the cached winner
+        again = SystemPlan.for_system(system, workload=(B, T), mode="auto",
+                                      semantics=semantics)
+        hit = autotune.lookup(autotune.signature_of(
+            system, workload=(B, T), semantics=semantics))
+        check((again.backend, again.encoding, again.kernel)
+              == (plan.backend, plan.encoding, plan.kernel)
+              and hit is not None and hit.source == "cache",
+              f"{label}: mode='auto' after the sweep gave {again} ({hit})")
+        figures[label] = dict(sweeps=sweeps, launches=launches,
+                              block=shape, explore_waves_s=runs)
+        torch.cuda.empty_cache()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    log(f"[19] seed rows (card: {card}, torch {torch.__version__}):")
+    for row in seeds:
+        log("[19] seed " + json.dumps(row))
+    return figures, seeds
+
+
+def phase_open_plans():
+    """Phase 19 (f): the open plan, the path of every caller that names
+    no backend.  With a fresh cache of its own, the committed seed rows
+    decide the three seeded workloads at (512, 64) and the cost model
+    decides ``scaled_pi(682)`` at (128, 64), which no row seeds (the
+    rows of its system, at other batches, fit the curves): what
+    ``resolve_entry_info`` chose and who decided, that kernel launched
+    at that shape every wave of an open-plan ``explore``, the archive
+    equal to phases 5, 7 and 10 (for the unseeded workload, to the
+    explore under the rule's ``"cuda"`` at the same caps, the two timed
+    in turns, twice each).  Returns {workload: figures}."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import (SystemPlan, autotune, failover,
+                                  resolve_entry_info, with_delays)
+    from repro_torch.core.generators import power_law, scaled_pi
+
+    pi = scaled_pi(682)
+    cases = [("scaled_pi(682)", pi, "no_delays", FULL_WIDTH, "seed"),
+             ("power_law(8192)", power_law(8192, 4, seed=2), "no_delays",
+              FULL_WIDTH, "seed"),
+             ("scaled_pi(682) d=k%3", with_delays(pi, lambda k, r: k % 3),
+              "delays", FULL_WIDTH, "seed"),
+             ("scaled_pi(682) F=128", pi, "no_delays",
+              dict(FULL_WIDTH, frontier_cap=128), "model")]
+    fresh = tempfile.TemporaryDirectory(prefix="chip_smoke_open_plan_")
+    saved = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(fresh.name) / "autotune.json")
+    figures = {}
+    try:
+        for label, system, semantics, caps, _ in cases:
+            workload = (caps["frontier_cap"], caps["max_branches"])
+            sig = autotune.signature_of(system, workload=workload,
+                                        semantics=semantics)
+            hit = autotune.lookup(sig)
+            decider = hit.source if hit is not None else (
+                "model" if autotune.model_choice(sig) is not None
+                else "rule")
+            open_plan = SystemPlan(semantics=semantics)
+            be, plan, planned = resolve_entry_info(system, None, open_plan,
+                                                   workload=workload)
+            check(planned and be.name in failover.KERNEL_BACKENDS,
+                  f"open plan {label}: {be.name}, planned={planned}")
+            kernel = KERNEL_OF[(be.name, "dense" if be.name == "cuda"
+                                else plan.encoding, semantics)]
+            t0 = time.perf_counter()
+            res, launches, _ = _timed_explore(
+                "19", f"open plan {label}", system, None, kernel, open_plan,
+                caps)
+            secs = time.perf_counter() - t0
+            shape = _check_shapes(f"open plan {label}", plan, kernel,
+                                  system.num_neurons, workload[1], res.steps)
+            row = dict(decider=decider, backend=be.name, kernel=kernel,
+                       encoding=plan.encoding, block=shape,
+                       launches=launches, waves_s=res.steps / secs)
+            if label in ARCHIVES:
+                check(_digest(res) == ARCHIVES[label],
+                      f"open plan {label}: the archive differs from the "
+                      "main path's")
+            else:
+                # in turns, open plan and rule, each run twice
+                row["waves_s"], row["rule_waves_s"] = [row["waves_s"]], []
+                for backend, plan_n, key in (
+                        ("cuda", None, "rule_waves_s"),
+                        (None, open_plan, "waves_s"),
+                        ("cuda", None, "rule_waves_s")):
+                    t0 = time.perf_counter()
+                    other, _, _ = _timed_explore(
+                        "19", f"{label} under "
+                        f"{'the rule' if backend else 'the open plan'}",
+                        system, backend, kernel if backend is None else
+                        "B1", plan_n, caps)
+                    row[key].append(other.steps
+                                    / (time.perf_counter() - t0))
+                    check(_same_explore(res, other),
+                          f"open plan {label}: the archive differs from "
+                          "the rule's 'cuda' explore")
+                    del other
+            log(f"[19] open plan {label}: {decider} chose {be.name} "
+                f"({kernel}, {plan.encoding}) at {shape}; "
+                f"{json.dumps(row)}")
+            figures[label] = row
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = saved
+        fresh.cleanup()
+    for label, _, _, _, want in cases:
+        check(figures[label]["decider"] == want,
+              f"open plan {label}: decided by {figures[label]['decider']}, "
+              f"not by the {want}")
+    return figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3135,8 +3634,15 @@ def main() -> int:
         print(f"chip_smoke: cannot import repro_torch from {ROOT / 'src'}: "
               f"{e}", file=sys.stderr)
         return 1
+    import os
+    import tempfile
     from repro_torch.core import failover
     failover.add_degrade_listener(DEGRADES.append)
+    # a cache of this run's own, so that no cache on the machine steers a
+    # phase; the committed seed rows still apply
+    tune = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(tune.name) / "autotune.json")
     try:
         card = phase_card_and_build()
         dense_err, rows = phase_kernel()
@@ -3158,11 +3664,16 @@ def main() -> int:
         served = phase_serving()
         snp_paths, snp_figures = phase_snp_service(dense_res, sharded_res)
         del dense_res, sharded_res
+        shapes = phase_planner_kernels()
+        planned, _ = phase_planner()
+        planned["open_plans"] = phase_open_plans()
         check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        tune.cleanup()
     delayed["B4"]["full_width_delayed_explore"] = b4
     delayed["B5-ELL"]["full_width_delayed_ell_explore"] = b5e
     delayed["B5-COO"]["full_width_delayed_hybrid_explore"] = b5c
@@ -3222,12 +3733,14 @@ def main() -> int:
                if "bound_dense_ms" in w else {}),
             **({"device_ms": w["device_ms"]} if "device_ms" in w else {}),
             **({"block": w["block"]} if "block" in w else {}),
+            **({"shapes_checked": shapes[k]} if k in shapes else {}),
             **extras.get(k, {})))
-        log(f"[19] {k} {meta['name']} ({meta['route']}): "
+        log(f"[20] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[19] SNP service figures: {json.dumps(snp_figures)}")
-    log(f"[19] card: {card}")
+    log(f"[20] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[20] planner figures: {json.dumps(planned)}")
+    log(f"[20] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,22 +12,19 @@ smoke's inputs; B2's drawn here from a fixed seed).
     python3 probes/sell_block_threads.py
 
 on one NVIDIA GPU, from the root of a checkout (it reuses the helpers
-of ``chip_smoke.py`` that make the waves).  It builds each source as it
-is and two copies with ``SELL_THREADS`` defined to 256 and to 1024,
-which forces the header's rule to that shape (into the git-ignored build
-directory, each copy beside a copy of the header), checks that both
-copies give the library's outputs bit for bit, and times them in turns
-(256, 1024, 1024, 256): the kernel's own device time from
-``torch.profiler``, a mean over 20 launches after a warm-up each, so
-that the launcher's host time does not hide the kernel at the small
-waves.  The last line is one JSON object of the times, with the card's
-name and power limit.
+of ``chip_smoke.py`` that make the waves).  Each launch passes the
+thread count at run time (the wrappers' ``threads=``, the library's
+``nt``), at the library's rows; the probe checks that both shapes give
+the rule's outputs bit for bit and times them in turns (256, 1024, 1024,
+256): the kernel's own device time from ``torch.profiler``, a mean over
+20 launches after a warm-up each, so that the launcher's host time does
+not hide the kernel at the small waves.  The last line is one JSON
+object of the times, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -38,26 +35,6 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SPARSE_KERNEL = "snp_step_sparse_sell_kernel"
 DELAY_KERNEL = "snp_step_dense_delay_sell_kernel"
-
-
-def _variants():
-    """{(module, attribute): {threads: source copy}} for the two
-    sources, all built together."""
-    from repro_torch.kernels.snp_step import _build, ops, sparse_ops
-    out = {}
-    for mod, attr in ((sparse_ops, "SOURCE"), (ops, "DELAY_SOURCE")):
-        source = getattr(mod, attr)
-        for nt in (256, 1024):
-            where = _build.BUILD_DIR / "variants" / f"nt{nt}"
-            where.mkdir(parents=True, exist_ok=True)
-            for header in source.parent.glob("*.cuh"):
-                shutil.copy(header, where / header.name)
-            copy = where / source.name
-            copy.write_text(f"#define SELL_THREADS {nt}\n"
-                            + source.read_text())
-            out.setdefault((mod, attr), {})[nt] = copy
-    _build.build_all([c for v in out.values() for c in v.values()])
-    return out
 
 
 def _waves(dev):
@@ -79,9 +56,9 @@ def _waves(dev):
             0, hi, size=(512, comp.num_neurons)).astype(np.int32)).to(dev)
         kargs, kextra, _ = kernel_inputs(configs, comp, lists=True)
         yield ("B2 " + label, "sparse", comp.num_neurons, 0, 64,
-               lambda kargs=kargs, kextra=kextra:
+               lambda nt=None, kargs=kargs, kextra=kextra:
                sparse_ops.snp_step_sparse_cuda(*kargs, **kextra,
-                                               max_branches=64))
+                                               max_branches=64, threads=nt))
         del comp, configs
     for name, system, _, B, T, make in cs._delay_cases(rng, dev):
         if name == "scaled_pi(682) delayed wave":
@@ -90,12 +67,13 @@ def _waves(dev):
                                          device=dev)
             kargs, kextra, _ = kernel_inputs(states, comp, lists=True)
             yield ("B5-ELL " + name, "sparse", comp.num_neurons, 0, T,
-                   lambda: sparse_ops.snp_step_sparse_cuda(
-                       *kargs, **kextra, max_branches=T))
+                   lambda nt=None: sparse_ops.snp_step_sparse_cuda(
+                       *kargs, **kextra, max_branches=T, threads=nt))
             dense = compile_system(system, semantics="delays", device=dev)
             dargs, _ = ops.delay_inputs(states, dense, lists=True)
             yield ("B4 " + name, "delay", dense.num_neurons, 0, T,
-                   lambda: ops.snp_step_dense_delay(*dargs, T))
+                   lambda nt=None: ops.snp_step_dense_delay(*dargs, T,
+                                                            threads=nt))
 
     def rand(m):
         return torch.from_numpy(rng.integers(0, 3, size=(512, m)).astype(
@@ -113,7 +91,10 @@ def _waves(dev):
         a7, h7 = cs._b7_args(sh, frontier[0], lv.infos[0], lv.strides[0],
                              lv.psi, lv.tabs[0], lv.halos[0])
         yield ("B7 " + label, "sparse", comp.shard_size, h7.shape[-1], 64,
-               lambda a7=a7, h7=h7, sell=sh.sell: cs._b7(a7, h7, sell, 64))
+               lambda nt=None, a7=a7, h7=h7, sell=sh.sell:
+               sparse_ops.snp_step_sparse_cuda(*a7[:5], *sell, a7[6],
+                                               halo=h7, max_branches=64,
+                                               threads=nt))
 
 
 def main() -> int:
@@ -129,29 +110,22 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     cs.phase_card_and_build()
-    variants = _variants()
-    source = {"sparse": (sparse_ops, "SOURCE", SPARSE_KERNEL,
-                         sparse_ops.sell_block_shape),
-              "delay": (ops, "DELAY_SOURCE", DELAY_KERNEL,
-                        lambda m, H, T: ops.delay_block_shape(m, T))}
+    shape = {"sparse": (SPARSE_KERNEL, sparse_ops.sell_block_shape),
+             "delay": (DELAY_KERNEL,
+                       lambda m, H, T: ops.delay_block_shape(m, T))}
     dev = torch.device("cuda")
     rows = {}
     for name, which, m, H, T, fn in _waves(dev):
-        mod, attr, kernel, shape = source[which]
-        library = getattr(mod, attr)
+        kernel, block = shape[which]
         want = fn()
-        chosen = shape(m, H, T)
+        chosen = block(m, H, T)
         times = {256: [], 1024: []}
         for nt in (256, 1024, 1024, 256):
-            setattr(mod, attr, variants[(mod, attr)][nt])
-            try:
-                got = fn()
-                torch.cuda.synchronize()
-                cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                         f"{name}: the {nt}-thread copy differs")
-                times[nt].append(cs.device_ms(fn, 20, kernel))
-            finally:
-                setattr(mod, attr, library)
+            got = fn(nt)
+            torch.cuda.synchronize()
+            cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                     f"{name}: {nt} threads differ from the rule's outputs")
+            times[nt].append(cs.device_ms(lambda: fn(nt), 20, kernel))
         rows[name] = dict(m=m, H=H, chosen=list(chosen),
                           ms_256=times[256], ms_1024=times[1024])
         cs.log(f"[probe] {name}: m={m} H={H}, the library's block "

@@ -11,7 +11,12 @@
   same step on the sparse encoding, and the delayed tier's steps on both
   (``SystemPlan(semantics="delays")``);
 * :mod:`.backend` — the ``"ref"``, ``"cuda"``, ``"sparse"`` and
-  ``"sparse_cuda"`` step backends;
+  ``"sparse_cuda"`` step backends (:func:`available_backends`); the kernel
+  backends carry a :class:`KernelConfig` block shape
+  (:func:`resolve_kernel`);
+* :mod:`.autotune` — the query planner and block autotuner the entry
+  points ask when the caller leaves the backend open
+  (``SystemPlan.for_system(mode="auto"|"measure")``);
 * :mod:`.prng` — JAX's threefry2x32 keys, for random traces;
 * :func:`explore`, :func:`successor_set`, :func:`emission_gaps`,
   :func:`run_traces`, :func:`run_trace` — the entry points
@@ -23,9 +28,9 @@
 """
 
 from .backend import (CudaBackend, RefBackend, SparseBackend,
-                      SparseCudaBackend, StepBackend, get_backend,
-                      lower_with_backend, resolve_entry, resolve_entry_info,
-                      supports_sharded)
+                      SparseCudaBackend, StepBackend, available_backends,
+                      get_backend, lower_with_backend, resolve_entry,
+                      resolve_entry_info, resolve_kernel, supports_sharded)
 from .convert import (compiled_from_arrays, sharded_from_arrays,
                       system_from_spec)
 from .generators import with_delays
@@ -40,10 +45,11 @@ from .hashtable import (HashTable, first_occurrence, insert_if_absent,
                         insert_unique, lookup, make_table, table_slots)
 from .matrix import (CompiledSNP, CompiledSparseSNP, compile_system,
                      compile_system_sparse, is_compiled, is_delayed)
-from .plan import (DenseShardArrays, ShardArrays, ShardedCompiled,
-                   SystemPlan, auto_hub_threshold, compile_sharded,
-                   is_sharded, lower_shard_dense, partition_neurons,
-                   partition_stats)
+from .plan import (DenseShardArrays, KernelConfig, ShardArrays,
+                   ShardedCompiled, SystemPlan, auto_hub_threshold,
+                   compile_sharded, is_sharded, lower_shard_dense,
+                   partition_neurons, partition_stats)
+from . import autotune
 from .semantics import (applicability, branch_info, delayed_branch_info,
                         delayed_next_configs, delayed_packed_actions,
                         delayed_weight_matrix, next_configs,
@@ -57,7 +63,8 @@ __all__ = [
     "SNPSystem", "Rule", "paper_pi", "with_delays",
     "CompiledSNP", "CompiledSparseSNP", "compile_system",
     "compile_system_sparse", "is_compiled", "is_delayed",
-    "SystemPlan", "auto_hub_threshold", "ShardArrays", "DenseShardArrays",
+    "SystemPlan", "KernelConfig", "autotune", "auto_hub_threshold",
+    "ShardArrays", "DenseShardArrays",
     "ShardedCompiled", "compile_sharded", "is_sharded", "lower_shard_dense",
     "partition_neurons", "partition_stats",
     "system_from_spec", "compiled_from_arrays", "sharded_from_arrays",
@@ -69,7 +76,8 @@ __all__ = [
     "delayed_weight_matrix", "delayed_packed_actions",
     "delayed_next_configs", "sparse_delayed_next_configs",
     "StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
-    "SparseCudaBackend", "get_backend", "resolve_entry", "supports_sharded",
+    "SparseCudaBackend", "available_backends", "get_backend",
+    "resolve_kernel", "resolve_entry", "supports_sharded",
     "resolve_entry_info", "lower_with_backend",
     "DEGRADE_ORDER", "KERNEL_BACKENDS", "DegradeEvent",
     "degrade_candidates", "is_backend_failure",

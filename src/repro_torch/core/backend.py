@@ -32,6 +32,12 @@ semantics, or to a :class:`~.plan.ShardedCompiled` for a plan with
 ``num_shards > 1`` (``"cuda"``'s ``lower`` attaches the dense shard
 operands B6 reads).  A plan a backend cannot honour raises; it is never
 reinterpreted.
+
+The kernel backends carry a block shape (``block_t``, ``threads``; ``None``
+= the library's rule), which :func:`resolve_kernel` folds in from a plan's
+:class:`~.plan.KernelConfig` and ``expand`` and the shard steps pass to
+the wrappers.  :func:`resolve_entry_info` asks the query planner
+(:mod:`.autotune`) when the caller leaves the choice open.
 """
 
 from __future__ import annotations
@@ -53,9 +59,9 @@ from .semantics import (StepOut, delayed_next_configs, next_configs,
 from .system import SNPSystem
 
 __all__ = ["StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
-           "SparseCudaBackend", "REFERENCE_NAME", "get_backend",
-           "resolve_entry", "resolve_entry_info", "lower_with_backend",
-           "supports_sharded"]
+           "SparseCudaBackend", "REFERENCE_NAME", "available_backends",
+           "get_backend", "resolve_kernel", "resolve_entry",
+           "resolve_entry_info", "lower_with_backend", "supports_sharded"]
 
 #: port backend name -> the reference backend it must match bit for bit
 REFERENCE_NAME = {"ref": "ref", "cuda": "pallas", "sparse": "sparse",
@@ -97,6 +103,7 @@ def _registry_compile(backend: StepBackend, system: SNPSystem,
     :func:`~.plan.compile_sharded` (which validates its encoding) for a
     backend that declares ``"sharded"``."""
     plan = SystemPlan() if plan is None else plan
+    _check_kernel_plan(backend, plan)
     sup = backend.supported_encodings(semantics=plan.semantics)
     if plan.num_shards > 1:
         if "sharded" not in sup:
@@ -130,13 +137,14 @@ def _require(comp, cls, backend_name: str):
     return comp
 
 
-def _flat_expand(step, configs, comp, max_branches) -> StepOut:
-    """Run a kernel wrapper ``step`` on the flattened batch and restore
-    the leading dims (``spiking`` is ``None``, as for the reference's
-    Pallas backends)."""
+def _flat_expand(step, configs, comp, max_branches, be) -> StepOut:
+    """Run a kernel wrapper ``step`` on the flattened batch at ``be``'s
+    block shape and restore the leading dims (``spiking`` is ``None``, as
+    for the reference's Pallas backends)."""
     batch, w = configs.shape[:-1], configs.shape[-1]   # w = m, or 3m
     out, valid, emis, overflow = step(configs.reshape(-1, w), comp,
-                                      max_branches=max_branches)
+                                      max_branches=max_branches,
+                                      rows=be.block_t, threads=be.threads)
     T = max_branches
     return StepOut(configs=out.reshape(*batch, T, w),
                    valid=valid.reshape(*batch, T),
@@ -191,9 +199,13 @@ class RefBackend(_Dense):
 class CudaBackend(_Dense):
     """The hand-written dense step kernels: decode + S·M + C in one launch
     (B1), or the delayed step (B4) for a delayed encoding.  A neuron shard
-    steps through B6, on the dense operands ``lower`` attaches."""
+    steps through B6, on the dense operands ``lower`` attaches.
+    ``block_t``/``threads``: the kernels' block shape (``None``: the
+    library's rule; :func:`resolve_kernel`)."""
 
     name: str = "cuda"
+    block_t: Optional[int] = None
+    threads: Optional[int] = None
 
     def lower(self, compiled: CompiledAny, plan: SystemPlan) -> CompiledAny:
         if is_sharded(compiled):
@@ -206,7 +218,7 @@ class CudaBackend(_Dense):
         from ..kernels.snp_step.ops import snp_step
         return _flat_expand(snp_step, configs,
                             _require(comp, CompiledSNP, self.name),
-                            max_branches)
+                            max_branches, self)
 
 
 @dataclass(frozen=True)
@@ -227,15 +239,18 @@ class SparseBackend(_Sparse):
 class SparseCudaBackend(_Sparse):
     """The hand-written sparse step kernel: the ELL body, with the COO
     segment-sum stage for a hybrid encoding (B2, B3), and with the delay
-    stage for a delayed encoding (B5)."""
+    stage for a delayed encoding (B5); ``block_t``/``threads`` as for
+    :class:`CudaBackend`."""
 
     name: str = "sparse_cuda"
+    block_t: Optional[int] = None
+    threads: Optional[int] = None
 
     def expand(self, configs, comp, max_branches):
         from ..kernels.snp_step.sparse_ops import snp_step_sparse
         return _flat_expand(snp_step_sparse, configs,
                             _require(comp, CompiledSparseSNP, self.name),
-                            max_branches)
+                            max_branches, self)
 
 
 _REGISTRY: Dict[str, StepBackend] = {"ref": RefBackend(),
@@ -251,6 +266,11 @@ def supports_sharded(backend: StepBackend) -> bool:
     delay-free tier), so it may step a neuron shard."""
     sup = getattr(backend, "supported_encodings", None)
     return sup is not None and "sharded" in sup()
+
+
+def available_backends() -> Tuple[str, ...]:
+    """The registry's backend names, sorted."""
+    return tuple(sorted(_REGISTRY))
 
 
 def get_backend(name: BackendLike) -> StepBackend:
@@ -274,41 +294,117 @@ def lower_with_backend(backend: StepBackend, compiled: CompiledAny,
     return backend.lower(compiled, SystemPlan() if plan is None else plan)
 
 
+def _kernel_of(backend: StepBackend, plan: SystemPlan) -> Tuple[str, tuple,
+                                                             tuple]:
+    """The kernel a plan runs on a kernel backend, with the ``block_t``
+    and ``threads`` values it takes (the wrappers' sets)."""
+    from ..kernels.snp_step import ops, sparse_ops
+    rows, threads = sparse_ops.ROWS, sparse_ops.THREADS
+    if isinstance(backend, SparseCudaBackend):
+        return ("B7" if plan.num_shards > 1 else "the sliced-list kernel",
+                rows, threads)
+    if plan.num_shards > 1:
+        return "B6", rows, (ops.THREADS,)
+    if plan.semantics == "delays":
+        return "B4", rows, threads
+    return "B1", ops.B1_ROWS, (ops.THREADS,)
+
+
+def _check_kernel_plan(backend: StepBackend, plan: SystemPlan) -> None:
+    """A ``plan.kernel`` field the backend, or the kernel the plan runs on
+    it, cannot honour is a ``ValueError`` with a real message, never a
+    silently ignored field.  Whether a shape's stage fits is the wrappers'
+    check (it needs the system's width)."""
+    cfg = plan.kernel
+    if cfg is None:
+        return
+    if not isinstance(backend, (CudaBackend, SparseCudaBackend)):
+        raise ValueError(
+            f"backend {backend.name!r} has no kernel block parameters; "
+            f"drop SystemPlan.kernel={cfg} or pick a kernel backend "
+            "('cuda', 'sparse_cuda')")
+    kernel, rows, threads = _kernel_of(backend, plan)
+    if cfg.block_t is not None and cfg.block_t not in rows:
+        raise ValueError(
+            f"plan kernel sets block_t={cfg.block_t}, but {kernel}, which "
+            f"this plan runs on {backend.name!r}, takes {rows} rows a block")
+    if cfg.threads is not None and cfg.threads not in threads:
+        raise ValueError(
+            f"plan kernel sets threads={cfg.threads}, but {kernel}, which "
+            f"this plan runs on {backend.name!r}, runs "
+            f"{' or '.join(map(str, threads))} threads a block; drop "
+            "threads")
+
+
+def resolve_kernel(backend: StepBackend,
+                   plan: Optional[SystemPlan]) -> StepBackend:
+    """``backend`` with ``plan.kernel`` folded in: a new (frozen,
+    hashable) instance carrying the plan's block shape, so two shapes are
+    two distinct backends.  Identity when the plan carries no kernel
+    config; ``ValueError`` when the backend cannot honour it
+    (:func:`_check_kernel_plan`).  A ``None`` field keeps the backend's
+    own."""
+    if plan is None or plan.kernel is None:
+        return backend
+    _check_kernel_plan(backend, plan)
+    fields = {f: v for f in ("block_t", "threads")
+              if (v := getattr(plan.kernel, f)) is not None}
+    return dataclasses.replace(backend, **fields) if fields else backend
+
+
 def resolve_entry_info(system, backend: BackendLike,
-                       plan: Optional[SystemPlan],
+                       plan: Optional[SystemPlan], *,
+                       workload: Optional[Tuple[int, int]] = None,
+                       device: DeviceLike = None,
                        ) -> Tuple[StepBackend, Optional[SystemPlan], bool]:
     """:func:`resolve_entry` and who chose: ``(backend, plan, planned)``.
 
-    The backend is the one named by the caller, else by ``plan.backend``,
-    else the port's encoding rule: ``"sparse_cuda"`` for a sparse
-    encoding or an ``"ell"``/``"hybrid"`` plan, else ``"cuda"``.
-    ``planned`` is True exactly when the entry point chose it for an
-    :class:`SNPSystem` — neither the caller nor the plan named a backend
-    or an encoding, and the plan's ``mode`` is ``"auto"`` — the cases
-    where the reference's query planner picks; a failure may then degrade
-    down :data:`~.failover.DEGRADE_ORDER`.  A pinned backend's failure
-    raises.  The returned plan is then the caller's plan (or the default)
-    with the chosen backend pinned; otherwise the caller's, unchanged.
-    The reference's planner also takes the workload (batch, branches);
-    the port adds that argument with the planner (ROADMAP item 5)."""
+    The backend is the one named by the caller, else by ``plan.backend``.
+    Otherwise, for an :class:`SNPSystem` whose plan is open — ``mode``
+    ``"auto"`` or ``"measure"``, no encoding and no kernel pinned — the
+    query planner decides (:meth:`~.plan.SystemPlan.for_system` with
+    ``workload=(B, T)``, the batch and branch cap the entry point is
+    about to run, on ``device``: the autotune cache, the seed rows, the
+    cost model, or, for ``"measure"``, a timing of the candidates) and
+    its plan is returned.  When the planner has nothing to say, or the
+    plan is not open, the port's encoding rule picks: ``"sparse_cuda"``
+    for a sparse encoding or an ``"ell"``/``"hybrid"`` plan, else
+    ``"cuda"``.  ``planned`` is True exactly when the plan was open —
+    the cases where the reference's query planner picks; a failure may
+    then degrade down :data:`~.failover.DEGRADE_ORDER`.  A pinned
+    backend's failure raises.  An open plan comes back with the chosen
+    backend pinned; otherwise the caller's plan comes back unchanged.
+    Either way the plan's kernel config is folded into the backend
+    (:func:`resolve_kernel`)."""
     if backend is not None:
-        return get_backend(backend), plan, False
+        return resolve_kernel(get_backend(backend), plan), plan, False
     if plan is not None and plan.backend is not None:
-        return get_backend(plan.backend), plan, False
+        return resolve_kernel(get_backend(plan.backend), plan), plan, False
+    planned = isinstance(system, SNPSystem) and (plan is None or (
+        plan.mode in ("auto", "measure") and plan.encoding == "auto"
+        and plan.kernel is None))
+    if planned:
+        base = SystemPlan() if plan is None else plan
+        chosen = SystemPlan.for_system(
+            system, num_shards=base.num_shards, workload=workload,
+            mode=base.mode, semantics=base.semantics, device=device)
+        if chosen.backend is not None:
+            return (resolve_kernel(get_backend(chosen.backend), chosen),
+                    chosen, True)
+        plan = base
     sparse = isinstance(system, CompiledSparseSNP) or (
         plan is not None and plan.encoding in ("ell", "hybrid"))
     be = get_backend("sparse_cuda" if sparse else "cuda")
-    planned = isinstance(system, SNPSystem) and (
-        plan is None or (plan.mode == "auto" and plan.encoding == "auto"))
     if planned:
-        plan = dataclasses.replace(SystemPlan() if plan is None else plan,
-                                   backend=be.name)
-    return be, plan, planned
+        plan = dataclasses.replace(plan, backend=be.name)
+    return resolve_kernel(be, plan), plan, planned
 
 
 def resolve_entry(system, backend: BackendLike,
-                  plan: Optional[SystemPlan]) -> StepBackend:
+                  plan: Optional[SystemPlan], *,
+                  workload: Optional[Tuple[int, int]] = None,
+                  device: DeviceLike = None) -> StepBackend:
     """The backend an entry point runs (:func:`resolve_entry_info`'s
-    first element).  The reference's query planner is not ported, so
-    nothing is measured or looked up."""
-    return resolve_entry_info(system, backend, plan)[0]
+    first element)."""
+    return resolve_entry_info(system, backend, plan, workload=workload,
+                              device=device)[0]

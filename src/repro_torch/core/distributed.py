@@ -51,7 +51,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 from .backend import (BackendLike, CudaBackend, SparseCudaBackend,
-                      resolve_entry, supports_sharded)
+                      resolve_entry_info, supports_sharded)
 from .device import DeviceLike, host_read, resolve_device
 from .engine import (ExploreResult, ExploreState, _check_checkpointing,
                      _run_chunked)
@@ -203,12 +203,14 @@ def _expand(shards, frontier, T: int, backend):
         if isinstance(backend, SparseCudaBackend):
             out = snp_step_sparse_shard(
                 frontier[d], lv.strides[d], info.choices, psi, lv.tabs[d],
-                sh.in_idx, lv.halos[d], sell=sh.sell, max_branches=T)
+                sh.in_idx, lv.halos[d], sell=sh.sell, max_branches=T,
+                rows=backend.block_t, threads=backend.threads)
         elif isinstance(backend, CudaBackend):
             out = snp_step_dense_shard(
                 frontier[d], info.rank, info.app, lv.strides[d],
                 info.choices, psi, sh.view.rule_neuron, sh.M_local,
-                sh.hadj, lv.halos[d], max_branches=T, cols=sh.cols)
+                sh.hadj, lv.halos[d], max_branches=T, cols=sh.cols,
+                rows=backend.block_t, threads=backend.threads)
         else:
             # plain route ("ref", "sparse"): the sparse math on the slice
             packed = lv.fired[d]
@@ -395,8 +397,10 @@ def explore_distributed(
     ``frontier_cap`` is the global frontier width, ``visited_cap`` the
     capacity of each shard's table.  ``backend`` is one declaring
     ``"sharded"`` (all four do); ``None`` applies
-    :func:`~.backend.resolve_entry` (``"sparse_cuda"`` for the ELL plan
-    :func:`~repro_torch.sharding.neuron_axis` makes).
+    :func:`~.backend.resolve_entry_info` (``"sparse_cuda"`` for the ELL
+    plan :func:`~repro_torch.sharding.neuron_axis` makes; an open plan,
+    encoding ``"auto"``, goes to the query planner with the workload
+    ``(frontier_cap, max_branches)``).
 
     ``checkpoint_dir``, ``checkpoint_every`` and ``fault_injector`` work
     as in :func:`~.engine.explore`: the per-shard state is snapshotted
@@ -416,7 +420,9 @@ def explore_distributed(
         raise ValueError("pass mesh (one device per shard) or device, "
                          "not both")
     _check_checkpointing(checkpoint_dir, checkpoint_every)
-    be = resolve_entry(system, backend, plan)
+    be, plan, _ = resolve_entry_info(
+        system, backend, plan, workload=(frontier_cap, max_branches),
+        device=device if mesh is None else mesh[0])
     if is_sharded(system):
         comp = system
     else:

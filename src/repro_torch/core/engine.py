@@ -51,8 +51,8 @@ import torch
 from ..checkpoint.checkpoint import (latest_step, read_manifest,
                                      restore_checkpoint, save_checkpoint)
 from . import prng
-from .backend import (BackendLike, StepBackend, resolve_entry,
-                      resolve_entry_info)
+from .autotune import DEFAULT_WORKLOAD
+from .backend import BackendLike, StepBackend, resolve_entry_info
 from .device import DeviceLike, host_read, resolve_device
 from .failover import run_with_failover
 from .hashing import M32, SENTINEL, config_hash
@@ -366,7 +366,9 @@ def explore(
                           visited_cap=visited_cap, max_branches=max_branches)
     _check_checkpointing(checkpoint_dir, checkpoint_every)
     dev = resolve_device(device)      # no card: the caller's error
-    be, plan, planned = resolve_entry_info(system, backend, plan)
+    be, plan, planned = resolve_entry_info(
+        system, backend, plan, workload=(frontier_cap, max_branches),
+        device=dev)
     if plan is not None and plan.num_shards > 1:
         _resolve_comp(system, be, plan, dev)   # caller error: raise
     T = max_branches
@@ -429,7 +431,9 @@ def successor_set(system, config: Sequence[int], max_branches: int = 64,
                   plan: Optional[SystemPlan] = None,
                   device: DeviceLike = None) -> List[Tuple[tuple, int]]:
     """Distinct (successor, emission) pairs of one configuration."""
-    be = resolve_entry(system, backend, plan)
+    be, plan, _ = resolve_entry_info(system, backend, plan,
+                                     workload=(1, max_branches),
+                                     device=resolve_device(device))
     comp = _resolve_comp(system, be, plan, device)
     return _successors(comp, [tuple(config)], max_branches, be)[0]
 
@@ -447,7 +451,9 @@ def emission_gaps(system, *, max_time: int, max_gap: int,
     keeps the search polynomial.  Each time step expands all of its
     states in one batched call (the reference expands them one by one;
     the sets are the same)."""
-    be = resolve_entry(system, backend, plan)
+    be, plan, _ = resolve_entry_info(
+        system, backend, plan, workload=(DEFAULT_WORKLOAD[0], max_branches),
+        device=resolve_device(device))
     comp = _resolve_comp(system, be, plan, device)
     init = tuple(int(v) for v in comp.init_config.cpu().tolist())
     # phase A: no emission yet; phase B: (config, elapsed) since 1st emission
@@ -515,7 +521,9 @@ def run_traces(system, *, steps: int, seeds, policy: str = "first",
     if seeds.ndim != 1:
         raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
     dev = resolve_device(device)      # no card: the caller's error
-    be, plan, planned = resolve_entry_info(system, backend, plan)
+    be, plan, planned = resolve_entry_info(
+        system, backend, plan, workload=(len(seeds), max_branches),
+        device=dev)
     if plan is not None and plan.num_shards > 1:
         _resolve_comp(system, be, plan, dev)   # caller error: raise
 

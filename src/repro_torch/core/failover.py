@@ -4,8 +4,9 @@ never in a loop.
 
 The port of the JAX package's ``repro.core.failover``.  When — and only
 when — the entry point chose the backend itself (``backend=None``, no
-backend or encoding pinned by the plan, ``mode="auto"``: the ``planned``
-flag of :func:`~.backend.resolve_entry_info`), a backend's failure to
+backend, encoding or kernel pinned by the plan, ``mode`` ``"auto"`` or
+``"measure"``: the ``planned`` flag of
+:func:`~.backend.resolve_entry_info`), a backend's failure to
 build, lower or launch (:func:`is_backend_failure`) walks
 :data:`DEGRADE_ORDER`, restricted to the backends whose
 ``supported_encodings`` realize the plan's encoding, warns once per edge
@@ -118,7 +119,8 @@ def degrade_candidates(backend, plan: SystemPlan, *, device=None
                        ) -> List[Tuple[object, SystemPlan]]:
     """Encoding-compatible fallbacks strictly after ``backend`` in
     :data:`DEGRADE_ORDER`, each with the plan it runs under (the same
-    encoding choice, the backend re-pinned).  On the card (``device``
+    encoding choice, the backend re-pinned, ``kernel`` dropped: a block
+    shape belongs to the backend it was chosen for).  On the card (``device``
     ``None`` or a CUDA device) only :data:`KERNEL_BACKENDS` qualify, so a
     dense or sparse kernel has no fallback there.
 
@@ -143,7 +145,8 @@ def degrade_candidates(backend, plan: SystemPlan, *, device=None
             continue
         if plan.encoding != "auto" and plan.encoding not in sup:
             continue
-        out.append((cand, dataclasses.replace(plan, backend=cand_name)))
+        out.append((cand, dataclasses.replace(plan, backend=cand_name,
+                                              kernel=None)))
     return out
 
 

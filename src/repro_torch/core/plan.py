@@ -30,12 +30,15 @@ ceil(m/S)`` neurons, or ``"degree"``, a greedy bin-packing by degree that
 spreads hubs across shards (:func:`partition_neurons`).  Every array
 equals the reference's, array for array.
 
-``mode`` and ``backend`` are the reference's planning fields.  The port
-has no query planner yet (ROADMAP item 5), so ``mode="auto"`` (the
-default) and ``"static"`` both resolve to the port's encoding rule
-(:func:`~.backend.resolve_entry`), ``"static"`` pinned, and
-``mode="measure"`` raises ``NotImplementedError``.  The reference's
-``kernel`` block shape arrives with the autotuner (item 5).
+``mode``, ``backend`` and ``kernel`` are the reference's planning
+fields.  With ``mode="auto"`` (the default) or ``"measure"`` and nothing
+pinned, the entry points ask the query planner
+(:mod:`.autotune`: the autotune cache, the committed seed rows, the cost
+model fitted to them; ``"measure"`` times the candidates on the spot),
+and fall back to the port's encoding rule
+(:func:`~.backend.resolve_entry_info`) when it has nothing to say;
+``"static"`` keeps that rule.  ``kernel`` is a :class:`KernelConfig`, the
+block shape of the port's kernels.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ import torch
 from .device import DeviceLike, resolve_device
 from .system import SNPSystem
 
-__all__ = ["SystemPlan", "auto_hub_threshold", "ShardArrays", "ShardView",
+__all__ = ["KernelConfig", "SystemPlan", "auto_hub_threshold",
+           "ShardArrays", "ShardView",
            "DenseShardArrays", "dense_shard_columns", "ShardedCompiled",
            "is_sharded", "partition_neurons", "partition_stats",
            "compile_sharded", "lower_shard_dense", "shard_view"]
@@ -67,6 +71,40 @@ _NEVER_BASE = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """The block shape of the port's step kernels, carried by a plan
+    (``SystemPlan.kernel``) to the backend that launches them.
+
+    * ``block_t`` — branch rows a block: B1 takes 8, 16 or 32 (one bit
+      each in a rule's fired-row mask); B4, B6 and the sliced-list kernel
+      (B2, B3, B5, B7) take 1, 2, 4 or 8;
+    * ``threads`` — threads a block, 256 or 1024: B4 and the sliced-list
+      kernel only (B1 and B6 run 256).
+
+    ``None`` keeps the library's rule for that field.  Each field is a
+    positive int or ``None`` here; which values a kernel takes, and
+    whether its stage fits, is checked where the plan meets a backend
+    (:func:`~.backend.resolve_kernel`) and again by the wrappers, before
+    any launch.  The reference's ``block_b`` and
+    ``block_n`` have no counterpart: the port's kernels tile neither the
+    batch (a block owns one configuration) nor the rule axis.  Frozen and
+    hashable, so a backend carrying it keys caches on the shape."""
+
+    block_t: Optional[int] = None
+    threads: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        for field in ("block_t", "threads"):
+            v = getattr(self, field)
+            if v is None:
+                continue
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(
+                    f"KernelConfig.{field} must be a positive int or "
+                    f"None, got {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class SystemPlan:
     """How to lay an SNP system out on the card.
 
@@ -79,12 +117,14 @@ class SystemPlan:
       only;
     * ``partition`` — ``"contiguous"`` or ``"degree"``
       (:func:`partition_neurons`);
-    * ``mode`` — ``"auto"`` (the entry point picks the backend by the
-      encoding rule and may degrade it on failure,
-      :mod:`.failover`), ``"static"`` (the same pick, pinned) or
-      ``"measure"`` (not ported: raises ``NotImplementedError``);
+    * ``mode`` — ``"auto"`` (the entry point asks the query planner,
+      :mod:`.autotune`, then the encoding rule, and may degrade its pick
+      on failure, :mod:`.failover`), ``"measure"`` (the planner times the
+      candidates first) or ``"static"`` (the encoding rule, pinned);
     * ``backend`` — a step backend's registry name the plan pins, or
-      ``None``.
+      ``None``;
+    * ``kernel`` — a :class:`KernelConfig` block shape for the kernel
+      backends, or ``None`` (the library's rule).
     """
 
     encoding: str = "auto"
@@ -94,6 +134,7 @@ class SystemPlan:
     partition: str = "contiguous"
     mode: str = "auto"
     backend: Optional[str] = None
+    kernel: Optional[KernelConfig] = None
 
     def __post_init__(self) -> None:
         if self.encoding not in _ENCODINGS:
@@ -114,20 +155,34 @@ class SystemPlan:
         if self.mode not in _MODES:
             raise ValueError(
                 f"unknown mode {self.mode!r}; one of {_MODES}")
-        if self.mode == "measure":
-            raise NotImplementedError(
-                "SystemPlan(mode='measure') times candidate configurations "
-                "with the query planner, which is not ported yet (ROADMAP "
-                "item 5); use mode='auto' or 'static'")
+        if self.kernel is not None and not isinstance(self.kernel,
+                                                      KernelConfig):
+            raise ValueError(
+                f"plan kernel must be a KernelConfig or None, "
+                f"got {type(self.kernel).__name__}")
 
     @staticmethod
     def for_system(system: SNPSystem, *, num_shards: int = 1,
-                   semantics: str = "no_delays") -> "SystemPlan":
-        """Concrete plan for ``system`` by the degree heuristic (module
-        docstring): hybrid iff the max in-degree is heavy-tailed against
-        the mean, else plain ELL; under ``semantics``.  Over
-        ``num_shards > 1`` the plan stays ELL (the shards are ELL only) and
-        a heavy-tailed graph gets the ``"degree"`` partition instead."""
+                   workload: Optional[Tuple[int, int]] = None,
+                   mode: str = "static", semantics: str = "no_delays",
+                   device: DeviceLike = None) -> "SystemPlan":
+        """Concrete plan for ``system``.
+
+        ``mode="static"`` (the default): the degree heuristic (module
+        docstring) — hybrid iff the max in-degree is heavy-tailed against
+        the mean, else plain ELL; over ``num_shards > 1`` the plan stays
+        ELL (the shards are ELL only) and a heavy-tailed graph gets the
+        ``"degree"`` partition instead.  ``backend`` stays ``None``.
+
+        ``mode="auto"`` asks the query planner (the autotune cache, the
+        committed seed rows, then the cost model); ``mode="measure"``
+        times the candidates on ``device`` (``None`` = the card) and
+        stores the winner (:func:`.autotune.plan_for`).  Their plans name a
+        backend; when the planner has nothing to say they fall through to
+        the heuristic.  ``workload=(B, T)`` is the batch and branch cap
+        the plan will serve."""
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}; one of {_MODES}")
         if semantics not in _SEMANTICS:
             raise ValueError(
                 f"unknown semantics {semantics!r}; one of {_SEMANTICS}")
@@ -135,14 +190,22 @@ class SystemPlan:
             raise ValueError(
                 "no backend shards semantics='delays' yet; use "
                 "num_shards=1 for delayed systems")
+        if mode != "static":
+            from . import autotune      # autotune imports backend and plan
+            plan = autotune.plan_for(system, num_shards=num_shards,
+                                     workload=workload,
+                                     measure=mode == "measure",
+                                     semantics=semantics, device=device)
+            if plan is not None:
+                return plan
         in_deg = _in_degrees(system)
         h = auto_hub_threshold(in_deg)
         kin = int(in_deg.max()) if in_deg.size else 0
         if num_shards == 1 and kin > 2 * h:
-            return SystemPlan(encoding="hybrid", hub_threshold=h,
+            return SystemPlan(encoding="hybrid", hub_threshold=h, mode=mode,
                               semantics=semantics)
         part = "degree" if (num_shards > 1 and kin > 2 * h) else "contiguous"
-        return SystemPlan(encoding="ell", semantics=semantics,
+        return SystemPlan(encoding="ell", semantics=semantics, mode=mode,
                           num_shards=num_shards, partition=part)
 
     def resolved_hub_threshold(self, system: SNPSystem) -> Optional[int]:

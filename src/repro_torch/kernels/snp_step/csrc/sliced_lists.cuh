@@ -20,9 +20,10 @@
 //     slice bounds are clamped to the lists' length, so no list reads out
 //     of bounds (one compare an entry, no host read).
 //
-// The thread rule was measured for both sources at the smoke's waves
-// (probes/sell_block_threads.py, which builds each source with
-// SELL_THREADS defined to force one shape).
+// The C entries also take an explicit shape (bt rows, nt threads; 0 keeps
+// the rule), which the planner's autotuner times (core/autotune.py) and
+// probes/sell_block_threads.py sweeps; valid_rows and valid_threads say
+// which shapes have an instance.
 
 #pragma once
 
@@ -45,13 +46,13 @@ inline int rows_per_block(int w, int T, int bytes) {
 }
 
 // Threads a block for m (local) neurons.
-inline int threads(int m) {
-#ifdef SELL_THREADS
-  return SELL_THREADS;
-#else
-  return m >= 32 * 32 ? 1024 : 256;
-#endif
+inline int threads(int m) { return m >= 32 * 32 ? 1024 : 256; }
+
+// The shapes a kernel of these sources has an instance for.
+inline bool valid_rows(int bt) {
+  return bt == 1 || bt == 2 || bt == 4 || bt == 8;
 }
+inline bool valid_threads(int nt) { return nt == 256 || nt == 1024; }
 
 // Opt in to `smem` bytes of dynamic shared memory where it passes 48 KB.
 template <typename Kernel>

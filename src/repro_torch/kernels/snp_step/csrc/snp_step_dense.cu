@@ -42,10 +42,12 @@
 // MB out, plus 179 MB of halo under the degree partition (1,364 slots).
 //
 // What the design does about it.  A block owns one config b and a tile of
-// ROWS branch ids t0 .. t0+ROWS-1 (ROWS = 16 for B1; for B6 the largest
-// power of two up to 8 whose halo slab fits the stage; both picked on the
-// card: fewer rows, fewer registers and more blocks in flight, against a
-// decode per tile), so its output is one contiguous slab of ROWS*m int32.
+// ROWS branch ids t0 .. t0+ROWS-1 (the rule: ROWS = 16 for B1; for B6 the
+// largest power of two up to 8 whose halo slab fits the stage; both picked
+// on the card: fewer rows, fewer registers and more blocks in flight,
+// against a decode per tile; the C entries also take ROWS explicitly, 8,
+// 16 or 32 for B1 and 1, 2, 4 or 8 for B6, which the planner's autotuner
+// times), so its output is one contiguous slab of ROWS*m int32.
 // Nothing dense is walked:
 //   0. (B6) halo[b, t0 .. t0+ROWS-1, :] is contiguous: thread 0 stages it
 //      in shared memory with one 1-D TMA bulk copy (cp.async.bulk) that
@@ -340,34 +342,70 @@ int launch_rows(const Args& a, int chunk, bool staged, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// B6's rule: the largest row tile whose halo slab fits the stage beside
+// the masks; a slab past even one row is read in place, at 8 rows.
+bool halo_fits(int rows, int H, int chunk) {
+  return (size_t)rows * H * 4 + (size_t)chunk * 4 <= HALO_STAGE_TARGET;
+}
+
+int shard_rule_rows(int H, int chunk) {
+  for (int rows = B6_MAX_ROWS; rows >= 1; rows >>= 1)
+    if (halo_fits(rows, H, chunk)) return rows;
+  return B6_MAX_ROWS;
+}
+
+int rule_chunk(int n) {
+  return n < RULE_CHUNK ? (n > 0 ? n : 1) : RULE_CHUNK;
+}
+
 }  // namespace
+
+// The rule's rows a block: B1's, and B6's for a shard of n rules and H
+// halo slots.
+extern "C" int snp_step_dense_rows() { return B1_ROWS; }
+extern "C" int snp_step_dense_shard_rows(int n, int H) {
+  return shard_rule_rows(H, rule_chunk(n));
+}
 
 // C entry point: launches on `stream` (PyTorch's current stream), allocates
 // nothing, and returns cudaGetLastError() (0 on success).  All arrays are
 // contiguous int32 unless noted: configs/stride/choices (B,m), rank (B,n),
 // app (B,n) bool, psi (B,) float32, rule_neuron (n,); the column lists of
 // [M | env] (n, m+1): col_start (m+2,), col_rule and col_val (nnz,).
-// Outputs: out (B,T,m), valid (B,T) bool, emis (B,T).
+// bt rows a block (8, 16 or 32; 0 for the rule's 16) and nt threads (256,
+// or 0); another shape is cudaErrorInvalidValue.  Outputs: out (B,T,m),
+// valid (B,T) bool, emis (B,T).
 extern "C" int snp_step_dense(const void* configs, const void* rank,
                               const void* app, const void* stride,
                               const void* choices, const void* psi,
                               const void* rule_neuron, const void* col_start,
                               const void* col_rule, const void* col_val,
                               void* out, void* valid, void* emis, int B,
-                              int T, int n, int m, int nnz, void* stream) {
+                              int T, int n, int m, int nnz, int bt, int nt,
+                              void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
+  if (nt != 0 && nt != THREADS) return (int)cudaErrorInvalidValue;
   const Args a{configs, rank,      app,      stride,  choices, psi,
                rule_neuron, col_start, col_rule, col_val, nullptr, nullptr,
                nullptr, out, valid, emis, B, T, n, m, 0, nnz, 0};
-  const int chunk = n < RULE_CHUNK ? (n > 0 ? n : 1) : RULE_CHUNK;
-  return launch_rows<false, B1_ROWS>(a, chunk, false, (cudaStream_t)stream);
+  const int chunk = rule_chunk(n);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bt ? bt : B1_ROWS) {
+    case 8: return launch_rows<false, 8>(a, chunk, false, s);
+    case 16: return launch_rows<false, 16>(a, chunk, false, s);
+    case 32: return launch_rows<false, 32>(a, chunk, false, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // C entry point of the shard body (B6): as above without valid and emis;
 // col_* are the lists of M_local (n, m) alone (col_start (m+1,)),
 // hcol_start (m+1,) and hcol_slot (hnnz,) those of the halo in-adjacency
 // hadj (H, m), and halo (B,T,H) int32 the exchanged remote produce;
-// rule_neuron is the shard's local rule->neuron map.
+// rule_neuron is the shard's local rule->neuron map.  bt rows a block (1,
+// 2, 4 or 8; 0 for the rule's, snp_step_dense_shard_rows) and nt threads
+// (256, or 0); the halo slab is staged where it fits beside the masks and
+// read in place where it does not.
 extern "C" int snp_step_dense_shard(const void* configs, const void* rank,
                                     const void* app, const void* stride,
                                     const void* choices, const void* psi,
@@ -378,27 +416,23 @@ extern "C" int snp_step_dense_shard(const void* configs, const void* rank,
                                     const void* hcol_start,
                                     const void* hcol_slot, const void* halo,
                                     void* out, int B, int T, int n, int m,
-                                    int H, int nnz, int hnnz, void* stream) {
+                                    int H, int nnz, int hnnz, int bt, int nt,
+                                    void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
+  if (nt != 0 && nt != THREADS) return (int)cudaErrorInvalidValue;
   const Args a{configs,    rank,      app,  stride,  choices, psi,
                rule_neuron, col_start, col_rule, col_val, hcol_start,
                hcol_slot, halo, out, nullptr, nullptr, B, T, n, m, H, nnz,
                hnnz};
-  const int chunk = n < RULE_CHUNK ? (n > 0 ? n : 1) : RULE_CHUNK;
-  // The largest row tile whose halo slab fits the stage beside the masks;
-  // a slab past even one row is read in place.
-  int rows = B6_MAX_ROWS;
-  while (rows > 1 &&
-         (size_t)rows * H * 4 + (size_t)chunk * 4 > HALO_STAGE_TARGET)
-    rows >>= 1;
-  const bool staged =
-      H > 0 && (size_t)rows * H * 4 + (size_t)chunk * 4 <= HALO_STAGE_TARGET;
-  if (!staged) rows = B6_MAX_ROWS;
+  const int chunk = rule_chunk(n);
+  const int rows = bt ? bt : shard_rule_rows(H, chunk);
+  const bool staged = H > 0 && halo_fits(rows, H, chunk);
   cudaStream_t s = (cudaStream_t)stream;
   switch (rows) {
     case 8: return launch_rows<true, 8>(a, chunk, staged, s);
     case 4: return launch_rows<true, 4>(a, chunk, staged, s);
     case 2: return launch_rows<true, 2>(a, chunk, staged, s);
-    default: return launch_rows<true, 1>(a, chunk, staged, s);
+    case 1: return launch_rows<true, 1>(a, chunk, staged, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

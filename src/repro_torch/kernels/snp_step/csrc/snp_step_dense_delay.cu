@@ -318,19 +318,27 @@ extern "C" int snp_step_dense_delay_threads(int m) {
 // stride and choices (B,m), rank (B,n), app (B,n) bool, psi (B,) float32,
 // rule_bounds (m+1,), consume, produce and delay (n,), sell_start
 // (ceil(m/32)+1,) and sell_src (E,), the sliced lists of adj_in,
-// out_neuron (1,).  Outputs: out (B,T,3m), valid (B,T) bool, emis (B,T).
+// out_neuron (1,).  bt rows (1, 2, 4 or 8) and nt threads (256 or 1024) a
+// block, each 0 for the rule's (snp_step_dense_delay_rows, _threads); a
+// shape without an instance, or whose stage passes 227 KB, is
+// cudaErrorInvalidValue.  Outputs: out (B,T,3m), valid (B,T) bool, emis
+// (B,T).
 extern "C" int snp_step_dense_delay(
     const void* spikes, const void* cd, const void* pd, const void* rank,
     const void* app, const void* stride, const void* choices,
     const void* psi, const void* rule_bounds, const void* consume,
     const void* produce, const void* delay, const void* sell_start,
     const void* sell_src, const void* out_neuron, void* out, void* valid,
-    void* emis, int B, int T, int n, int m, int E, void* stream) {
+    void* emis, int B, int T, int n, int m, int E, int bt, int nt,
+    void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   const Call c{spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds,
                consume, produce, delay, sell_start, sell_src, out_neuron,
                out, valid, emis, B, T, n, m, E, (cudaStream_t)stream};
-  const int bt = rows_per_block(m, T, 4);
-  if (threads(m) == 256) return launch_rows<256>(c, bt);
+  if (bt == 0) bt = rows_per_block(m, T, 4);
+  if (nt == 0) nt = threads(m);
+  if (!valid_rows(bt) || !valid_threads(nt))
+    return (int)cudaErrorInvalidValue;
+  if (nt == 256) return launch_rows<256>(c, bt);
   return launch_rows<1024>(c, bt);
 }

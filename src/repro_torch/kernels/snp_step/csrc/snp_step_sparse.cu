@@ -446,11 +446,14 @@ int launch_sell_rows(const SellCall& c, int bt) {
   return launch_sell<1, NT, HAS_DELAY, HAS_HALO>(c);
 }
 
+// bt rows and nt threads a block, 0 for the rule's.
 template <bool HAS_DELAY, bool HAS_HALO>
-int dispatch_sell(const SellCall& c) {
-  const int bt = rows_per_block(c.m + c.H, c.T, 2);
-  if (threads(c.m) == 256)
-    return launch_sell_rows<256, HAS_DELAY, HAS_HALO>(c, bt);
+int dispatch_sell(const SellCall& c, int bt, int nt) {
+  if (bt == 0) bt = rows_per_block(c.m + c.H, c.T, 2);
+  if (nt == 0) nt = threads(c.m);
+  if (!valid_rows(bt) || !valid_threads(nt))
+    return (int)cudaErrorInvalidValue;
+  if (nt == 256) return launch_sell_rows<256, HAS_DELAY, HAS_HALO>(c, bt);
   return launch_sell_rows<1024, HAS_DELAY, HAS_HALO>(c, bt);
 }
 
@@ -481,8 +484,12 @@ extern "C" int snp_step_sparse_sell_threads(int m) {
 // and hub_neuron (Hn,); with has_delay also dtab (B,m,R), cd and pd
 // (B,m); with has_halo (and neither of the other two) halo (B,T,H), the
 // lists indexing [local | halo | zero] and out_neuron the zero slot m +
-// H.  With none of the three (B2) the tail is empty (Hn = 0).  Outputs:
-// out (B,T,m), or (B,T,3m) with has_delay, valid (B,T) bool, emis (B,T).
+// H.  With none of the three (B2) the tail is empty (Hn = 0).  bt rows
+// (1, 2, 4 or 8) and nt threads (256 or 1024) a block, each 0 for the
+// rule's (snp_step_sparse_sell_rows, _threads); a shape without an
+// instance, or whose stage passes 227 KB, is cudaErrorInvalidValue.
+// Outputs: out (B,T,m), or (B,T,3m) with has_delay, valid (B,T) bool,
+// emis (B,T).
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
                                const void* tab, const void* sell_start,
@@ -493,7 +500,8 @@ extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* halo, void* out, void* valid,
                                void* emis, int B, int T, int m, int R, int E,
                                int Ec, int Hn, int H, int has_coo,
-                               int has_delay, int has_halo, void* stream) {
+                               int has_delay, int has_halo, int bt, int nt,
+                               void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (has_halo && (has_coo || has_delay)) return (int)cudaErrorInvalidValue;
   const SellCall c{configs, stride, choices, psi, tab, sell_start, sell_src,
@@ -501,7 +509,7 @@ extern "C" int snp_step_sparse(const void* configs, const void* stride,
                    halo, out, valid, emis, B, T, m, R, E,
                    has_coo ? Ec : 0, has_coo ? Hn : 0, has_halo ? H : 0,
                    (cudaStream_t)stream};
-  if (has_halo) return dispatch_sell<false, true>(c);
-  if (has_delay) return dispatch_sell<true, false>(c);
-  return dispatch_sell<false, false>(c);
+  if (has_halo) return dispatch_sell<false, true>(c, bt, nt);
+  if (has_delay) return dispatch_sell<true, false>(c, bt, nt);
+  return dispatch_sell<false, false>(c, bt, nt);
 }

@@ -40,10 +40,24 @@ matrices.  B4 likewise walks the sliced lists of ``adj_in``
 the kernel reads an entry outside ``[0, m]`` as the zero slot and clamps
 slice starts to the lists' length.
 
+Block shape.  Every entry takes ``rows`` (branch rows a block) and
+``threads``, ``None`` for the library's rule: B1 takes 8, 16 (the rule)
+or 32 rows at 256 threads, and its rows are not clipped (a tile past
+``max_branches`` is masked, as under the rule); B6 takes 1, 2, 4 or 8
+rows at 256 threads (the rule: the most rows whose halo slab fits its
+stage); B4 takes 1, 2, 4 or 8 rows and 256 or 1024 threads, its stage of
+``rows`` int32 rows of ``m + 1`` values within the 227 KB a block holds
+(:func:`delay_block_shape`).  B4's and B6's rows above ``max_branches``
+are clipped to the largest power of two at most ``max_branches``.  Any
+other shape is a ``ValueError`` before any launch, also on a CPU tensor
+(:func:`~.sparse_ops.check_block`), never a silent change.
+
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` and ``plain_calls`` count launches of B1 and calls of
 its plain version, ``delay_launches`` and ``delay_plain_calls`` the same
-for B4, ``shard_launches`` and ``shard_plain_calls`` for B6.
+for B4, ``shard_launches`` and ``shard_plain_calls`` for B6;
+``block_launches`` counts the launches by ``(kernel, rows, threads)``,
+``kernel`` one of ``"B1"``, ``"B4"``, ``"B6"``: the shape that ran.
 """
 
 from __future__ import annotations
@@ -59,15 +73,17 @@ from ...core.semantics import (branch_info, clamp_stride,
 from ._build import load_library
 from .ref import (snp_step_dense_delay_ref, snp_step_dense_ref,
                   snp_step_dense_shard_ref)
-from .sparse_ops import _check, _check_shape, _check_sliced_lists
+from .sparse_ops import (_check, _check_shape, _check_sliced_lists,
+                         check_block)
 
 __all__ = ["snp_step", "snp_step_dense", "snp_step_dense_delay",
            "snp_step_dense_shard", "snp_step_dense_shard_cuda",
            "delay_inputs", "load_kernel", "load_delay_kernel",
-           "delay_max_neurons", "delay_block_shape", "SOURCE",
-           "DELAY_SOURCE", "kernel_launches", "plain_calls",
-           "delay_launches", "delay_plain_calls", "shard_launches",
-           "shard_plain_calls", "RULE_CHUNK"]
+           "delay_max_neurons", "delay_block_shape", "dense_block_shape",
+           "shard_block_shape", "SOURCE", "DELAY_SOURCE", "kernel_launches",
+           "plain_calls", "delay_launches", "delay_plain_calls",
+           "shard_launches", "shard_plain_calls", "block_launches",
+           "RULE_CHUNK", "B1_ROWS", "THREADS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
 DELAY_SOURCE = SOURCE.with_name("snp_step_dense_delay.cu")
@@ -76,25 +92,40 @@ DELAY_SOURCE = SOURCE.with_name("snp_step_dense_delay.cu")
 # source's RULE_CHUNK); a longer rule axis is walked in chunks.
 RULE_CHUNK = 8192
 
+#: Rows a block B1 takes (one bit each in a rule's fired-row mask), and
+#: the threads a block of B1 and B6.
+B1_ROWS = (8, 16, 32)
+THREADS = 256
+
 kernel_launches = 0
 plain_calls = 0
 delay_launches = 0
 delay_plain_calls = 0
 shard_launches = 0
 shard_plain_calls = 0
+block_launches: dict = {}
+
+
+def _count_block(kernel: str, rows: int, threads: int) -> None:
+    key = (kernel, rows, threads)
+    block_launches[key] = block_launches.get(key, 0) + 1
 
 
 def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
     lib = load_library(SOURCE)
     fn = lib.snp_step_dense
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     shard = lib.snp_step_dense_shard
-    shard.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
+    shard.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     shard.restype = ctypes.c_int
+    lib.snp_step_dense_rows.argtypes = []
+    lib.snp_step_dense_rows.restype = ctypes.c_int
+    lib.snp_step_dense_shard_rows.argtypes = [ctypes.c_int] * 2
+    lib.snp_step_dense_shard_rows.restype = ctypes.c_int
     return lib
 
 
@@ -102,7 +133,7 @@ def load_delay_kernel():
     """Build (at first use) and load B4's shared library."""
     lib = load_library(DELAY_SOURCE)
     fn = lib.snp_step_dense_delay
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snp_step_dense_delay_max_neurons.argtypes = []
@@ -120,12 +151,53 @@ def delay_max_neurons() -> int:
     return int(load_delay_kernel().snp_step_dense_delay_max_neurons())
 
 
-def delay_block_shape(m: int, max_branches: int):
-    """``(rows, threads)`` a block of B4 takes for ``m`` neurons at
-    ``max_branches`` branches, as the library chooses them."""
-    lib = load_delay_kernel()
-    return (int(lib.snp_step_dense_delay_rows(m, max_branches)),
-            int(lib.snp_step_dense_delay_threads(m)))
+def _check_b1(rows, threads):
+    return check_block("B1", rows, threads, 0, row_set=B1_ROWS,
+                       thread_set=(THREADS,), clip=False)
+
+
+def _check_b4(m, max_branches, rows, threads):
+    return check_block("B4", rows, threads, max_branches, width=m,
+                       nbytes=4)
+
+
+def _check_b6(max_branches, rows, threads):
+    return check_block("B6", rows, threads, max_branches,
+                       thread_set=(THREADS,))
+
+
+def delay_block_shape(m: int, max_branches: int, rows=None, threads=None):
+    """``(rows, threads)`` a block of B4 runs for ``m`` neurons at
+    ``max_branches`` branches: as requested (validated), the library's
+    rule for those that are ``None``."""
+    rows, threads = _check_b4(m, max_branches, rows, threads)
+    if rows is None or threads is None:
+        lib = load_delay_kernel()
+        if rows is None:
+            rows = int(lib.snp_step_dense_delay_rows(m, max_branches))
+        if threads is None:
+            threads = int(lib.snp_step_dense_delay_threads(m))
+    return rows, threads
+
+
+def dense_block_shape(rows=None, threads=None):
+    """``(rows, threads)`` a block of B1 runs: as requested (validated),
+    the library's rule for those that are ``None``."""
+    rows, threads = _check_b1(rows, threads)
+    if rows is None:
+        rows = int(load_kernel().snp_step_dense_rows())
+    return rows, THREADS if threads is None else threads
+
+
+def shard_block_shape(n: int, H: int, max_branches: int, rows=None,
+                      threads=None):
+    """``(rows, threads)`` a block of B6 runs for a shard of ``n`` rules
+    and ``H`` halo slots: as requested (validated), the library's rule for
+    those that are ``None``."""
+    rows, threads = _check_b6(max_branches, rows, threads)
+    if rows is None:
+        rows = int(load_kernel().snp_step_dense_shard_rows(n, H))
+    return rows, THREADS if threads is None else threads
 
 
 _INPUTS = (("configs", torch.int32, 2), ("rank", torch.int32, 2),
@@ -160,12 +232,13 @@ def _check_lists(names, lists, starts, dev):
 
 
 def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
-                   cols, max_branches: int):
+                   cols, max_branches: int, *, rows=None, threads=None):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid (B,T)
     bool, emis (B,T) int32)``, the plain version's contract for the ``M``
     and ``env`` whose column lists ``cols`` = ``(col_start (m+2,),
     col_rule, col_val)`` holds (:func:`~repro_torch.core.matrix.
-    dense_column_lists`)."""
+    dense_column_lists`), at ``rows`` x ``threads`` a block
+    (:func:`dense_block_shape`)."""
     global kernel_launches
     args = (configs, rank, app, stride, choices, psi, rule_neuron)
     dev = configs.device
@@ -189,6 +262,7 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
                              f"expected {want}")
     if T < 1:
         raise ValueError(f"max_branches must be >= 1, got {T}")
+    rows, threads = dense_block_shape(rows, threads)
     fn = load_kernel().snp_step_dense
     out = torch.empty((B, T, m), dtype=torch.int32, device=dev)
     valid = torch.empty((B, T), dtype=torch.bool, device=dev)
@@ -197,22 +271,25 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(x.data_ptr() for x in args + tuple(cols)),
                 out.data_ptr(), valid.data_ptr(), emis.data_ptr(), B, T, n,
-                m, cols[1].shape[0], stream)
+                m, cols[1].shape[0], rows, threads, stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_dense launch failed: CUDA error {rc}")
     kernel_launches += 1
+    _count_block("B1", rows, threads)
     return out, valid, emis
 
 
 def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
                          rule_bounds, consume, produce, delay, sell_start,
-                         sell_src, out_neuron, max_branches: int):
+                         sell_src, out_neuron, max_branches: int, *,
+                         rows=None, threads=None):
     """Launch B4 on CUDA tensors: ``(out (B,T,3m) int32, valid (B,T) bool,
     emis (B,T) int32)``, the contract of
     :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_delay_ref` for
     the ``adj_in`` whose sliced lists ``sell_start (ceil(m/32)+1,)`` and
     ``sell_src`` hold (:func:`~repro_torch.core.matrix.sliced_in_lists`),
-    taken in ``adj_in``'s place."""
+    taken in ``adj_in``'s place, at ``rows`` x ``threads`` a block
+    (:func:`delay_block_shape`)."""
     global delay_launches
     dev = spikes.device
     B, m = spikes.shape
@@ -243,6 +320,7 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
             f"the dense delayed step kernel takes at most "
             f"{delay_max_neurons()} neurons (one row of emit-now spikes per "
             f"block in shared memory), got m={m}")
+    rows, threads = delay_block_shape(m, T, rows, threads)
     out = torch.empty((B, T, 3 * m), dtype=i32, device=dev)
     valid = torch.empty((B, T), dtype=torch.bool, device=dev)
     emis = torch.empty((B, T), dtype=i32, device=dev)
@@ -254,23 +332,27 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
             *(x.data_ptr() for x in (
                 spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds,
                 consume, produce, delay, sell_start, sell_src, out_neuron,
-                out, valid, emis)), B, T, n, m, sell_src.shape[0], stream)
+                out, valid, emis)), B, T, n, m, sell_src.shape[0], rows,
+            threads, stream)
     if rc != 0:
         raise RuntimeError(
             f"snp_step_dense_delay launch failed: CUDA error {rc}")
     delay_launches += 1
+    _count_block("B4", rows, threads)
     return out, valid, emis
 
 
 def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
-                              rule_neuron, cols, halo, max_branches: int):
+                              rule_neuron, cols, halo, max_branches: int, *,
+                              rows=None, threads=None):
     """Launch B6 on CUDA tensors: ``out (B,T,mloc) int32``, the contract
     of :func:`~repro_torch.kernels.snp_step.ref.snp_step_dense_shard_ref`
     (``stride`` int32, clamped) for the ``M_local`` and ``hadj`` whose
     column lists ``cols`` = ``(col_start (mloc+1,), col_rule, col_val,
     hcol_start (mloc+1,), hcol_slot)`` holds (:meth:`~repro_torch.core.
     plan.DenseShardArrays.shard_columns`; padding past each list's end is
-    ignored)."""
+    ignored), at ``rows`` x ``threads`` a block
+    (:func:`shard_block_shape`)."""
     global shard_launches
     dev = configs.device
     B, m = configs.shape
@@ -290,6 +372,7 @@ def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
         _check(name, x, dtype, shape, dev)
     if T < 1:
         raise ValueError(f"max_branches must be >= 1, got {T}")
+    rows, threads = shard_block_shape(n, H, T, rows, threads)
     fn = load_kernel().snp_step_dense_shard
     out = torch.empty((B, T, m), dtype=i32, device=dev)
     with torch.cuda.device(dev):
@@ -297,11 +380,12 @@ def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
         rc = fn(*(x.data_ptr() for x in (
             configs, rank, app, stride, choices, psi, rule_neuron) + tuple(
                 cols) + (halo, out)), B, T, n, m, H, cols[1].shape[0],
-            cols[4].shape[0], stream)
+            cols[4].shape[0], rows, threads, stream)
     if rc != 0:
         raise RuntimeError(
             f"snp_step_dense_shard launch failed: CUDA error {rc}")
     shard_launches += 1
+    _count_block("B6", rows, threads)
     return out
 
 
@@ -310,7 +394,8 @@ def snp_step_dense_shard(configs: torch.Tensor, rank: torch.Tensor,
                          choices: torch.Tensor, psi: torch.Tensor,
                          rule_neuron: torch.Tensor, M_local: torch.Tensor,
                          hadj: torch.Tensor, halo: torch.Tensor, *,
-                         max_branches: int, cols=None) -> torch.Tensor:
+                         max_branches: int, cols=None, rows=None,
+                         threads=None) -> torch.Tensor:
     """One shard's candidate slices ``(B, T, mloc)``: ``C + halo·hadj +
     S·M_local``, ``S`` decoded from the shard's local rules (``rank``,
     ``app`` (B, nloc) over ``rule_neuron``) with the cross-shard float32
@@ -318,17 +403,20 @@ def snp_step_dense_shard(configs: torch.Tensor, rank: torch.Tensor,
     ``halo`` (B, T, S·Hmax) is the exchanged remote produce.  The plain
     version on a CPU tensor (it reads ``M_local`` and ``hadj``), B6 on a
     CUDA tensor (it reads ``cols``, the shard's column lists,
-    :meth:`~repro_torch.core.plan.DenseShardArrays.shard_columns`)."""
+    :meth:`~repro_torch.core.plan.DenseShardArrays.shard_columns`), at
+    ``rows`` x ``threads`` a block (validated on both)."""
     global shard_plain_calls
     args = (configs.contiguous(), rank.contiguous(), app.contiguous(),
             clamp_stride(stride).contiguous(), choices.contiguous(),
             psi.contiguous(), rule_neuron, M_local, hadj,
             halo.contiguous())
     if configs.device.type == "cpu":
+        _check_b6(max_branches, rows, threads)
         shard_plain_calls += 1
         return snp_step_dense_shard_ref(*args, max_branches)
     return snp_step_dense_shard_cuda(*args[:7], cols, args[9],
-                                     max_branches)
+                                     max_branches, rows=rows,
+                                     threads=threads)
 
 
 def delay_inputs(configs: torch.Tensor, comp: CompiledSNP, *,
@@ -367,12 +455,13 @@ def delay_inputs(configs: torch.Tensor, comp: CompiledSNP, *,
 
 
 def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
-             max_branches: int):
+             max_branches: int, rows=None, threads=None):
     """Fused successor expansion of ``configs`` (B, m), or (B, 3m) state
     rows for a delayed encoding: ``(successors (B,T,m|3m) int32, valid
     (B,T) bool, emissions (B,T) int32, overflow (B,) bool)``,
     bit-identical to the reference semantics of ``comp``'s tier on valid
-    entries for spike counts < 2^24."""
+    entries for spike counts < 2^24; B1 or B4 at ``rows`` x ``threads`` a
+    block (validated on a CPU tensor too)."""
     global plain_calls, delay_plain_calls
     if configs.dim() != 2:
         raise ValueError(f"configs must be (B, m), got {tuple(configs.shape)}")
@@ -380,10 +469,12 @@ def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
         args, info = delay_inputs(configs, comp,
                                   lists=configs.device.type != "cpu")
         if configs.device.type == "cpu":
+            _check_b4(comp.num_neurons, max_branches, rows, threads)
             delay_plain_calls += 1
             out, valid, emis = snp_step_dense_delay_ref(*args, max_branches)
         else:
-            out, valid, emis = snp_step_dense_delay(*args, max_branches)
+            out, valid, emis = snp_step_dense_delay(
+                *args, max_branches, rows=rows, threads=threads)
         return (out, valid & info.alive.unsqueeze(-1), emis,
                 info.psi > float(max_branches))
     info = branch_info(configs, comp)
@@ -391,6 +482,7 @@ def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
             clamp_stride(info.stride), info.choices, info.psi.contiguous(),
             comp.rule_neuron)
     if configs.device.type == "cpu":
+        _check_b1(rows, threads)
         plain_calls += 1
         out, valid, emis = snp_step_dense_ref(
             *args, comp.M, comp.env_produce, max_branches)
@@ -402,6 +494,6 @@ def snp_step(configs: torch.Tensor, comp: CompiledSNP, *,
                 "backend.compile")
         out, valid, emis = snp_step_dense(
             *args, (comp.col_start, comp.col_rule, comp.col_val),
-            max_branches)
+            max_branches, rows=rows, threads=threads)
     return (out, valid & info.alive.unsqueeze(-1), emis,
             info.psi > float(max_branches))

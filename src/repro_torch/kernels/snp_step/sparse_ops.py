@@ -28,12 +28,24 @@ frontier (its bookkeeping and halo come from the sharded explore,
 ``in_idx`` on a CPU tensor, the sliced-list kernel's shard body (B7) over
 the shard's sliced lists on a CUDA tensor.
 
+Block shape.  Every entry takes ``rows`` (branch rows a block: 1, 2, 4
+or 8) and ``threads`` (256 or 1024), ``None`` for the library's rule
+(:func:`sell_block_shape`); the planner's autotuner chooses them
+(:mod:`repro_torch.core.autotune`).  Rows above ``max_branches`` are
+clipped to the largest power of two at most ``max_branches``, as the rule
+clips its own.  A shape outside those sets, or whose stage of ``rows``
+uint16 rows of ``m + H + 1`` values passes the 227 KB a block may hold
+(:data:`SMEM_LIMIT`; at ``ring_lattice(32768, 8)``, m = 32,768, at most 2
+rows), is a ``ValueError`` before any launch, also on a CPU tensor, whose
+plain version ignores the shape.  A shape is never changed silently.
+
 Counters (plain integers, reset by callers that measure a run):
 ``kernel_launches`` counts every launch, and one counter a body counts
 that body's: ``ell_launches`` (B2), ``coo_launches`` (B3),
 ``ell_delay_launches`` and ``coo_delay_launches`` (B5's ELL and COO
 bodies), ``halo_launches`` (B7); ``plain_calls`` counts calls of the
-plain version.  :func:`body_counts` reads the five.
+plain version.  :func:`body_counts` reads the five.  ``block_launches``
+counts the launches by ``(body, rows, threads)``, the shape that ran.
 """
 
 from __future__ import annotations
@@ -49,16 +61,25 @@ from .sparse_ref import kernel_inputs, snp_step_sparse_ref, sparse_step
 
 __all__ = ["snp_step_sparse", "snp_step_sparse_cuda",
            "snp_step_sparse_shard", "load_kernel", "max_neurons",
-           "sell_block_shape", "SOURCE", "MAX_BRANCHES", "kernel_launches",
+           "sell_block_shape", "check_block", "SOURCE", "MAX_BRANCHES",
+           "SMEM_LIMIT", "ROWS", "THREADS", "kernel_launches",
            "ell_launches", "coo_launches", "ell_delay_launches",
            "coo_delay_launches", "halo_launches", "plain_calls",
-           "body_counts"]
+           "block_launches", "body_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
 
 # The f32 decode is exact only below this many branches
 # (sparse_ref.decode_digits).
 MAX_BRANCHES = 1 << 23
+
+#: Shared memory a block may opt in to, the sources' ``sell::SMEM_LIMIT``
+#: (227 KB; ``max_neurons()`` is derived from it, and the smoke holds the
+#: library to this value).
+SMEM_LIMIT = 232448
+#: Rows a block and threads a block the sliced-list kernel (and B4) take.
+ROWS = (1, 2, 4, 8)
+THREADS = (256, 1024)
 
 kernel_launches = 0
 ell_launches = 0
@@ -67,6 +88,7 @@ ell_delay_launches = 0
 coo_delay_launches = 0
 halo_launches = 0
 plain_calls = 0
+block_launches: dict = {}
 
 
 def body_counts():
@@ -78,19 +100,21 @@ def body_counts():
             "halo": halo_launches}
 
 
-def _count(body: str) -> None:
-    """One launch of ``body`` (a key of :func:`body_counts`): the total
-    and that body's counter."""
+def _count(body: str, rows: int, threads: int) -> None:
+    """One launch of ``body`` (a key of :func:`body_counts`) at ``rows``
+    x ``threads``: the total, that body's counter and the shape's."""
     global kernel_launches
     kernel_launches += 1
     globals()[f"{body}_launches"] += 1
+    key = (body, rows, threads)
+    block_launches[key] = block_launches.get(key, 0) + 1
 
 
 def load_kernel():
     """Build (at first use) and load the kernel's shared library."""
     lib = load_library(SOURCE)
     fn = lib.snp_step_sparse
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snp_step_sparse_max_neurons.argtypes = []
@@ -109,13 +133,54 @@ def max_neurons() -> int:
     return int(load_kernel().snp_step_sparse_max_neurons())
 
 
-def sell_block_shape(m: int, halo: int, max_branches: int):
-    """``(rows, threads)`` a block of the sliced-list kernel takes for a
+def check_block(kernel: str, rows, threads, max_branches: int, *,
+                width=None, nbytes: int = 2, row_set=ROWS,
+                thread_set=THREADS, clip: bool = True):
+    """Validate a requested block shape of ``kernel`` (its name, for the
+    message): ``rows`` in ``row_set`` (clipped, with ``clip``, to the
+    largest power of two at most ``max_branches``) and, with ``width``,
+    a stage of ``rows`` rows of ``width + 1`` values of ``nbytes`` bytes
+    within :data:`SMEM_LIMIT`; ``threads`` in ``thread_set``.  Returns
+    ``(rows, threads)``, ``None`` where the rule decides; raises
+    ``ValueError``.  Pure Python: the wrappers check on the CPU too."""
+    if threads is not None and threads not in thread_set:
+        raise ValueError(f"{kernel} takes {' or '.join(map(str, thread_set))}"
+                         f" threads a block, got threads={threads!r}")
+    if rows is None:
+        return None, threads
+    if rows not in row_set:
+        raise ValueError(f"{kernel} takes {', '.join(map(str, row_set))} "
+                         f"rows a block, got rows={rows!r}")
+    while clip and rows > 1 and rows > max_branches:
+        rows >>= 1
+    if width is not None and rows * (width + 1) * nbytes > SMEM_LIMIT:
+        most = max((r for r in row_set
+                    if r * (width + 1) * nbytes <= SMEM_LIMIT), default=0)
+        raise ValueError(
+            f"{kernel}: a stage of {rows} rows of {width + 1} values "
+            f"({rows * (width + 1) * nbytes} bytes) passes the "
+            f"{SMEM_LIMIT} bytes a block may hold; at this width it takes "
+            f"at most {most} rows a block")
+    return rows, threads
+
+
+def sell_block_shape(m: int, halo: int, max_branches: int, rows=None,
+                     threads=None):
+    """``(rows, threads)`` a block of the sliced-list kernel runs for a
     system of ``m`` neurons (a shard's local ones) and ``halo`` halo slots
-    at ``max_branches`` branches, as the library chooses them."""
-    lib = load_kernel()
-    return (int(lib.snp_step_sparse_sell_rows(m + halo, max_branches)),
-            int(lib.snp_step_sparse_sell_threads(m)))
+    at ``max_branches`` branches: ``rows`` and ``threads`` as requested
+    (validated by :func:`check_block`), the library's rule for those
+    that are ``None``."""
+    rows, threads = check_block("the sliced-list kernel", rows, threads,
+                                max_branches, width=m + halo)
+    if rows is None or threads is None:
+        lib = load_kernel()
+        if rows is None:
+            rows = int(lib.snp_step_sparse_sell_rows(m + halo,
+                                                     max_branches))
+        if threads is None:
+            threads = int(lib.snp_step_sparse_sell_threads(m))
+    return rows, threads
 
 
 def _check_branches(T: int) -> None:
@@ -154,7 +219,8 @@ def _check_sliced_lists(kernel, adjacency, sell_start, sell_src):
 def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
                          sell_src, out_neuron, coo_src=None, coo_bounds=None,
                          hub_neuron=None, dtab=None, cd=None, pd=None,
-                         halo=None, *, max_branches: int):
+                         halo=None, *, max_branches: int, rows=None,
+                         threads=None):
     """Launch the kernel on CUDA tensors: ``(out (B,T,m) int32, valid
     (B,T) bool, emis (B,T) int32)``, the plain version's contract.  Every
     body walks the sliced lists ``sell_start``/``sell_src`` in place of
@@ -166,8 +232,9 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
     (B5), whose rows are ``3m`` wide, ``halo`` (B, T, H) the shard body
     (B7; with neither of the other two, its lists indexing ``[local | halo
     | zero]``, its entries fired produce, below 2^16); none of the three is
-    the ELL body (B2).  The shapes are checked here; list entries out of
-    range are read as the zero slot by the kernel (no host read)."""
+    the ELL body (B2).  ``rows`` and ``threads`` set the block shape
+    (:func:`sell_block_shape`).  The shapes are checked here; list entries
+    out of range are read as the zero slot by the kernel (no host read)."""
     dev = configs.device
     B, m = configs.shape
     R = tab.shape[-1]
@@ -218,6 +285,7 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
             f"the sparse step kernel takes at most {max_neurons()} neurons "
             f"and halo slots (one row of fired produce per block in shared "
             f"memory), got m={m}" + (f" and {H} halo slots" if H else ""))
+    rows, threads = sell_block_shape(m, H, T, rows, threads)
     out = torch.empty((B, T, 3 * m if has_delay else m), dtype=i32,
                       device=dev)
     valid = torch.empty((B, T), dtype=torch.bool, device=dev)
@@ -233,11 +301,11 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
             out, valid, emis))
         rc = lib.snp_step_sparse(*ptrs, B, T, m, R, E, Ec, Hn, H,
                                  int(has_coo), int(has_delay), int(has_halo),
-                                 stream)
+                                 rows, threads, stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_sparse launch failed: CUDA error {rc}")
     _count("halo" if has_halo else ("coo" if has_coo else "ell")
-           + ("_delay" if has_delay else ""))
+           + ("_delay" if has_delay else ""), rows, threads)
     return out, valid, emis
 
 
@@ -245,7 +313,8 @@ def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
                           choices: torch.Tensor, psi: torch.Tensor,
                           tab: torch.Tensor, in_idx: torch.Tensor,
                           halo: torch.Tensor, *, sell=None,
-                          max_branches: int) -> torch.Tensor:
+                          max_branches: int, rows=None,
+                          threads=None) -> torch.Tensor:
     """One shard's candidate slices ``(B, T, mloc)``: the local slice
     ``configs`` minus the fired consume plus the produce gathered over
     ``in_idx`` in the extended space ``[local | halo | zero]``, with the
@@ -255,10 +324,12 @@ def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
     judges emissions).  The plain version over ``in_idx`` on a CPU
     tensor; B7 on a CUDA tensor, over ``sell = (sell_start, sell_src)``,
     the shard's sliced lists of ``in_idx`` (``ShardArrays``'; required
-    there)."""
+    there), at the block shape ``rows`` x ``threads`` (validated on both:
+    :func:`check_block`)."""
     global plain_calls
     _check_branches(max_branches)
     mloc, H = configs.shape[-1], halo.shape[-1]
+    check_block("B7", rows, threads, max_branches, width=mloc + H)
     zero = torch.full((1,), mloc + H, dtype=torch.int32,
                       device=configs.device)
     args = (configs.contiguous(), stride.contiguous(), choices.contiguous(),
@@ -274,26 +345,31 @@ def snp_step_sparse_shard(configs: torch.Tensor, stride: torch.Tensor,
                          "lowering)")
     return snp_step_sparse_cuda(*args, sell[0], sell[1], zero,
                                 halo=halo.contiguous(),
-                                max_branches=max_branches)[0]
+                                max_branches=max_branches, rows=rows,
+                                threads=threads)[0]
 
 
 def snp_step_sparse(configs: torch.Tensor, comp: CompiledSparseSNP, *,
-                    max_branches: int):
+                    max_branches: int, rows=None, threads=None):
     """Fused sparse successor expansion of ``configs`` (B, m), or (B, 3m)
     state rows for a delayed encoding: ``(successors (B,T,m|3m) int32,
     valid (B,T) bool, emissions (B,T) int32, overflow (B,) bool)``,
     bit-identical to the sparse semantics of ``comp``'s tier, pure-ELL and
-    hybrid encodings alike."""
+    hybrid encodings alike, at the block shape ``rows`` x ``threads``
+    (validated on a CPU tensor too: :func:`check_block`)."""
     global plain_calls
     if configs.dim() != 2:
         raise ValueError(
             f"configs must be (B, m), got {tuple(configs.shape)}")
     _check_branches(max_branches)
     if configs.device.type == "cpu":
+        check_block("the sliced-list kernel", rows, threads, max_branches,
+                    width=comp.num_neurons)
         plain_calls += 1
         return sparse_step(configs, comp, max_branches=max_branches)
     args, extra, info = kernel_inputs(configs, comp, lists=True)
     out, valid, emis = snp_step_sparse_cuda(*args, **extra,
-                                            max_branches=max_branches)
+                                            max_branches=max_branches,
+                                            rows=rows, threads=threads)
     return (out, valid & info.alive[:, None], emis,
             info.psi > float(max_branches))

@@ -391,15 +391,24 @@ def test_planned_flag_equals_reference(system, plan, backend, tmp_path,
         assert got_plan is port_plan
 
 
-def test_plan_backend_pins_and_mode_measure_raises():
+def test_plan_backend_pins_and_mode_measure_raises(tmp_path, monkeypatch):
     be, _, planned = P.resolve_entry_info(
         PI_PORT, None, P.SystemPlan(backend="sparse"))
     assert be.name == "sparse" and planned is False
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        P.SystemPlan(mode="measure")
+    # the planner is ported: mode="measure" is accepted, as the
+    # reference's is, and for_system times the candidates
+    assert P.SystemPlan(mode="measure").mode == "measure"
+    J.SystemPlan(mode="measure")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "tune.json"))
+    plan = P.SystemPlan.for_system(PI_PORT, workload=(4, 8), mode="measure",
+                                   device="cpu")
+    sig = P.autotune.signature_of(PI_PORT, workload=(4, 8))
+    candidates = P.autotune.default_candidates(sig, device="cpu")
+    assert plan.mode == "measure"
+    assert plan.backend in {c.backend for c in candidates}
     with pytest.raises(ValueError, match="unknown mode"):
         P.SystemPlan(mode="fastest")
-    J.SystemPlan(mode="measure")        # the reference plans by timing
 
 
 def test_lower_with_backend_lowers_under_the_plan():

@@ -54,6 +54,7 @@ def test_port_has_modules():
                  "repro_torch/runtime/faults.py",
                  "repro_torch/checkpoint/checkpoint.py",
                  "repro_torch/core/failover.py",
+                 "repro_torch/core/autotune.py",
                  "repro_torch/launch/serve.py"):
         assert want in names
     kernels = SRC / "repro_torch/kernels"
