@@ -202,7 +202,28 @@ result line):
    whole smoke runs with ``REPRO_TORCH_AUTOTUNE_CACHE`` in a temporary
    directory, so no cache on the machine steers a phase; phase 4 pins
    ``"cuda"``, whose launches it counts, and (f) drives the open plan;
-20. summary — the kernels with their launch counts, then one JSON line of
+20. the dense-row scheme and the distributed traces — (a)
+   ``explore_distributed(scaled_pi(682))`` without a sharded plan, 4 ranks
+   on the card (``mesh=["cuda"] * 4``, F = 128 a rank: the full-width
+   wave of 32,768 candidates; V = 4,096 a rank, past what 8 levels can
+   fill), through ``"cuda"`` (B1), ``"sparse_cuda"`` under an ELL plan
+   (B2) and ``"ref"``, archives, counts and flags identical, and one rank
+   (``mesh=None``, phase 5's caps) through B1 and ``"ref"``, identical to
+   each other and to phase 5's explore row for row; (b) the hybrid plan of
+   ``power_law(8192, 4, seed=2)`` at 4 ranks through ``"sparse_cuda"``
+   (B3) and ``"sparse"``, identical; each with waves/s, host reads a
+   wave, peak allocation and launches (one a rank a level); (c)
+   ``run_traces_distributed`` (256 seeds × 64 steps, first and random
+   policies) of ``paper_pi``, ``scaled_pi(682)`` (B1) and the hybrid
+   ``power_law(8192)`` (B3), at 4 ranks and at one, each bit-identical to
+   ``run_traces`` through the same backend, traces/s beside it; (d) the
+   async service over ``make_trace_runner(mesh=trace_mesh())`` (1,024
+   random traces × 64 steps, each equal to ``run_traces`` of its seed)
+   and over 4 ranks of the card (equal to it), and the launcher's
+   ``--snp`` with its ``[serve-snp] mesh N-device`` line; (e) the 4-rank
+   B1 explore checkpointed every 2 levels, killed at its second chunk
+   under ``run_supervised`` and resumed, identical to (a)'s;
+21. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -215,8 +236,10 @@ for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
 and B7 (via ``"sparse_cuda"``), S launches a level, and phase 17's
 full-width bf16 prefill for B8-TC and its f32 prefill for B8-TF32 (one
 launch a layer); their counts are the kernels line's ``launches``.
-Phase 18's service, fault, checkpoint and launcher paths are counted the
-same way and listed in each kernel's ``launches_by_path``.
+Phase 18's service, fault, checkpoint and launcher paths, and phase 20's
+dense-row explores, distributed traces, trace-mesh services, launcher and
+checkpointed explore (B1, B2, B3), are counted the same way and listed
+in each kernel's ``launches_by_path``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -3622,6 +3645,269 @@ def phase_open_plans():
     return figures
 
 
+# ---------------------------------------------------------------------------
+# The dense-row scheme and the distributed traces (phase 20)
+# ---------------------------------------------------------------------------
+
+# Phase 20 (a), (b), (e): 4 ranks on the one card, each with F = 128
+# frontier rows (512 in all: the full-width wave of 32,768 candidates),
+# T = 64, 8 levels.  A rank inserts at most F rows a level, so 8 levels
+# fill at most 1 + 8·128 = 1,025 of its V = 4,096 table and archive rows:
+# no visited overflow can occur (checked).
+DENSE_ROWS = dict(max_steps=8, frontier_cap=128, max_branches=64,
+                  visited_cap=4096)
+DENSE_RANKS = 4
+# one rank (mesh=None) at the full width of phase 5, whose archive it is
+DENSE_ONE = FULL_WIDTH
+TRACE_MESH = dict(seeds=256, steps=64)
+
+
+def _timed_dense_rows(tag, label, system, backend, kernel, *, mesh=None,
+                      plan=None, caps=DENSE_ROWS, **kw):
+    """One dense-row explore with its launch counts (set to 0 just
+    before, read just after; a kernel launches once a rank a level), wall
+    time, host reads and peak memory."""
+    import torch
+    from repro_torch.core import device as devmod
+    from repro_torch.core.distributed import explore_distributed
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    devmod.host_reads = 0
+    t0 = time.perf_counter()
+    res = explore_distributed(system, mesh=mesh, plan=plan, backend=backend,
+                              **caps, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, reads = read_counts(), devmod.host_reads
+    peak = torch.cuda.max_memory_allocated()
+    waves = res.steps
+    R = 1 if mesh is None else len(mesh)
+    check_counts(f"{label} via {backend!r}", counts,
+                 **({kernel: R * waves} if kernel else {}))
+    check(not res.visited_overflow, f"{label} via {backend!r}: visited "
+          f"overflow at V = {caps['visited_cap']} a rank")
+    cands = waves * R * caps["frontier_cap"] * caps["max_branches"]
+    log(f"[{tag}] {label} via {backend!r}, {R} rank(s): {waves} waves in "
+        f"{secs:.3f} s = {waves / secs:.3f} waves/s, {cands / secs:.0f} "
+        f"candidates/s, {res.num_discovered} configs archived, flags "
+        f"b/f/v={res.branch_overflow}/{res.frontier_overflow}/"
+        f"{res.visited_overflow}, exhausted {res.exhausted}, launches "
+        f"{json.dumps(counts)}, host reads {reads} "
+        f"({reads / max(waves, 1):.1f}/wave), max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    return res, (counts[kernel] if kernel else 0), dict(
+        waves_per_s=waves / secs, host_reads_per_wave=reads / max(waves, 1),
+        peak_gib=peak / 2**30)
+
+
+def _timed_traces(label, fn, backend, kernel, want_launches):
+    """One trace call with its launch counts and host-clock seconds."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(f"[20] {label} via {backend!r}", counts,
+                 **{kernel: want_launches})
+    return out, secs, counts[kernel]
+
+
+def phase_dense_rows():
+    """Phase 20: the dense-row hash-partitioned explore (4 ranks on the
+    card through B1, B2 and ``"ref"``; one rank through B1 and ``"ref"``,
+    equal to phase 5's explore; the hybrid plan through B3 and
+    ``"sparse"``), ``run_traces_distributed`` at 4 ranks and at one
+    through B1 and B3 against ``run_traces``, the service over the trace
+    mesh, the launcher's mesh line, and a checkpointed dense-row explore
+    killed and resumed.  Returns ({kernel: {path: launches}}, figures)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.core import (SystemPlan, compile_system,
+                                  compile_system_sparse, paper_pi,
+                                  run_traces)
+    from repro_torch.core.distributed import (explore_distributed,
+                                              run_traces_distributed)
+    from repro_torch.core.generators import power_law, scaled_pi
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve import make_trace_runner
+    from repro_torch.sharding import trace_mesh
+
+    mesh = ["cuda"] * DENSE_RANKS
+    launches = {"B1": {}, "B2": {}, "B3": {}}
+    figures = {}
+    log(f"[20] dense-row caps a rank: {json.dumps(DENSE_ROWS)}, "
+        f"{DENSE_RANKS} ranks on {torch.cuda.get_device_name(0)}; one "
+        f"rank: {json.dumps(DENSE_ONE)}")
+
+    # (a) scaled_pi(682): 4 ranks through B1, B2 (ELL plan) and "ref"
+    pi = scaled_pi(682)
+    label = "explore_distributed(scaled_pi(682)), dense rows"
+    res = {}
+    for backend, kernel, plan, path in (
+            ("cuda", "B1", None, "dense_row_explore"),
+            ("sparse_cuda", "B2", SystemPlan(encoding="ell"),
+             "dense_row_ell_explore"),
+            ("ref", None, None, "dense_row_ref_explore")):
+        res[backend], n, figures[path] = _timed_dense_rows(
+            "20", label, pi, backend, kernel, mesh=mesh, plan=plan)
+        if kernel:
+            launches[kernel][path] = n
+        torch.cuda.empty_cache()
+    a = res["cuda"]
+    check(all(_same_explore(a, r) and a.num_discovered == r.num_discovered
+              for r in res.values()),
+          f"[20] {label}: archives or flags differ across 'cuda', "
+          "'sparse_cuda' and 'ref'")
+    log(f"[20] (a) 4 ranks: archives and flags identical through 'cuda', "
+        f"'sparse_cuda' (ELL) and 'ref' ({a.num_discovered} rows x "
+        f"{a.configs.shape[1]} neurons, the ranks' archives in rank order)")
+    dense_rows = a
+    del res
+    one = {}
+    for backend, kernel in (("cuda", "B1"), ("ref", None)):
+        one[backend], n, figures[f"dense_row_one_rank_{backend}"] = \
+            _timed_dense_rows("20", label, pi, backend, kernel,
+                              caps=DENSE_ONE)
+        if kernel:
+            launches[kernel]["dense_row_one_rank_explore"] = n
+        torch.cuda.empty_cache()
+    check(_same_explore(one["cuda"], one["ref"]),
+          f"[20] {label}, one rank: 'cuda' and 'ref' differ")
+    check(_digest(one["cuda"]) == ARCHIVES["scaled_pi(682)"],
+          f"[20] {label}, one rank: the archive differs from phase 5's "
+          "explore")
+    log(f"[20] (a) one rank: identical through 'cuda' and 'ref', and to "
+        f"phase 5's explore row for row ({one['cuda'].num_discovered} rows)")
+    del one
+
+    # (b) the hybrid plan: 4 ranks through B3 and "sparse"
+    hubby = power_law(8192, 4, seed=2)
+    plan = SystemPlan.for_system(hubby)
+    check(plan.encoding == "hybrid", f"[20] power_law(8192) planned {plan}")
+    label = "explore_distributed(power_law(8192)), dense rows, hybrid"
+    res = {}
+    for backend, kernel in (("sparse_cuda", "B3"), ("sparse", None)):
+        res[backend], n, figures[f"dense_row_hybrid_{backend}"] = \
+            _timed_dense_rows("20", label, hubby, backend, kernel,
+                              mesh=mesh, plan=plan)
+        if kernel:
+            launches[kernel]["dense_row_hybrid_explore"] = n
+        torch.cuda.empty_cache()
+    check(_same_explore(res["sparse_cuda"], res["sparse"]),
+          f"[20] {label}: archives or flags differ between 'sparse_cuda' "
+          "and 'sparse'")
+    log(f"[20] (b) archives identical through 'sparse_cuda' and 'sparse' "
+        f"({res['sparse'].num_discovered} rows x "
+        f"{res['sparse'].configs.shape[1]} neurons)")
+    del res
+
+    # (c) run_traces_distributed against run_traces
+    hybrid = compile_system_sparse(hubby, hub_threshold=plan.hub_threshold,
+                                   device="cuda")
+    B, steps = TRACE_MESH["seeds"], TRACE_MESH["steps"]
+    seeds = list(range(B))
+    for name, system, backend, kernel in (
+            ("paper_pi", compile_system(paper_pi(True), device="cuda"),
+             "cuda", "B1"),
+            ("scaled_pi(682)", compile_system(pi, device="cuda"), "cuda",
+             "B1"),
+            ("power_law(8192) hybrid", hybrid, "sparse_cuda", "B3")):
+        for policy in ("first", "random"):
+            kw = dict(steps=steps, seeds=seeds, policy=policy,
+                      backend=backend)
+            want, t_single, _ = _timed_traces(
+                f"run_traces({name})", lambda: run_traces(system, **kw),
+                backend, kernel, steps)
+            row = {"run_traces_per_s": B / t_single}
+            for tag, m, R in (("mesh4", mesh, DENSE_RANKS),
+                              ("mesh_none", None, 1)):
+                got, secs, n = _timed_traces(
+                    f"run_traces_distributed({name}, {tag})",
+                    lambda m=m: run_traces_distributed(system, mesh=m, **kw),
+                    backend, kernel, R * steps)
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"[20] run_traces_distributed({name}, {policy}, "
+                      f"{tag}) differs from run_traces")
+                launches[kernel][f"traces_distributed_{tag}_{name}_"
+                                 f"{policy}"] = n
+                row[f"{tag}_per_s"] = B / secs
+            figures[f"traces_{name}_{policy}"] = row
+            log(f"[20] (c) {policy} traces of {name}, {B} seeds x {steps} "
+                f"steps via {backend!r}: identical to run_traces at 4 ranks "
+                f"and at one; traces/s run_traces "
+                f"{row['run_traces_per_s']:.1f}, 4 ranks "
+                f"{row['mesh4_per_s']:.1f}, one rank "
+                f"{row['mesh_none_per_s']:.1f}")
+
+    # (d) the service over the trace mesh, and the launcher's mesh line
+    dense = compile_system(pi, device="cuda")
+    n = SERVICE["requests"]
+    calls = n // SERVICE["batch"]
+    cards = trace_mesh()
+    served, stats, counts, figures["service_trace_mesh"] = _serve(
+        "20", f"service scaled_pi(682) over trace_mesh() ({len(cards)} "
+        "card(s))", dense, "cuda", "B1", n,
+        runner=make_trace_runner(mesh=cards),
+        want_launches=len(cards) * calls * SERVICE["steps"])
+    check(stats["device_calls"] == calls and stats["traces_served"] == n,
+          f"[20] trace-mesh service stats {stats}")
+    launches["B1"]["service_trace_mesh"] = counts["B1"]
+    figures["service_trace_mesh"].update(_same_traces(
+        "20", "service over the trace mesh", served, dense, "cuda",
+        list(range(n)), figures["service_trace_mesh"]["flush_ms"]))
+    four = trace_mesh([cards[0]] * DENSE_RANKS)
+    served4, stats, counts, figures["service_trace_mesh_4_ranks"] = _serve(
+        "20", "service scaled_pi(682) over 4 ranks of the card", dense,
+        "cuda", "B1", n, runner=make_trace_runner(mesh=four),
+        want_launches=DENSE_RANKS * calls * SERVICE["steps"])
+    check(all(_same_results(served4[s], served[s]) for s in served),
+          "[20] the 4-rank service differs from the trace-mesh service")
+    launches["B1"]["service_trace_mesh_4_ranks"] = counts["B1"]
+    log(f"[20] (d) the service over 4 ranks of the card: all {n} results "
+        "identical to the trace-mesh service's")
+    del served, served4
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        got = serve_main(["--snp", "--requests", "256", "--batch", "64",
+                          "--gen", "32"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("[20] launcher --snp over the trace mesh", counts, B1=None)
+    launches["B1"]["launcher_snp_trace_mesh"] = counts["B1"]
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[20] launcher | {line}")
+    check(lines and lines[0].startswith(
+        f"[serve-snp] mesh {torch.cuda.device_count()}-device, batch 64")
+        and got["served"] == 256 and got["mesh"] == [str(d) for d in cards],
+        f"[20] the launcher's set-up line {lines[:1]}, served "
+        f"{got['served']}/256")
+
+    # (e) a checkpointed dense-row explore, killed at chunk 2, resumed
+    res, n_b1, figures["checkpointed_dense_row_explore"] = _supervised(
+        "20", "explore_distributed(scaled_pi(682)), dense rows, 4 ranks, "
+        "via 'cuda', checkpoint_every=2",
+        lambda d, inj: explore_distributed(
+            pi, mesh=mesh, backend="cuda", checkpoint_dir=d,
+            checkpoint_every=2, fault_injector=inj, **DENSE_ROWS),
+        "B1", DENSE_RANKS * dense_rows.steps)
+    check(_same_explore(res, dense_rows),
+          "[20] the resumed dense-row explore differs from (a)'s")
+    launches["B1"]["checkpointed_dense_row_explore"] = n_b1
+    log(f"[20] (e) resumed dense-row explore identical to (a)'s "
+        f"({res.num_discovered} rows)")
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3667,6 +3953,7 @@ def main() -> int:
         shapes = phase_planner_kernels()
         planned, _ = phase_planner()
         planned["open_plans"] = phase_open_plans()
+        dense_paths, dense_figures = phase_dense_rows()
         check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
@@ -3687,7 +3974,7 @@ def main() -> int:
                  "B8-TC": "full_width_prefill", "B8-TF32": "f32_prefill"}
     by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
                **served}
-    for k, paths in snp_paths.items():
+    for k, paths in list(snp_paths.items()) + list(dense_paths.items()):
         by_path[k].update(paths)
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
@@ -3735,12 +4022,14 @@ def main() -> int:
             **({"block": w["block"]} if "block" in w else {}),
             **({"shapes_checked": shapes[k]} if k in shapes else {}),
             **extras.get(k, {})))
-        log(f"[20] {k} {meta['name']} ({meta['route']}): "
+        log(f"[21] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[20] SNP service figures: {json.dumps(snp_figures)}")
-    log(f"[20] planner figures: {json.dumps(planned)}")
-    log(f"[20] card: {card}")
+    log(f"[21] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[21] planner figures: {json.dumps(planned)}")
+    log(f"[21] dense-row and distributed-trace figures: "
+        f"{json.dumps(dense_figures)}")
+    log(f"[21] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

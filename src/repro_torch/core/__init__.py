@@ -22,6 +22,10 @@
   :func:`run_traces`, :func:`run_trace` — the entry points
   (:mod:`.engine`), which run on the card unless ``device`` names another;
   :func:`explore` checkpoints and resumes its :class:`ExploreState`;
+* :func:`explore_distributed`, :func:`run_traces_distributed` — the
+  multi-device entry points (:mod:`.distributed`): the dense-row
+  hash-partitioned and the neuron-sharded BFS, and traces with the batch
+  split over a mesh of devices;
 * :mod:`.failover` — the degrade chain an entry point walks when a backend
   it chose itself fails (:func:`resolve_entry_info`'s ``planned`` flag);
   on the card only between the kernel backends.
@@ -37,6 +41,7 @@ from .generators import with_delays
 from .engine import (ExploreResult, ExploreState, TraceOut, emission_gaps,
                      explore, resolve_dedup, run_trace, run_traces,
                      successor_set)
+from .distributed import explore_distributed, run_traces_distributed
 from .failover import (DEGRADE_ORDER, KERNEL_BACKENDS, DegradeEvent,
                        add_degrade_listener, degrade_candidates,
                        is_backend_failure, record_degradation,
@@ -85,4 +90,5 @@ __all__ = [
     "remove_degrade_listener",
     "explore", "resolve_dedup", "ExploreResult", "ExploreState", "TraceOut",
     "successor_set", "emission_gaps", "run_trace", "run_traces",
+    "explore_distributed", "run_traces_distributed",
 ]

@@ -13,11 +13,12 @@ report its host reads per wave.
 from __future__ import annotations
 
 import threading
-from typing import Union
+from typing import List, Union
 
 import torch
 
-__all__ = ["resolve_device", "host_read", "host_reads"]
+__all__ = ["resolve_device", "same_device", "host_read", "host_read_all",
+           "host_reads"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -37,6 +38,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether two devices name the same one after :func:`resolve_device`
+    (``"cuda"`` is the current card, ``cuda:<i>`` with its index)."""
+    def norm(d):
+        d = resolve_device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
+
+
 def host_read(x: torch.Tensor) -> int:
     """One counted device-to-host read of a scalar (bool or int).  The
     count is bumped under a lock: the trace service reads from its drain
@@ -45,3 +57,12 @@ def host_read(x: torch.Tensor) -> int:
     with _reads_lock:
         host_reads += 1
     return int(x.item())
+
+
+def host_read_all(x: torch.Tensor) -> List[int]:
+    """One counted device-to-host read of a 1-D tensor of ints (a count
+    per rank, read together in one transfer)."""
+    global host_reads
+    with _reads_lock:
+        host_reads += 1
+    return [int(v) for v in x.tolist()]

@@ -1,10 +1,39 @@
-"""Neuron-sharded breadth-first exploration: :func:`explore_distributed`.
+"""Multi-device SNP workloads: :func:`explore_distributed` and
+:func:`run_traces_distributed`.
 
-The port of ``repro.core.distributed``'s neuron-axis-sharded scheme
-(``explore_distributed`` with a ``SystemPlan(num_shards > 1)``).  The
-neuron axis is cut into ``S`` shards of ``mloc = ceil(m/S)`` columns
-(:func:`~.plan.compile_sharded`): every frontier row, candidate and
-archive row is held as ``S`` slices, and each level
+The port of ``repro.core.distributed``.  Both entry points take ``mesh``,
+a sequence of torch devices, one per rank (repeats allowed: ``["cuda"] *
+4`` runs four ranks on one card); :func:`repro_torch.sharding.trace_mesh`
+lists every visible card.
+
+**Dense-row hash-partitioned BFS** (``explore_distributed`` without a
+sharded plan; the reference's ``_dense_body``).  Rank ``d`` holds its own
+frontier (``frontier_cap`` rows), hash-table shard and archive
+(``visited_cap`` each).  A configuration with hash ``hi`` is owned by
+rank ``hi mod R``.  Each level, every rank
+
+1. expands its frontier through the backend (``"cuda"`` launches B1,
+   ``"sparse_cuda"`` B2 or B3, ``"ref"``/``"sparse"`` run the plain math)
+   and hashes every candidate with :func:`~.hashing.config_hash`;
+2. orders its candidates by owner (a stable sort; invalid ones last) and
+   places each in send slot ``owner·C + pos`` (``C`` = ``send_cap``, a
+   candidate past its owner's ``C`` slots is dropped and sets the send
+   overflow), its hashes beside it;
+3. receives, by the tiled all-to-all over rows, the slots ``[d·C,
+   (d+1)·C)`` of every rank's send buffer, in rank order;
+4. dedups them against its own table (``lookup``, ``first_occurrence``),
+   selects the new ones first (a stable sort) as its next frontier,
+   inserts the selected prefix and appends it to its archive.
+
+The archive is the ranks' archives concatenated in rank order: the
+reference's order, not single-device order.  The delayed tier is refused
+here, as the reference fails on it (it sizes rows by ``num_neurons``).
+
+**Neuron-sharded BFS** (a ``SystemPlan(num_shards > 1)``, or a
+:class:`~.plan.ShardedCompiled`).  The neuron axis is cut into ``S``
+shards of ``mloc = ceil(m/S)`` columns (:func:`~.plan.compile_sharded`):
+every frontier row, candidate and archive row is held as ``S`` slices,
+and each level
 
 1. computes each shard's branch info on its slice; the mixed-radix
    strides cross shard boundaries, so a shard's strides are multiplied by
@@ -24,45 +53,58 @@ archive row is held as ``S`` slices, and each level
 5. selects the new configurations (replicated) and appends every shard's
    slice of them to its archive slice.
 
-Transport.  The reference runs one ``shard_map`` over ``S`` devices.  Here
-one process steps the ``S`` shards in lockstep, and the collectives are
-exact tensor operations over the per-shard tensors, in shard order: the
-all-to-all is ``recv[p][..., q-block] = send[q][..., p-block]`` (the
-reference's tiled ``all_to_all``), the uint32 ``psum`` a sum of int64
-lanes masked to 32 bits.  ``mesh`` is a sequence of ``S`` torch devices;
-``mesh=None`` holds all ``S`` shards on one device, which is how one card
-runs an ``S``-shard exploration.  Replicated bookkeeping (validity,
-selection) lives on the first device of the mesh.  A ``torch.distributed``
-transport is ROADMAP item 7.
+**Distributed traces** (:func:`run_traces_distributed`).  The batch is
+padded to a multiple of ``R`` with seed-0 dummies and rank ``d`` runs
+:func:`~.engine.run_traces`' loop on its contiguous chunk; the chunks are
+gathered on ``mesh[0]``.  Every trace's key depends on its seed only, so
+the result equals ``run_traces`` bit for bit on any mesh.
+:func:`repro_torch.serve.make_trace_runner` serves it.
 
-Host reads.  As the port's :func:`~.engine.explore`, the level loop runs
-from the host and reads the number of new configurations once per level;
-each shard's hash-table probe loops read their own counts (about ``S``
-times the single-device probe reads).
+Transport.  The reference runs one ``shard_map`` over ``R`` devices.  Here
+one process steps the ranks in lockstep, and the collectives are exact
+tensor operations over the per-rank tensors, in rank order: the
+all-to-all is ``recv[p][q-block] = send[q][p-block]`` (the reference's
+tiled ``all_to_all``), the uint32 ``psum`` a sum of int64 lanes masked to
+32 bits.  ``mesh=None`` holds every rank on ``device`` (``None`` = the
+card): one rank for the dense-row scheme, ``plan.num_shards`` for the
+sharded one.  Replicated bookkeeping lives on the first device of the
+mesh.  A ``torch.distributed`` transport is ROADMAP item 7.
 
-Archives, flags and counts equal the reference's sharded run row for row,
-in discovery order, through all four backends and both partitions.
+Host reads.  As the port's :func:`~.engine.explore`, the level loops run
+from the host: the dense-row loop reads the ranks' new-configuration
+counts once per level (one transfer), the sharded loop the number of new
+configurations; each rank's or shard's hash-table probe loops read their
+own counts.
+
+Archives, flags and counts equal the reference's distributed runs row for
+row, in discovery order, through all four backends.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .backend import (BackendLike, CudaBackend, SparseCudaBackend,
                       resolve_entry_info, supports_sharded)
-from .device import DeviceLike, host_read, resolve_device
-from .engine import (ExploreResult, ExploreState, _check_checkpointing,
-                     _run_chunked)
-from .hashing import M32, SENTINEL, zobrist_hash
-from .hashtable import first_occurrence, insert_unique, lookup, make_table
+from .device import (DeviceLike, host_read, host_read_all, resolve_device,
+                     same_device)
+from .engine import (ExploreResult, ExploreState, TraceOut,
+                     _check_checkpointing, _live, _resolve_comp,
+                     _run_chunked, _traces)
+from .failover import run_with_failover
+from .hashing import M32, SENTINEL, config_hash, zobrist_hash
+from .hashtable import (_canonical, first_occurrence, insert_unique, lookup,
+                        make_table)
+from .matrix import is_compiled, is_delayed
 from .plan import (ShardedCompiled, ShardView, SystemPlan, compile_sharded,
                    is_sharded, shard_view)
 from .semantics import packed_rule_table, sparse_branch_info
 from .system import SNPSystem
 
-__all__ = ["explore_distributed"]
+__all__ = ["explore_distributed", "run_traces_distributed"]
 
 
 def _psum_u32(parts: Sequence[torch.Tensor], dev) -> torch.Tensor:
@@ -74,14 +116,173 @@ def _psum_u32(parts: Sequence[torch.Tensor], dev) -> torch.Tensor:
     return total & M32
 
 
-def _all_to_all(sends: Sequence[torch.Tensor], devices, hmax: int
-                ) -> List[torch.Tensor]:
-    """The tiled all-to-all of the halo: shard ``q``'s ``(..., S·Hmax)``
-    send holds its block for shard ``p`` at ``[p·Hmax, (p+1)·Hmax)``;
-    shard ``p`` receives the blocks of shards ``0 .. S−1`` in order."""
-    S = len(sends)
-    return [torch.cat([sends[q][..., p * hmax:(p + 1) * hmax].to(devices[p])
-                       for q in range(S)], -1) for p in range(S)]
+def _all_to_all(sends: Sequence[torch.Tensor], devices, block: int,
+                dim: int = -1) -> List[torch.Tensor]:
+    """The tiled all-to-all: rank ``q``'s send holds its block for rank
+    ``p`` at ``[p·block, (p+1)·block)`` along ``dim``; rank ``p`` receives
+    the blocks of ranks ``0 .. R−1`` in order.  The halo goes along the
+    last axis (``block`` = Hmax), the dense-row exchange along the rows
+    (``block`` = ``send_cap``)."""
+    R = len(sends)
+    return [torch.cat([sends[q].narrow(dim, p * block, block).to(devices[p])
+                       for q in range(R)], dim) for p in range(R)]
+
+
+def _mesh(mesh: Optional[Sequence[DeviceLike]], device: DeviceLike
+          ) -> List[torch.device]:
+    """The ranks' devices: ``mesh`` resolved, or ``[device]``."""
+    if mesh is None:
+        return [resolve_device(device)]
+    devices = [resolve_device(d) for d in mesh]
+    if not devices:
+        raise ValueError("mesh names no device")
+    return devices
+
+
+# ---------------------------------------------------------------------------
+# The dense-row hash-partitioned scheme
+# ---------------------------------------------------------------------------
+
+
+class _Rank(NamedTuple):
+    """One rank's device and the encoding on it."""
+
+    dev: torch.device
+    comp: object
+
+
+def _ranks(comp, devices) -> List[_Rank]:
+    """The encoding on each rank's device, one copy a distinct device."""
+    copies = {}
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = comp if dev == comp.device else comp.to(dev)
+    return [_Rank(dev, copies[dev]) for dev in devices]
+
+
+def _bin_by_owner(cand, hi, lo, valid, R: int, C: int):
+    """Step 2 of a dense-row level on one rank: the send buffers
+    ``(configs (R·C, w), valid (R·C,), hi, lo)`` and the send overflow.
+    A candidate's owner is ``hi mod R`` (``R`` when invalid); candidates
+    are taken in a stable order by owner and the one at position ``pos``
+    of its owner's group goes to slot ``owner·C + pos``, or nowhere once
+    ``pos >= C``.  Empty slots hold zeros and are invalid."""
+    K, dev = cand.shape[0], cand.device
+    owner = torch.where(valid, hi % R, R)
+    order = torch.sort(owner, stable=True).indices
+    owner_s = owner[order]
+    counts = torch.bincount(owner, minlength=R + 1)[:R]
+    start = counts.cumsum(0) - counts
+    pos = torch.arange(K, device=dev) - torch.where(
+        owner_s < R, start[owner_s.clamp(max=R - 1)], 0)
+    slot = torch.where((owner_s < R) & (pos < C), owner_s * C + pos, R * C)
+    # the candidate in each slot (K: none); every drop lands on the spare
+    # slot R·C, which is cut off
+    src = torch.full((R * C + 1,), K, dtype=torch.int64, device=dev)
+    src[slot] = order
+    src = src[:R * C]
+    has = src < K
+    g = src.clamp(max=K - 1)
+    return (torch.where(has[:, None], cand[g], 0), has,
+            torch.where(has, hi[g], 0), torch.where(has, lo[g], 0),
+            (counts > C).any())
+
+
+def _init_dense(comp, ranks: List[_Rank], F: int, V: int,
+                init: Optional[Sequence[int]]) -> ExploreState:
+    """The initial configuration as row 0 of its owner's frontier and
+    archive, its hash in the owner's table; the owner is taken on the
+    canonical hash.  The state's fields are per-rank tuples, its counts
+    one host integer a rank."""
+    R, home, w = len(ranks), ranks[0].dev, comp.state_width
+    c0 = comp.init_config.to(home) if init is None else torch.as_tensor(
+        list(init), dtype=torch.int32, device=home)
+    hi0, lo0 = config_hash(c0)
+    hic, loc = _canonical(hi0[None], lo0[None],
+                          torch.ones(1, dtype=torch.bool, device=home))
+    owner0 = host_read(hic[0] % R)
+    frontier, archive, tables = [], [], []
+    for d, rk in enumerate(ranks):
+        fr = torch.zeros((F, w), dtype=torch.int32, device=rk.dev)
+        ar = torch.zeros((V, w), dtype=torch.int32, device=rk.dev)
+        table = make_table(V, rk.dev)
+        if d == owner0:
+            fr[0] = c0
+            ar[0] = c0
+            table, _, _ = insert_unique(
+                table, hic.to(rk.dev), loc.to(rk.dev),
+                torch.ones(1, dtype=torch.bool, device=rk.dev),
+                torch.zeros(1, dtype=torch.int32, device=rk.dev))
+        frontier.append(fr)
+        archive.append(ar)
+        tables.append(table)
+    ones = tuple(int(d == owner0) for d in range(R))
+    false = torch.zeros((), dtype=torch.bool, device=home)
+    return ExploreState(tuple(frontier), ones, tuple(tables),
+                        tuple(archive), ones, 0, false, false, false)
+
+
+def _dense_level(st: ExploreState, ranks: List[_Rank], backend, T: int,
+                 C: int, V: int) -> ExploreState:
+    """One dense-row level over the ranks (module docstring, steps 1–4)."""
+    R, home = len(ranks), ranks[0].dev
+    F = st.frontier[0].shape[0]
+    branch_ovf = st.branch_overflow
+    sends = []
+    for d, rk in enumerate(ranks):
+        out = backend.expand(st.frontier[d], rk.comp, T)
+        live = torch.arange(F, device=rk.dev) < st.frontier_n[d]
+        cand = out.configs.reshape(F * T, -1)
+        valid = (out.valid & live[:, None]).reshape(F * T)
+        hi, lo = config_hash(cand)
+        *send, send_ovf = _bin_by_owner(cand, hi, lo, valid, R, C)
+        branch_ovf = branch_ovf | ((out.overflow & live).any()
+                                   | send_ovf).to(home)
+        sends.append(send)
+        del out, cand, hi, lo
+    devices = [rk.dev for rk in ranks]
+    recv = list(zip(*(_all_to_all([s[i] for s in sends], devices, C, 0)
+                      for i in range(4))))
+    del sends
+
+    # dedup against each rank's own table: new = valid & first & ~found
+    news, probe_ovf = [], []
+    for p, (rcfg, rval, rhi, rlo) in enumerate(recv):
+        found, _ = lookup(st.visited[p], rhi, rlo, rval)
+        first, ovf_f = first_occurrence(rhi, rlo, rval)
+        news.append(rval & first & ~found)
+        probe_ovf.append(ovf_f)
+    n_new = host_read_all(torch.stack(
+        [x.sum().to(home) for x in news]))          # the one read per level
+
+    frontier, tables, archive_n = [], [], []
+    frontier_ovf = st.frontier_overflow | any(n > F for n in n_new)
+    visited_ovf = st.visited_overflow
+    for p, (rcfg, _, rhi, rlo) in enumerate(recv):
+        dev, a_n = ranks[p].dev, st.archive_n[p]
+        n_ins = min(n_new[p], F)
+        take = torch.arange(F, device=dev)
+        # new rows first, in index order; rows past n_ins stay as the
+        # reference leaves them, masked by the next level's count
+        sel = torch.sort((~news[p]).to(torch.uint8), stable=True).indices[:F]
+        frontier.append(rcfg[sel])
+        full = st.visited[p].count + n_ins > V
+        table, _, ovf_i = insert_unique(
+            st.visited[p], rhi[sel], rlo[sel], take < n_ins,
+            (a_n + take).to(torch.int32))
+        tables.append(table)
+        visited_ovf = visited_ovf | (probe_ovf[p] | ovf_i | full).to(home)
+        k = min(n_ins, V - a_n)
+        st.archive[p][a_n:a_n + k] = frontier[p][:k]
+        archive_n.append(a_n + k)
+    return ExploreState(tuple(frontier), tuple(min(n, F) for n in n_new),
+                        tuple(tables), st.archive, tuple(archive_n),
+                        st.step + 1, branch_ovf, frontier_ovf, visited_ovf)
+
+
+# ---------------------------------------------------------------------------
+# The neuron-sharded scheme
+# ---------------------------------------------------------------------------
 
 
 class _Shard(NamedTuple):
@@ -378,6 +579,7 @@ def explore_distributed(
     frontier_cap: int = 64,
     visited_cap: int = 2048,
     max_branches: int = 32,
+    send_cap: Optional[int] = None,
     init: Optional[Sequence[int]] = None,
     backend: BackendLike = None,
     plan: Optional[SystemPlan] = None,
@@ -386,40 +588,49 @@ def explore_distributed(
     checkpoint_every: int = 32,
     fault_injector=None,
 ) -> ExploreResult:
-    """Neuron-sharded BFS of ``system`` (an :class:`SNPSystem` with a
-    ``plan`` of ``num_shards > 1``, e.g.
-    :func:`repro_torch.sharding.neuron_axis`, or a pre-lowered
-    :class:`~.plan.ShardedCompiled`), with the semantics and archive of
-    :func:`~.engine.explore`.
+    """Hash-partitioned BFS of ``system`` over the ranks of ``mesh``, with
+    the semantics of :func:`~.engine.explore` (module docstring).
 
-    ``mesh`` is a sequence of one torch device per shard; ``None`` puts
-    all ``plan.num_shards`` shards on ``device`` (``None`` = the card).
-    ``frontier_cap`` is the global frontier width, ``visited_cap`` the
-    capacity of each shard's table.  ``backend`` is one declaring
-    ``"sharded"`` (all four do); ``None`` applies
-    :func:`~.backend.resolve_entry_info` (``"sparse_cuda"`` for the ELL
-    plan :func:`~repro_torch.sharding.neuron_axis` makes; an open plan,
-    encoding ``"auto"``, goes to the query planner with the workload
-    ``(frontier_cap, max_branches)``).
+    Without a sharded plan this is the **dense-row** scheme: ``system``
+    is an :class:`SNPSystem` (lowered under ``plan``, any delay-free
+    encoding) or a compiled encoding; ``frontier_cap`` and
+    ``visited_cap`` are per rank, and ``send_cap`` is the slots a rank
+    sends each rank a level (``None``: ``max(16, frontier_cap ·
+    max_branches // R)``).  ``mesh`` is one torch device per rank;
+    ``None`` is one rank on ``device`` (``None`` = the card).  A delayed
+    plan or encoding is refused (the reference fails on it), as is a
+    ``send_cap`` with ``R · send_cap < frontier_cap``.
 
+    With a plan of ``num_shards > 1`` (e.g.
+    :func:`repro_torch.sharding.neuron_axis`), or a pre-lowered
+    :class:`~.plan.ShardedCompiled`, this is the **neuron-sharded**
+    scheme: ``mesh`` is one device per shard, ``None`` puts all
+    ``plan.num_shards`` shards on ``device``; ``frontier_cap`` is the
+    global frontier width, ``visited_cap`` the capacity of each shard's
+    table, and ``backend`` one declaring ``"sharded"`` (all four do).
+
+    ``mesh`` and ``device`` together are refused.  ``backend=None``
+    applies :func:`~.backend.resolve_entry_info` with the workload
+    ``(frontier_cap, max_branches)`` (an open plan goes to the query
+    planner; a sparse plan picks ``"sparse_cuda"``, as the ELL plan
+    :func:`~repro_torch.sharding.neuron_axis` makes).
     ``checkpoint_dir``, ``checkpoint_every`` and ``fault_injector`` work
-    as in :func:`~.engine.explore`: the per-shard state is snapshotted
-    every ``checkpoint_every`` levels and restored on entry (onto each
-    shard's device), and the injector is called once per chunk.
-
-    Not ported yet: the dense-row hash-partitioned scheme (a call without a
-    sharded plan), ROADMAP item 7; it raises ``NotImplementedError``."""
+    as in :func:`~.engine.explore`: the per-rank or per-shard state is
+    snapshotted every ``checkpoint_every`` levels and restored on entry
+    (onto each rank's device), and the injector is called once per
+    chunk."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh (one device per rank or shard) or "
+                         "device, not both")
+    _check_checkpointing(checkpoint_dir, checkpoint_every)
     if not (is_sharded(system) or (plan is not None
                                    and plan.num_shards > 1)):
-        raise NotImplementedError(
-            "explore_distributed runs the neuron-sharded scheme only (a "
-            "plan with num_shards > 1, e.g. sharding.neuron_axis(S), or a "
-            "ShardedCompiled); the dense-row hash-partitioned scheme is "
-            "not ported yet (ROADMAP item 7)")
-    if mesh is not None and device is not None:
-        raise ValueError("pass mesh (one device per shard) or device, "
-                         "not both")
-    _check_checkpointing(checkpoint_dir, checkpoint_every)
+        return _explore_dense_rows(
+            system, mesh=mesh, device=device, max_steps=max_steps,
+            frontier_cap=frontier_cap, visited_cap=visited_cap,
+            max_branches=max_branches, send_cap=send_cap, init=init,
+            backend=backend, plan=plan, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, fault_injector=fault_injector)
     be, plan, _ = resolve_entry_info(
         system, backend, plan, workload=(frontier_cap, max_branches),
         device=device if mesh is None else mesh[0])
@@ -454,3 +665,107 @@ def explore_distributed(
         visited_cap=visited_cap, max_branches=max_branches, init=init,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
         fault_injector=fault_injector)
+
+
+def _explore_dense_rows(system, *, mesh, device, max_steps: int,
+                        frontier_cap: int, visited_cap: int,
+                        max_branches: int, send_cap: Optional[int], init,
+                        backend, plan, checkpoint_dir, checkpoint_every,
+                        fault_injector) -> ExploreResult:
+    """The dense-row branch of :func:`explore_distributed`: its refusals,
+    then the level loop (``frontier_cap`` and ``visited_cap`` per rank;
+    checkpointing and the fault injector as in :func:`~.engine.explore`,
+    through :func:`~.engine._run_chunked`)."""
+    devices = _mesh(mesh, device)
+    R, F, T = len(devices), frontier_cap, max_branches
+    C = max(16, (F * T) // R) if send_cap is None else send_cap
+    if (plan is not None and plan.semantics == "delays") or (
+            is_compiled(system) and is_delayed(system)):
+        raise ValueError(
+            "the dense-row scheme takes delay-free systems only: the "
+            "reference's dense-row explore_distributed fails under the "
+            "delays tier (it sizes rows by num_neurons, not state_width)")
+    if R * C < F:
+        raise ValueError(
+            f"send_cap {C} over {R} rank(s) receives {R * C} rows a level, "
+            f"fewer than frontier_cap {F}; raise send_cap")
+    be, plan, _ = resolve_entry_info(system, backend, plan,
+                                     workload=(F, T), device=devices[0])
+    ranks = _ranks(_resolve_comp(system, be, plan, devices[0]), devices)
+    home, V = ranks[0].dev, visited_cap
+
+    def run(st, bound):
+        while st.step < bound and _live(st.frontier_n) > 0:
+            st = _dense_level(st, ranks, be, T, C, V)
+        return st
+
+    st = _run_chunked(
+        _init_dense(ranks[0].comp, ranks, F, V, init), run,
+        max_steps=max_steps, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, fault_injector=fault_injector)
+    b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
+        [st.branch_overflow, st.frontier_overflow, st.visited_overflow]
+    ).tolist())
+    configs = torch.cat([a[:n].to(home)
+                         for a, n in zip(st.archive, st.archive_n)])
+    return ExploreResult(
+        configs=configs.cpu().numpy(),
+        num_discovered=sum(st.archive_n),
+        steps=st.step,
+        exhausted=_live(st.frontier_n) == 0 and not (b_ovf or f_ovf
+                                                      or v_ovf),
+        branch_overflow=b_ovf, frontier_overflow=f_ovf,
+        visited_overflow=v_ovf,
+    )
+
+
+def run_traces_distributed(system, *, steps: int, seeds,
+                           policy: str = "first", max_branches: int = 64,
+                           backend: BackendLike = None,
+                           mesh: Optional[Sequence[DeviceLike]] = None,
+                           plan: Optional[SystemPlan] = None,
+                           device: DeviceLike = None) -> TraceOut:
+    """:func:`~.engine.run_traces` with the batch split over the ranks of
+    ``mesh`` (one torch device per rank, repeats allowed; ``None`` = one
+    rank on ``device``).  The batch is padded to a multiple of ``R`` with
+    seed-0 dummies, rank ``d`` runs the traces of its contiguous chunk,
+    and the chunks are gathered on ``mesh[0]`` and cut to ``len(seeds)``:
+    each trace depends on its seed only, so the result equals
+    ``run_traces`` bit for bit for every ``R``.
+
+    ``device`` is where the result lands; with a mesh it may only name
+    ``mesh[0]`` (the trace service passes its own device).  A backend the
+    entry point chose degrades on a failure to build, lower or launch, as
+    in ``run_traces`` (on the card only to another kernel backend)."""
+    if policy not in ("first", "random"):
+        raise ValueError(f"unknown policy {policy!r}")
+    if plan is not None and plan.num_shards > 1:
+        raise ValueError("trace serving shards the batch axis, not the "
+                         "neuron axis; plan.num_shards > 1 is only "
+                         "consumed by explore_distributed")
+    seeds = np.asarray(seeds)
+    if seeds.ndim != 1:
+        raise ValueError(f"seeds must be 1-D, got shape {seeds.shape}")
+    devices = _mesh(mesh, device)
+    home = devices[0]
+    if mesh is not None and device is not None and \
+            not same_device(device, home):
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{home}, where the traces are gathered")
+    be, plan, planned = resolve_entry_info(
+        system, backend, plan, workload=(len(seeds), max_branches),
+        device=home)
+    R, B = len(devices), int(seeds.shape[0])
+    per = -(-max(B, 1) // R)
+    padded = np.zeros((per * R,), np.int64)
+    padded[:B] = seeds.astype(np.int64)
+
+    def attempt(be, plan):
+        ranks = _ranks(_resolve_comp(system, be, plan, home), devices)
+        outs = [_traces(rk.comp, be, padded[d * per:(d + 1) * per], steps,
+                        policy, max_branches) for d, rk in enumerate(ranks)]
+        return TraceOut(*(torch.cat([o[f].to(home) for o in outs])[:B]
+                          for f in range(len(TraceOut._fields))))
+
+    return run_with_failover(attempt, be, plan, degradable=planned,
+                             device=home)

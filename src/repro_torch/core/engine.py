@@ -159,7 +159,10 @@ class ExploreState(NamedTuple):
     anyway), so a chunk boundary reads nothing from the device.
     ``visited`` is the open-addressing table under ``dedup="hash"``, the
     sorted ``(V,)`` int64 keys under ``"sort"`` (whose live count is
-    ``archive_n``: both grow by each level's insertions, capped at V)."""
+    ``archive_n``: both grow by each level's insertions, capped at V).
+    The distributed schemes hold a tuple of per-shard or per-rank
+    tensors where this holds one, and the dense-row scheme a count per
+    rank in ``frontier_n`` and ``archive_n``."""
 
     frontier: torch.Tensor            # (F, w) int32
     frontier_n: int                   # valid prefix length
@@ -259,24 +262,36 @@ def _explore_loop(state: ExploreState, comp, be, bound: int, T: int,
     return state
 
 
-def _archive_prefix(archive, n: int):
+def _archive_prefix(archive, n):
+    """The filled rows of an archive: one tensor, or one per shard or
+    rank; ``n`` is one count, or one per rank (the dense-row scheme)."""
     if isinstance(archive, torch.Tensor):
         return archive[:n]
-    return tuple(a[:n] for a in archive)       # one slice per shard
+    ns = n if isinstance(n, tuple) else (n,) * len(archive)
+    return tuple(a[:k] for a, k in zip(archive, ns))
+
+
+def _live(n) -> int:
+    """Valid frontier rows of a state: one count, or one per rank."""
+    return sum(n) if isinstance(n, tuple) else n
 
 
 def _restore(checkpoint_dir: str, state):
     """The latest snapshot on the live (fresh) state's devices, its
-    archive prefix (one tensor, or one per shard) written into the fresh
-    archive, whose other rows are zero."""
+    archive prefix (one tensor, or one per shard or rank) written into
+    the fresh archive, whose other rows are zero."""
     step, manifest = read_manifest(checkpoint_dir)
-    rows = next(v["shape"][0] for k, v in manifest["arrays"].items()
-                if k == ".archive" or k.startswith(".archive/"))
+    arrays = manifest["arrays"]
+    if isinstance(state.archive, torch.Tensor):
+        rows = arrays[".archive"]["shape"][0]
+    else:
+        rows = tuple(arrays[f".archive/{d}"]["shape"][0]
+                     for d in range(len(state.archive)))
     template = state._replace(archive=_archive_prefix(state.archive, rows))
     got, _, _ = restore_checkpoint(checkpoint_dir, template, step=step)
 
     def pad(live, prefix):
-        live[:rows] = prefix
+        live[:prefix.shape[0]] = prefix
         return live
 
     if isinstance(state.archive, torch.Tensor):
@@ -308,15 +323,16 @@ def _run_chunked(state, run: Callable, *, max_steps: int,
     ``fault_injector`` (:class:`~repro_torch.runtime.faults.FaultInjector`)
     is called once before an uninterrupted run and once before every
     chunk, as the reference calls it, so a schedule kills the same chunk
-    in both.  The state's step and frontier count are host integers: a
-    chunk boundary reads nothing from the device."""
+    in both.  The state's step and frontier count (one a rank in the
+    dense-row scheme) are host integers: a chunk boundary reads nothing
+    from the device."""
     if checkpoint_dir is None:
         if fault_injector is not None:
             fault_injector.on_device_call()
         return run(state, max_steps)
     if latest_step(checkpoint_dir) is not None:
         state = _restore(checkpoint_dir, state)
-    while state.step < max_steps and state.frontier_n > 0:
+    while state.step < max_steps and _live(state.frontier_n) > 0:
         if fault_injector is not None:
             fault_injector.on_device_call()
         state = run(state, min(max_steps, state.step + checkpoint_every))

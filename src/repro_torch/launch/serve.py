@@ -1,7 +1,8 @@
 """Batched serving launcher (the port of the JAX package's
 ``repro.launch.serve``): the LM path (prefill, then streamed greedy or
 sampled decode) and the SNP trace path (``--snp``: a burst of random
-traces through the async :class:`~repro_torch.serve.SNPTraceService`).
+traces through the async :class:`~repro_torch.serve.SNPTraceService` over
+a trace mesh, every visible card or ``[cpu]``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --batch 4 --prompt-len 64 --gen 32          # on the card
@@ -66,23 +67,32 @@ def parse_inject(spec: str):
 
 
 def serve_snp(args) -> dict:
-    """Stand up the async SNP trace service on one device and serve a
+    """Stand up the async SNP trace service over a trace mesh and serve a
     burst of ``--requests`` random traces of the paper's Π (covering
     mode), ``--gen`` steps each, seeds 0 .. requests−1.
 
-    The runner is :func:`~repro_torch.serve.make_trace_runner`'s
-    single-device :func:`~repro_torch.core.engine.run_traces`.  The
-    reference launches the mesh runner over a one-axis trace mesh; on one
-    device it computes the same traces, and the mesh runner is not ported
-    yet (ROADMAP item 7).  Any fault flag turns on a
-    :class:`~repro_torch.runtime.FaultPolicy`.  Prints the set-up line,
-    the served count with traces/s, the completion latency p50/p99, then
-    the fault stats (under a policy) and one sample spike train; returns
-    those figures."""
+    The runner is :func:`~repro_torch.serve.make_trace_runner`'s mesh
+    runner, :func:`~repro_torch.core.distributed.run_traces_distributed`
+    over :func:`~repro_torch.sharding.trace_mesh`: every visible card on
+    the card (a named ``--device cuda:<i>`` first), ``[cpu]`` under
+    ``--device cpu``.  Each flush splits its batch over the mesh and
+    gathers it on the service's device, the mesh's first; the traces
+    equal single-device serving bit for bit, so the launcher doubles as a
+    check on whatever devices are present.  Any fault flag turns on a
+    :class:`~repro_torch.runtime.FaultPolicy`.  Prints the reference's
+    set-up line (``[serve-snp] mesh N-device, batch …``), the served
+    count with traces/s, the completion latency p50/p99, then the fault
+    stats (under a policy) and one sample spike train; returns those
+    figures and the mesh."""
     from ..core import paper_pi
+    from ..core.device import same_device
     from ..runtime import FaultPolicy
+    from ..sharding import trace_mesh
 
     dev = resolve_device(args.device)
+    # the named card first: the service's device is the mesh's first
+    mesh = sorted(trace_mesh(), key=lambda d: not same_device(d, dev)) \
+        if dev.type == "cuda" else trace_mesh([dev])
     system = paper_pi(covering=True)
     policy = None
     if (args.max_retries is not None or args.deadline_ms is not None
@@ -95,11 +105,12 @@ def serve_snp(args) -> dict:
 
     n, G = args.requests, args.gen
     with SNPTraceService(batch_size=args.batch, step_bucket=8,
-                         backend=args.backend, runner=make_trace_runner(),
+                         backend=args.backend,
+                         runner=make_trace_runner(mesh=mesh),
                          async_mode=True, max_delay_ms=args.max_delay_ms,
                          policy=policy, fault_injector=injector,
-                         device=dev) as svc:
-        print(f"[serve-snp] device {svc.device}, batch {args.batch}, "
+                         device=mesh[0]) as svc:
+        print(f"[serve-snp] mesh {len(mesh)}-device, batch {args.batch}, "
               f"max_delay {args.max_delay_ms} ms, backend {svc.backend.name}"
               + (f", policy {policy}" if policy else ""))
         done = {}
@@ -140,7 +151,7 @@ def serve_snp(args) -> dict:
               f"{ok.result().emissions.tolist()}")
     return {"served": n - len(failed), "requests": n, "failed": failed,
             "traces_per_s": n / dt, "p50_ms": p50, "p99_ms": p99,
-            "stats": stats}
+            "stats": stats, "mesh": [str(d) for d in mesh]}
 
 
 def serve_lm(args) -> np.ndarray:

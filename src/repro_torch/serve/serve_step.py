@@ -5,12 +5,17 @@ port of the JAX package's ``repro.serve.serve_step``).
 last-position logits and a filled KV cache; ``decode_step`` advances every
 sequence one token (greedy, or sampled with a threefry key as the
 reference samples).  Both run without
-autograd.  ``constrain`` and ``activation_stationary`` are kept for the
+autograd.  ``make_trace_runner`` is the SNP counterpart: the device call
+of each :class:`~repro_torch.serve.SNPTraceService` flush, the
+single-device :func:`~repro_torch.core.engine.run_traces` or, given a
+mesh, :func:`~repro_torch.core.distributed.run_traces_distributed` over
+its devices.  ``constrain`` and ``activation_stationary`` are kept for the
 reference's signatures: on one card they are the identity.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -25,15 +30,22 @@ __all__ = ["make_prefill_step", "make_decode_step", "sample_token",
 
 
 def make_trace_runner(*, mesh=None) -> Callable:
-    """The SNP trace runner: the port's
-    :func:`~repro_torch.core.engine.run_traces` (a mesh-sharded runner is
-    not ported yet)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded trace runner (run_traces_distributed) is not "
-            "ported yet (ROADMAP item 7)")
-    from ..core.engine import run_traces
-    return run_traces
+    """The device call :class:`~repro_torch.serve.SNPTraceService` runs a
+    flush: :func:`~repro_torch.core.engine.run_traces` itself when
+    ``mesh`` is ``None``, else
+    :func:`~repro_torch.core.distributed.run_traces_distributed` over
+    ``mesh`` (a sequence of torch devices, e.g.
+    :func:`repro_torch.sharding.trace_mesh`), which splits each flush's
+    batch over the mesh's ranks and gathers it on ``mesh[0]``.  The two
+    give the same traces bit for bit, so a service can be pointed at a
+    mesh without its callers seeing a difference."""
+    # imported here: the LM entry points load this module without the
+    # SNP core
+    if mesh is None:
+        from ..core.engine import run_traces
+        return run_traces
+    from ..core.distributed import run_traces_distributed
+    return functools.partial(run_traces_distributed, mesh=mesh)
 
 
 def sample_token(logits: torch.Tensor, key: Optional[torch.Tensor] = None,

@@ -176,10 +176,19 @@ def test_a_sharded_compiled_and_one_shard_equal_explore():
 def test_refusals():
     system = _port_system("paper_pi(True)")
     plan = neuron_axis(2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        explore_distributed(system, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        explore_distributed(system, plan=neuron_axis(1), device=CPU)
+    # without a sharded plan (one shard is none) the dense-row scheme
+    # runs (tests/test_torch_distributed_dense.py), and refuses what the
+    # reference cannot run
+    dense = explore_distributed(system, device=CPU, **PI)
+    one = explore_distributed(system, plan=neuron_axis(1), device=CPU, **PI)
+    np.testing.assert_array_equal(dense.configs, one.configs)
+    assert dense.num_discovered > 1
+    with pytest.raises(ValueError, match="raise send_cap"):
+        explore_distributed(system, mesh=[CPU] * 2, send_cap=1,
+                            frontier_cap=4)
+    with pytest.raises(ValueError, match="delay-free"):
+        explore_distributed(system, plan=P.SystemPlan(semantics="delays"),
+                            device=CPU)
     with pytest.raises(ValueError, match="checkpoint_every"):
         explore_distributed(system, plan=plan, device=CPU,
                             checkpoint_dir="ckpt", checkpoint_every=0)

@@ -64,6 +64,21 @@ def test_port_has_modules():
         assert (kernels / want).is_file()
 
 
+def test_port_exports_the_distributed_entry_points():
+    """The multi-device names: the entry points in ``repro_torch.core``,
+    the plans in ``repro_torch.sharding``, the runner in
+    ``repro_torch.serve``."""
+    import repro_torch.core as core
+    import repro_torch.serve as serve
+    import repro_torch.sharding as sharding
+    from repro_torch.core import distributed
+    for name in ("explore_distributed", "run_traces_distributed"):
+        assert name in core.__all__ and name in distributed.__all__
+        assert getattr(core, name) is getattr(distributed, name)
+    assert set(sharding.__all__) >= {"neuron_axis", "trace_mesh"}
+    assert "make_trace_runner" in serve.__all__
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
                          .as_posix())
 def test_no_jax_repro_or_module_level_triton(path):
@@ -86,6 +101,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.snp_step.sparse_ops\n"
         "import repro_torch.core.plan, repro_torch.core.prng\n"
         "import repro_torch.core.distributed, repro_torch.sharding.specs\n"
+        "from repro_torch.core import (explore_distributed,\n"
+        "                              run_traces_distributed)\n"
+        "from repro_torch.sharding import neuron_axis, trace_mesh\n"
+        "from repro_torch.serve import make_trace_runner\n"
         "import repro_torch.configs, repro_torch.data, repro_torch.models\n"
         "import repro_torch.kernels.flash_attn.ops, repro_torch.serve\n"
         "import repro_torch.launch.serve, repro_torch.runtime\n"

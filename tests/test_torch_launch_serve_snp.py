@@ -1,5 +1,7 @@
-"""The port's ``launch.serve --snp`` on the CPU: the async trace service
-serves a burst of random traces of the paper's Π and prints its set-up,
+"""The port's ``launch.serve --snp`` on the CPU: the async trace service,
+over the one-device trace mesh ``[cpu]`` (the mesh runner), serves a
+burst of random traces of the paper's Π and prints its set-up (the
+reference's ``[serve-snp] mesh N-device, …`` line),
 served-count and latency lines; an injected poison seed fails exactly one
 request; the sample spike train is the reference's ``run_trace`` of that
 seed."""
@@ -33,8 +35,9 @@ def _sample(lines):
 
 def test_snp_launcher_prints_its_lines():
     got, lines = _run("--requests", "64", "--batch", "16", "--gen", "8")
-    assert lines[0].startswith("[serve-snp] device cpu, batch 16, "
+    assert lines[0].startswith("[serve-snp] mesh 1-device, batch 16, "
                                "max_delay 5.0 ms, backend cuda")
+    assert got["mesh"] == ["cpu"]
     assert lines[1].startswith("[serve-snp] 64/64 traces x 8 steps in ")
     assert "traces/s" in lines[1] and "device calls" in lines[1]
     assert lines[2].startswith("[serve-snp] completion latency p50=")

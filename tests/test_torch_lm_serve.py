@@ -239,8 +239,11 @@ def test_launcher_refusals():
 
 def test_trace_runner():
     assert make_trace_runner() is run_traces
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        make_trace_runner(mesh=object())
+    from repro_torch.core.distributed import run_traces_distributed
+    mesh = ["cpu"] * 2
+    runner = make_trace_runner(mesh=mesh)
+    assert runner.func is run_traces_distributed
+    assert runner.keywords == {"mesh": mesh}
 
 
 def test_device_none_is_the_card():

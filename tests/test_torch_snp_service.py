@@ -9,8 +9,11 @@
   exhausted retries, a degrading flaky runner — the two services serve and
   fail the same tickets, with the same exception types and ``stats()``.
 * Async results equal sync ones; the contracts of the reference's
-  ``tests/test_serve_async.py`` (all but its two mesh cases) and the
-  service cases of ``tests/test_faults.py`` hold for the port.
+  ``tests/test_serve_async.py`` (its two mesh cases over the port's mesh
+  runner, ``make_trace_runner(mesh=trace_mesh(["cpu"] * 3))``) and the
+  service cases of ``tests/test_faults.py`` hold for the port; over the
+  mesh runner the fault scenarios and a degradation give the reference's
+  default runner's results and stats.
 * The smoke run's fault schedule (``chip_smoke.FAULT_STATS``) is what both
   services give on the CPU.
 """
@@ -38,6 +41,7 @@ from repro_torch.core.backend import REFERENCE_NAME  # noqa: E402
 from repro_torch.core.convert import system_from_spec  # noqa: E402
 from repro_torch.serve import (SNPTraceService, TraceRequest,  # noqa: E402
                                make_trace_runner)
+from repro_torch.sharding import trace_mesh  # noqa: E402
 
 CPU = "cpu"
 TIMEOUT = 120
@@ -468,6 +472,101 @@ def test_precompiled_systems_bypass_the_compile_cache():
 
 def test_make_trace_runner_without_mesh_is_run_traces():
     assert make_trace_runner() is P.run_traces
+
+
+# ---------------------------------------------------------------------------
+# the mesh runner (the reference's two mesh cases, and its trace mesh)
+# ---------------------------------------------------------------------------
+
+MESH = trace_mesh([CPU] * 3)
+
+
+def test_mesh_runner_service_matches_default_runner():
+    reqs = _mixed_requests()
+    plain = _svc(batch_size=8, step_bucket=8)
+    tickets = [plain.submit(r) for r in reqs]
+    expected = plain.drain()
+    svc = _svc(batch_size=8, step_bucket=8,
+               runner=make_trace_runner(mesh=MESH))
+    tickets2 = [svc.submit(r) for r in reqs]
+    results = svc.drain()
+    for t, t2 in zip(tickets, tickets2):
+        _assert_result_equal(expected[t], results[t2])
+    assert svc.stats() == plain.stats()
+
+
+def test_async_mesh_service_end_to_end():
+    """The launch path's composition: async drain and mesh runner."""
+    with _svc(batch_size=4, step_bucket=8, async_mode=True,
+              max_delay_ms=10, runner=make_trace_runner(mesh=MESH)) as svc:
+        futs = [svc.submit(TraceRequest(PI_PORT, steps=6, policy="random",
+                                        seed=s)) for s in range(6)]
+        for s, fut in enumerate(futs):
+            _assert_result_equal(fut.result(timeout=TIMEOUT),
+                                 _trace(PI_PORT, steps=6, policy="random",
+                                        seed=s))
+
+
+def test_trace_mesh_flattens_all_devices():
+    """Trace serving treats every device as one data axis: a 2-D layout
+    of devices flattens to one list, in order; without devices the mesh
+    is every visible card, and without a card it raises."""
+    tm = trace_mesh([[CPU, "meta"], [CPU, CPU]])
+    assert tm == [torch.device(d) for d in (CPU, "meta", CPU, CPU)]
+    assert trace_mesh(np.array([CPU] * 4).reshape(-1, 1)) == \
+        [torch.device(CPU)] * 4
+    with pytest.raises(ValueError, match="at least one device"):
+        trace_mesh([])
+    if torch.cuda.is_available():
+        assert len(trace_mesh()) == torch.cuda.device_count()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trace_mesh()
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_mesh_runner_stats_equal_reference_under_faults(scenario):
+    """A flush, a retry, a bisection and a poisoned seed behave over the
+    mesh runner as the reference's default runner has them."""
+    pol, inj = SCENARIOS[scenario]
+    (pp, rp), (pi, ri) = _policies(**pol), _injectors(**inj)
+    (pg, pf, ps), (rg, rf, rs) = _serve_both(
+        "pi", dict(batch_size=4, step_bucket=8, backend="ref", policy=pp,
+                   fault_injector=pi),
+        dict(batch_size=4, step_bucket=8, backend="ref", policy=rp,
+             fault_injector=ri), port_runner=make_trace_runner(mesh=MESH))
+    _assert_results_equal(pg, rg)
+    assert pf == rf
+    assert ps == rs
+    assert pi.calls == ri.calls and pi.injected == ri.injected
+
+
+def test_mesh_runner_degrades_as_the_default_runner():
+    """The service's own ``"cuda"`` failing over the mesh runner degrades
+    chunk by chunk to the reference's fallback, with its stats."""
+    served = {"port": [], "reference": []}
+    pp, rp = _policies(max_retries=1, backoff_ms=0.0, bisect=False)
+    (pg, pf, ps), (rg, rf, rs) = _serve_both(
+        "pi", dict(batch_size=4, policy=pp),
+        dict(batch_size=4, backend="pallas", policy=rp),
+        port_runner=_flaky(served, make_trace_runner(mesh=MESH),
+                           P.get_backend, "cuda", "port"),
+        ref_runner=_flaky(served, J.run_traces, J.get_backend, "pallas",
+                          "reference"),
+        warns=True)
+    _assert_results_equal(pg, rg)
+    assert pf == rf == {}
+    assert ps == rs and ps["degraded"] == ps["device_calls"] == 5
+    assert served["port"] == \
+        [REFERENCE_NAME[served["reference"][0]]] * 5
+
+
+def test_mesh_runner_refuses_a_service_device_off_the_mesh():
+    svc = _svc(batch_size=4, backend="ref",
+               runner=make_trace_runner(mesh=["meta", CPU]))
+    svc.submit(TraceRequest(PI_PORT, steps=4, seed=1))
+    with pytest.raises(ValueError, match="first device"):
+        svc.drain()
 
 
 def test_submissions_from_many_threads_all_resolve():
