@@ -183,8 +183,8 @@ result line):
    by 256 and 1024 threads, at edge shapes of phases 2, 3, 9 and 13 and
    at the full-width waves; a shape whose stage passes 227 KB (the ring
    lattice's B2 at 4 and 8 rows) must be refused before any launch, and
-   the shape counters (``block_launches``) must show one launch at
-   exactly the requested shape; (b) ``SystemPlan.for_system(mode=
+   the kernels' shape counters (``kernels/launch_counts.py``) must show
+   one launch at exactly the requested shape; (b) ``SystemPlan.for_system(mode=
    "measure")`` at B = 1, 64, 256 and 512 (T = 64) on ``scaled_pi(682)``,
    the hybrid ``power_law(8192)`` and the delayed ``scaled_pi(682)``:
    every candidate's µs (the median of 5 ``be.expand`` calls, timed in
@@ -223,19 +223,45 @@ result line):
    ``--snp`` with its ``[serve-snp] mesh N-device`` line; (e) the 4-rank
    B1 explore checkpointed every 2 levels, killed at its second chunk
    under ``run_supervised`` and resumed, identical to (a)'s;
-21. summary — the kernels with their launch counts, then one JSON line of
+21. the zero-host-sync BFS — every explore level runs on the card with no
+   host read and the level loop is one CUDA graph (a conditional WHILE
+   node around one captured level): (a) un-checkpointed full-width
+   explores inside ``repro_torch.core.device.sync_check()``
+   (``torch.cuda.set_sync_debug_mode("error")``; only the counted final
+   readout steps outside it) through B1 and ``"ref"`` (``scaled_pi(682)``),
+   B2 (ELL), B3 and ``"sparse"`` (the hybrid ``power_law(8192)``), B4, B5
+   ELL and B5 COO (the delayed workloads), B6 and B7 over
+   ``neuron_axis(4)`` in both partitions, and phase 20's 4-rank dense-row
+   B1 run: each archive identical to its earlier phase's, at most 2 host
+   reads a run, with waves/s, wall ms and the profiler's device ms a
+   level, peak allocation, and the launches of the step kernel and of H1
+   and H2 (the hash-table probe kernels, ``kernels/hashtable/csrc/
+   hashtable.cu``) exact, read from the kernels' own counters; (b) a tree
+   that drains before ``max_steps``: its steps and every launch count
+   equal the CPU run's; (c) H1 and H2
+   against their plain versions bit for bit: the full-width wave (32,768
+   candidates against a table of 262,144 keys, 100,000 of them present),
+   forged keys that share one base slot (past the 64-probe bound: the
+   overflow), and equal keys in one batch (the lowest index wins), with
+   times, plain times and bounds; (d) a checkpointed explore, one read a
+   chunk;
+22. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Every path driven through a kernel backend has every kernel's launch
 counter set to 0 just before it and read just after; each count is
-checked and reported per path.  The main paths are the full-width
-explores: phase 5 for B1, phase 6 for B2, phase 7 for B3, phase 10 for
-B4 (via ``"cuda"``) and B5's ELL body (via ``"sparse_cuda"``), phase 11
-for B5's COO body, and phase 14's contiguous run for B6 (via ``"cuda"``)
-and B7 (via ``"sparse_cuda"``), S launches a level, and phase 17's
-full-width bf16 prefill for B8-TC and its f32 prefill for B8-TF32 (one
-launch a layer); their counts are the kernels line's ``launches``.
+checked and reported per path.  B1-B7, H1 and H2 add one to their
+counter on the card each time they run (``kernels/launch_counts.py``),
+so a level replayed from the loop's graph counts like an eager one; B8's
+wrapper counts its launches (it never runs in a graph).  The main paths
+are the full-width explores: phase 5 for B1, phase 6 for B2, phase 7 for
+B3, phase 10 for B4 (via ``"cuda"``) and B5's ELL body (via
+``"sparse_cuda"``), phase 11 for B5's COO body, and phase 14's
+contiguous run for B6 (via ``"cuda"``) and B7 (via ``"sparse_cuda"``), S
+launches a level, and phase 17's full-width bf16 prefill for B8-TC and
+its f32 prefill for B8-TF32 (one launch a layer); their counts are the
+kernels line's ``launches``.
 Phase 18's service, fault, checkpoint and launcher paths, and phase 20's
 dense-row explores, distributed traces, trace-mesh services, launcher and
 checkpointed explore (B1, B2, B3), are counted the same way and listed
@@ -336,6 +362,17 @@ KERNELS = {
                         "mma.sync m16n8k8 TF32, three products a step for "
                         "f32), tf32::flash_attn_fwd_tf32_kernel; wrapper "
                         "ops.py:75"},
+    "H1": {"name": "hashtable_lookup", "route": "cuda",
+           "source": "src/repro_torch/kernels/hashtable/csrc/hashtable.cu",
+           "replaces": "src/repro/core/hashtable.py:153",
+           "body": "the probe lax.while_loop of lookup (no Pallas kernel); "
+                   "lookup_kernel, wrapper kernels/hashtable/ops.py"},
+    "H2": {"name": "hashtable_claim", "route": "cuda",
+           "source": "src/repro_torch/kernels/hashtable/csrc/hashtable.cu",
+           "replaces": "src/repro/core/hashtable.py:215",
+           "body": "the claim lax.while_loop of _claim_loop (no Pallas "
+                   "kernel), one cooperative launch, two grid syncs a "
+                   "round; claim_kernel, wrapper kernels/hashtable/ops.py"},
 }
 
 # What each kernel's library_ms times (one PyTorch call, never used by the
@@ -357,6 +394,8 @@ LIBRARY_CALL = {
              "is_causal=True, enable_gqa=True), bf16",
     "B8-TF32": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
                "is_causal=True, enable_gqa=True), f32",
+    "H1": None,
+    "H2": None,
 }
 
 # Dense M for the sparse yardstick (torch.sparse.mm) only up to this size.
@@ -415,36 +454,51 @@ def device_ms(fn, iters, kernel=None):
     return sum(us) / (iters if kernel is None else len(us)) / 1e3
 
 
+STEP_KERNELS = ("B1", "B2", "B3", "B4", "B5-ELL", "B5-COO", "B6", "B7",
+                "H1", "H2")
+
+
 def reset_counts():
-    """Every kernel's launch counter to 0 (just before a path)."""
+    """Every kernel's launch counter to 0 (just before a path): the
+    counters B1-B7, H1 and H2 add on the card as they run, and B8's,
+    which its wrapper adds as it launches (B8 is never in a graph)."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attn import ops as attn_ops
-    from repro_torch.kernels.snp_step import ops, sparse_ops
-    ops.kernel_launches = ops.delay_launches = ops.shard_launches = 0
-    ops.block_launches.clear()
-    sparse_ops.block_launches.clear()
-    sparse_ops.kernel_launches = sparse_ops.ell_launches = 0
-    sparse_ops.coo_launches = sparse_ops.ell_delay_launches = 0
-    sparse_ops.coo_delay_launches = sparse_ops.halo_launches = 0
+    launch_counts.reset()
     attn_ops.kernel_launches = attn_ops.kernel_launches_tc = 0
 
 
 def read_counts():
     """Launches per kernel since :func:`reset_counts` (just after a
-    path)."""
+    path; the card's counters are copied out, one transfer a card, not a
+    read of the port's)."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attn import ops as attn_ops
-    from repro_torch.kernels.snp_step import ops, sparse_ops
-    body = sparse_ops.body_counts()
-    return {"B1": ops.kernel_launches, "B2": body["ell"], "B3": body["coo"],
-            "B4": ops.delay_launches, "B5-ELL": body["ell_delay"],
-            "B5-COO": body["coo_delay"], "B6": ops.shard_launches,
-            "B7": body["halo"], "B8-TC": attn_ops.kernel_launches_tc,
-            "B8-TF32": attn_ops.kernel_launches}
+    ran = launch_counts.by_kernel(launch_counts.read())
+    return dict({k: ran.get(k, 0) for k in STEP_KERNELS},
+                **{"B8-TC": attn_ops.kernel_launches_tc,
+                   "B8-TF32": attn_ops.kernel_launches})
+
+
+def shape_counts():
+    """Launches of the step kernels by ``(kernel, rows, threads)`` since
+    :func:`reset_counts`, from the card's counters."""
+    from repro_torch.kernels import launch_counts
+    return {k: n for k, n in launch_counts.read().items() if len(k) == 3}
+
+
+# The hash-table kernels run on every hash-dedup path beside the step
+# kernel; a path's check names them where it counts them (phase 21).
+PROBE_KERNELS = ("H1", "H2")
 
 
 def check_counts(path, counts, **want):
     """Each kernel named in ``want`` launched that many times on ``path``
-    (``None``: at least once), every other kernel not at all."""
+    (``None``: at least once), every other step or attention kernel not
+    at all (H1 and H2 only where named)."""
     for k, n in counts.items():
+        if k in PROBE_KERNELS and k not in want:
+            continue
         w = want.get(k, 0)
         ok = n > 0 if w is None else n == w
         check(ok, f"{path}: {k} launched {n} times, expected "
@@ -453,7 +507,9 @@ def check_counts(path, counts, **want):
 
 def phase_card_and_build():
     import torch
+    from repro_torch.core import graph_loop
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.hashtable import ops as ht_ops
     from repro_torch.kernels.snp_step import _build, ops, sparse_ops
 
     smi = subprocess.run(
@@ -471,12 +527,14 @@ def phase_card_and_build():
           "float32 matmul precision is not 'highest'")
     t0 = time.perf_counter()
     sources = [ops.SOURCE, ops.DELAY_SOURCE, sparse_ops.SOURCE,
-               attn_ops.SOURCE]
+               attn_ops.SOURCE, ht_ops.SOURCE, graph_loop.SOURCE]
     _build.build_all(sources)
     ops.load_kernel()
     ops.load_delay_kernel()
     sparse_ops.load_kernel()
     attn_ops.load_kernel()
+    ht_ops.load_kernel()
+    graph_loop.load_library()
     secs = time.perf_counter() - t0
     log(f"[1] built (in parallel) and loaded "
         f"{', '.join(s.name for s in sources)} in {secs:.2f} s; the sparse "
@@ -1720,6 +1778,7 @@ def phase_delay_full_width():
     check(_same_explore(a, b), "delayed hybrid archives or flags differ "
           "between 'sparse_cuda' and 'sparse'")
     check(not a.visited_overflow, "the delayed hybrid archive overflowed")
+    ARCHIVES["power_law(8192) d=k%3"] = _digest(a)
     log(f"[11] archives identical through 'sparse_cuda' and 'sparse' "
         f"({a.num_discovered} rows x {a.configs.shape[1]} columns); peak "
         f"allocation {peak / 2**30:.3f} / {peak_plain / 2**30:.3f} GiB")
@@ -2279,6 +2338,7 @@ def phase_sharded(single_dense):
             f"'sparse_cuda', 'ref' and 'sparse' ({a.num_discovered} rows x "
             f"{a.configs.shape[1]} neurons)")
         _against_single("14", a, single_dense, f"{part} partition")
+        ARCHIVES[f"scaled_pi(682) neuron_axis(4, {part})"] = _digest(a)
         if part == "contiguous":
             contiguous = a
         del res, a
@@ -3218,12 +3278,11 @@ KERNEL_OF = {("cuda", "dense", "no_delays"): "B1",
              ("sparse_cuda", "hybrid", "delays"): "B5-COO"}
 
 
-def _every_shape(label, kernel, mod, body, run, want, shapes, width=None,
-                 nbytes=2):
-    """``run(rows, threads)``, one launch of ``kernel`` (``body`` in
-    ``mod.block_launches``), at every shape of ``shapes``: bit-identical
-    to ``want``, the plain version's outputs, and, by the shape counters,
-    one launch at exactly the requested shape.  A shape whose stage of
+def _every_shape(label, kernel, run, want, shapes, width=None, nbytes=2):
+    """``run(rows, threads)``, one launch of ``kernel``, at every shape of
+    ``shapes``: bit-identical to ``want``, the plain version's outputs,
+    and, by the card's shape counters, one launch at exactly the requested
+    shape.  A shape whose stage of
     ``width + 1`` values of ``nbytes`` bytes a row passes 227 KB must be
     refused (``ValueError``) before any launch.  Returns the shapes run
     and refused."""
@@ -3234,22 +3293,22 @@ def _every_shape(label, kernel, mod, body, run, want, shapes, width=None,
     for rows, threads in shapes:
         fits = width is None or \
             rows * (width + 1) * nbytes <= sparse_ops.SMEM_LIMIT
-        before = dict(mod.block_launches)
+        before = shape_counts()
         try:
             got = run(rows, threads)
         except ValueError as e:
             check(not fits, f"{label}: {kernel} refused {rows} x {threads}, "
                   f"whose stage fits: {e}")
-            check(mod.block_launches == before,
+            check(shape_counts() == before,
                   f"{label}: a refused shape launched")
             refused.append([rows, threads])
             continue
         check(fits, f"{label}: {kernel} ran {rows} rows, past its stage")
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
-        delta = {k: v - before.get(k, 0) for k, v in mod.block_launches.items()
+        delta = {k: v - before.get(k, 0) for k, v in shape_counts().items()
                  if v != before.get(k, 0)}
-        shape = (body, rows, 256 if threads is None else threads)
+        shape = (kernel, rows, 256 if threads is None else threads)
         check(delta == {shape: 1}, f"{label}: asked {kernel} for {rows} x "
               f"{threads}, the counters saw {delta}")
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -3314,7 +3373,7 @@ def phase_planner_kernels():
         args, _ = _step_inputs(comp, make(comp.num_neurons))
         cols = (comp.col_start, comp.col_rule, comp.col_val)
         note("B1", _every_shape(
-            name, "B1", ops, "B1",
+            name, "B1",
             lambda r, t: ops.snp_step_dense(*args[:7], cols, T, rows=r,
                                             threads=t),
             snp_step_dense_ref(*args, T), B1_SHAPES))
@@ -3338,9 +3397,9 @@ def phase_planner_kernels():
         configs = make(comp.num_neurons)
         args, coo, _ = kernel_inputs(configs, comp)
         kargs, kcoo, _ = kernel_inputs(configs, comp, lists=True)
-        kernel, body = ("B3", "coo") if comp.is_hybrid else ("B2", "ell")
+        kernel = "B3" if comp.is_hybrid else "B2"
         note(kernel, _every_shape(
-            name, kernel, sparse_ops, body,
+            name, kernel,
             lambda r, t: sparse_ops.snp_step_sparse_cuda(
                 *kargs, **kcoo, max_branches=T, rows=r, threads=t),
             snp_step_sparse_ref(*args, **coo, max_branches=T), SELL_SHAPES,
@@ -3365,7 +3424,7 @@ def phase_planner_kernels():
             pargs, _ = ops.delay_inputs(states, comp)
             dargs, _ = ops.delay_inputs(states, comp, lists=True)
             note("B4", _every_shape(
-                name, "B4", ops, "B4",
+                name, "B4",
                 lambda r, t: ops.snp_step_dense_delay(*dargs, T, rows=r,
                                                       threads=t),
                 snp_step_dense_delay_ref(*pargs, T), SELL_SHAPES, m, 4))
@@ -3374,10 +3433,9 @@ def phase_planner_kernels():
                                      semantics="delays", device=dev)
         args, extra, _ = kernel_inputs(states, comp)
         kargs, kextra, _ = kernel_inputs(states, comp, lists=True)
-        kernel, body = ("B5-COO", "coo_delay") if comp.is_hybrid \
-            else ("B5-ELL", "ell_delay")
+        kernel = "B5-COO" if comp.is_hybrid else "B5-ELL"
         note(kernel, _every_shape(
-            name, kernel, sparse_ops, body,
+            name, kernel,
             lambda r, t: sparse_ops.snp_step_sparse_cuda(
                 *kargs, **kextra, max_branches=T, rows=r, threads=t),
             snp_step_sparse_ref(*args, **extra, max_branches=T), SELL_SHAPES,
@@ -3396,14 +3454,14 @@ def phase_planner_kernels():
             sh, info, f = shards[d], lv.infos[d], frontier[d]
             a6 = _b6_args(sh, f, info, lv.strides[d], lv.psi, lv.halos[d])
             note("B6", _every_shape(
-                f"{name} shard {d}", "B6", ops, "B6",
+                f"{name} shard {d}", "B6",
                 lambda r, t: ops.snp_step_dense_shard_cuda(
                     *a6[:7], sh.cols, a6[9], T, rows=r, threads=t),
                 (snp_step_dense_shard_ref(*a6, T),), B6_SHAPES))
             a7, h7 = _b7_args(sh, f, info, lv.strides[d], lv.psi, lv.tabs[d],
                               lv.halos[d])
             note("B7", _every_shape(
-                f"{name} shard {d}", "B7", sparse_ops, "halo",
+                f"{name} shard {d}", "B7",
                 lambda r, t: sparse_ops.snp_step_sparse_cuda(
                     *a7[:5], *sh.sell, a7[6], halo=h7, max_branches=T,
                     rows=r, threads=t)[0],
@@ -3416,7 +3474,7 @@ def phase_planner_kernels():
 
 
 def _launched_shape(plan, kernel, m, T):
-    """The ``block_launches`` key ``plan``'s ``kernel`` launches under at
+    """The shape-counter key ``plan``'s ``kernel`` launches under at
     ``m`` neurons and ``T`` branches: the plan's block shape, the
     library's rule where it names none."""
     from repro_torch.kernels.snp_step import ops, sparse_ops
@@ -3426,17 +3484,14 @@ def _launched_shape(plan, kernel, m, T):
         return ("B1", *ops.dense_block_shape(bt, nt))
     if kernel == "B4":
         return ("B4", *ops.delay_block_shape(m, T, bt, nt))
-    body = {"B2": "ell", "B3": "coo", "B5-ELL": "ell_delay",
-            "B5-COO": "coo_delay"}[kernel]
-    return (body, *sparse_ops.sell_block_shape(m, 0, T, bt, nt))
+    return (kernel, *sparse_ops.sell_block_shape(m, 0, T, bt, nt))
 
 
 def _check_shapes(label, plan, kernel, m, T, waves):
     """Every launch of the explore just run was ``kernel`` at the shape
     ``plan`` gives it; returns that shape."""
-    from repro_torch.kernels.snp_step import ops, sparse_ops
     key = _launched_shape(plan, kernel, m, T)
-    seen = {**ops.block_launches, **sparse_ops.block_launches}
+    seen = shape_counts()
     check(seen == {key: waves}, f"{label}: the explore launched {seen}, "
           f"not {waves} x {key}")
     return list(key[1:])
@@ -3769,6 +3824,7 @@ def phase_dense_rows():
         f"'sparse_cuda' (ELL) and 'ref' ({a.num_discovered} rows x "
         f"{a.configs.shape[1]} neurons, the ranks' archives in rank order)")
     dense_rows = a
+    ARCHIVES["scaled_pi(682) dense rows R=4"] = _digest(a)
     del res
     one = {}
     for backend, kernel in (("cuda", "B1"), ("ref", None)):
@@ -3908,6 +3964,569 @@ def phase_dense_rows():
     return launches, figures
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the zero-host-sync BFS and the hash-table kernels H1 and H2
+# ---------------------------------------------------------------------------
+
+# (b): random_system(9, 2, 0.3, seed=9) drains at level 4 of 32 (hash
+# dedup named: at these caps "auto" would sort)
+DRAIN = dict(max_steps=32, frontier_cap=64, visited_cap=512, max_branches=64)
+# (d): the full-width B1 explore in chunks of 3 levels: 3 chunks of 8
+CKPT_EVERY = 3
+# (c): the full-width wave against a table of FULL_WIDTH's capacity, this
+# many keys present
+PROBE_PRESENT = 100_000
+PROBE_D = 64
+
+
+def _probe_launches(units=1):
+    """H1 and H2 launches of a hash-dedup run over ``units`` tables (ranks
+    or shards), as functions of its levels: a lookup and two claim rounds
+    (first occurrence, insert) a table a level, and a table's initial
+    insert."""
+    return {"H1": lambda w: units * w, "H2": lambda w: units * (2 * w + 1)}
+
+
+def _synced_run(label, run, want, archive):
+    """``run()``, one un-checkpointed explore, inside ``sync_check()``: its
+    launches (``want``: kernel -> launches, or a function of the levels),
+    at most 2 host reads, its archive that of ``ARCHIVES[archive]``; then
+    the profiler's device time of another run.  Returns its figures."""
+    import torch
+    from repro_torch.core import device as devmod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    devmod.host_reads = 0
+    t0 = time.perf_counter()
+    with devmod.sync_check():
+        res = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, reads = read_counts(), devmod.host_reads
+    peak = torch.cuda.max_memory_allocated()
+    waves = res.steps
+    expect = {k: (v(waves) if callable(v) else v) for k, v in want.items()}
+    check_counts(f"[21] {label}", counts, **expect)
+    check(reads <= 2, f"[21] {label}: {reads} host reads, expected <= 2")
+    check(_digest(res) == ARCHIVES[archive],
+          f"[21] {label}: the archive differs from the earlier phase's "
+          f"({archive})")
+    # every level runs once on the card (the first eagerly, the rest in
+    # the graph), so the device time divides by the levels alone
+    dev_ms = device_ms(run, 1)
+    fig = dict(waves=waves, host_reads=reads, waves_per_s=waves / secs,
+               wall_ms_per_level=secs * 1e3 / waves,
+               device_ms_per_level=dev_ms / waves,
+               device_busy_share=dev_ms / (secs * 1e3),
+               peak_gib=peak / 2**30,
+               launches={k: counts[k] for k in expect})
+    log(f"[21] {label}: sync check passed, {reads} host reads in {waves} "
+        f"waves (phase 5-20 figure: 16-77.75 a wave), {secs:.3f} s = "
+        f"{fig['waves_per_s']:.3f} waves/s, wall "
+        f"{fig['wall_ms_per_level']:.3f} ms a level (the eager first level "
+        f"and the capture included) against "
+        f"{fig['device_ms_per_level']:.3f} device ms a level (profiler, "
+        f"{dev_ms:.3f} ms over {waves} levels), "
+        f"archive identical to {archive!r} ({res.num_discovered} rows), "
+        f"launches {json.dumps(fig['launches'])}, max_memory_allocated "
+        f"{fig['peak_gib']:.3f} GiB")
+    return fig
+
+
+def _zero_sync_explores():
+    """(a): the un-checkpointed full-width explores of phases 5-20 inside
+    the sync check.  Returns ({kernel: {path: launches}}, figures)."""
+    import torch
+    from repro_torch.core import (SystemPlan, compile_sharded,
+                                  compile_system, compile_system_sparse,
+                                  explore, get_backend, resolve_dedup,
+                                  with_delays)
+    from repro_torch.core.distributed import explore_distributed
+    from repro_torch.core.generators import power_law, scaled_pi
+    from repro_torch.sharding import neuron_axis
+
+    k3 = (lambda k, r: k % 3)
+    pi, hubby = scaled_pi(682), power_law(8192, 4, seed=2)
+    hplan = SystemPlan.for_system(hubby)
+    dhub = with_delays(hubby, k3)
+    dplan = SystemPlan.for_system(dhub, semantics="delays")
+    # compiled here, outside the check: lowering copies host arrays
+    comps = {
+        "dense": lambda: compile_system(pi, device="cuda"),
+        "ell": lambda: compile_system_sparse(pi, device="cuda"),
+        "hybrid": lambda: compile_system_sparse(
+            hubby, hub_threshold=hplan.hub_threshold, device="cuda"),
+        "delayed": lambda: compile_system(with_delays(pi, k3),
+                                          semantics="delays", device="cuda"),
+        "delayed_ell": lambda: compile_system_sparse(
+            with_delays(pi, k3), semantics="delays", device="cuda"),
+        "delayed_hybrid": lambda: compile_system_sparse(
+            dhub, hub_threshold=dplan.hub_threshold, semantics="delays",
+            device="cuda")}
+    single = _probe_launches()
+    # (path, compiled, backend, step kernel, caps, archive key)
+    runs = [
+        ("zero_sync_full_width_explore", "dense", "cuda", "B1", FULL_WIDTH,
+         "scaled_pi(682)"),
+        ("zero_sync_ref_explore", "dense", "ref", None, FULL_WIDTH,
+         "scaled_pi(682)"),
+        ("zero_sync_ell_explore", "ell", "sparse_cuda", "B2", FULL_WIDTH,
+         "scaled_pi(682)"),
+        ("zero_sync_hybrid_explore", "hybrid", "sparse_cuda", "B3",
+         FULL_WIDTH, "power_law(8192)"),
+        ("zero_sync_sparse_hybrid_explore", "hybrid", "sparse", None,
+         FULL_WIDTH, "power_law(8192)"),
+        ("zero_sync_delayed_explore", "delayed", "cuda", "B4", FULL_WIDTH,
+         "scaled_pi(682) d=k%3"),
+        ("zero_sync_delayed_ell_explore", "delayed_ell", "sparse_cuda",
+         "B5-ELL", FULL_WIDTH, "scaled_pi(682) d=k%3"),
+        ("zero_sync_delayed_hybrid_explore", "delayed_hybrid",
+         "sparse_cuda", "B5-COO", DELAY_HYBRID, "power_law(8192) d=k%3")]
+    launches = {}
+    figures = {}
+
+    def note(path, fig):
+        figures[path] = fig
+        for k, n in fig["launches"].items():
+            launches.setdefault(k, {})[path] = n
+
+    built = {}
+    for path, key, backend, kernel, caps, archive in runs:
+        if key not in built:
+            built.clear()
+            torch.cuda.empty_cache()
+            built[key] = comps[key]()
+        comp = built[key]
+        # the delayed hybrid's 65,536-row archive resolves to sort dedup:
+        # no table, so no probe kernel
+        sort = resolve_dedup("auto", frontier_cap=caps["frontier_cap"],
+                             visited_cap=caps["visited_cap"],
+                             max_branches=caps["max_branches"]) == "sort"
+        want = dict({"H1": 0, "H2": 0} if sort else single,
+                    **({kernel: lambda w: w} if kernel else {}))
+        note(path, _synced_run(
+            f"{path}: explore({archive}) via {backend!r}",
+            lambda: explore(comp, backend=backend, **caps), want, archive))
+    built.clear()
+    torch.cuda.empty_cache()
+
+    S = 4
+    for part in ("contiguous", "degree"):
+        comp = compile_sharded(pi, neuron_axis(S, partition=part),
+                               device="cuda")
+        lowered = get_backend("cuda").lower(comp, comp.plan)
+        for backend, kernel, c in (("cuda", "B6", lowered),
+                                   ("sparse_cuda", "B7", comp)):
+            path = f"zero_sync_sharded_{part}_explore"
+            want = dict(_probe_launches(S), **{kernel: lambda w: S * w})
+            note(f"{path}_{kernel}", _synced_run(
+                f"{path}: explore_distributed(scaled_pi(682), "
+                f"neuron_axis(4, {part})) via {backend!r}",
+                lambda: explore_distributed(c, backend=backend, **SHARDED),
+                want, f"scaled_pi(682) neuron_axis(4, {part})"))
+        del comp, lowered
+        torch.cuda.empty_cache()
+
+    dense = comps["dense"]()
+    R = DENSE_RANKS
+    note("zero_sync_dense_row_explore", _synced_run(
+        "zero_sync_dense_row_explore: explore_distributed(scaled_pi(682)), "
+        f"dense rows, {R} ranks via 'cuda'",
+        lambda: explore_distributed(dense, mesh=["cuda"] * R,
+                                    backend="cuda", **DENSE_ROWS),
+        dict(_probe_launches(R), B1=lambda w: R * w),
+        "scaled_pi(682) dense rows R=4"))
+    del dense
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+def _drained_tree():
+    """(b): a tree that drains before ``max_steps``, on the card (inside
+    the sync check) and on the CPU: the same archive and steps, and each
+    kernel's launches equal to its plain version's calls."""
+    import numpy as np
+    from repro_torch.core import compile_system, explore
+    from repro_torch.core.device import sync_check
+    from repro_torch.core.generators import random_system
+    from repro_torch.kernels.hashtable import ops as ht_ops
+    from repro_torch.kernels.snp_step import ops
+
+    system = random_system(9, 2, 0.3, seed=9)
+    ops.plain_calls = ht_ops.lookup_plain_calls = 0
+    ht_ops.claim_plain_calls = 0
+    cpu = explore(compile_system(system, device="cpu"), backend="cuda",
+                  device="cpu", dedup="hash", **DRAIN)
+    plain = {"B1": ops.plain_calls, "H1": ht_ops.lookup_plain_calls,
+             "H2": ht_ops.claim_plain_calls}
+    comp = compile_system(system, device="cuda")
+    reset_counts()
+    with sync_check():
+        card = explore(comp, backend="cuda", dedup="hash", **DRAIN)
+    counts = read_counts()
+    check(card.steps == cpu.steps < DRAIN["max_steps"] and card.exhausted
+          and cpu.exhausted, f"[21] (b) the tree did not drain alike: "
+          f"{card.steps}/{cpu.steps} steps, exhausted {card.exhausted}/"
+          f"{cpu.exhausted}")
+    check(np.array_equal(card.configs, cpu.configs),
+          "[21] (b) the drained tree's archive differs from the CPU's")
+    check_counts("[21] (b) drained tree", counts, **plain)
+    log(f"[21] (b) random_system(9, 2, 0.3, seed=9) drains at level "
+        f"{card.steps} of {DRAIN['max_steps']} on the card as on the CPU "
+        f"({card.num_discovered} configs); launches "
+        f"{json.dumps({k: counts[k] for k in plain})} "
+        f"equal the CPU run's plain calls {json.dumps(plain)}")
+    return {k: counts[k] for k in plain}
+
+
+def _fmix_np(x):
+    import numpy as np
+    M = np.uint64(0xFFFFFFFF)
+    x = x ^ (x >> np.uint64(16))
+    x = (x * np.uint64(0x85EBCA6B)) & M
+    x = x ^ (x >> np.uint64(13))
+    x = (x * np.uint64(0xC2B2AE35)) & M
+    return x ^ (x >> np.uint64(16))
+
+
+def _forged_keys(rng, S, slot, n):
+    """``n`` distinct keys (hi, lo int64) whose chains start at ``slot`` of
+    a table of ``S`` slots (H1's and H2's base slot)."""
+    import numpy as np
+    found = []
+    while sum(len(f) for f in found) < n:
+        k = rng.integers(0, 2**32, size=(2, 1 << 22), dtype=np.uint64)
+        mixed = _fmix_np(k[0] ^ ((k[1] * np.uint64(0x9E3779B1))
+                                 & np.uint64(0xFFFFFFFF)))
+        found.append(k[:, (mixed & np.uint64(S - 1)) == slot])
+    keys = np.concatenate(found, 1)[:, :n].astype(np.int64)
+    return keys
+
+
+def _probe_reads(s_hi, s_lo, hi, lo, pending, D, claim):
+    """The slots H1 (``claim`` False) or H2 reads for these keys, one a
+    pending candidate a probe or a round, counted by the plain versions'
+    loops (for the bound)."""
+    import torch
+    from repro_torch.kernels.hashtable.ref import base_slot
+    S, K = s_hi.shape[0], hi.shape[0]
+    SENT = 0xFFFFFFFF
+    base = base_slot(hi, lo, S)
+    pending, reads = pending.clone(), 0
+    probe = torch.zeros_like(hi)
+    idx = torch.arange(K, device=hi.device)
+    s_hi, s_lo = s_hi.clone(), s_lo.clone()
+    for _ in range(2 * D + 1 if claim else D):
+        if not bool(pending.any()):
+            break
+        reads += int(pending.sum())
+        slot = (base + probe) & (S - 1)
+        ch, cl = s_hi[slot], s_lo[slot]
+        match = pending & (ch == hi) & (cl == lo)
+        empty = (ch == SENT) & (cl == SENT)
+        if not claim:
+            pending &= ~match & ~empty
+            probe = probe + 1
+            continue
+        try_claim = pending & ~match & empty
+        cw = torch.full((S,), K, dtype=torch.int64, device=hi.device)
+        cw.scatter_reduce_(0, slot, torch.where(try_claim, idx, K), "amin")
+        win = try_claim & (cw[slot] == idx)
+        w = cw.clamp(max=K - 1)
+        s_hi = torch.where(cw < K, hi[w], s_hi)
+        s_lo = torch.where(cw < K, lo[w], s_lo)
+        probe = probe + (pending & ~match & ~empty)
+        pending = pending & ~match & ~win & ~(probe >= D)
+    return reads
+
+
+def _probe_bound_ms(K, reads, won, claim):
+    """The least time for H1 or H2's work at 3.35 TB/s: the keys (16 B), a
+    mask byte (and H2's payload, 4 B) read once a candidate, 16 B a slot
+    read (H1 also the 4-byte payload of a hit), and the outputs written
+    once (H1: found and payload, 5 B a candidate; H2: won and dup, 2 B a
+    candidate, 20 B a slot won).  H2's claim words are its own scratch,
+    not work the function needs, so they are not counted."""
+    if claim:
+        nbytes = K * (16 + 1 + 4) + reads * 16 + K * 2 + won * 20
+    else:
+        nbytes = K * (16 + 1) + reads * 16 + won * 4 + K * 5
+    return nbytes / 3.35e12 * 1e3, nbytes
+
+
+def _profiler_events(label, fn):
+    """Log the device events ``torch.profiler`` records for one ``fn()``:
+    their count and names (an open question of phase 21's H1/H2 times)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name[:60] for e in prof.events()
+                    if e.device_type == DeviceType.CUDA})
+    log(f"[21] (c) the profiler over {label}: {len(names)} device event "
+        f"name(s) {names}")
+
+
+def _replay_ms(fn, reps=20, iters=10):
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in a
+    CUDA graph, its replay timed by CUDA events (no host work between the
+    launches).  The profiler showed no device event for H1's and H2's
+    launches outside a graph in this phase, so their device time is
+    taken this way."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        for _ in range(reps):
+            fn()
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    ms = time_ms(g.replay, iters) / reps
+    g.reset()
+    return ms
+
+
+def _probe_kernels():
+    """(c): H1 and H2 against their plain versions, bit for bit.  Returns
+    ({kernel: max_abs_err over every case}, {kernel: wave figures})."""
+    import numpy as np
+    import torch
+    from repro_torch.core import make_table, table_slots
+    from repro_torch.kernels.hashtable import ops as ht_ops
+    from repro_torch.kernels.hashtable.ref import claim_ref, lookup_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    SENT = 0xFFFFFFFF
+    D = PROBE_D
+    cases = 0
+    errs = {"H1": 0, "H2": 0}
+
+    def t(x, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    def same(kernel, label, got, want):
+        for g, w in zip(got, want):
+            w = w.to(g.dtype)
+            if g.numel():
+                errs[kernel] = max(errs[kernel], int(
+                    (g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+            check(torch.equal(g, w),
+                  f"[21] (c) {kernel} {label}: the kernel differs from its "
+                  "plain version")
+
+    def scratch(S):
+        return (torch.full((S,), SENT, dtype=torch.int64, device=dev),
+                torch.full((S,), SENT, dtype=torch.int64, device=dev),
+                torch.zeros((S,), dtype=torch.int32, device=dev))
+
+    def claim_both(label, table, hi, lo, pend, pay):
+        """H2 on a copy of ``table`` against the plain version; returns
+        the kernel's table and outputs."""
+        nonlocal cases
+        k_tab = tuple(x.clone() for x in table)
+        won, dup, ovf = ht_ops.claim_(*k_tab, hi, lo, pend, pay, D)
+        p_hi, p_lo, p_pay, p_won, p_dup, p_ovf = claim_ref(
+            *table, hi, lo, pend, pay, D)
+        same("H2", label, (*k_tab, won, dup, ovf),
+             (p_hi, p_lo, p_pay, p_won, p_dup, p_ovf))
+        cases += 1
+        return k_tab, won, dup, ovf
+
+    def lookup_both(label, table, hi, lo, valid):
+        nonlocal cases
+        got = ht_ops.lookup(*table, hi, lo, valid, D)
+        same("H1", label, got, lookup_ref(*table, hi, lo, valid, D))
+        cases += 1
+        return got
+
+    # the full-width wave against a table of 262,144 keys' capacity
+    V = FULL_WIDTH["visited_cap"]
+    S = table_slots(V)
+    tab = make_table(V, dev)
+    base = (tab.slots_hi, tab.slots_lo, tab.slot_payload)
+    keys = rng.integers(0, 2**32, size=(2, PROBE_PRESENT), dtype=np.uint64)
+    keys = keys.astype(np.int64)
+    present = (t(keys[0]), t(keys[1]))
+    n = PROBE_PRESENT
+    filled, won, _, _ = claim_both(
+        f"{n} keys into {S} slots", base, *present,
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev))
+    check(bool(won.all()), "[21] (c) a present key was not inserted")
+    K = FULL_WIDTH["frontier_cap"] * FULL_WIDTH["max_branches"]
+    fresh = rng.integers(0, 2**32, size=(2, K // 4), dtype=np.uint64)
+    pick = rng.integers(0, n, size=K // 2)
+    wave = np.concatenate([keys[:, pick], fresh.astype(np.int64)], 1)
+    wave = np.concatenate([wave, wave[:, rng.integers(0, wave.shape[1],
+                                                      size=K // 4)]], 1)
+    wave = wave[:, rng.permutation(K)]
+    hi, lo = t(wave[0]), t(wave[1])
+    valid = t(rng.random(K) < 0.9, torch.bool)
+    found, _ = lookup_both("the full-width wave", filled, hi, lo, valid)
+    S2 = table_slots(K)
+    _, first, _, _ = claim_both(
+        "first occurrence at the wave", scratch(S2), hi, lo, valid,
+        torch.zeros(K, dtype=torch.int32, device=dev))
+    ins = valid & first & ~found
+    pay = torch.arange(n, n + K, dtype=torch.int32, device=dev)
+    claim_both("insert at the wave", filled, hi, lo, ins, pay)
+
+    # figures at the wave: H1 against the filled table, H2 the first
+    # occurrence on a fresh scratch table (its fills timed apart)
+    rows = {}
+    h1_ms = time_ms(lambda: ht_ops.lookup(*filled, hi, lo, valid, D), 50)
+    h1_plain = time_ms(lambda: lookup_ref(*filled, hi, lo, valid, D), 3)
+    sc = scratch(S2)
+    zero = torch.zeros(K, dtype=torch.int32, device=dev)
+
+    def refill():
+        sc[0].fill_(SENT)
+        sc[1].fill_(SENT)
+        sc[2].zero_()
+
+    fill_ms = time_ms(refill, 50)
+    h2_ms = time_ms(lambda: (refill(), ht_ops.claim_(*sc, hi, lo, valid,
+                                                      zero, D)), 50)
+    h2_plain = time_ms(lambda: claim_ref(*scratch(S2), hi, lo, valid, zero,
+                                         D), 3)
+    r1 = _probe_reads(*filled[:2], hi, lo, valid, D, False)
+    r2 = _probe_reads(*scratch(S2)[:2], hi, lo, valid, D, True)
+    b1, n1 = _probe_bound_ms(K, r1, int(found.sum()), False)
+    b2, n2 = _probe_bound_ms(K, r2, int(first.sum()), True)
+    blocks, threads = ht_ops.claim_block_shape(K, S2)
+    # the card's own time of each kernel (events around single calls time
+    # the launcher too): calls captured in a graph, the replay timed
+    _profiler_events("H1's launch alone",
+                     lambda: ht_ops.lookup(*filled, hi, lo, valid, D))
+    h1_dev = _replay_ms(lambda: ht_ops.lookup(*filled, hi, lo, valid, D))
+    h2_dev = _replay_ms(lambda: (refill(), ht_ops.claim_(
+        *sc, hi, lo, valid, zero, D))) - _replay_ms(refill)
+    rows["H1"] = dict(ms=h1_ms, device_ms=h1_dev, plain_ms=h1_plain,
+                      bound_ms=b1, bound_by="bytes", library_ms=None,
+                      bytes=n1, slot_reads=r1, K=K, slots=S)
+    rows["H2"] = dict(ms=h2_ms - fill_ms, device_ms=h2_dev,
+                      plain_ms=h2_plain, bound_ms=b2, bound_by="bytes",
+                      library_ms=None, bytes=n2, slot_reads=r2, K=K,
+                      slots=S2, ms_with_fill=h2_ms, fill_ms=fill_ms,
+                      grid=[blocks, threads])
+    for k, r in rows.items():
+        log(f"[21] (c) {k} at the full-width wave (K={K}, {r['slots']} "
+            f"slots): {r['ms']:.4f} ms (CUDA events), {r['device_ms']:.4f} "
+            f"ms on the card (20 calls in a graph, replayed), plain version "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bytes']} bytes, {r['slot_reads']} slot reads)"
+            + (f"; H2's grid {blocks} x {threads} (cooperative), the "
+               f"scratch fills {fill_ms:.4f} ms of {h2_ms:.4f}"
+               if k == "H2" else ""))
+
+    # forged keys on one base slot of a 1,024-slot table: 100 chains past
+    # the 64-probe bound
+    Sf = table_slots(512)
+    forged = _forged_keys(rng, Sf, 7, 100)
+    fh, fl = t(forged[0]), t(forged[1])
+    ones = torch.ones(100, dtype=torch.bool, device=dev)
+    ftab, fwon, _, fovf = claim_both(
+        "100 forged keys on one base slot", scratch(Sf), fh, fl, ones,
+        torch.arange(100, dtype=torch.int32, device=dev))
+    check(bool(fovf) and int(fwon.sum()) == D,
+          f"[21] (c) forged chain: {int(fwon.sum())} inserted, overflow "
+          f"{bool(fovf)}; expected {D} and an overflow")
+    lookup_both("the forged keys", ftab, fh, fl, ones)
+    claim_both("the forged keys again (duplicates)", ftab, fh, fl, ones,
+               torch.zeros(100, dtype=torch.int32, device=dev))
+
+    # equal keys in one batch: the lowest index of each group wins
+    groups = rng.integers(0, 2**32, size=(2, 300), dtype=np.uint64)
+    which = rng.integers(0, 300, size=4096)
+    eq = groups[:, which].astype(np.int64)
+    eh, el = t(eq[0]), t(eq[1])
+    _, ewon, _, _ = claim_both(
+        "4,096 keys of 300 distinct", scratch(table_slots(4096)), eh, el,
+        torch.ones(4096, dtype=torch.bool, device=dev),
+        torch.zeros(4096, dtype=torch.int32, device=dev))
+    lowest = np.unique(which, return_index=True)[1]
+    check(np.array_equal(np.flatnonzero(ewon.cpu().numpy()), np.sort(lowest)),
+          "[21] (c) equal keys: the winners are not each group's lowest "
+          "index")
+    log(f"[21] (c) H1 and H2 bit-identical to their plain versions in "
+        f"{cases} cases: {n} keys into {S} slots, the full-width wave "
+        f"(lookup, first occurrence, insert), 100 forged keys on one base "
+        f"slot of {Sf} ({D} inserted, the rest past the {D}-probe bound), "
+        f"their lookup and duplicates, and 4,096 keys of 300 (each group's "
+        f"lowest index wins); max_abs_err {json.dumps(errs)}")
+    return errs, rows
+
+
+def _checkpointed():
+    """(d): the full-width B1 explore checkpointed every CKPT_EVERY
+    levels: one read a chunk, the archive of phase 5."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core import compile_system, explore
+    from repro_torch.core import device as devmod
+    from repro_torch.core.generators import scaled_pi
+
+    comp = compile_system(scaled_pi(682), device="cuda")
+    d = tempfile.mkdtemp(prefix="snp-zero-sync-")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        devmod.host_reads = 0
+        t0 = time.perf_counter()
+        res = explore(comp, backend="cuda", checkpoint_dir=d,
+                      checkpoint_every=CKPT_EVERY, **FULL_WIDTH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, reads = read_counts(), devmod.host_reads
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    chunks = math.ceil(res.steps / CKPT_EVERY)
+    check(reads == chunks + 2, f"[21] (d) {reads} host reads for {chunks} "
+          "chunks; expected one a chunk and two at the end")
+    check(_digest(res) == ARCHIVES["scaled_pi(682)"],
+          "[21] (d) the checkpointed archive differs from phase 5's")
+    want = {"B1": res.steps, "H1": res.steps, "H2": 2 * res.steps + 1}
+    check_counts("[21] (d) checkpointed explore", counts, **want)
+    log(f"[21] (d) explore(scaled_pi(682)) via 'cuda' checkpointed every "
+        f"{CKPT_EVERY} levels: {res.steps} levels in {chunks} chunks, "
+        f"{reads} host reads ({chunks} chunks + 2 at the end), "
+        f"{secs:.3f} s, archive identical to phase 5's, launches "
+        f"{json.dumps(want)}")
+    return {k: counts[k] for k in want}
+
+
+def phase_zero_sync():
+    """Phase 21 (module docstring).  Returns ({kernel: {path: launches}},
+    {kernel: max_abs_err} of H1 and H2, their wave figures, the explores'
+    figures)."""
+    import torch
+    log(f"[21] the level loop: one CUDA graph, a conditional WHILE node "
+        f"around one captured level (core/csrc/graph_loop.cu; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}); no other route")
+    launches, figures = _zero_sync_explores()
+    for k, n in _drained_tree().items():
+        launches.setdefault(k, {})["zero_sync_drained_tree"] = n
+    err, rows = _probe_kernels()
+    for k, n in _checkpointed().items():
+        launches.setdefault(k, {})["zero_sync_checkpointed_explore"] = n
+    return launches, err, rows, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3954,6 +4573,7 @@ def main() -> int:
         planned, _ = phase_planner()
         planned["open_plans"] = phase_open_plans()
         dense_paths, dense_figures = phase_dense_rows()
+        sync_paths, probe_err, probe_rows, sync_figures = phase_zero_sync()
         check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
@@ -3971,10 +4591,13 @@ def main() -> int:
                  "B5-COO": "full_width_delayed_hybrid_explore",
                  "B6": "sharded_contiguous_explore",
                  "B7": "sharded_contiguous_explore",
-                 "B8-TC": "full_width_prefill", "B8-TF32": "f32_prefill"}
+                 "B8-TC": "full_width_prefill", "B8-TF32": "f32_prefill",
+                 "H1": "zero_sync_full_width_explore",
+                 "H2": "zero_sync_full_width_explore"}
     by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
-               **served}
-    for k, paths in list(snp_paths.items()) + list(dense_paths.items()):
+               **served, "H1": {}, "H2": {}}
+    for k, paths in (list(snp_paths.items()) + list(dense_paths.items())
+                     + list(sync_paths.items())):
         by_path[k].update(paths)
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
@@ -3985,7 +4608,7 @@ def main() -> int:
                                    "power_law(8192) delayed hybrid wave")],
              "B6": shard_rows[("B6", "scaled_pi(682) wave S=4")],
              "B7": shard_rows[("B7", "scaled_pi(682) wave S=4")],
-             **attn_rows}
+             **attn_rows, **probe_rows}
     # B2's and the shard kernels' other waves, beside their main path's
     other_waves = {k: {name: row for (kk, name), row in shard_rows.items()
                        if kk == k and row is not waves[k]}
@@ -3993,7 +4616,8 @@ def main() -> int:
     other_waves["B2"] = {"ring_lattice(32768,8) wave":
                          sparse_rows["ring_lattice(32768,8) wave"]}
     errs = {"B1": dense_err, **sparse_err, **delay_err, **shard_err,
-            **{k: max(e.values()) for k, e in attn_errs.items()}}
+            **{k: max(e.values()) for k, e in attn_errs.items()},
+            **probe_err}
     # B8's extras, per body: its error per dtype, the f32-pipe and
     # split-TF32 figures and which way binds, the rate, a second timing,
     # SDPA on repeated k/v, the launch
@@ -4022,14 +4646,15 @@ def main() -> int:
             **({"block": w["block"]} if "block" in w else {}),
             **({"shapes_checked": shapes[k]} if k in shapes else {}),
             **extras.get(k, {})))
-        log(f"[21] {k} {meta['name']} ({meta['route']}): "
+        log(f"[22] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[21] SNP service figures: {json.dumps(snp_figures)}")
-    log(f"[21] planner figures: {json.dumps(planned)}")
-    log(f"[21] dense-row and distributed-trace figures: "
+    log(f"[22] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[22] planner figures: {json.dumps(planned)}")
+    log(f"[22] dense-row and distributed-trace figures: "
         f"{json.dumps(dense_figures)}")
-    log(f"[21] card: {card}")
+    log(f"[22] zero-host-sync explore figures: {json.dumps(sync_figures)}")
+    log(f"[22] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

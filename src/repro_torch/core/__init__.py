@@ -11,7 +11,10 @@
   same step on the sparse encoding, and the delayed tier's steps on both
   (``SystemPlan(semantics="delays")``);
 * :mod:`.backend` — the ``"ref"``, ``"cuda"``, ``"sparse"`` and
-  ``"sparse_cuda"`` step backends (:func:`available_backends`); the kernel
+  ``"sparse_cuda"`` step backends (:func:`available_backends`), and
+  :func:`register_backend` for others (any object with ``name`` and
+  ``expand`` resolves, :func:`supported_under`, :func:`compile_with_plan`
+  and :func:`lower_with_backend` cover the hooks it lacks); the kernel
   backends carry a :class:`KernelConfig` block shape
   (:func:`resolve_kernel`);
 * :mod:`.autotune` — the query planner and block autotuner the entry
@@ -21,7 +24,9 @@
 * :func:`explore`, :func:`successor_set`, :func:`emission_gaps`,
   :func:`run_traces`, :func:`run_trace` — the entry points
   (:mod:`.engine`), which run on the card unless ``device`` names another;
-  :func:`explore` checkpoints and resumes its :class:`ExploreState`;
+  :func:`explore` checkpoints and resumes its :class:`ExploreState`; on
+  the card its level loop is one CUDA graph with no host read
+  (:mod:`.graph_loop`);
 * :func:`explore_distributed`, :func:`run_traces_distributed` — the
   multi-device entry points (:mod:`.distributed`): the dense-row
   hash-partitioned and the neuron-sharded BFS, and traces with the batch
@@ -33,8 +38,9 @@
 
 from .backend import (CudaBackend, RefBackend, SparseBackend,
                       SparseCudaBackend, StepBackend, available_backends,
-                      get_backend, lower_with_backend, resolve_entry,
-                      resolve_entry_info, resolve_kernel, supports_sharded)
+                      compile_with_plan, get_backend, lower_with_backend,
+                      register_backend, resolve_entry, resolve_entry_info,
+                      resolve_kernel, supported_under, supports_sharded)
 from .convert import (compiled_from_arrays, sharded_from_arrays,
                       system_from_spec)
 from .generators import with_delays
@@ -47,7 +53,8 @@ from .failover import (DEGRADE_ORDER, KERNEL_BACKENDS, DegradeEvent,
                        is_backend_failure, record_degradation,
                        remove_degrade_listener, run_with_failover)
 from .hashtable import (HashTable, first_occurrence, insert_if_absent,
-                        insert_unique, lookup, make_table, table_slots)
+                        insert_unique, insert_unique_, lookup, make_table,
+                        table_slots)
 from .matrix import (CompiledSNP, CompiledSparseSNP, compile_system,
                      compile_system_sparse, is_compiled, is_delayed)
 from .plan import (DenseShardArrays, KernelConfig, ShardArrays,
@@ -74,7 +81,7 @@ __all__ = [
     "partition_neurons", "partition_stats",
     "system_from_spec", "compiled_from_arrays", "sharded_from_arrays",
     "HashTable", "make_table", "table_slots", "lookup", "first_occurrence",
-    "insert_unique", "insert_if_absent",
+    "insert_unique", "insert_unique_", "insert_if_absent",
     "applicability", "branch_info", "next_configs", "spiking_vectors",
     "sparse_branch_info", "packed_rule_table", "sparse_next_configs",
     "split_state", "delayed_branch_info", "sparse_delayed_branch_info",
@@ -83,7 +90,8 @@ __all__ = [
     "StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
     "SparseCudaBackend", "available_backends", "get_backend",
     "resolve_kernel", "resolve_entry", "supports_sharded",
-    "resolve_entry_info", "lower_with_backend",
+    "resolve_entry_info", "lower_with_backend", "register_backend",
+    "supported_under", "compile_with_plan",
     "DEGRADE_ORDER", "KERNEL_BACKENDS", "DegradeEvent",
     "degrade_candidates", "is_backend_failure",
     "run_with_failover", "record_degradation", "add_degrade_listener",

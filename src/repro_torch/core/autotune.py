@@ -86,8 +86,9 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .backend import (_check_kernel_plan, available_backends, get_backend,
-                      resolve_kernel)
+from .backend import (_check_kernel_plan, available_backends,
+                      compile_with_plan, get_backend, resolve_kernel,
+                      supported_under)
 from .device import DeviceLike, resolve_device
 from .failover import KERNEL_BACKENDS
 from .plan import KernelConfig, SystemPlan, _in_degrees, auto_hub_threshold
@@ -437,8 +438,7 @@ def _usable(choice: TunedChoice, *, sharded: bool,
             semantics: str = "no_delays", device: DeviceLike = None) -> bool:
     if choice.backend not in _names(device):
         return False
-    sup = get_backend(choice.backend).supported_encodings(
-        semantics=semantics)
+    sup = supported_under(get_backend(choice.backend), semantics)
     if sharded:
         return "sharded" in sup
     if not sup:
@@ -513,8 +513,7 @@ def model_choice(sig: WorkloadSignature, *, sharded: bool = False,
     fits = _fitted_curves(tier, own)
     best: Optional[TunedChoice] = None
     for backend in sorted(_names(device)):
-        sup = get_backend(backend).supported_encodings(
-            semantics=sig.semantics)
+        sup = supported_under(get_backend(backend), sig.semantics)
         if not sup or (sharded and "sharded" not in sup):
             continue
         if not _in_domain(TunedChoice(backend=backend), sig,
@@ -550,7 +549,7 @@ def default_candidates(sig: WorkloadSignature, *, sharded: bool = False,
     B1)."""
     out: List[TunedChoice] = []
     for name in sorted(_names(device)):
-        sup = get_backend(name).supported_encodings(semantics=sig.semantics)
+        sup = supported_under(get_backend(name), sig.semantics)
         if not sup or (sharded and "sharded" not in sup):
             continue
         if name == "sparse_cuda":
@@ -624,7 +623,7 @@ def measure_best(system: SNPSystem, sig: WorkloadSignature, *,
             be = resolve_kernel(get_backend(cand.backend), plan)
             key = (cand.backend, plan.encoding, plan.hub_threshold)
             if key not in built:
-                built[key] = be.compile(system, plan=plan, device=dev)
+                built[key] = compile_with_plan(be, system, plan, dev)
             _time_step(be, built[key], configs, sig.T)
         except ValueError as e:
             row["refused"] = str(e)
@@ -665,8 +664,7 @@ def choice_to_plan(choice: TunedChoice, system: SNPSystem, *,
     through the degree heuristic (ELL or hybrid), every other backend to
     its native layout; a sharded plan is ELL, with the degree partition
     for a heavy-tailed graph."""
-    sup = get_backend(choice.backend).supported_encodings(
-        semantics=semantics)
+    sup = supported_under(get_backend(choice.backend), semantics)
     if not sup:
         return None
     if num_shards > 1:

@@ -43,12 +43,13 @@ the wrappers.  :func:`resolve_entry_info` asks the query planner
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from dataclasses import dataclass
 from typing import Dict, Optional, Protocol, Tuple, Union, runtime_checkable
 
 import torch
 
-from .device import DeviceLike
+from .device import DeviceLike, resolve_device
 from .matrix import (CompiledAny, CompiledSNP, CompiledSparseSNP,
                      check_coo_metadata, compile_system,
                      compile_system_sparse, is_delayed)
@@ -60,7 +61,8 @@ from .system import SNPSystem
 
 __all__ = ["StepBackend", "RefBackend", "CudaBackend", "SparseBackend",
            "SparseCudaBackend", "REFERENCE_NAME", "available_backends",
-           "get_backend", "resolve_kernel", "resolve_entry",
+           "get_backend", "register_backend", "supported_under",
+           "compile_with_plan", "resolve_kernel", "resolve_entry",
            "resolve_entry_info", "lower_with_backend", "supports_sharded"]
 
 #: port backend name -> the reference backend it must match bit for bit
@@ -253,19 +255,41 @@ class SparseCudaBackend(_Sparse):
                             max_branches, self)
 
 
-_REGISTRY: Dict[str, StepBackend] = {"ref": RefBackend(),
-                                     "cuda": CudaBackend(),
-                                     "sparse": SparseBackend(),
-                                     "sparse_cuda": SparseCudaBackend()}
+_REGISTRY: Dict[str, StepBackend] = {}
 
 BackendLike = Union[str, StepBackend, None]
+
+
+def register_backend(backend: StepBackend, *, overwrite: bool = False
+                     ) -> None:
+    """Register ``backend`` under ``backend.name``, so every entry point,
+    :func:`available_backends` and the query planner's candidates pick it
+    up by name.  A name already registered is refused unless
+    ``overwrite``."""
+    if not overwrite and backend.name in _REGISTRY:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _REGISTRY[backend.name] = backend
+
+
+def supported_under(backend: StepBackend, semantics: str
+                    ) -> Tuple[str, ...]:
+    """``backend.supported_encodings`` under a semantics tier, tolerating
+    third-party backends that predate the semantics parameter (they keep
+    answering for ``"no_delays"`` and are declared incapable, an empty
+    tuple, of anything else) or the lowering registry (an empty tuple)."""
+    sup_fn = getattr(backend, "supported_encodings", None)
+    if sup_fn is None:
+        return ()
+    try:
+        return tuple(sup_fn(semantics=semantics))
+    except TypeError:
+        return tuple(sup_fn()) if semantics == "no_delays" else ()
 
 
 def supports_sharded(backend: StepBackend) -> bool:
     """Whether ``backend`` declares the ``"sharded"`` encoding (for the
     delay-free tier), so it may step a neuron shard."""
-    sup = getattr(backend, "supported_encodings", None)
-    return sup is not None and "sharded" in sup()
+    return "sharded" in supported_under(backend, "no_delays")
 
 
 def available_backends() -> Tuple[str, ...]:
@@ -274,24 +298,55 @@ def available_backends() -> Tuple[str, ...]:
 
 
 def get_backend(name: BackendLike) -> StepBackend:
-    """Resolve a backend by registry name, or pass an instance through."""
+    """Resolve a backend by registry name, or pass an instance through.
+
+    Instances are duck-checked against the core of the protocol (``name``
+    and ``expand``), not the whole :class:`StepBackend`, so a third-party
+    backend without the lowering hooks resolves too; the tolerant helpers
+    (:func:`supported_under`, :func:`lower_with_backend`,
+    :func:`compile_with_plan`) cover the missing methods."""
     if isinstance(name, str):
         try:
             return _REGISTRY[name]
         except KeyError:
             raise ValueError(f"unknown step backend {name!r}; "
-                             f"available: {sorted(_REGISTRY)}") from None
-    if isinstance(name, StepBackend):
+                             f"available: {available_backends()}") from None
+    if hasattr(name, "expand") and hasattr(name, "name"):
         return name
     raise TypeError(f"expected backend name or StepBackend, got {type(name)}")
+
+
+def compile_with_plan(backend: StepBackend, system: SNPSystem,
+                      plan: Optional[SystemPlan],
+                      device: DeviceLike = None) -> CompiledAny:
+    """``backend.compile`` with an optional plan, on ``device``, tolerating
+    third-party backends that predate the plan parameter (they only see
+    the default plan, which is the identity) or take no ``device`` (their
+    encoding is moved there)."""
+    kw = {} if plan is None or plan == SystemPlan() else {"plan": plan}
+    params = inspect.signature(backend.compile).parameters
+    if "device" in params or any(p.kind == p.VAR_KEYWORD
+                                 for p in params.values()):
+        return backend.compile(system, device=device, **kw)
+    return backend.compile(system, **kw).to(resolve_device(device))
 
 
 def lower_with_backend(backend: StepBackend, compiled: CompiledAny,
                        plan: Optional[SystemPlan]) -> CompiledAny:
     """``backend.lower`` of a built encoding under ``plan`` (``None``: the
-    default plan).  The trace service re-lowers a chunk's encoding
+    default plan), the identity for a third-party backend that predates
+    the lowering registry.  The trace service re-lowers a chunk's encoding
     through it when it degrades a backend."""
-    return backend.lower(compiled, SystemPlan() if plan is None else plan)
+    lower = getattr(backend, "lower", None)
+    if lower is None:
+        return compiled
+    return lower(compiled, SystemPlan() if plan is None else plan)
+
+
+register_backend(RefBackend())
+register_backend(CudaBackend())
+register_backend(SparseBackend())
+register_backend(SparseCudaBackend())
 
 
 def _kernel_of(backend: StepBackend, plan: SystemPlan) -> Tuple[str, tuple,

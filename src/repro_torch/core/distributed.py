@@ -70,11 +70,17 @@ card): one rank for the dense-row scheme, ``plan.num_shards`` for the
 sharded one.  Replicated bookkeeping lives on the first device of the
 mesh.  A ``torch.distributed`` transport is ROADMAP item 7.
 
-Host reads.  As the port's :func:`~.engine.explore`, the level loops run
-from the host: the dense-row loop reads the ranks' new-configuration
-counts once per level (one transfer), the sharded loop the number of new
-configurations; each rank's or shard's hash-table probe loops read their
-own counts.
+Host reads.  As in :func:`~.engine.explore`, a level reads nothing: the
+ranks' counts are an (R,) tensor, the owner of the initial configuration
+is taken on the device, the hash tables probe through the kernels H1 and
+H2, and a candidate's owner bins by a scatter, not a ``bincount`` (which
+waits on the card to size its output).  With every rank or shard on one
+card (``mesh=None``, or the card repeated) all of them run in one CUDA
+graph with the loop's predicate on the device (:mod:`.graph_loop`): a
+run reads its counts and flags once at the end.  A mesh over several
+cards keeps the read-free level but drives it from the host, with one
+counted read of the predicate a level, until the ``torch.distributed``
+transport carries the loop (ROADMAP item 7).
 
 Archives, flags and counts equal the reference's distributed runs row for
 row, in discovery order, through all four backends.
@@ -88,15 +94,15 @@ import numpy as np
 import torch
 
 from .backend import (BackendLike, CudaBackend, SparseCudaBackend,
-                      resolve_entry_info, supports_sharded)
-from .device import (DeviceLike, host_read, host_read_all, resolve_device,
-                     same_device)
-from .engine import (ExploreResult, ExploreState, TraceOut,
-                     _check_checkpointing, _live, _resolve_comp,
-                     _run_chunked, _traces)
+                      lower_with_backend, resolve_entry_info,
+                      supports_sharded)
+from .device import DeviceLike, host_copy, resolve_device, same_device
+from .engine import (ExploreResult, ExploreState, TraceOut, _append,
+                     _check_checkpointing, _flags, _resolve_comp, _result,
+                     _run_chunked, _scalar, _traces)
 from .failover import run_with_failover
 from .hashing import M32, SENTINEL, config_hash, zobrist_hash
-from .hashtable import (_canonical, first_occurrence, insert_unique, lookup,
+from .hashtable import (_canonical, first_occurrence, insert_unique_, lookup,
                         make_table)
 from .matrix import is_compiled, is_delayed
 from .plan import (ShardedCompiled, ShardView, SystemPlan, compile_sharded,
@@ -171,7 +177,10 @@ def _bin_by_owner(cand, hi, lo, valid, R: int, C: int):
     owner = torch.where(valid, hi % R, R)
     order = torch.sort(owner, stable=True).indices
     owner_s = owner[order]
-    counts = torch.bincount(owner, minlength=R + 1)[:R]
+    # a scatter into R + 1 slots: bincount would wait on the card to size
+    # its output
+    counts = torch.zeros(R + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, owner, torch.ones_like(owner))[:R]
     start = counts.cumsum(0) - counts
     pos = torch.arange(K, device=dev) - torch.where(
         owner_s < R, start[owner_s.clamp(max=R - 1)], 0)
@@ -192,52 +201,53 @@ def _init_dense(comp, ranks: List[_Rank], F: int, V: int,
                 init: Optional[Sequence[int]]) -> ExploreState:
     """The initial configuration as row 0 of its owner's frontier and
     archive, its hash in the owner's table; the owner is taken on the
-    canonical hash.  The state's fields are per-rank tuples, its counts
-    one host integer a rank."""
+    canonical hash, on the device (every rank's row 0 and insertion are
+    masked by it: no read).  The state's fields are per-rank tuples, its
+    counts one a rank ((R,) int32 on the first rank's device)."""
     R, home, w = len(ranks), ranks[0].dev, comp.state_width
     c0 = comp.init_config.to(home) if init is None else torch.as_tensor(
         list(init), dtype=torch.int32, device=home)
     hi0, lo0 = config_hash(c0)
     hic, loc = _canonical(hi0[None], lo0[None],
                           torch.ones(1, dtype=torch.bool, device=home))
-    owner0 = host_read(hic[0] % R)
+    owner0 = hic[0] % R
     frontier, archive, tables = [], [], []
     for d, rk in enumerate(ranks):
+        mine = (owner0 == d).to(rk.dev)
+        row = torch.where(mine, c0.to(rk.dev), 0)
         fr = torch.zeros((F, w), dtype=torch.int32, device=rk.dev)
-        ar = torch.zeros((V, w), dtype=torch.int32, device=rk.dev)
+        ar = torch.zeros((V + 1, w), dtype=torch.int32, device=rk.dev)
+        fr[0] = row
+        ar[0] = row
         table = make_table(V, rk.dev)
-        if d == owner0:
-            fr[0] = c0
-            ar[0] = c0
-            table, _, _ = insert_unique(
-                table, hic.to(rk.dev), loc.to(rk.dev),
-                torch.ones(1, dtype=torch.bool, device=rk.dev),
-                torch.zeros(1, dtype=torch.int32, device=rk.dev))
+        insert_unique_(table, hic.to(rk.dev), loc.to(rk.dev), mine[None],
+                       torch.zeros(1, dtype=torch.int32, device=rk.dev))
         frontier.append(fr)
         archive.append(ar)
         tables.append(table)
-    ones = tuple(int(d == owner0) for d in range(R))
-    false = torch.zeros((), dtype=torch.bool, device=home)
+    ones = (torch.arange(R, device=home) == owner0).to(torch.int32)
     return ExploreState(tuple(frontier), ones, tuple(tables),
-                        tuple(archive), ones, 0, false, false, false)
+                        tuple(archive), ones.clone(), _scalar(0, home),
+                        *_flags(home), _scalar(1, home))
 
 
 def _dense_level(st: ExploreState, ranks: List[_Rank], backend, T: int,
-                 C: int, V: int) -> ExploreState:
-    """One dense-row level over the ranks (module docstring, steps 1–4)."""
+                 C: int, V: int) -> None:
+    """One dense-row level over the ranks in place (module docstring,
+    steps 1–4).  It reads nothing from the device: the ranks' counts stay
+    an (R,) tensor."""
     R, home = len(ranks), ranks[0].dev
     F = st.frontier[0].shape[0]
-    branch_ovf = st.branch_overflow
     sends = []
     for d, rk in enumerate(ranks):
         out = backend.expand(st.frontier[d], rk.comp, T)
-        live = torch.arange(F, device=rk.dev) < st.frontier_n[d]
+        live = torch.arange(F, device=rk.dev) < st.frontier_n[d].to(rk.dev)
         cand = out.configs.reshape(F * T, -1)
         valid = (out.valid & live[:, None]).reshape(F * T)
         hi, lo = config_hash(cand)
         *send, send_ovf = _bin_by_owner(cand, hi, lo, valid, R, C)
-        branch_ovf = branch_ovf | ((out.overflow & live).any()
-                                   | send_ovf).to(home)
+        st.branch_overflow.logical_or_(
+            ((out.overflow & live).any() | send_ovf).to(home))
         sends.append(send)
         del out, cand, hi, lo
     devices = [rk.dev for rk in ranks]
@@ -252,32 +262,28 @@ def _dense_level(st: ExploreState, ranks: List[_Rank], backend, T: int,
         first, ovf_f = first_occurrence(rhi, rlo, rval)
         news.append(rval & first & ~found)
         probe_ovf.append(ovf_f)
-    n_new = host_read_all(torch.stack(
-        [x.sum().to(home) for x in news]))          # the one read per level
-
-    frontier, tables, archive_n = [], [], []
-    frontier_ovf = st.frontier_overflow | any(n > F for n in n_new)
-    visited_ovf = st.visited_overflow
+    n_new = torch.stack([x.sum().to(home) for x in news])        # (R,)
+    n_ins = n_new.clamp(max=F)
+    st.frontier_overflow.logical_or_((n_new > F).any())
     for p, (rcfg, _, rhi, rlo) in enumerate(recv):
-        dev, a_n = ranks[p].dev, st.archive_n[p]
-        n_ins = min(n_new[p], F)
+        dev = ranks[p].dev
+        k, a_n = n_ins[p].to(dev), st.archive_n[p].to(dev)
         take = torch.arange(F, device=dev)
         # new rows first, in index order; rows past n_ins stay as the
         # reference leaves them, masked by the next level's count
         sel = torch.sort((~news[p]).to(torch.uint8), stable=True).indices[:F]
-        frontier.append(rcfg[sel])
-        full = st.visited[p].count + n_ins > V
-        table, _, ovf_i = insert_unique(
-            st.visited[p], rhi[sel], rlo[sel], take < n_ins,
-            (a_n + take).to(torch.int32))
-        tables.append(table)
-        visited_ovf = visited_ovf | (probe_ovf[p] | ovf_i | full).to(home)
-        k = min(n_ins, V - a_n)
-        st.archive[p][a_n:a_n + k] = frontier[p][:k]
-        archive_n.append(a_n + k)
-    return ExploreState(tuple(frontier), tuple(min(n, F) for n in n_new),
-                        tuple(tables), st.archive, tuple(archive_n),
-                        st.step + 1, branch_ovf, frontier_ovf, visited_ovf)
+        nf = rcfg[sel]
+        full = st.visited[p].count + k > V
+        _, ovf_i = insert_unique_(st.visited[p], rhi[sel], rlo[sel],
+                                  take < k, (a_n + take).to(torch.int32))
+        st.visited_overflow.logical_or_(
+            (probe_ovf[p] | ovf_i | full).to(home))
+        _append(st.archive[p], a_n + take, take < k, V, nf)
+        st.frontier[p].copy_(nf)
+    st.frontier_n.copy_(n_ins)
+    st.archive_n.copy_((st.archive_n + n_ins).clamp(max=V))
+    st.total_new.copy_(n_ins.sum())
+    st.step.add_(1)
 
 
 # ---------------------------------------------------------------------------
@@ -427,9 +433,11 @@ def _expand(shards, frontier, T: int, backend):
 def _init_sharded(comp: ShardedCompiled, shards, F: int, V: int,
                   init: Optional[Sequence[int]]) -> ExploreState:
     """The initial configuration as archive row 0 and frontier row 0 of
-    every shard's slice, its hash in the table of the shard that owns
-    it.  The state's fields are per-shard tuples where the single-device
-    state holds one tensor."""
+    every shard's slice, its hash in the table of the shard that owns it
+    (taken on the device: each shard's insertion is masked by it).  The
+    state's fields are per-shard tuples where the single-device state
+    holds one tensor; an archive slice holds ``S·V`` rows and the spare
+    one."""
     S, mloc, m = comp.num_shards, comp.shard_size, comp.num_neurons
     home = shards[0].dev
     a = comp.arrays
@@ -442,41 +450,41 @@ def _init_sharded(comp: ShardedCompiled, shards, F: int, V: int,
         init_cols = init_g[gidx.to(torch.int64)]
     init_slices = init_cols.reshape(S, mloc)
     hi0, lo0 = zobrist_hash(init_cols, positions=gidx)
-    owner0 = host_read(hi0 % S)
+    owner0 = hi0 % S
     frontier, archive, tables = [], [], []
     for d, sh in enumerate(shards):
         fr = torch.zeros((F, mloc), dtype=torch.int32, device=sh.dev)
         fr[0] = init_slices[d]
-        ar = torch.zeros((S * V, mloc), dtype=torch.int32, device=sh.dev)
+        ar = torch.zeros((S * V + 1, mloc), dtype=torch.int32, device=sh.dev)
         ar[0] = init_slices[d]
         table = make_table(V, sh.dev)
-        if d == owner0:
-            table, _, _ = insert_unique(
-                table, hi0[None].to(sh.dev), lo0[None].to(sh.dev),
-                torch.ones(1, dtype=torch.bool, device=sh.dev),
-                torch.zeros(1, dtype=torch.int32, device=sh.dev))
+        insert_unique_(table, hi0[None].to(sh.dev), lo0[None].to(sh.dev),
+                       (owner0 == d)[None].to(sh.dev),
+                       torch.zeros(1, dtype=torch.int32, device=sh.dev))
         frontier.append(fr)
         archive.append(ar)
         tables.append(table)
-    false = torch.zeros((), dtype=torch.bool, device=home)
-    return ExploreState(tuple(frontier), 1, tuple(tables), tuple(archive),
-                        1, 0, false, false, false)
+    one = _scalar(1, home)
+    return ExploreState(tuple(frontier), one, tuple(tables), tuple(archive),
+                        one.clone(), _scalar(0, home), *_flags(home),
+                        one.clone())
 
 
 def _sharded_level(st: ExploreState, shards, backend, T: int, V: int
-                   ) -> ExploreState:
-    """One level over the shards (module docstring, steps 1–5)."""
+                   ) -> None:
+    """One level over the shards in place (module docstring, steps 1–5).
+    It reads nothing from the device."""
     S = len(shards)
     home = shards[0].dev
     F = st.frontier[0].shape[0]
-    A = st.archive[0].shape[0]
+    A = st.archive[0].shape[0] - 1
     take = torch.arange(F, device=home)
     t = torch.arange(T, device=home).to(torch.float32)
     fvalid = take < st.frontier_n
     cands, psi, alive = _expand(shards, st.frontier, T, backend)
     valid = ((t[None, :] < psi[:, None]) & alive[:, None]
              & fvalid[:, None]).reshape(F * T)
-    branch_ovf = st.branch_overflow | ((psi > float(T)) & fvalid).any()
+    st.branch_overflow.logical_or_(((psi > float(T)) & fvalid).any())
 
     # global hashes from the slices' additive partials
     parts = [zobrist_hash(c, positions=sh.gidx)
@@ -502,27 +510,26 @@ def _sharded_level(st: ExploreState, shards, backend, T: int, V: int
     # replicated selection: new candidates first, in index order
     n_new = new_mask.sum()
     sel = torch.sort((~new_mask).to(torch.uint8), stable=True).indices[:F]
-    n_ins = host_read(n_new.clamp(max=F))    # the one read per level
+    n_ins = n_new.clamp(max=F)
     ins = take < n_ins
-    frontier_ovf = st.frontier_overflow | (n_new > F)
-    visited_ovf = st.visited_overflow
-    k = min(n_ins, A - st.archive_n)
-    payload = (st.archive_n + take).to(torch.int32)
-    frontier, tables = [], []
+    st.frontier_overflow.logical_or_(n_new > F)
+    rows = st.archive_n + take
     for d, sh in enumerate(shards):
         s_d = sel.to(sh.dev)
-        frontier.append(cands[d][s_d])
+        nf = cands[d][s_d]
         sel_mine = (mine[d][sel] & ins).to(sh.dev)
         full = st.visited[d].count + sel_mine.sum() > V
-        table, _, ovf_i = insert_unique(
+        _, ovf_i = insert_unique_(
             st.visited[d], hi[sel].to(sh.dev), lo[sel].to(sh.dev), sel_mine,
-            payload.to(sh.dev))
-        tables.append(table)
-        visited_ovf = visited_ovf | (probe_ovf[d] | ovf_i | full).to(home)
-        st.archive[d][st.archive_n:st.archive_n + k] = frontier[d][:k]
-    return ExploreState(tuple(frontier), n_ins, tuple(tables), st.archive,
-                        st.archive_n + k, st.step + 1, branch_ovf,
-                        frontier_ovf, visited_ovf)
+            rows.to(device=sh.dev, dtype=torch.int32))
+        st.visited_overflow.logical_or_(
+            (probe_ovf[d] | ovf_i | full).to(home))
+        _append(st.archive[d], rows.to(sh.dev), ins.to(sh.dev), A, nf)
+        st.frontier[d].copy_(nf)
+    st.frontier_n.copy_(n_ins)
+    st.archive_n.copy_((st.archive_n + n_ins).clamp(max=A))
+    st.total_new.copy_(n_ins)
+    st.step.add_(1)
 
 
 def _explore_neuron_sharded(comp: ShardedCompiled, devices, backend, *,
@@ -542,33 +549,18 @@ def _explore_neuron_sharded(comp: ShardedCompiled, devices, backend, *,
     V, T = visited_cap, max_branches
     shards = _shards(comp, devices, isinstance(backend, CudaBackend))
     home = shards[0].dev
-
-    def run(st, bound):
-        while st.step < bound and st.frontier_n > 0:
-            st = _sharded_level(st, shards, backend, T, V)
-        return st
-
-    st = _run_chunked(
-        _init_sharded(comp, shards, frontier_cap, V, init), run,
+    st, r = _run_chunked(
+        _init_sharded(comp, shards, frontier_cap, V, init),
+        lambda st: _sharded_level(st, shards, backend, T, V), devices,
         max_steps=max_steps, checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every, fault_injector=fault_injector)
-    b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
-        [st.branch_overflow, st.frontier_overflow, st.visited_overflow]
-    ).tolist())
     # columns back to global neuron order through global_idx
-    n = st.archive_n
+    n = r.archive_n[0]
     gidx = comp.arrays.global_idx.reshape(-1).to(home)
     cols = torch.cat([ar[:n].to(home) for ar in st.archive], 1)
     configs = torch.zeros((n, S * mloc), dtype=torch.int32, device=home)
     configs[:, gidx.to(torch.int64)] = cols
-    return ExploreResult(
-        configs=configs[:, :m].cpu().numpy(),
-        num_discovered=n,
-        steps=st.step,
-        exhausted=st.frontier_n == 0 and not (b_ovf or f_ovf or v_ovf),
-        branch_overflow=b_ovf, frontier_overflow=f_ovf,
-        visited_overflow=v_ovf,
-    )
+    return _result(host_copy(configs[:, :m]), r)
 
 
 def explore_distributed(
@@ -659,7 +651,7 @@ def explore_distributed(
             "in its lowering registry (StepBackend.supported_encodings), so "
             "it cannot step a neuron shard; every built-in backend "
             "supports it")
-    comp = be.lower(comp, comp.plan)
+    comp = lower_with_backend(be, comp, comp.plan)
     return _explore_neuron_sharded(
         comp, devices, be, max_steps=max_steps, frontier_cap=frontier_cap,
         visited_cap=visited_cap, max_branches=max_branches, init=init,
@@ -693,30 +685,14 @@ def _explore_dense_rows(system, *, mesh, device, max_steps: int,
                                      workload=(F, T), device=devices[0])
     ranks = _ranks(_resolve_comp(system, be, plan, devices[0]), devices)
     home, V = ranks[0].dev, visited_cap
-
-    def run(st, bound):
-        while st.step < bound and _live(st.frontier_n) > 0:
-            st = _dense_level(st, ranks, be, T, C, V)
-        return st
-
-    st = _run_chunked(
-        _init_dense(ranks[0].comp, ranks, F, V, init), run,
+    st, r = _run_chunked(
+        _init_dense(ranks[0].comp, ranks, F, V, init),
+        lambda st: _dense_level(st, ranks, be, T, C, V), devices,
         max_steps=max_steps, checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every, fault_injector=fault_injector)
-    b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
-        [st.branch_overflow, st.frontier_overflow, st.visited_overflow]
-    ).tolist())
     configs = torch.cat([a[:n].to(home)
-                         for a, n in zip(st.archive, st.archive_n)])
-    return ExploreResult(
-        configs=configs.cpu().numpy(),
-        num_discovered=sum(st.archive_n),
-        steps=st.step,
-        exhausted=_live(st.frontier_n) == 0 and not (b_ovf or f_ovf
-                                                      or v_ovf),
-        branch_overflow=b_ovf, frontier_overflow=f_ovf,
-        visited_overflow=v_ovf,
-    )
+                         for a, n in zip(st.archive, r.archive_n)])
+    return _result(host_copy(configs), r)
 
 
 def run_traces_distributed(system, *, steps: int, seeds,

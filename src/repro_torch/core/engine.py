@@ -5,16 +5,20 @@ The port of ``repro.core.engine``.  :func:`explore` implements the paper's
 Algorithm 1: each level expands the frontier through a step backend,
 hashes every successor, dedups it against the visited set, and compacts
 the new configurations into the next frontier and the archive.  The
-reference runs the whole BFS as one ``lax.while_loop``; here the level
-loop runs from the host and reads one device scalar per level (the number
-of new configurations, which both ends the loop and sizes the archive
-append), plus the hash table's probe-loop reads.  Every read is counted
-in :data:`repro_torch.core.device.host_reads`.
+reference runs the whole BFS as one ``lax.while_loop``; here a level
+updates an :class:`ExploreState` of device tensors in place and reads
+nothing (the hash table's probes are the kernels H1 and H2, the counts
+and the step device scalars), and on the card the loop over levels is
+one CUDA graph whose WHILE node tests ``step < bound && total_new > 0``
+on the device (:mod:`.graph_loop`).  A run reads its counts and flags
+once at the end and copies its archive out: two reads, counted in
+:data:`repro_torch.core.device.host_reads`, whatever its levels.
 
 The level loop's state is one :class:`ExploreState`; with
-``checkpoint_dir`` the loop runs in chunks of levels and snapshots it
-between chunks (:mod:`repro_torch.checkpoint`), so a killed run resumes
-where its last snapshot left off and returns the uninterrupted archive.
+``checkpoint_dir`` the loop runs in chunks of levels (one graph launch
+and one read each) and snapshots it between chunks
+(:mod:`repro_torch.checkpoint`), so a killed run resumes where its last
+snapshot left off and returns the uninterrupted archive.
 An entry point that chose its backend itself degrades it when it fails
 to build, lower or launch (:mod:`.failover`; on the card only to another
 kernel backend).
@@ -52,11 +56,13 @@ from ..checkpoint.checkpoint import (latest_step, read_manifest,
                                      restore_checkpoint, save_checkpoint)
 from . import prng
 from .autotune import DEFAULT_WORKLOAD
-from .backend import BackendLike, StepBackend, resolve_entry_info
-from .device import DeviceLike, host_read, resolve_device
+from .backend import (BackendLike, StepBackend, compile_with_plan,
+                      lower_with_backend, resolve_entry_info)
+from .device import DeviceLike, host_copy, host_read_all, resolve_device
 from .failover import run_with_failover
+from .graph_loop import FusedLoop, tree_tensors
 from .hashing import M32, SENTINEL, config_hash
-from .hashtable import (HashTable, first_occurrence, insert_unique, lookup,
+from .hashtable import (HashTable, first_occurrence, insert_unique_, lookup,
                         make_table)
 from .matrix import CompiledAny, is_compiled, is_delayed
 from .plan import SystemPlan
@@ -84,9 +90,8 @@ def _resolve_comp(system, be: StepBackend, plan: Optional[SystemPlan],
                 f"plan semantics {plan.semantics!r} does not match this "
                 f"{'delayed' if is_delayed(system) else 'delay-free'} "
                 "compiled encoding; compile the system under the plan")
-        return be.lower(system.to(dev), SystemPlan() if plan is None
-                        else plan)
-    return be.compile(system, plan, device=dev)
+        return lower_with_backend(be, system.to(dev), plan)
+    return compile_with_plan(be, system, plan, dev)
 
 
 @dataclass(frozen=True)
@@ -154,25 +159,38 @@ def _sort_dedup_verdict(visited_key: torch.Tensor, key: torch.Tensor,
 
 class ExploreState(NamedTuple):
     """The BFS level loop's whole state: what a checkpoint snapshots and a
-    resume restores.  ``frontier_n``, ``archive_n`` and ``step`` are host
-    integers (the level loop reads the level's new-configuration count
-    anyway), so a chunk boundary reads nothing from the device.
-    ``visited`` is the open-addressing table under ``dedup="hash"``, the
-    sorted ``(V,)`` int64 keys under ``"sort"`` (whose live count is
-    ``archive_n``: both grow by each level's insertions, capped at V).
-    The distributed schemes hold a tuple of per-shard or per-rank
-    tensors where this holds one, and the dense-row scheme a count per
-    rank in ``frontier_n`` and ``archive_n``."""
+    resume restores.  As in the reference, the counts, the step and the
+    flags are device scalars, and a level updates every field in place
+    (so one captured level serves every level of the loop,
+    :mod:`.graph_loop`); ``total_new`` is the reference's convergence
+    scalar, the configurations the last level added.  ``visited`` is the
+    open-addressing table under ``dedup="hash"``, the sorted ``(V,)`` int64
+    keys under ``"sort"`` (whose live count is ``archive_n``: both grow by
+    each level's insertions, capped at V).  ``archive`` has one row past
+    ``V``: the rows a level drops past the capacity land there.  The
+    distributed schemes hold a tuple of per-shard or per-rank tensors where
+    this holds one, and the dense-row scheme one count a rank in
+    ``frontier_n`` and ``archive_n`` ((R,) tensors)."""
 
     frontier: torch.Tensor            # (F, w) int32
-    frontier_n: int                   # valid prefix length
+    frontier_n: torch.Tensor          # () int32 — valid prefix length
     visited: Union[HashTable, torch.Tensor]
-    archive: torch.Tensor             # (V, w) int32, discovery order
-    archive_n: int
-    step: int
+    archive: torch.Tensor             # (V + 1, w) int32, discovery order
+    archive_n: torch.Tensor           # () int32
+    step: torch.Tensor                # () int32
     branch_overflow: torch.Tensor     # () bool
     frontier_overflow: torch.Tensor   # () bool
     visited_overflow: torch.Tensor    # () bool
+    total_new: torch.Tensor           # () int32 — the last level's additions
+
+
+def _scalar(v: int, dev) -> torch.Tensor:
+    return torch.full((), v, dtype=torch.int32, device=dev)
+
+
+def _flags(dev):
+    return tuple(torch.zeros((), dtype=torch.bool, device=dev)
+                 for _ in range(3))
 
 
 def _init_state(comp: CompiledAny, F: int, V: int, init, dedup: str
@@ -183,33 +201,43 @@ def _init_state(comp: CompiledAny, F: int, V: int, init, dedup: str
         torch.as_tensor(list(init), dtype=torch.int32, device=dev)
     frontier = torch.zeros((F, m), dtype=torch.int32, device=dev)
     frontier[0] = c0
-    archive = torch.zeros((V, m), dtype=torch.int32, device=dev)
+    archive = torch.zeros((V + 1, m), dtype=torch.int32, device=dev)
     archive[0] = c0
     hi0, lo0 = config_hash(c0)
     if dedup == "hash":
-        visited, _, _ = insert_unique(
-            make_table(V, dev), hi0[None], lo0[None],
-            torch.ones(1, dtype=torch.bool, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
+        visited = make_table(V, dev)
+        insert_unique_(visited, hi0[None], lo0[None],
+                       torch.ones(1, dtype=torch.bool, device=dev),
+                       torch.zeros(1, dtype=torch.int32, device=dev))
     else:
         visited = torch.full((V,), _SENTINEL_KEY, dtype=torch.int64,
                              device=dev)
         visited[0] = _sort_key(hi0, lo0)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-    return ExploreState(frontier, 1, visited, archive, 1, 0, false, false,
-                        false)
+    one = _scalar(1, dev)
+    return ExploreState(frontier, one, visited, archive, one.clone(),
+                        _scalar(0, dev), *_flags(dev), one.clone())
+
+
+def _append(archive: torch.Tensor, rows: torch.Tensor, ins: torch.Tensor,
+            V: int, new_rows: torch.Tensor) -> None:
+    """Write ``new_rows[j]`` to archive row ``rows[j]`` where ``ins[j]``
+    and the row is below ``V``; the rest land on the spare row ``V``."""
+    idx = torch.where(ins & (rows < V), rows, V).to(torch.int64)
+    archive.index_copy_(0, idx, new_rows)
 
 
 def _explore_level(s: ExploreState, comp: CompiledAny, be: StepBackend,
-                   T: int, dedup: str) -> ExploreState:
-    """One BFS level: expand, hash, dedup, compact, append."""
-    (F, m), V, dev = s.frontier.shape, s.archive.shape[0], s.frontier.device
+                   T: int, dedup: str) -> None:
+    """One BFS level in place: expand, hash, dedup, compact, append.  It
+    reads nothing from the device."""
+    (F, m), dev = s.frontier.shape, s.frontier.device
+    V = s.archive.shape[0] - 1
     take = torch.arange(F, device=dev)
     live = take < s.frontier_n
     out = be.expand(s.frontier, comp, T)
     cand = out.configs.reshape(F * T, m)
     cand_valid = (out.valid & live[:, None]).reshape(F * T)
-    branch_ovf = s.branch_overflow | (out.overflow & live).any()
+    s.branch_overflow.logical_or_((out.overflow & live).any())
 
     hi, lo = config_hash(cand)
     hi = torch.where(cand_valid, hi, SENTINEL)
@@ -225,79 +253,87 @@ def _explore_level(s: ExploreState, comp: CompiledAny, be: StepBackend,
     n_new = new_mask.sum()
     # new candidates first, in index order (stable), then the rest
     sel = torch.sort((~new_mask).to(torch.uint8), stable=True).indices[:F]
-    n_ins = host_read(n_new.clamp(max=F))   # the one read per level
+    n_ins = n_new.clamp(max=F)
     next_frontier = cand[sel]
     ins_mask = take < n_ins
-    frontier_ovf = s.frontier_overflow | (n_new > F)
+    s.frontier_overflow.logical_or_(n_new > F)
 
     if dedup == "hash":
         # insert the selected prefix only (payload = archive row), so
         # excess discoveries are not marked visited and regenerate
         full = s.visited.count + n_ins > V
-        visited, _, ovf_i = insert_unique(
-            s.visited, hi[sel], lo[sel], ins_mask,
-            (s.archive_n + take).to(torch.int32))
-        visited_ovf = s.visited_overflow | probe_ovf | ovf_i | full
+        _, ovf_i = insert_unique_(s.visited, hi[sel], lo[sel], ins_mask,
+                                  (s.archive_n + take).to(torch.int32))
+        s.visited_overflow.logical_or_(probe_ovf | ovf_i | full)
     else:
         # visited merge: entries beyond capacity fall off the sorted tail
         ins_key = torch.where(ins_mask, _sort_key(hi[sel], lo[sel]),
                               _SENTINEL_KEY)
-        visited = torch.sort(torch.cat([s.visited, ins_key])).values[:V]
-        visited_ovf = s.visited_overflow | (s.archive_n + n_ins > V)
+        s.visited.copy_(torch.sort(torch.cat([s.visited, ins_key])
+                                   ).values[:V])
+        s.visited_overflow.logical_or_(s.archive_n + n_ins > V)
 
     # archive append in discovery order (rows past V are dropped)
-    k = min(n_ins, V - s.archive_n)
-    archive = s.archive
-    archive[s.archive_n:s.archive_n + k] = next_frontier[:k]
-    return ExploreState(next_frontier, n_ins, visited, archive,
-                        s.archive_n + k, s.step + 1, branch_ovf,
-                        frontier_ovf, visited_ovf)
+    _append(s.archive, s.archive_n + take, ins_mask, V, next_frontier)
+    s.frontier.copy_(next_frontier)
+    s.frontier_n.copy_(n_ins)
+    s.archive_n.copy_((s.archive_n + n_ins).clamp(max=V))
+    s.total_new.copy_(n_ins)
+    s.step.add_(1)
 
 
-def _explore_loop(state: ExploreState, comp, be, bound: int, T: int,
-                  dedup: str) -> ExploreState:
-    """Levels until the frontier drains or the absolute step ``bound``."""
-    while state.step < bound and state.frontier_n > 0:
-        state = _explore_level(state, comp, be, T, dedup)
-    return state
-
-
-def _archive_prefix(archive, n):
+def _archive_prefix(archive, n: Tuple[int, ...]):
     """The filled rows of an archive: one tensor, or one per shard or
-    rank; ``n`` is one count, or one per rank (the dense-row scheme)."""
+    rank; ``n`` holds one host count (every shard's), or one a rank (the
+    dense-row scheme)."""
     if isinstance(archive, torch.Tensor):
-        return archive[:n]
-    ns = n if isinstance(n, tuple) else (n,) * len(archive)
+        return archive[:n[0]]
+    ns = n if len(n) == len(archive) else n * len(archive)
     return tuple(a[:k] for a, k in zip(archive, ns))
 
 
-def _live(n) -> int:
-    """Valid frontier rows of a state: one count, or one per rank."""
-    return sum(n) if isinstance(n, tuple) else n
+class Readout(NamedTuple):
+    """A state's counts and flags, read to the host in one transfer."""
+
+    step: int
+    total_new: int
+    flags: Tuple[bool, bool, bool]    # branch, frontier, visited overflow
+    frontier_n: Tuple[int, ...]       # one, or one a rank
+    archive_n: Tuple[int, ...]
+
+
+def read_state(s: ExploreState) -> Readout:
+    """One counted read (:func:`~.device.host_read_all`) of the state's
+    step, convergence count, flags and counts."""
+    home = s.step.device
+    parts = (s.step, s.total_new, s.branch_overflow, s.frontier_overflow,
+             s.visited_overflow, s.frontier_n, s.archive_n)
+    v = host_read_all(torch.cat([x.reshape(-1).to(home, torch.int64)
+                                 for x in parts]))
+    nf = s.frontier_n.numel()
+    return Readout(v[0], v[1], tuple(bool(x) for x in v[2:5]),
+                   tuple(v[5:5 + nf]), tuple(v[5 + nf:]))
 
 
 def _restore(checkpoint_dir: str, state):
-    """The latest snapshot on the live (fresh) state's devices, its
-    archive prefix (one tensor, or one per shard or rank) written into
-    the fresh archive, whose other rows are zero."""
+    """The latest snapshot written into the live (fresh) state's tensors,
+    its archive prefix (one tensor, or one per shard or rank) into the
+    fresh archive, whose other rows stay zero.  The snapshot is read on
+    the host and copied in, so its step and convergence count come back
+    with no device read: returns ``(state, host copy of the snapshot)``."""
     step, manifest = read_manifest(checkpoint_dir)
     arrays = manifest["arrays"]
     if isinstance(state.archive, torch.Tensor):
-        rows = arrays[".archive"]["shape"][0]
+        rows = (arrays[".archive"]["shape"][0],)
     else:
         rows = tuple(arrays[f".archive/{d}"]["shape"][0]
                      for d in range(len(state.archive)))
     template = state._replace(archive=_archive_prefix(state.archive, rows))
-    got, _, _ = restore_checkpoint(checkpoint_dir, template, step=step)
-
-    def pad(live, prefix):
-        live[:prefix.shape[0]] = prefix
-        return live
-
-    if isinstance(state.archive, torch.Tensor):
-        return got._replace(archive=pad(state.archive, got.archive))
-    return got._replace(archive=tuple(
-        pad(a, p) for a, p in zip(state.archive, got.archive)))
+    got, _, _ = restore_checkpoint(checkpoint_dir, template, step=step,
+                                   device="cpu")
+    for live, host in zip(tree_tensors(template), tree_tensors(got)):
+        live.copy_(host)
+    return state, got
 
 
 def _check_checkpointing(checkpoint_dir: Optional[str],
@@ -307,38 +343,46 @@ def _check_checkpointing(checkpoint_dir: Optional[str],
         raise ValueError("checkpoint_every must be >= 1")
 
 
-def _run_chunked(state, run: Callable, *, max_steps: int,
-                 checkpoint_dir: Optional[str], checkpoint_every: int,
-                 fault_injector):
-    """Drive a level loop ``run(state, bound)`` (levels until the frontier
-    drains or the absolute step ``bound``) with checkpoint/resume.
+def _run_chunked(state: ExploreState, level: Callable, devices, *,
+                 max_steps: int, checkpoint_dir: Optional[str],
+                 checkpoint_every: int, fault_injector
+                 ) -> Tuple[ExploreState, Readout]:
+    """Run ``level`` (one BFS level, in place) until the frontier drains or
+    ``max_steps`` levels, as one :class:`~.graph_loop.FusedLoop` over
+    ``devices``, with checkpoint/resume.  Returns the state and its final
+    :func:`read_state`.
 
-    Without a ``checkpoint_dir`` this is one uninterrupted run.  With one,
-    the BFS runs in chunks of ``checkpoint_every`` levels to absolute step
-    bounds, snapshotting the state after each chunk (its archive's filled
-    prefix only; atomic rename, content-verified,
-    :mod:`repro_torch.checkpoint`), and the latest snapshot is restored on
-    entry.  So a chunked run equals an uninterrupted one, and a run killed
-    mid-chunk resumes from its last snapshot and re-runs only that chunk.
-    ``fault_injector`` (:class:`~repro_torch.runtime.faults.FaultInjector`)
-    is called once before an uninterrupted run and once before every
-    chunk, as the reference calls it, so a schedule kills the same chunk
-    in both.  The state's step and frontier count (one a rank in the
-    dense-row scheme) are host integers: a chunk boundary reads nothing
-    from the device."""
-    if checkpoint_dir is None:
-        if fault_injector is not None:
-            fault_injector.on_device_call()
-        return run(state, max_steps)
-    if latest_step(checkpoint_dir) is not None:
-        state = _restore(checkpoint_dir, state)
-    while state.step < max_steps and _live(state.frontier_n) > 0:
-        if fault_injector is not None:
-            fault_injector.on_device_call()
-        state = run(state, min(max_steps, state.step + checkpoint_every))
-        save_checkpoint(checkpoint_dir, state.step, state._replace(
-            archive=_archive_prefix(state.archive, state.archive_n)))
-    return state
+    Without a ``checkpoint_dir`` this is one uninterrupted run: one graph
+    launch on the card and one read at the end.  With one, the BFS runs in
+    chunks of ``checkpoint_every`` levels to absolute step bounds, each
+    chunk one launch and one read of the state's counts, then a snapshot
+    of the state (its archive's filled prefix only; atomic rename,
+    content-verified, :mod:`repro_torch.checkpoint`); the latest snapshot
+    is restored on entry.  So a chunked run equals an uninterrupted one,
+    and a run killed mid-chunk resumes from its last snapshot and re-runs
+    only that chunk.  ``fault_injector``
+    (:class:`~repro_torch.runtime.faults.FaultInjector`) is called once
+    before an uninterrupted run and once before every chunk, as the
+    reference calls it, so a schedule kills the same chunk in both."""
+    step, go = 0, True
+    if checkpoint_dir is not None and latest_step(checkpoint_dir) is not None:
+        state, got = _restore(checkpoint_dir, state)
+        step, go = int(got.step), int(got.total_new) > 0
+    with FusedLoop(level, state, devices) as loop:
+        if checkpoint_dir is None:
+            if fault_injector is not None:
+                fault_injector.on_device_call()
+            loop.run(max_steps, step, go)
+        while checkpoint_dir is not None and step < max_steps and go:
+            if fault_injector is not None:
+                fault_injector.on_device_call()
+            loop.run(min(max_steps, step + checkpoint_every), step, go)
+            r = read_state(state)
+            step, go = r.step, r.total_new > 0
+            save_checkpoint(checkpoint_dir, step, state._replace(
+                archive=_archive_prefix(state.archive, r.archive_n)))
+        r = read_state(state)
+    return state, r
 
 
 def explore(
@@ -393,19 +437,24 @@ def explore(
         comp = _resolve_comp(system, be, plan, dev)
         return _run_chunked(
             _init_state(comp, frontier_cap, visited_cap, init, dedup),
-            lambda st, bound: _explore_loop(st, comp, be, bound, T, dedup),
+            lambda st: _explore_level(st, comp, be, T, dedup), [dev],
             max_steps=max_steps, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, fault_injector=fault_injector)
 
-    s = run_with_failover(attempt, be, plan, degradable=planned, device=dev)
-    b_ovf, f_ovf, v_ovf = (bool(x) for x in torch.stack(
-        [s.branch_overflow, s.frontier_overflow, s.visited_overflow]
-    ).tolist())
+    s, r = run_with_failover(attempt, be, plan, degradable=planned,
+                             device=dev)
+    n = r.archive_n[0]
+    return _result(host_copy(s.archive[:n]), r)
+
+
+def _result(configs: torch.Tensor, r: Readout) -> ExploreResult:
+    """The result of a run from its archive (on the host) and readout."""
+    b_ovf, f_ovf, v_ovf = r.flags
     return ExploreResult(
-        configs=s.archive[:s.archive_n].cpu().numpy(),
-        num_discovered=s.archive_n,
-        steps=s.step,
-        exhausted=s.frontier_n == 0 and not (b_ovf or f_ovf or v_ovf),
+        configs=configs.numpy(),
+        num_discovered=sum(r.archive_n),
+        steps=r.step,
+        exhausted=sum(r.frontier_n) == 0 and not (b_ovf or f_ovf or v_ovf),
         branch_overflow=b_ovf, frontier_overflow=f_ovf,
         visited_overflow=v_ovf,
     )

@@ -36,7 +36,7 @@ from typing import Callable, List, Tuple
 import torch
 
 from ..runtime.faults import InjectedFault
-from .backend import get_backend
+from .backend import get_backend, supported_under
 from .plan import SystemPlan
 
 __all__ = ["DEGRADE_ORDER", "KERNEL_BACKENDS", "DegradeEvent",
@@ -138,7 +138,7 @@ def degrade_candidates(backend, plan: SystemPlan, *, device=None
         if on_card and cand_name not in KERNEL_BACKENDS:
             continue
         cand = get_backend(cand_name)
-        sup = cand.supported_encodings(semantics=plan.semantics)
+        sup = supported_under(cand, plan.semantics)
         if not sup:
             continue
         if plan.num_shards > 1 and "sharded" not in sup:

@@ -20,7 +20,8 @@ hence non-negative, so ``>>`` is the logical shift the reference uses.
 
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
 __all__ = ["config_hash", "zobrist_hash", "SENTINEL", "fmix32", "mul32"]
@@ -57,16 +58,6 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _pow_vector(p: int, m: int) -> np.ndarray:
-    """[p^(m-1), ..., p^1, p^0] mod 2^32 (exact in Python ints)."""
-    out = np.empty(m, dtype=np.int64)
-    acc = 1
-    for i in range(m - 1, -1, -1):
-        out[i] = acc
-        acc = (acc * p) % (1 << 32)
-    return out
-
-
 def _by_rows(fn, configs: torch.Tensor):
     """``fn(configs)`` on blocks of whole rows of at most
     :data:`_BLOCK_ENTRIES` entries, the lanes concatenated (a row's hash
@@ -81,16 +72,35 @@ def _by_rows(fn, configs: torch.Tensor):
                  for j in range(2))
 
 
+def _pow_vector_on(p: int, m: int, dev: torch.device) -> torch.Tensor:
+    """``[p^(m-1), ..., p^1, p^0] mod 2^32`` computed on ``dev`` (square
+    and multiply over the exponents' bits), so no host array is copied to
+    the card."""
+    e = (m - 1) - torch.arange(m, dtype=torch.int64, device=dev)
+    out = torch.ones(m, dtype=torch.int64, device=dev)
+    base = p
+    for bit in range(max(1, (m - 1).bit_length())):
+        out = torch.where((e >> bit) & 1 == 1, mul32(out, base), out)
+        base = (base * base) % (1 << 32)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _config_consts(m: int, dev: torch.device):
+    """:func:`config_hash`'s position salts and power vectors for width
+    ``m``, built once per ``(m, device)`` and on it: a copy from pageable
+    host memory waits on the card and cannot be captured into a CUDA
+    graph, and the level loop is one."""
+    pos = (torch.arange(m, dtype=torch.int64, device=dev) * _GOLDEN) & M32
+    return pos, _pow_vector_on(_P1, m, dev), _pow_vector_on(_P2, m, dev)
+
+
 def config_hash(configs: torch.Tensor):
     """Hash int32 configs (..., m) to two lanes ``(hi, lo)``: int64 tensors
     holding the reference's uint32 values (negative entries wrap mod 2^32
     as the reference's cast does)."""
     m = configs.shape[-1]
-    dev = configs.device
-    pos = torch.from_numpy(
-        (np.arange(m, dtype=np.int64) * _GOLDEN) % (1 << 32)).to(dev)
-    p1 = torch.from_numpy(_pow_vector(_P1, m)).to(dev)
-    p2 = torch.from_numpy(_pow_vector(_P2, m)).to(dev)
+    pos, p1, p2 = _config_consts(m, configs.device)
 
     def lanes(rows):
         x = rows.to(torch.int64) & M32
@@ -107,6 +117,20 @@ def config_hash(configs: torch.Tensor):
     return _by_rows(lanes, configs)
 
 
+def _zobrist_salts(pos: torch.Tensor):
+    """Each global position's two lane salts (device operations only)."""
+    pos = (pos + 1) & M32
+    return mul32(pos, _Z1), (mul32(pos, _Z2) + _GOLDEN) & M32
+
+
+@functools.lru_cache(maxsize=None)
+def _zobrist_range(k: int, offset: int, dev: torch.device):
+    """The salts of the positions ``offset .. offset + k - 1``, built once
+    per ``(k, offset, device)``."""
+    return _zobrist_salts(
+        torch.arange(k, dtype=torch.int64, device=dev) + offset)
+
+
 def zobrist_hash(configs: torch.Tensor, offset=0, positions=None):
     """Sum-combinable hash of config slices (..., k): ``(hi, lo)`` int64
     lanes holding the reference's uint32 values.  Column ``c`` sits at
@@ -118,11 +142,10 @@ def zobrist_hash(configs: torch.Tensor, offset=0, positions=None):
     dev = configs.device
     k = configs.shape[-1]
     if positions is not None:
-        pos = torch.as_tensor(positions, device=dev).to(torch.int64)
+        pos_hi, pos_lo = _zobrist_salts(
+            torch.as_tensor(positions, device=dev).to(torch.int64))
     else:
-        pos = torch.arange(k, dtype=torch.int64, device=dev) + offset
-    pos = (pos + 1) & M32
-    pos_hi, pos_lo = mul32(pos, _Z1), (mul32(pos, _Z2) + _GOLDEN) & M32
+        pos_hi, pos_lo = _zobrist_range(k, int(offset), dev)
 
     def lanes(rows):
         x = rows.to(torch.int64) & M32

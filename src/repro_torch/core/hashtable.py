@@ -8,16 +8,19 @@ the archive row).  A real key equal to the empty marker is remapped to
 ``(SENTINEL, SENTINEL - 1)`` on both the insert and the lookup side.
 
 Claims.  Within one batch only the *lowest-indexed* candidate of an
-equal-key group counts as new: that rule fixes the archive order.  Claim
-races are resolved by ``scatter_reduce_(reduce="amin")`` on the candidate
-index, which gives the same winner whatever order the card applies the
-updates in (a plain atomic compare-and-swap would let any racer win); a
-claim loser re-checks the slot it lost before probing on.
+equal-key group counts as new: that rule fixes the archive order.  A claim
+is decided by the minimum candidate index over the claimers of a slot,
+which gives the same winner whatever order the card applies the updates
+in (a plain atomic compare-and-swap would let any racer win); a claim
+loser re-checks the slot it lost before probing on.
 
-Host reads.  The reference's probe ``while_loop``s become Python loops
-that read ``any(pending)`` once per iteration (counted by
-:func:`repro_torch.core.device.host_read`); a probe chain is a few steps
-long at load <= 0.5.
+The probes.  The reference's probe ``while_loop``s are the hand-written
+kernels of :mod:`repro_torch.kernels.hashtable`: H1 (lookup) and H2 (the
+claim rounds, shared by :func:`first_occurrence` and the inserts), each a
+launch with no host read, so a BFS level that dedups through this table
+runs on the card without reading anything back.  On CPU tensors the same
+functions run the kernels' plain versions (PyTorch loops over the same
+rounds).
 """
 
 from __future__ import annotations
@@ -27,13 +30,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .device import DeviceLike, host_read, resolve_device
-from .hashing import SENTINEL, fmix32, mul32
+from .device import DeviceLike, resolve_device
+from .hashing import SENTINEL
 
 __all__ = ["HashTable", "table_slots", "make_table", "lookup",
-           "first_occurrence", "insert_unique", "insert_if_absent"]
-
-_MIX = 0x9E3779B1
+           "first_occurrence", "insert_unique", "insert_unique_",
+           "insert_if_absent"]
 
 
 class HashTable(NamedTuple):
@@ -96,10 +98,18 @@ def _canonical(hi, lo, valid):
             torch.where(valid, lo, SENTINEL))
 
 
-def _base_slot(hi, lo, num_slots: int) -> torch.Tensor:
-    """Both lanes avalanched together, so probe chains of distinct keys
-    decorrelate even when one lane collides."""
-    return fmix32(hi ^ mul32(lo, _MIX)) & (num_slots - 1)
+def _keys(hi, lo, valid, dev):
+    """Canonical contiguous lanes and mask on ``dev``."""
+    hi, lo, valid = _lane(hi, dev), _lane(lo, dev), _mask(valid, dev)
+    hi, lo = _canonical(hi, lo, valid)
+    return hi.contiguous(), lo.contiguous(), valid.contiguous()
+
+
+def _ops():
+    # Imported here: the kernels package imports core modules, and core's
+    # __init__ imports this one.
+    from ..kernels.hashtable import ops
+    return ops
 
 
 def lookup(table: HashTable, hi, lo, valid,
@@ -107,97 +117,52 @@ def lookup(table: HashTable, hi, lo, valid,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched membership probe (no writes): ``(found, payload)``.  A chain
     that exhausts ``max_probes`` occupied, non-matching slots resolves as
-    absent — sound, because inserts bound their probes identically."""
-    S = table.num_slots
-    D = _probes(S, max_probes)
+    absent — sound, because inserts bound their probes identically.  H1
+    on the card, its plain version on the CPU."""
     dev = table.slots_hi.device
-    hi, lo, valid = _lane(hi, dev), _lane(lo, dev), _mask(valid, dev)
-    hi, lo = _canonical(hi, lo, valid)
-    base = _base_slot(hi, lo, S)
-    pending = valid.clone()
-    found = torch.zeros_like(valid)
-    payload = torch.full(hi.shape, -1, dtype=torch.int32, device=hi.device)
-    p = 0
-    while p < D and host_read(pending.any()):
-        slot = (base + p) & (S - 1)
-        cur_hi, cur_lo = table.slots_hi[slot], table.slots_lo[slot]
-        match = pending & (cur_hi == hi) & (cur_lo == lo)
-        empty = (cur_hi == SENTINEL) & (cur_lo == SENTINEL)
-        found |= match
-        payload = torch.where(match, table.slot_payload[slot], payload)
-        pending &= ~match & ~empty
-        p += 1
-    return found, payload
-
-
-def _claim_loop(s_hi, s_lo, s_pay, hi, lo, pending, payload_vals,
-                max_probes: int):
-    """The batched claim-insert loop shared by :func:`insert_unique` (on
-    the real table) and :func:`first_occurrence` (on a per-wave scratch).
-
-    Each iteration every pending candidate reads its current slot and
-    either (a) matches the stored key — a duplicate, (b) wins an
-    empty-slot claim (lowest candidate index) — inserted, (c) loses a
-    claim — re-checks the same slot next iteration, or (d) sees a foreign
-    key — advances one probe.  Candidates reaching ``max_probes``
-    overflow.  Returns ``(s_hi, s_lo, s_pay, won, dup, overflow)``; the
-    input tensors are not written to."""
-    S = s_hi.shape[0]
-    K = hi.shape[0]
-    dev = hi.device
-    base = _base_slot(hi, lo, S)
-    idx = torch.arange(K, dtype=torch.int64, device=dev)
-    probe = torch.zeros(K, dtype=torch.int64, device=dev)
-    won = torch.zeros(K, dtype=torch.bool, device=dev)
-    dup = torch.zeros_like(won)
-    ovf = torch.zeros_like(won)
-    # every advance or claim loss takes an iteration, and a loss is
-    # followed by a resolution or an advance, so 2*D + 1 bounds the loop
-    it = 0
-    while it < 2 * max_probes + 1 and host_read(pending.any()):
-        slot = (base + probe) & (S - 1)
-        cur_hi, cur_lo = s_hi[slot], s_lo[slot]
-        match = pending & (cur_hi == hi) & (cur_lo == lo)
-        empty = (cur_hi == SENTINEL) & (cur_lo == SENTINEL)
-        try_claim = pending & ~match & empty
-        # claim[s] = lowest index claiming empty slot s this round (K: none)
-        claim = torch.full((S,), K, dtype=torch.int64, device=dev)
-        claim.scatter_reduce_(0, slot, torch.where(try_claim, idx, K),
-                              reduce="amin")
-        win = try_claim & (claim[slot] == idx)
-        # each claimed slot was empty and has exactly one winner: write it
-        claimed = claim < K
-        winner = claim.clamp(max=max(K - 1, 0))
-        s_hi = torch.where(claimed, hi[winner], s_hi)
-        s_lo = torch.where(claimed, lo[winner], s_lo)
-        s_pay = torch.where(claimed, payload_vals[winner], s_pay)
-        # occupied by a foreign key -> advance; claim losers hold position
-        advance = pending & ~match & ~empty
-        probe = probe + advance
-        out = probe >= max_probes
-        ovf |= pending & out
-        won |= win
-        dup |= match
-        pending = pending & ~match & ~win & ~out
-        it += 1
-    return s_hi, s_lo, s_pay, won, dup, ovf.any()
+    hi, lo, valid = _keys(hi, lo, valid, dev)
+    return _ops().lookup(table.slots_hi, table.slots_lo, table.slot_payload,
+                         hi, lo, valid, _probes(table.num_slots, max_probes))
 
 
 def first_occurrence(hi, lo, valid, max_probes: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``first[i]`` iff candidate ``i`` is the lowest-indexed holder of its
-    key within the batch, from a claim loop on a scratch table of
+    key within the batch, from the claim rounds (H2) on a scratch table of
     ``table_slots(K)`` slots.  Returns ``(first, overflow)``."""
     dev = hi.device if isinstance(hi, torch.Tensor) else None
-    hi, lo, valid = _lane(hi, dev), _lane(lo, dev), _mask(valid, dev)
+    hi, lo, valid = _keys(hi, lo, valid, dev)
     K = int(hi.shape[0])
     S = table_slots(max(K, 1))
-    hi, lo = _canonical(hi, lo, valid)
     s_hi, s_lo, s_pay = _empty(S, 0, hi.device)
-    _, _, _, won, _, ovf = _claim_loop(
+    won, _, ovf = _ops().claim_(
         s_hi, s_lo, s_pay, hi, lo, valid,
         torch.zeros(K, dtype=torch.int32, device=hi.device),
         _probes(S, max_probes))
+    return won, ovf
+
+
+def _payload(payload, K: int, dev) -> torch.Tensor:
+    if payload is None:
+        return torch.arange(K, dtype=torch.int32, device=dev)
+    if not isinstance(payload, torch.Tensor):
+        payload = torch.from_numpy(np.asarray(payload, dtype=np.int32))
+    return payload.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def insert_unique_(table: HashTable, hi, lo, mask, payload=None,
+                   max_probes: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`insert_unique` into ``table`` in place (its slots and its
+    count): ``(inserted, overflow)``.  The BFS levels insert this way, so
+    a captured level writes the state's own table."""
+    dev = table.slots_hi.device
+    hi, lo, mask = _keys(hi, lo, mask, dev)
+    won, _, ovf = _ops().claim_(
+        table.slots_hi, table.slots_lo, table.slot_payload, hi, lo, mask,
+        _payload(payload, hi.shape[0], dev),
+        _probes(table.num_slots, max_probes))
+    table.count.add_(won.sum(dtype=torch.int32))
     return won, ovf
 
 
@@ -206,20 +171,11 @@ def insert_unique(table: HashTable, hi, lo, mask, payload=None,
                   ) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
     """Insert masked keys (expected distinct and absent).  A key found
     present anyway is left in place and reported as not inserted.
-    Returns ``(table, inserted, overflow)``."""
-    dev = table.slots_hi.device
-    hi, lo, mask = _lane(hi, dev), _lane(lo, dev), _mask(mask, dev)
-    if payload is None:
-        payload = torch.arange(hi.shape[0], dtype=torch.int32, device=dev)
-    elif not isinstance(payload, torch.Tensor):
-        payload = torch.from_numpy(np.asarray(payload, dtype=np.int32))
-    payload = payload.to(device=dev, dtype=torch.int32)
-    hi, lo = _canonical(hi, lo, mask)
-    s_hi, s_lo, s_pay, won, _, ovf = _claim_loop(
-        table.slots_hi, table.slots_lo, table.slot_payload, hi, lo, mask,
-        payload, _probes(table.num_slots, max_probes))
-    count = table.count + won.sum(dtype=torch.int32)
-    return HashTable(s_hi, s_lo, s_pay, count), won, ovf
+    Returns ``(table, inserted, overflow)``; ``table`` is not written to
+    (the claim rounds run on a copy)."""
+    new = HashTable(*(x.clone() for x in table))
+    won, ovf = insert_unique_(new, hi, lo, mask, payload, max_probes)
+    return new, won, ovf
 
 
 def insert_if_absent(table: HashTable, hi, lo, valid, payload=None,

@@ -191,7 +191,11 @@ snp_step_dense_kernel(const int* __restrict__ configs,
                       unsigned char* __restrict__ valid,
                       int* __restrict__ emis,
                       int T, int n, int m, int H, int nnz, int hnnz,
-                      int t_tiles, int chunk, int halo_words) {
+                      int t_tiles, int chunk, int halo_words,
+                      unsigned long long* __restrict__ launches) {
+  // one launch counted on the card (kernels/launch_counts.py)
+  if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(launches, 1ull);
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) unsigned long long bar;
   int* halo_s = reinterpret_cast<int*>(smem);            // [ROWS][H]
@@ -314,6 +318,7 @@ struct Args {
       *col_start, *col_rule, *col_val, *hcol_start, *hcol_slot, *halo;
   void *out, *valid, *emis;
   int B, T, n, m, H, nnz, hnnz;
+  void* launches;
 };
 
 template <bool HAS_HALO, int ROWS>
@@ -338,7 +343,8 @@ int launch_rows(const Args& a, int chunk, bool staged, cudaStream_t stream) {
       (const int*)a.col_start, (const int*)a.col_rule, (const int*)a.col_val,
       (const int*)a.hcol_start, (const int*)a.hcol_slot, (const int*)a.halo,
       (int*)a.out, (unsigned char*)a.valid, (int*)a.emis, a.T, a.n, a.m, a.H,
-      a.nnz, a.hnnz, t_tiles, chunk, halo_words);
+      a.nnz, a.hnnz, t_tiles, chunk, halo_words,
+      (unsigned long long*)a.launches);
   return (int)cudaGetLastError();
 }
 
@@ -374,7 +380,8 @@ extern "C" int snp_step_dense_shard_rows(int n, int H) {
 // [M | env] (n, m+1): col_start (m+2,), col_rule and col_val (nnz,).
 // bt rows a block (8, 16 or 32; 0 for the rule's 16) and nt threads (256,
 // or 0); another shape is cudaErrorInvalidValue.  Outputs: out (B,T,m),
-// valid (B,T) bool, emis (B,T).
+// valid (B,T) bool, emis (B,T).  `launches` (one uint64 counter, or
+// null) gets one added on the card when the kernel runs.
 extern "C" int snp_step_dense(const void* configs, const void* rank,
                               const void* app, const void* stride,
                               const void* choices, const void* psi,
@@ -382,12 +389,13 @@ extern "C" int snp_step_dense(const void* configs, const void* rank,
                               const void* col_rule, const void* col_val,
                               void* out, void* valid, void* emis, int B,
                               int T, int n, int m, int nnz, int bt, int nt,
-                              void* stream) {
+                              void* launches, void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (nt != 0 && nt != THREADS) return (int)cudaErrorInvalidValue;
   const Args a{configs, rank,      app,      stride,  choices, psi,
                rule_neuron, col_start, col_rule, col_val, nullptr, nullptr,
-               nullptr, out, valid, emis, B, T, n, m, 0, nnz, 0};
+               nullptr, out, valid, emis, B, T, n, m, 0, nnz, 0,
+               launches};
   const int chunk = rule_chunk(n);
   cudaStream_t s = (cudaStream_t)stream;
   switch (bt ? bt : B1_ROWS) {
@@ -417,13 +425,13 @@ extern "C" int snp_step_dense_shard(const void* configs, const void* rank,
                                     const void* hcol_slot, const void* halo,
                                     void* out, int B, int T, int n, int m,
                                     int H, int nnz, int hnnz, int bt, int nt,
-                                    void* stream) {
+                                    void* launches, void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (nt != 0 && nt != THREADS) return (int)cudaErrorInvalidValue;
   const Args a{configs,    rank,      app,  stride,  choices, psi,
                rule_neuron, col_start, col_rule, col_val, hcol_start,
                hcol_slot, halo, out, nullptr, nullptr, B, T, n, m, H, nnz,
-               hnnz};
+               hnnz, launches};
   const int chunk = rule_chunk(n);
   const int rows = bt ? bt : shard_rule_rows(H, chunk);
   const bool staged = H > 0 && halo_fits(rows, H, chunk);

@@ -148,7 +148,11 @@ snp_step_dense_delay_sell_kernel(const int* __restrict__ spikes,
                                  int* __restrict__ out,
                                  unsigned char* __restrict__ valid,
                                  int* __restrict__ emis,
-                                 int T, int n, int m, int E, int t_tiles) {
+                                 int T, int n, int m, int E, int t_tiles,
+                                 unsigned long long* __restrict__ launches) {
+  // one launch counted on the card (kernels/launch_counts.py)
+  if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(launches, 1ull);
   constexpr int NW = NT / 32;
   extern __shared__ __align__(16) unsigned stage[];   // [m + 1][BT]
   const int tid = threadIdx.x;
@@ -263,6 +267,7 @@ struct Call {
       *out_neuron;
   void *out, *valid, *emis;
   int B, T, n, m, E;
+  void* launches;
   cudaStream_t stream;
 };
 
@@ -283,7 +288,8 @@ int launch(const Call& c) {
       (const int*)c.consume, (const int*)c.produce, (const int*)c.delay,
       (const int*)c.sell_start, (const int*)c.sell_src,
       (const int*)c.out_neuron, (int*)c.out, (unsigned char*)c.valid,
-      (int*)c.emis, c.T, c.n, c.m, c.E, t_tiles);
+      (int*)c.emis, c.T, c.n, c.m, c.E, t_tiles,
+      (unsigned long long*)c.launches);
   return (int)cudaGetLastError();
 }
 
@@ -322,7 +328,8 @@ extern "C" int snp_step_dense_delay_threads(int m) {
 // block, each 0 for the rule's (snp_step_dense_delay_rows, _threads); a
 // shape without an instance, or whose stage passes 227 KB, is
 // cudaErrorInvalidValue.  Outputs: out (B,T,3m), valid (B,T) bool, emis
-// (B,T).
+// (B,T).  `launches` (one uint64 counter, or null) gets one added on
+// the card when the kernel runs.
 extern "C" int snp_step_dense_delay(
     const void* spikes, const void* cd, const void* pd, const void* rank,
     const void* app, const void* stride, const void* choices,
@@ -330,11 +337,12 @@ extern "C" int snp_step_dense_delay(
     const void* produce, const void* delay, const void* sell_start,
     const void* sell_src, const void* out_neuron, void* out, void* valid,
     void* emis, int B, int T, int n, int m, int E, int bt, int nt,
-    void* stream) {
+    void* launches, void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   const Call c{spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds,
                consume, produce, delay, sell_start, sell_src, out_neuron,
-               out, valid, emis, B, T, n, m, E, (cudaStream_t)stream};
+               out, valid, emis, B, T, n, m, E, launches,
+               (cudaStream_t)stream};
   if (bt == 0) bt = rows_per_block(m, T, 4);
   if (nt == 0) nt = threads(m);
   if (!valid_rows(bt) || !valid_threads(nt))

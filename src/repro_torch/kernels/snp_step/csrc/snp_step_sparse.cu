@@ -232,7 +232,11 @@ snp_step_sparse_sell_kernel(const int* __restrict__ configs,
                             unsigned char* __restrict__ valid,
                             int* __restrict__ emis,
                             int T, int m, int R, int E, int Ec, int Hn,
-                            int H, int t_tiles) {
+                            int H, int t_tiles,
+                            unsigned long long* __restrict__ launches) {
+  // one launch counted on the card (kernels/launch_counts.py)
+  if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(launches, 1ull);
   static_assert(!(HAS_HALO && HAS_DELAY),
                 "the shard body has no delay stage");
   constexpr int NW = NT / 32;
@@ -412,6 +416,7 @@ struct SellCall {
       *pd, *halo;
   void *out, *valid, *emis;
   int B, T, m, R, E, Ec, Hn, H;
+  void* launches;
   cudaStream_t stream;
 };
 
@@ -434,7 +439,7 @@ int launch_sell(const SellCall& c) {
       (const int*)c.hub_neuron, (const int*)c.dtab, (const int*)c.cd,
       (const int*)c.pd, (const int*)c.halo, (int*)c.out,
       (unsigned char*)c.valid, (int*)c.emis, c.T, c.m, c.R, c.E, c.Ec, c.Hn,
-      c.H, t_tiles);
+      c.H, t_tiles, (unsigned long long*)c.launches);
   return (int)cudaGetLastError();
 }
 
@@ -489,7 +494,8 @@ extern "C" int snp_step_sparse_sell_threads(int m) {
 // rule's (snp_step_sparse_sell_rows, _threads); a shape without an
 // instance, or whose stage passes 227 KB, is cudaErrorInvalidValue.
 // Outputs: out (B,T,m), or (B,T,3m) with has_delay, valid (B,T) bool,
-// emis (B,T).
+// emis (B,T).  `launches` (one uint64 counter, or null) gets one added
+// on the card when the kernel runs.
 extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                const void* choices, const void* psi,
                                const void* tab, const void* sell_start,
@@ -501,14 +507,14 @@ extern "C" int snp_step_sparse(const void* configs, const void* stride,
                                void* emis, int B, int T, int m, int R, int E,
                                int Ec, int Hn, int H, int has_coo,
                                int has_delay, int has_halo, int bt, int nt,
-                               void* stream) {
+                               void* launches, void* stream) {
   if (B <= 0 || T <= 0 || m <= 0) return 0;
   if (has_halo && (has_coo || has_delay)) return (int)cudaErrorInvalidValue;
   const SellCall c{configs, stride, choices, psi, tab, sell_start, sell_src,
                    out_neuron, coo_src, coo_bounds, hub_neuron, dtab, cd, pd,
                    halo, out, valid, emis, B, T, m, R, E,
                    has_coo ? Ec : 0, has_coo ? Hn : 0, has_halo ? H : 0,
-                   (cudaStream_t)stream};
+                   launches, (cudaStream_t)stream};
   if (has_halo) return dispatch_sell<false, true>(c, bt, nt);
   if (has_delay) return dispatch_sell<true, false>(c, bt, nt);
   return dispatch_sell<false, false>(c, bt, nt);

@@ -52,12 +52,12 @@ are clipped to the largest power of two at most ``max_branches``.  Any
 other shape is a ``ValueError`` before any launch, also on a CPU tensor
 (:func:`~.sparse_ops.check_block`), never a silent change.
 
-Counters (plain integers, reset by callers that measure a run):
-``kernel_launches`` and ``plain_calls`` count launches of B1 and calls of
-its plain version, ``delay_launches`` and ``delay_plain_calls`` the same
-for B4, ``shard_launches`` and ``shard_plain_calls`` for B6;
-``block_launches`` counts the launches by ``(kernel, rows, threads)``,
-``kernel`` one of ``"B1"``, ``"B4"``, ``"B6"``: the shape that ran.
+Counters.  The kernels count their own launches on the card, by
+``(kernel, rows, threads)`` with ``kernel`` one of ``"B1"``, ``"B4"``,
+``"B6"`` (:mod:`repro_torch.kernels.launch_counts`).  ``plain_calls``,
+``delay_plain_calls`` and ``shard_plain_calls`` (plain integers, reset by
+callers that measure a run) count calls of B1's, B4's and B6's plain
+versions.
 """
 
 from __future__ import annotations
@@ -70,6 +70,7 @@ import torch
 from ...core.matrix import CompiledSNP, is_delayed
 from ...core.semantics import (branch_info, clamp_stride,
                                delayed_branch_info, split_state)
+from ..launch_counts import slot
 from ._build import load_library
 from .ref import (snp_step_dense_delay_ref, snp_step_dense_ref,
                   snp_step_dense_shard_ref)
@@ -80,9 +81,8 @@ __all__ = ["snp_step", "snp_step_dense", "snp_step_dense_delay",
            "snp_step_dense_shard", "snp_step_dense_shard_cuda",
            "delay_inputs", "load_kernel", "load_delay_kernel",
            "delay_max_neurons", "delay_block_shape", "dense_block_shape",
-           "shard_block_shape", "SOURCE", "DELAY_SOURCE", "kernel_launches",
-           "plain_calls", "delay_launches", "delay_plain_calls",
-           "shard_launches", "shard_plain_calls", "block_launches",
+           "shard_block_shape", "SOURCE", "DELAY_SOURCE", "plain_calls",
+           "delay_plain_calls", "shard_plain_calls",
            "RULE_CHUNK", "B1_ROWS", "THREADS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_dense.cu"
@@ -97,18 +97,9 @@ RULE_CHUNK = 8192
 B1_ROWS = (8, 16, 32)
 THREADS = 256
 
-kernel_launches = 0
 plain_calls = 0
-delay_launches = 0
 delay_plain_calls = 0
-shard_launches = 0
 shard_plain_calls = 0
-block_launches: dict = {}
-
-
-def _count_block(kernel: str, rows: int, threads: int) -> None:
-    key = (kernel, rows, threads)
-    block_launches[key] = block_launches.get(key, 0) + 1
 
 
 def load_kernel():
@@ -116,11 +107,11 @@ def load_kernel():
     lib = load_library(SOURCE)
     fn = lib.snp_step_dense
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     shard = lib.snp_step_dense_shard
     shard.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     shard.restype = ctypes.c_int
     lib.snp_step_dense_rows.argtypes = []
     lib.snp_step_dense_rows.restype = ctypes.c_int
@@ -134,7 +125,7 @@ def load_delay_kernel():
     lib = load_library(DELAY_SOURCE)
     fn = lib.snp_step_dense_delay
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lib.snp_step_dense_delay_max_neurons.argtypes = []
     lib.snp_step_dense_delay_max_neurons.restype = ctypes.c_int
@@ -239,7 +230,6 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
     col_rule, col_val)`` holds (:func:`~repro_torch.core.matrix.
     dense_column_lists`), at ``rows`` x ``threads`` a block
     (:func:`dense_block_shape`)."""
-    global kernel_launches
     args = (configs, rank, app, stride, choices, psi, rule_neuron)
     dev = configs.device
     B, m = configs.shape
@@ -271,11 +261,10 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(x.data_ptr() for x in args + tuple(cols)),
                 out.data_ptr(), valid.data_ptr(), emis.data_ptr(), B, T, n,
-                m, cols[1].shape[0], rows, threads, stream)
+                m, cols[1].shape[0], rows, threads,
+                slot(("B1", rows, threads), dev), stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_dense launch failed: CUDA error {rc}")
-    kernel_launches += 1
-    _count_block("B1", rows, threads)
     return out, valid, emis
 
 
@@ -290,7 +279,6 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
     ``sell_src`` hold (:func:`~repro_torch.core.matrix.sliced_in_lists`),
     taken in ``adj_in``'s place, at ``rows`` x ``threads`` a block
     (:func:`delay_block_shape`)."""
-    global delay_launches
     dev = spikes.device
     B, m = spikes.shape
     n = rank.shape[-1]
@@ -333,12 +321,10 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
                 spikes, cd, pd, rank, app, stride, choices, psi, rule_bounds,
                 consume, produce, delay, sell_start, sell_src, out_neuron,
                 out, valid, emis)), B, T, n, m, sell_src.shape[0], rows,
-            threads, stream)
+            threads, slot(("B4", rows, threads), dev), stream)
     if rc != 0:
         raise RuntimeError(
             f"snp_step_dense_delay launch failed: CUDA error {rc}")
-    delay_launches += 1
-    _count_block("B4", rows, threads)
     return out, valid, emis
 
 
@@ -353,7 +339,6 @@ def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
     plan.DenseShardArrays.shard_columns`; padding past each list's end is
     ignored), at ``rows`` x ``threads`` a block
     (:func:`shard_block_shape`)."""
-    global shard_launches
     dev = configs.device
     B, m = configs.shape
     n = rank.shape[-1]
@@ -380,12 +365,11 @@ def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
         rc = fn(*(x.data_ptr() for x in (
             configs, rank, app, stride, choices, psi, rule_neuron) + tuple(
                 cols) + (halo, out)), B, T, n, m, H, cols[1].shape[0],
-            cols[4].shape[0], rows, threads, stream)
+            cols[4].shape[0], rows, threads,
+            slot(("B6", rows, threads), dev), stream)
     if rc != 0:
         raise RuntimeError(
             f"snp_step_dense_shard launch failed: CUDA error {rc}")
-    shard_launches += 1
-    _count_block("B6", rows, threads)
     return out
 
 

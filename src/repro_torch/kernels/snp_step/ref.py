@@ -93,9 +93,17 @@ def snp_step_dense_shard_ref(configs, rank, app, stride, choices, psi,
     shard's local rules (``rule_neuron`` maps them to its columns, strides
     already combined across shards and clamped), ``halo`` (B,T,H) the
     remote produce and ``hadj`` (H,mloc) its 0/1 in-adjacency.  The halo
-    term adds each halo slot into the columns it feeds, in int32."""
+    term adds each halo slot into the columns it feeds, in int32, as a
+    product with ``hadj`` over blocks of halo slots (no shape depends on
+    the data, so nothing waits on the card)."""
     S = decode_spiking(app, rank, stride, choices, rule_neuron, max_branches)
     out, _ = transition(configs, S, M_local,
                         torch.zeros_like(rule_neuron))
-    src, dst = hadj.nonzero(as_tuple=True)
-    return out.index_add_(-1, dst, halo.index_select(-1, src))
+    B, T, H = halo.shape
+    w = hadj.to(torch.int32)
+    # a block's product holds B·T·slots·mloc int32: at most 2^26 of them
+    slots = max(1, (1 << 26) // max(1, B * T * w.shape[1]))
+    for s0 in range(0, H, slots):
+        s1 = min(H, s0 + slots)
+        out += (halo[..., s0:s1, None] * w[s0:s1]).sum(-2, dtype=torch.int32)
+    return out

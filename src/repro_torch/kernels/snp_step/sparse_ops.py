@@ -39,13 +39,12 @@ uint16 rows of ``m + H + 1`` values passes the 227 KB a block may hold
 rows), is a ``ValueError`` before any launch, also on a CPU tensor, whose
 plain version ignores the shape.  A shape is never changed silently.
 
-Counters (plain integers, reset by callers that measure a run):
-``kernel_launches`` counts every launch, and one counter a body counts
-that body's: ``ell_launches`` (B2), ``coo_launches`` (B3),
-``ell_delay_launches`` and ``coo_delay_launches`` (B5's ELL and COO
-bodies), ``halo_launches`` (B7); ``plain_calls`` counts calls of the
-plain version.  :func:`body_counts` reads the five.  ``block_launches``
-counts the launches by ``(body, rows, threads)``, the shape that ran.
+Counters.  The kernel counts its own launches on the card, by ``(body,
+rows, threads)`` with ``body`` one of ``"B2"`` (ELL), ``"B3"`` (the COO
+tail), ``"B5-ELL"`` and ``"B5-COO"`` (the delayed bodies), ``"B7"`` (the
+halo) (:mod:`repro_torch.kernels.launch_counts`).  ``plain_calls`` (a
+plain integer, reset by callers that measure a run) counts calls of the
+plain version.
 """
 
 from __future__ import annotations
@@ -56,16 +55,14 @@ from pathlib import Path
 import torch
 
 from ...core.matrix import CompiledSparseSNP
+from ..launch_counts import slot
 from ._build import load_library
 from .sparse_ref import kernel_inputs, snp_step_sparse_ref, sparse_step
 
 __all__ = ["snp_step_sparse", "snp_step_sparse_cuda",
            "snp_step_sparse_shard", "load_kernel", "max_neurons",
            "sell_block_shape", "check_block", "SOURCE", "MAX_BRANCHES",
-           "SMEM_LIMIT", "ROWS", "THREADS", "kernel_launches",
-           "ell_launches", "coo_launches", "ell_delay_launches",
-           "coo_delay_launches", "halo_launches", "plain_calls",
-           "block_launches", "body_counts"]
+           "SMEM_LIMIT", "ROWS", "THREADS", "plain_calls", "body"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "snp_step_sparse.cu"
 
@@ -81,33 +78,17 @@ SMEM_LIMIT = 232448
 ROWS = (1, 2, 4, 8)
 THREADS = (256, 1024)
 
-kernel_launches = 0
-ell_launches = 0
-coo_launches = 0
-ell_delay_launches = 0
-coo_delay_launches = 0
-halo_launches = 0
 plain_calls = 0
-block_launches: dict = {}
 
 
-def body_counts():
-    """Launches per body since the counters were last set to 0: ``ell``
-    (B2), ``coo`` (B3), ``ell_delay`` and ``coo_delay`` (B5), ``halo``
-    (B7)."""
-    return {"ell": ell_launches, "coo": coo_launches,
-            "ell_delay": ell_delay_launches, "coo_delay": coo_delay_launches,
-            "halo": halo_launches}
-
-
-def _count(body: str, rows: int, threads: int) -> None:
-    """One launch of ``body`` (a key of :func:`body_counts`) at ``rows``
-    x ``threads``: the total, that body's counter and the shape's."""
-    global kernel_launches
-    kernel_launches += 1
-    globals()[f"{body}_launches"] += 1
-    key = (body, rows, threads)
-    block_launches[key] = block_launches.get(key, 0) + 1
+def body(has_coo: bool, has_delay: bool, has_halo: bool) -> str:
+    """The body a launch runs: ``"B2"``, ``"B3"``, ``"B5-ELL"``,
+    ``"B5-COO"`` or ``"B7"``."""
+    if has_halo:
+        return "B7"
+    if has_delay:
+        return "B5-COO" if has_coo else "B5-ELL"
+    return "B3" if has_coo else "B2"
 
 
 def load_kernel():
@@ -115,7 +96,7 @@ def load_kernel():
     lib = load_library(SOURCE)
     fn = lib.snp_step_sparse
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 13 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lib.snp_step_sparse_max_neurons.argtypes = []
     lib.snp_step_sparse_max_neurons.restype = ctypes.c_int
@@ -301,11 +282,11 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
             out, valid, emis))
         rc = lib.snp_step_sparse(*ptrs, B, T, m, R, E, Ec, Hn, H,
                                  int(has_coo), int(has_delay), int(has_halo),
-                                 rows, threads, stream)
+                                 rows, threads, slot((body(
+                                     has_coo, has_delay, has_halo), rows,
+                                     threads), dev), stream)
     if rc != 0:
         raise RuntimeError(f"snp_step_sparse launch failed: CUDA error {rc}")
-    _count("halo" if has_halo else ("coo" if has_coo else "ell")
-           + ("_delay" if has_delay else ""), rows, threads)
     return out, valid, emis
 
 

@@ -158,9 +158,12 @@ def snp_step_sparse_ref(configs, stride, choices, psi, tab, in_idx,
         incoming.add_(prod_pad.index_select(-1, in_idx[:, k]))
     if coo_src is not None:
         hn = coo_bounds.shape[0] - 1
+        # the runs cover coo_src exactly: its length sizes the result, so
+        # nothing waits on the card for the sum of the run lengths
         hub_of_entry = torch.repeat_interleave(
             torch.arange(hn, device=dev),
-            (coo_bounds[1:] - coo_bounds[:-1]).to(torch.int64))
+            (coo_bounds[1:] - coo_bounds[:-1]).to(torch.int64),
+            output_size=coo_src.shape[0])
         tail = torch.zeros((B, T, hn + 1), dtype=torch.int32, device=dev)
         tail.index_add_(-1, hub_of_entry, prod_pad.index_select(-1, coo_src))
         incoming.add_(tail.index_select(-1, hub_slot))

@@ -28,6 +28,8 @@ from repro.core import semantics as jsem  # noqa: E402
 from repro.kernels.snp_step import snp_step as jdense  # noqa: E402
 from repro.kernels.snp_step import snp_step_sparse as jsparse  # noqa: E402
 from repro_torch.core.convert import system_from_spec  # noqa: E402
+from repro_torch.kernels.launch_counts import (  # noqa: E402
+    launches as launched)
 from repro_torch.kernels.snp_step import ops, sparse_ops  # noqa: E402
 from repro_torch.kernels.snp_step.ref import (  # noqa: E402
     snp_step_dense_delay_ref)
@@ -137,9 +139,9 @@ def test_dense_wrapper_matches_pallas_interpret(name):
     system, T = _delayed(name)
     pc, jc = _dense(system)
     states = _states(system, 5, seed=13)
-    before = (ops.delay_plain_calls, ops.delay_launches, ops.plain_calls)
+    before = (ops.delay_plain_calls, launched("B4"), ops.plain_calls)
     port = ops.snp_step(torch.from_numpy(states), pc, max_branches=T)
-    assert (ops.delay_plain_calls, ops.delay_launches, ops.plain_calls) == \
+    assert (ops.delay_plain_calls, launched("B4"), ops.plain_calls) == \
         (before[0] + 1, before[1], before[2])
     ref = jdense(jnp.asarray(states), jc, max_branches=T, block_b=2,
                  block_t=8, block_n=128, interpret=True)
@@ -155,10 +157,10 @@ def test_sparse_wrapper_matches_sparse_pallas_interpret(name, h):
     system, T = _delayed(name)
     pc, jc = _sparse(system, h)
     states = _states(system, 5, seed=17)
-    before = (sparse_ops.plain_calls, sparse_ops.kernel_launches)
+    before = (sparse_ops.plain_calls, launched())
     port = sparse_ops.snp_step_sparse(torch.from_numpy(states), pc,
                                       max_branches=T)
-    assert (sparse_ops.plain_calls, sparse_ops.kernel_launches) == \
+    assert (sparse_ops.plain_calls, launched()) == \
         (before[0] + 1, before[1])
     ref = jsparse(jnp.asarray(states), jc, max_branches=T, block_b=2,
                   block_t=8, interpret=True)
@@ -258,19 +260,19 @@ def test_kernel_launchers_refuse_cpu_tensors():
     states = torch.from_numpy(_states(system, 2, seed=1))
     pc, _ = _dense(system)
     args, _ = ops.delay_inputs(states, pc, lists=True)
-    launches = ops.delay_launches
+    launches = launched("B4")
     with pytest.raises(ValueError, match="CUDA"):
         ops.snp_step_dense_delay(*args, T)
-    assert ops.delay_launches == launches
+    assert launched("B4") == launches
     sc, _ = _sparse(system, 1)
     args, extra, _ = kernel_inputs(states, sc, lists=True)
-    launches = sparse_ops.kernel_launches
+    launches = launched()
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(*args, **extra, max_branches=T)
     with pytest.raises(ValueError, match="come together"):
         sparse_ops.snp_step_sparse_cuda(*args, dtab=extra["dtab"],
                                         max_branches=T)
-    assert sparse_ops.kernel_launches == launches
+    assert launched() == launches
 
 
 @pytest.mark.parametrize("h", [None, 1], ids=["ell", "h1"])
@@ -294,14 +296,14 @@ def test_delayed_bodies_walk_the_sliced_lists(h):
     assert kextra.keys() - {"hub_neuron"} == extra.keys() - {"hub_slot"}
     assert ("hub_neuron" in kextra) == bool(h)
     assert kextra.get("hub_neuron") is sc.hub_neuron
-    launches = sparse_ops.kernel_launches
+    launches = launched()
     with pytest.raises(ValueError, match="CUDA"):
         sparse_ops.snp_step_sparse_cuda(*kargs, **kextra, max_branches=T)
     in_idx_args = kargs[:5] + (sc.in_idx,) + kargs[6:]
     with pytest.raises(ValueError, match="sliced lists"):
         sparse_ops.snp_step_sparse_cuda(*in_idx_args, **kextra,
                                         max_branches=T)
-    assert sparse_ops.kernel_launches == launches
+    assert launched() == launches
     bare = sc._replace(sell_start=None)
     with pytest.raises(ValueError, match="sell_start/sell_src"):
         kernel_inputs(states, bare, lists=True)
@@ -390,10 +392,10 @@ def test_dense_delay_launcher_checks_the_sliced_lists(case, match):
     anything launches; well-formed lists on CPU tensors then meet the
     device check."""
     args, T = _dense_launcher_case(case)
-    launches = ops.delay_launches
+    launches = launched("B4")
     with pytest.raises(ValueError, match=match):
         ops.snp_step_dense_delay(*args, T)
-    assert ops.delay_launches == launches
+    assert launched("B4") == launches
 
 
 def test_kernel_sources_ship_beside_the_wrappers():
@@ -406,5 +408,7 @@ def test_kernel_sources_ship_beside_the_wrappers():
         ops.DELAY_SOURCE.read_text()
     text = sparse_ops.SOURCE.read_text()
     assert "HAS_DELAY" in text and "int has_delay" in text
-    counts = sparse_ops.body_counts()
-    assert set(counts) == {"ell", "coo", "ell_delay", "coo_delay", "halo"}
+    bodies = {sparse_ops.body(c, d, h) for c in (False, True)
+              for d in (False, True) for h in (False, True) if not (
+                  h and (c or d))}
+    assert bodies == {"B2", "B3", "B5-ELL", "B5-COO", "B7"}

@@ -24,6 +24,8 @@ from repro_torch.core.backend import REFERENCE_NAME  # noqa: E402
 from repro_torch.core.convert import system_from_spec  # noqa: E402
 from repro_torch.core.matrix import dense_column_lists  # noqa: E402
 from repro_torch.core.semantics import branch_info, clamp_stride  # noqa: E402
+from repro_torch.kernels.launch_counts import (  # noqa: E402
+    launches as launched)
 from repro_torch.kernels.snp_step import ops  # noqa: E402
 from repro_torch.kernels.snp_step.ref import snp_step_dense_ref  # noqa: E402
 
@@ -75,10 +77,10 @@ def test_cpu_tensors_run_the_plain_version_only():
     pc = pcompile(system_from_spec(dataclasses.asdict(system)), device="cpu")
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 4, seed=1))
-    plain, launches = ops.plain_calls, ops.kernel_launches
+    plain, launches = ops.plain_calls, launched("B1")
     out = ops.snp_step(configs, pc, max_branches=T)
     assert ops.plain_calls == plain + 1
-    assert ops.kernel_launches == launches
+    assert launched("B1") == launches
     # equal to the reference semantics on valid entries
     conftest.assert_same_step(_Out(*out), next_configs(configs, pc, T))
 
@@ -106,13 +108,13 @@ def test_kernel_launcher_refuses_cpu_tensors():
                   device="cpu")
     configs = torch.tensor([[2, 1, 1]], dtype=torch.int32)
     info = branch_info(configs, pc)
-    launches = ops.kernel_launches
+    launches = launched("B1")
     with pytest.raises(ValueError, match="CUDA"):
         ops.snp_step_dense(configs, info.rank, info.app,
                            clamp_stride(info.stride), info.choices,
                            info.psi.contiguous(), pc.rule_neuron,
                            (pc.col_start, pc.col_rule, pc.col_val), 8)
-    assert ops.kernel_launches == launches
+    assert launched("B1") == launches
 
 
 def test_cuda_backend_flattens_batch_dims_like_pallas():
@@ -316,7 +318,7 @@ def test_launcher_refuses_lists_that_do_not_match_M():
         conftest.random_states(system, "no_delays", 4, seed=1))
     args = _kernel_inputs(pc, configs)
     good = (pc.col_start, pc.col_rule, pc.col_val)
-    launches = ops.kernel_launches
+    launches = launched("B1")
     # lists of a system one neuron wider: col_start one entry too long
     wider = dense_column_lists(
         torch.cat([pc.M, pc.M[:, :1]], 1), pc.env_produce)
@@ -329,7 +331,7 @@ def test_launcher_refuses_lists_that_do_not_match_M():
             ops.snp_step_dense(*args[:7], bad, T)
     with pytest.raises(ValueError, match="CUDA"):   # well-formed: CPU refused
         ops.snp_step_dense(*args[:7], good, T)
-    assert ops.kernel_launches == launches
+    assert launched("B1") == launches
 
 
 def test_cpu_tensors_with_lists_run_the_plain_version_only():
@@ -340,9 +342,9 @@ def test_cpu_tensors_with_lists_run_the_plain_version_only():
     assert pc.col_start is not None
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 4, seed=3))
-    plain, launches = ops.plain_calls, ops.kernel_launches
+    plain, launches = ops.plain_calls, launched("B1")
     out = ops.snp_step(configs, pc, max_branches=T)
-    assert (ops.plain_calls, ops.kernel_launches) == (plain + 1, launches)
+    assert (ops.plain_calls, launched("B1")) == (plain + 1, launches)
     conftest.assert_same_step(_Out(*out), next_configs(configs, pc, T))
 
 
@@ -364,12 +366,12 @@ def test_an_encoding_without_lists_never_reaches_the_kernel(monkeypatch):
                           if isinstance(v, torch.Tensor)})
     bare = meta._replace(col_start=None, col_rule=None, col_val=None)
     configs = torch.tensor([[2, 1, 1]], dtype=torch.int32, device="meta")
-    counts = (ops.plain_calls, ops.kernel_launches)
+    counts = (ops.plain_calls, launched("B1"))
     with pytest.raises(ValueError, match="lacks the column lists"):
         ops.snp_step(configs, bare, max_branches=8)
     with pytest.raises(ValueError, match="CUDA"):
         ops.snp_step(configs, meta, max_branches=8)
-    assert (ops.plain_calls, ops.kernel_launches) == counts
+    assert (ops.plain_calls, launched("B1")) == counts
 
 
 def test_rule_chunk_is_the_sources():

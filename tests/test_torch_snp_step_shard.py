@@ -28,6 +28,8 @@ from repro.kernels.snp_step.sparse_ops import (  # noqa: E402
 from repro_torch.core.convert import (sharded_from_arrays,  # noqa: E402
                                       system_from_spec)
 from repro_torch.core.matrix import shard_column_lists  # noqa: E402
+from repro_torch.kernels.launch_counts import (  # noqa: E402
+    launches as launched)
 from repro_torch.kernels.snp_step import (_build, ops,  # noqa: E402
                                           sparse_ops)
 from repro_torch.kernels.snp_step.ref import (  # noqa: E402
@@ -154,9 +156,9 @@ def test_port_branch_info_and_table_on_a_shard_match_reference(name):
 def test_cpu_tensors_run_the_plain_versions_only():
     ref, port, shards, T = _shard_inputs("paper-pi-S2")
     sh = shards[0]
-    before = (ops.shard_plain_calls, ops.shard_launches,
-              sparse_ops.plain_calls, sparse_ops.kernel_launches,
-              sparse_ops.halo_launches)
+    before = (ops.shard_plain_calls, launched("B6"),
+              sparse_ops.plain_calls, launched(),
+              launched("B7"))
     ops.snp_step_dense_shard(
         _t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]), _t(sh["stride"]),
         _t(sh["choices"]), _t(sh["psi"]), port.arrays.rule_neuron[0],
@@ -166,8 +168,8 @@ def test_cpu_tensors_run_the_plain_versions_only():
         _t(sh["configs"]), _t(sh["stride"]), _t(sh["choices"]),
         _t(sh["psi"]), _t(sh["tab"]), port.arrays.in_idx[0], _t(sh["halo"]),
         max_branches=T)
-    assert (ops.shard_plain_calls, ops.shard_launches, sparse_ops.plain_calls,
-            sparse_ops.kernel_launches, sparse_ops.halo_launches) == (
+    assert (ops.shard_plain_calls, launched("B6"), sparse_ops.plain_calls,
+            launched(), launched("B7")) == (
         before[0] + 1, before[1], before[2] + 1, before[3], before[4])
 
 
@@ -200,7 +202,7 @@ def test_launchers_refuse_cpu_tensors():
     ref, port, shards, T = _shard_inputs("paper-pi-S2")
     sh = shards[0]
     from repro_torch.core.semantics import clamp_stride
-    launches = (ops.shard_launches, sparse_ops.kernel_launches)
+    launches = (launched("B6"), launched())
     with pytest.raises(ValueError, match="CUDA"):
         ops.snp_step_dense_shard_cuda(
             _t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]),
@@ -215,7 +217,7 @@ def test_launchers_refuse_cpu_tensors():
             port.arrays.sell_src[0],
             torch.tensor([mloc + H], dtype=torch.int32), halo=_t(sh["halo"]),
             max_branches=T)
-    assert (ops.shard_launches, sparse_ops.kernel_launches) == launches
+    assert (launched("B6"), launched()) == launches
 
 
 def test_non_cpu_tensors_never_reach_the_plain_versions(monkeypatch):
@@ -377,7 +379,7 @@ def test_shard_launcher_refuses_lists_that_do_not_match():
             _t(sh["psi"]), port.arrays.rule_neuron[0],
             port.dense.M_local[0], port.dense.hadj[0], _t(sh["halo"]))
     good = port.dense.shard_columns(0)
-    launches = ops.shard_launches
+    launches = launched("B6")
     for bad, match in (((good[0][:-1],) + good[1:], "col_start"),
                        (good[:2] + (good[2][:-1],) + good[3:], "col_val"),
                        (good[:3] + (good[3][1:],) + good[4:], "hcol_start"),
@@ -387,7 +389,7 @@ def test_shard_launcher_refuses_lists_that_do_not_match():
             ops.snp_step_dense_shard_cuda(*args[:7], bad, args[9], T)
     with pytest.raises(ValueError, match="CUDA"):   # well-formed: CPU refused
         ops.snp_step_dense_shard_cuda(*args[:7], good, args[9], T)
-    assert ops.shard_launches == launches
+    assert launched("B6") == launches
 
 
 def test_shard_step_off_the_cpu_needs_the_lists():
@@ -396,7 +398,7 @@ def test_shard_step_off_the_cpu_needs_the_lists():
     ref, port, shards, T = _shard_inputs("paper-pi-S2")
     meta = {k: _t(v).to("meta") for k, v in shards[0].items()
             if isinstance(v, np.ndarray)}
-    counts = (ops.shard_plain_calls, ops.shard_launches)
+    counts = (ops.shard_plain_calls, launched("B6"))
     with pytest.raises(ValueError, match="column lists"):
         ops.snp_step_dense_shard(
             meta["configs"], meta["rank"], meta["app"], meta["stride"],
@@ -404,18 +406,18 @@ def test_shard_step_off_the_cpu_needs_the_lists():
             port.arrays.rule_neuron[0].to("meta"),
             port.dense.M_local[0].to("meta"), port.dense.hadj[0].to("meta"),
             meta["halo"], max_branches=T)
-    assert (ops.shard_plain_calls, ops.shard_launches) == counts
+    assert (ops.shard_plain_calls, launched("B6")) == counts
 
 
 def test_cpu_tensors_with_lists_run_the_plain_version_only():
     ref, port, shards, T = _shard_inputs("power-law-26-S8-degree")
     sh = shards[1]
-    before = (ops.shard_plain_calls, ops.shard_launches)
+    before = (ops.shard_plain_calls, launched("B6"))
     got = ops.snp_step_dense_shard(
         _t(sh["configs"]), _t(sh["rank"]), _t(sh["app"]), _t(sh["stride"]),
         _t(sh["choices"]), _t(sh["psi"]), port.arrays.rule_neuron[1],
         port.dense.M_local[1], port.dense.hadj[1], _t(sh["halo"]),
         max_branches=T, cols=port.dense.shard_columns(1))
-    assert (ops.shard_plain_calls, ops.shard_launches) == (
+    assert (ops.shard_plain_calls, launched("B6")) == (
         before[0] + 1, before[1])
     assert got.shape == (sh["configs"].shape[0], T, port.shard_size)

@@ -18,6 +18,8 @@ import repro_torch.core as P  # noqa: E402
 from repro.core.generators import nd_chain, random_system  # noqa: E402
 from repro.kernels.snp_step import snp_step_sparse as jstep  # noqa: E402
 from repro_torch.core.convert import system_from_spec  # noqa: E402
+from repro_torch.kernels.launch_counts import (  # noqa: E402
+    launches as launched)
 from repro_torch.kernels.snp_step import sparse_ops  # noqa: E402
 from repro_torch.kernels.snp_step.sparse_ref import (  # noqa: E402
     kernel_inputs, snp_step_sparse_ref)
@@ -98,11 +100,11 @@ def test_cpu_tensors_run_the_plain_version_only():
     pc, _ = _comps(system, 1)
     configs = torch.from_numpy(
         conftest.random_states(system, "no_delays", 4, seed=1))
-    before = (sparse_ops.plain_calls, sparse_ops.kernel_launches,
-              sparse_ops.coo_launches)
+    before = (sparse_ops.plain_calls, launched(),
+              launched("B3"))
     sparse_ops.snp_step_sparse(configs, pc, max_branches=T)
-    assert (sparse_ops.plain_calls, sparse_ops.kernel_launches,
-            sparse_ops.coo_launches) == (before[0] + 1,) + before[1:]
+    assert (sparse_ops.plain_calls, launched(),
+            launched("B3")) == (before[0] + 1,) + before[1:]
 
 
 def test_kernel_launcher_refuses_cpu_tensors():
@@ -115,11 +117,11 @@ def test_kernel_launcher_refuses_cpu_tensors():
         conftest.random_states(system, "no_delays", 2, seed=1))
     args, lists, _ = kernel_inputs(configs, ell, lists=True)  # the ELL body's
     kargs, coo, _ = kernel_inputs(configs, pc, lists=True)   # the COO body's
-    launches = sparse_ops.kernel_launches
+    launches = launched()
     for a, extra in ((args, lists), (kargs, coo)):
         with pytest.raises(ValueError, match="CUDA"):
             sparse_ops.snp_step_sparse_cuda(*a, **extra, max_branches=T)
-    assert sparse_ops.kernel_launches == launches
+    assert launched() == launches
 
 
 def _launcher_case(case):
@@ -172,10 +174,10 @@ def test_coo_launcher_checks_the_sliced_lists(case, match):
     their place or before them, or a short ``sell_start``, is refused the
     same way."""
     args, coo, T = _launcher_case(case)
-    launches = sparse_ops.kernel_launches
+    launches = launched()
     with pytest.raises((ValueError, TypeError), match=match):
         sparse_ops.snp_step_sparse_cuda(*args, **coo, max_branches=T)
-    assert sparse_ops.kernel_launches == launches
+    assert launched() == launches
 
 
 @pytest.mark.parametrize("h", [1, 3, "auto"])
