@@ -245,7 +245,38 @@ result line):
    overflow), and equal keys in one batch (the lowest index wins), with
    times, plain times and bounds; (d) a checkpointed explore, one read a
    chunk;
-22. summary — the kernels with their launch counts, then one JSON line of
+22. every LM family served — the MoE, MLA, codebook, RWKV6 and hybrid
+   families, each with weights drawn on the card from ``PRNGKey(0)``, a
+   counted prefill through ``attn_impl="cuda"``, ``drop_frac`` and the
+   load-balance loss, greedy decode steps (tokens in range, caches'
+   ``len``), prefill tokens/s, decode ms a step, peak allocation under 60
+   GB and a profiler split; then the same prefill on ``"ref"`` (no
+   launch) and decode of token S+1 against a prefill of S+1 tokens (MoE
+   at the drop-free capacity factor E/K, as the reference's
+   teacher-forcing test runs it), each within 2% of max |logit| in bf16
+   and 1e-4 in f32 with the MoE picks of one run replayed in the other
+   (``RoutingTap``: bf16 router logits tie, and any change of rounding
+   upstream flips some picks; the figures as the picks fall are printed
+   beside), and again for an f32 twin of each family at batch 2 (B8-TF32
+   at its GQA layers): ``qwen2-moe-a2.7b`` at full width and depth (24
+   layers of 60 experts top-4 and a shared expert, bf16, 4 x 1024: 24
+   B8-TC launches, 16 decode steps; its f32 twin at 8 layers),
+   ``minicpm3-4b`` at full width and depth (MLA, 62 layers: no B8 launch,
+   as the reference routes MLA; its bf16 decode drifts past the bf16
+   bound from the prefill and is held in f32 only, ``BF16_DRIFT``),
+   ``musicgen-medium`` at full width and depth (4 codebooks, 48 layers:
+   48 B8-TC launches, decode tokens (B, 4, 1)), ``rwkv6-7b`` at full
+   width cut to 8 of its 32 layers, and the reduced f32 siblings of
+   ``jamba-1.5-large-398b`` (Mamba, MoE on odd positions, 2 B8-TF32
+   launches) and ``grok-1-314b`` (2 B8-TF32), which do not fit one card
+   at their published widths; B8-TC at the qwen2-moe (q (4, 16, 1024,
+   128)) and musicgen (q (4, 24, 1024, 64)) launches held against
+   ``attention_ref`` and timed as in phase 16 (the device time from the
+   prefill's profile, a launch of the body alone showing no device event
+   to the profiler after phase 21's graphs); then ``python -m
+   repro_torch.launch.serve --arch qwen2-moe-a2.7b --smoke`` and
+   ``--arch musicgen-medium --smoke`` as subprocesses, each exiting 0;
+23. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -261,7 +292,9 @@ B3, phase 10 for B4 (via ``"cuda"``) and B5's ELL body (via
 contiguous run for B6 (via ``"cuda"``) and B7 (via ``"sparse_cuda"``), S
 launches a level, and phase 17's full-width bf16 prefill for B8-TC and
 its f32 prefill for B8-TF32 (one launch a layer); their counts are the
-kernels line's ``launches``.
+kernels line's ``launches``.  Phase 22's family prefills are B8's paths
+too: their counts are in ``launches_by_path``, and B8-TC's figures at
+the qwen2-moe and musicgen launches in its ``other_launches``.
 Phase 18's service, fault, checkpoint and launcher paths, and phase 20's
 dense-row explores, distributed traces, trace-mesh services, launcher and
 checkpointed explore (B1, B2, B3), are counted the same way and listed
@@ -2550,10 +2583,13 @@ def phase_attention_kernel():
     return errs, rows
 
 
-def _time_attention(q, k, v, kv_len, body, attn_ops, attention_ref, F):
+def _time_attention(q, k, v, kv_len, body, attn_ops, attention_ref, F,
+                    tag="16", device=None):
     """Times at a main-path launch (unpadded, as the wrapper launches):
     B8's body, its plain version on the same inputs, the library call on
-    the same inputs, and the library call on k/v repeated to every head."""
+    the same inputs, and the library call on k/v repeated to every head.
+    ``device`` given (ms, where from) stands for the profiler's time of
+    the body's own launches."""
     import torch
     B, Hq, Sq, D = q.shape
     k_ms = time_ms(lambda: attn_ops.flash_attention_cuda(
@@ -2569,13 +2605,18 @@ def _time_attention(q, k, v, kv_len, body, attn_ops, attention_ref, F):
         q, k, v, kv_len, causal=True), 20)
     bd = _attn_bound(q, k, kv_len, True)
     flops, b_ms = bd["flops"], bd["bound_ms"]
-    dev_ms = device_ms(lambda: attn_ops.flash_attention_cuda(
-        q, k, v, kv_len, causal=True), 20, KERNELS[body]["name"])
-    log(f"[16] {body} at its main-path launch q {tuple(q.shape)} k "
+    if device is None:
+        dev_ms, dev_from = device_ms(lambda: attn_ops.flash_attention_cuda(
+            q, k, v, kv_len, causal=True), 20, KERNELS[body]["name"]), ""
+    else:
+        dev_ms, dev_from = device
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"[{tag}] {body} at its main-path launch q {tuple(q.shape)} k "
         f"{tuple(k.shape)} {str(q.dtype)[6:]} causal, kv_len {Sq}: "
         f"{k_ms:.4f} / {again:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s of "
-        f"{flops / 1e9:.2f} GFLOP), {dev_ms:.4f} ms on the card by the "
-        f"profiler, plain {p_ms:.4f} ms, SDPA (GQA) {l_ms:.4f} ms, SDPA on "
+        f"{flops / 1e9:.2f} GFLOP), {dev_txt} on the card by the "
+        f"profiler{dev_from}, plain {p_ms:.4f} ms, SDPA (GQA) {l_ms:.4f} "
+        f"ms, SDPA on "
         f"repeated k/v {mha_ms:.4f} ms; bound {b_ms:.6f} ms ({bd['bound_by']}"
         f", {bd['ops_route']}) = {k_ms / b_ms:.1f}x bound, "
         f"{k_ms / l_ms:.2f}x SDPA (GQA), {k_ms / mha_ms:.2f}x SDPA on "
@@ -3270,11 +3311,17 @@ SELL_SHAPES = [(r, t) for t in (256, 1024) for r in (1, 2, 4, 8)]
 # (backend, encoding, tier) runs and the phase whose archive it must equal.
 PLANNED = [("scaled_pi(682)", "5"), ("power_law(8192)", "7"),
            ("scaled_pi(682) d=k%3", "10")]
+# A measured ``"sparse_cuda"`` winner keeps the encoding ``"auto"`` when
+# the degree heuristic leaves it on ELL (``autotune.choice_to_plan``
+# names ``"hybrid"`` otherwise): the backend then compiles its ELL
+# encoding.
 KERNEL_OF = {("cuda", "dense", "no_delays"): "B1",
              ("sparse_cuda", "ell", "no_delays"): "B2",
+             ("sparse_cuda", "auto", "no_delays"): "B2",
              ("sparse_cuda", "hybrid", "no_delays"): "B3",
              ("cuda", "dense", "delays"): "B4",
              ("sparse_cuda", "ell", "delays"): "B5-ELL",
+             ("sparse_cuda", "auto", "delays"): "B5-ELL",
              ("sparse_cuda", "hybrid", "delays"): "B5-COO"}
 
 
@@ -4527,6 +4574,523 @@ def phase_zero_sync():
     return launches, err, rows, figures
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: every LM family served at its published widths
+# ---------------------------------------------------------------------------
+
+# arch: (depth or None = the published depth, batch, prompt, decode
+# steps, the f32 twin's depth or None = the published depth).  Depth
+# cuts: rwkv6-7b to 8 of 32 layers (time); qwen2-moe's f32 twin to 8 of
+# 24 (57 GB of f32 weights at full depth); jamba and grok run their
+# reduced siblings (FAMILY_REDUCED): neither fits one card at its
+# published width (one jamba period's four MoE layers hold 4 x 16
+# experts x 3 x 8192 x 24576 bf16 weights, about 77 GB; one grok layer,
+# 8 x 3 x 6144 x 32768, about 9.7 GB, 64 of them).
+FAMILIES = {
+    "qwen2-moe-a2.7b": (None, 4, 1024, 16, 8),
+    "minicpm3-4b": (None, 4, 1024, 8, None),
+    "musicgen-medium": (None, 4, 1024, 8, None),
+    "rwkv6-7b": (8, 4, 1024, 8, 8),
+}
+FAMILY_REDUCED = {
+    "jamba-1.5-large-398b": (4, 256, 8),
+    "grok-1-314b": (4, 256, 8),
+}
+# The f32 twins' batch (phase 17's f32 twin's).
+TWIN_BATCH = 2
+# Families whose bf16 decode is not held to the bf16 bound against a
+# prefill of S+1 tokens: minicpm3-4b's 62 MLA layers, whose decode
+# expands the latent cache anew every step and rounds its softmax
+# numerators to bf16 as the reference's does, drift 5.72% of max |logit|
+# from the prefill in bf16 and 1.104e-05 in f32 at the same width, depth
+# and batch (probes/family_precision.py, NVIDIA H100 80GB HBM3, 700 W).
+# Its f32 twin holds the f32 bound, as every family's does.
+BF16_DRIFT = ("minicpm3-4b",)
+# the launcher's subprocess runs, on each arch's reduced sibling
+FAMILY_LAUNCHES = ("qwen2-moe-a2.7b", "musicgen-medium")
+PEAK_LIMIT_BYTES = 60e9
+
+
+def family_config(arch, depth=None, small=False):
+    """The config phase 22 serves: the published one, its depth cut to
+    ``depth`` layers, or (``small``) its reduced sibling."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.smoke import reduced
+    cfg = get_config(arch)
+    if small:
+        return reduced(cfg)
+    return cfg if depth is None else dataclasses.replace(
+        cfg, num_layers=depth)
+
+
+def _b8_launches(cfg):
+    """B8's launches in one prefill through ``attn_impl="cuda"``, by body:
+    one a GQA attention layer (MLA sends no prefill with a cache to B8, as
+    the reference routes it)."""
+    import torch
+    if cfg.attention == "mla" or "attn" not in cfg.mixer_kinds:
+        return {}
+    n = cfg.num_periods * sum(k == "attn" for k in cfg.mixer_kinds)
+    return {_body(getattr(torch, cfg.dtype), cfg.head_dim): n}
+
+
+def _extend(batch, nxt, S):
+    """The prompt and one more token per row: teacher forcing's batch."""
+    import torch
+    B = batch["positions"].shape[0]
+    return {"tokens": torch.cat([batch["tokens"], nxt], -1),
+            "positions": torch.arange(S + 1, dtype=torch.int32,
+                                      device=nxt.device).expand(B, S + 1)}
+
+
+def _last_tokens(logits, cfg):
+    import torch
+    last = logits[:, :, -1] if cfg.codebooks else logits[:, -1]
+    return last.argmax(-1).to(torch.int32)[..., None]
+
+
+class RoutingTap:
+    """Records the experts each MoE routing call picks
+    (``repro_torch.models.moe.route``, one call a layer and token chunk, in
+    order), or, given ``replay``, makes each call pick the recorded
+    experts instead, its gates taken from its own probabilities at those
+    experts and its buffer positions and capacity from those picks (the
+    port's own ``moe.positions``).  ``changed`` counts the (token, k)
+    pairs whose own pick differed from the replayed one.  A bf16 MoE
+    picks from router logits rounded to bf16, whose near-ties flip under
+    any change of rounding upstream; replaying one run's picks in another
+    compares the two runs' arithmetic apart from those discrete flips."""
+
+    def __init__(self, replay=None):
+        self.picks = []
+        self.replay = None if replay is None else list(replay)
+        self.changed = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+
+        def route(p, cfg, xt, C):
+            gates, idx, pos, keep, probs = self._route(p, cfg, xt, C)
+            if self.replay is None:
+                self.picks.append(idx.clone())
+                return gates, idx, pos, keep, probs
+            want = self.replay.pop(0).to(idx.device)
+            self.changed += int((want != idx).sum())
+            g = probs.gather(1, want)
+            g = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+            pos = moe.positions(want, probs.shape[-1])
+            return g, want, pos, pos < C, probs
+
+        moe.route = route
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self._moe.route = self._route
+        if exc_type is None and self.replay:
+            raise SmokeFailure(f"{len(self.replay)} recorded routing calls "
+                               f"were not replayed")
+        return False
+
+
+def compare_to_ref(params, cfg, batch, max_len):
+    """The last logits of the prefill through ``attn_impl="cuda"`` against
+    the same prefill on ``"ref"``: as it runs, and with the ``"ref"`` run
+    replaying the ``"cuda"`` run's MoE picks (:class:`RoutingTap`; the same
+    run for a model without experts).  Returns the figures."""
+    import torch
+    from repro_torch.serve import make_prefill_step
+    with RoutingTap() as tap:
+        logits, _ = make_prefill_step(cfg, max_len=max_len,
+                                      attn_impl="cuda")(params, batch)
+    plain = make_prefill_step(cfg, max_len=max_len, attn_impl="ref")
+    free, _ = plain(params, batch)
+    pinned, changed = free, 0
+    if cfg.num_experts:
+        with RoutingTap(replay=tap.picks) as rt:
+            pinned, _ = plain(params, batch)
+        changed = rt.changed
+    torch.cuda.synchronize()
+    pairs = sum(int(p.numel()) for p in tap.picks)
+    return dict(vs_ref=_rel_err(logits, pinned),
+                vs_ref_free=_rel_err(logits, free),
+                picks_changed=changed, picks=pairs,
+                greedy_agree=float((logits.argmax(-1) == free.argmax(-1))
+                                   .float().mean()))
+
+
+def teacher_forcing(params, cfg, batch, first, max_len):
+    """Decode of token S+1 after a prefill of S tokens against a prefill
+    of S+1 tokens, both through ``"cuda"`` (MoE at the drop-free capacity
+    factor E/K, as the reference's teacher-forcing test sets it): as it
+    runs, and with the decode replaying the S+1 prefill's MoE picks for
+    each request's last token (:class:`RoutingTap`).  Returns the
+    figures."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    B, S = batch["positions"].shape
+    tcfg = cfg if not cfg.num_experts else dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    pre = make_prefill_step(tcfg, max_len=max_len, attn_impl="cuda")
+    decode = make_decode_step(tcfg)
+    _, cache = pre(params, batch)
+    with RoutingTap() as tap:
+        full, _ = pre(params, _extend(batch, first, S))
+    pos = torch.full((B, 1), S, dtype=torch.int32, device=first.device)
+    _, free, _ = decode(params, cache, first, pos)
+    pinned, changed = free, 0
+    if cfg.num_experts:
+        # each MoE layer routed the S+1 prefill in chunks of TOKEN_CHUNK
+        T = B * (S + 1)
+        n = -(-T // min(moe.TOKEN_CHUNK, T))
+        last = torch.arange(B, device=first.device) * (S + 1) + S
+        replay = [torch.cat(tap.picks[i:i + n])[last]
+                  for i in range(0, len(tap.picks), n)]
+        # the decode writes its cache slot S in place: a second decode
+        # from the same prefill cache rewrites it
+        with RoutingTap(replay=replay) as rt:
+            _, pinned, _ = decode(params, cache, first, pos)
+        changed = rt.changed
+    torch.cuda.synchronize()
+    return dict(teacher_forcing=_rel_err(pinned, full),
+                teacher_forcing_free=_rel_err(free, full),
+                picks_changed=changed, picks=B * cfg.num_experts_per_tok
+                * sum(k == "moe" for k in cfg.mlp_kinds) * cfg.num_periods,
+                capacity_factor=tcfg.capacity_factor)
+
+
+def _serve_family(name, cfg, B, S, G, tag="22"):
+    """Serve one family on the card: weights drawn from ``PRNGKey(0)``, a
+    counted prefill through ``attn_impl="cuda"`` (B8 at every GQA layer),
+    its MoE statistics, ``G`` decode steps, peak allocation, a profiler
+    split, then :func:`_compare_family`.  Returns (its figures, B8's
+    launches by path)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.models import param_count
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    dev = torch.device(CARD)
+    bf16 = cfg.dtype == "bfloat16"
+    want = _b8_launches(cfg)
+    key = name.replace("-", "_").replace(".", "_")
+    launches = {}
+    max_len = S + G + 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = param_count(params)
+    check(all(bool(torch.isfinite(t).all()) for t in params.parameters()),
+          f"[{tag}] {name}: the seeded weights are not finite")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, pattern "
+        f"{cfg.layer_pattern}, d {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} x {cfg.head_dim}, attention {cfg.attention}, "
+        f"experts {cfg.num_experts} (top {cfg.num_experts_per_tok}, d_ff "
+        f"{cfg.moe_d_ff}, shared {cfg.shared_expert_d_ff}), codebooks "
+        f"{cfg.codebooks}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} "
+        f"parameters ({n_params * (2 if bf16 else 4) / 1e9:.3f} GB), "
+        f"drawn on the card from PRNGKey(0) in {t_init:.3f} s; batch {B} x "
+        f"prompt {S}, {G} decode steps")
+    batch = _serve_batch(cfg, B, S, dev)
+    prefill = make_prefill_step(cfg, max_len=max_len, attn_impl="cuda")
+    prefill(params, batch)            # first use: cuBLAS handles, caches
+    torch.cuda.synchronize()
+
+    # the path: counts set to 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(f"[{tag}] {name} prefill via attn_impl='cuda'", counts,
+                 **want)
+    launches[f"{key}_prefill"] = counts
+    shape = (B, cfg.codebooks, 1, cfg.vocab_size) if cfg.codebooks \
+        else (B, 1, cfg.vocab_size)
+    check(tuple(logits.shape) == shape
+          and bool(torch.isfinite(logits).all()),
+          f"[{tag}] {name}: prefill logits {tuple(logits.shape)} not "
+          f"finite or not {shape}")
+    check(all(bool((c["len"] == S).all()) for c in cache if "len" in c),
+          f"[{tag}] {name}: the caches' len after prefill is not S")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    t_best = min([t_pre] + walls)
+    log(f"[{tag}] {name} prefill {B}x{S} via 'cuda': {t_pre * 1e3:.3f} ms "
+        f"({B * S / t_pre:.0f} tokens/s); again "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in walls)} ms; launches "
+        f"{json.dumps(counts)}")
+
+    # the MoE statistics of the same prefill, through forward
+    reset_counts()
+    with torch.no_grad():
+        _, _, aux = forward(params, cfg, batch, cache=init_cache(
+            cfg, B, max_len, device=dev), attn_impl="cuda",
+            logits_slice="last")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(f"[{tag}] {name} forward via 'cuda'", counts, **want)
+    launches[f"{key}_forward"] = counts
+    drop = float(aux["drop_frac"])
+    lb = float(aux["load_balance_loss"])
+    check(0.0 <= drop < 1.0 and lb >= 0.0 and (lb > 0) == bool(
+        cfg.num_experts), f"[{tag}] {name}: drop_frac {drop}, "
+        f"load_balance_loss {lb}")
+
+    # decode
+    tok = _last_tokens(logits, cfg)
+    first = tok
+    reset_counts()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in range(G):
+        pos = torch.full((B, 1), S + g, dtype=torch.int32, device=dev)
+        tok, dlogits, cache = decode(params, cache, tok, pos)
+        finite &= torch.isfinite(dlogits).all()
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(f"[{tag}] {name} decode", counts)
+    launches[f"{key}_decode"] = counts
+    check(bool(finite), f"[{tag}] {name}: decode logits not finite")
+    check(all(bool((c["len"] == S + G).all()) for c in cache
+              if "len" in c),
+          f"[{tag}] {name}: the caches' len after decode is not S + gen")
+    want_tok = (B, cfg.codebooks, 1) if cfg.codebooks else (B, 1)
+    check(tuple(tok.shape) == want_tok and bool(
+        ((tok >= 0) & (tok < cfg.vocab_size)).all()),
+        f"[{tag}] {name}: decode tokens {tuple(tok.shape)} not {want_tok} "
+        f"or out of [0, {cfg.vocab_size})")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {name} decode {G} steps x batch {B}: "
+        f"{t_dec / G * 1e3:.3f} ms/step ({B * G / t_dec:.0f} tokens/s); "
+        f"tokens {tuple(tok.shape)} in [0, {cfg.vocab_size}); caches' len "
+        f"{S} -> {S + G}; drop_frac {drop:.6f}, load_balance_loss {lb:.6f}; "
+        f"peak allocation (weights, prefill, decode) {peak / 2**30:.3f} GiB")
+    check(peak < PEAK_LIMIT_BYTES, f"[{tag}] {name}: peak allocation "
+          f"{peak / 1e9:.3f} GB past {PEAK_LIMIT_BYTES / 1e9:.0f} GB")
+    split = _device_time(lambda: prefill(params, batch), t_best * 1e3,
+                         f"{name} prefill {B}x{S} profile", tag=tag) or {}
+    del cache, dlogits
+    figs = _compare_family(name, cfg, params, batch, first, max_len, want,
+                           launches, key, tag=tag,
+                           hold_tf=not (bf16 and name in BF16_DRIFT))
+    del params, logits
+    torch.cuda.empty_cache()
+    fig = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+               dtype=cfg.dtype, batch=B, prompt=S, decode_steps=G,
+               init_s=t_init, prefill_ms=t_pre * 1e3,
+               prefill_again_ms=[t * 1e3 for t in walls],
+               prefill_tokens_per_s=B * S / t_best,
+               decode_ms_per_step=t_dec / G * 1e3,
+               decode_tokens_per_s=B * G / t_dec,
+               peak_bytes=peak, drop_frac=drop, load_balance_loss=lb,
+               b8=want, **figs, **{f"device_{k}": v for k, v in split.items()
+                                   if k in ("busy_ms", "b8_ms",
+                                            "idle_share")})
+    return fig, launches
+
+
+def _compare_family(name, cfg, params, batch, first, max_len, want,
+                    launches, key, tag="22", hold_tf=True):
+    """The prefill through B8 against ``"ref"`` (:func:`compare_to_ref`)
+    and decode against teacher forcing (:func:`teacher_forcing`), counted
+    and held to the bound of ``cfg``'s type (2% of max |logit| in bf16,
+    1e-4 in f32) with the MoE picks replayed across the two runs; the
+    figures as they run beside them.  ``hold_tf=False`` reports the
+    teacher-forcing figure without holding it (:data:`BF16_DRIFT`)."""
+    import torch
+    tol = 0.02 if cfg.dtype == "bfloat16" else 1e-4
+    pre = f"{key}_f32" if tol < 0.02 and name in FAMILIES else key
+    reset_counts()
+    r = compare_to_ref(params, cfg, batch, max_len)
+    counts = read_counts()
+    check_counts(f"[{tag}] {name} {cfg.dtype} prefill via 'cuda' and "
+                 f"'ref'", counts, **want)
+    launches[f"{pre}_vs_ref"] = counts
+    check(r["vs_ref"] <= tol, f"[{tag}] {name} {cfg.dtype}: prefill via "
+          f"'cuda' vs 'ref' {r['vs_ref']:.4g} of max |logit| > {tol}")
+    reset_counts()
+    t = teacher_forcing(params, cfg, batch, first[:batch["tokens"].shape[0]],
+                        max_len)
+    counts = read_counts()
+    check_counts(f"[{tag}] {name} {cfg.dtype} teacher forcing", counts,
+                 **{k: 2 * n for k, n in want.items()})
+    launches[f"{pre}_teacher_forcing"] = counts
+    check(not hold_tf or t["teacher_forcing"] <= tol,
+          f"[{tag}] {name} {cfg.dtype}: decode of token S+1 vs a prefill "
+          f"of S+1 tokens {t['teacher_forcing']:.4g} of max |logit| > "
+          f"{tol}")
+    torch.cuda.synchronize()
+    moe = (f" ({r['picks_changed']} of {r['picks']} MoE picks differ "
+           f"between the runs; {r['vs_ref_free']:.4g} as they fall)"
+           if cfg.num_experts else "")
+    tmoe = (f" (capacity factor {t['capacity_factor']:g}, no drops; "
+            f"{t['picks_changed']} of {t['picks']} last-token picks "
+            f"differ; {t['teacher_forcing_free']:.4g} as they fall)"
+            if cfg.num_experts else "")
+    log(f"[{tag}] {name} {cfg.dtype}, batch {batch['tokens'].shape[0]}: "
+        f"'cuda' vs 'ref' prefill last logits {r['vs_ref']:.4g} of max "
+        f"|logit| (<= {tol}){moe}, greedy tokens agree on "
+        f"{r['greedy_agree']:.3f}; decode of token S+1 vs a prefill of "
+        f"S+1 tokens {t['teacher_forcing']:.4g}"
+        + ("" if hold_tf else f" (not held in {cfg.dtype}: BF16_DRIFT)")
+        + tmoe)
+    return {f"{cfg.dtype}_{k}": v for k, v in dict(r, **{
+        f"tf_{k}": v for k, v in t.items()}).items()}
+
+
+def _f32_twin(name, depth, S, tag="22"):
+    """The family again in f32 (at ``depth`` layers), batch
+    :data:`TWIN_BATCH`, weights from ``PRNGKey(0)``: its prefill through
+    B8 (B8-TF32 at every GQA layer) against ``"ref"`` and decode against
+    teacher forcing, held to the f32 bound.  Returns (figures, B8's
+    launches by path)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_prefill_step
+    dev = torch.device(CARD)
+    cfg = dataclasses.replace(family_config(name, depth), dtype="float32")
+    B = TWIN_BATCH
+    torch.cuda.empty_cache()
+    params = init_params(prng.PRNGKey(0), cfg, device=dev)
+    batch = _serve_batch(cfg, B, S, dev)
+    first = _last_tokens(make_prefill_step(cfg, max_len=S + 2)(
+        params, batch)[0], cfg)
+    launches = {}
+    figs = _compare_family(name, cfg, params, batch, first, S + 2,
+                           _b8_launches(cfg), launches,
+                           name.replace("-", "_").replace(".", "_"),
+                           tag=tag)
+    del params
+    torch.cuda.empty_cache()
+    return dict(figs, f32_layers=cfg.num_layers), launches
+
+
+def _family_attention(name, cfg, B, S, prefill_b8_ms, tag="22"):
+    """B8 at the family's prefill launch (unpadded, random bf16 inputs at
+    the shapes the prefill gives it): against ``attention_ref`` as phase
+    16 holds it, then timed as phase 16 times its main-path launches, its
+    device time the profiler's B8 time in one prefill
+    (``prefill_b8_ms``, None if not measured) over its launches: after
+    phase 21's graphs the profiler has shown no device event for a launch
+    of a ctypes-loaded kernel timed alone (phase 21 (c) for H1)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    dev = torch.device(CARD)
+    dt = getattr(torch, cfg.dtype)
+    body = _body(dt, cfg.head_dim)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for shape in ((B, H, S, D), (B, Hk, S, D), (B, Hk, S, D)))
+    kv_len = torch.full((B,), S, dtype=torch.int32, device=dev)
+    reset_counts()
+    got = flash_attention(q, k, v, kv_len, causal=True)
+    torch.cuda.synchronize()
+    check_counts(f"[{tag}] {name} B8 launch", read_counts(), **{body: 1})
+    want = attention_ref(q, k, v, kv_len, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), atol=1e-3, rtol=8e-3),
+        f"[{tag}] {name}: {body} at q {tuple(q.shape)} disagrees with its "
+        f"plain version beyond atol 1e-3, rtol 8e-3 (max |err| {err:.3g})")
+    log(f"[{tag}] {name}: {body} at its prefill launch q {tuple(q.shape)} "
+        f"k {tuple(k.shape)} {cfg.dtype} causal == plain (max |err| "
+        f"{err:.3g})")
+    n = _b8_launches(cfg)[body]
+    per = None if prefill_b8_ms is None else prefill_b8_ms / n
+    row = _time_attention(q, k, v, kv_len, body, attn_ops, attention_ref, F,
+                          tag=tag, device=(per, f" (one prefill's {n} "
+                                                f"launches, averaged)"))
+    row["max_abs_err"] = err
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return body, row
+
+
+def _launcher_subprocess(arch, tag="22"):
+    """``python -m repro_torch.launch.serve --arch <arch> --smoke`` in a
+    process of its own: it must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+           "--smoke"]
+    if CARD != "cuda":
+        cmd += ["--device", CARD]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[{tag}] launcher {arch} --smoke | {line}")
+    check(proc.returncode == 0, f"[{tag}] {' '.join(cmd[1:])} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    check("[serve] decode" in proc.stdout,
+          f"[{tag}] launcher {arch} --smoke printed no decode line")
+    log(f"[{tag}] launcher {arch} --smoke: exit 0 in {dt:.1f} s")
+    return dt
+
+
+def phase_lm_families():
+    """Phase 22: the MoE, MLA, codebook, RWKV6 and hybrid families served
+    (module docstring).  Returns ({body: {path: launches}}, {body: {name:
+    timing row}} at the new launches, the families' figures)."""
+    import torch
+    launches = {"B8-TC": {}, "B8-TF32": {}}
+    rows = {"B8-TC": {}, "B8-TF32": {}}
+    figures = {}
+
+    def record(paths):
+        for path, counts in paths.items():
+            for body in launches:
+                if counts[body]:
+                    launches[body][path] = counts[body]
+
+    runs = [(name, family_config(name, depth), B, S, G)
+            for name, (depth, B, S, G, _) in FAMILIES.items()]
+    runs += [(name, family_config(name, small=True), B, S, G)
+             for name, (B, S, G) in FAMILY_REDUCED.items()]
+    for name, cfg, B, S, G in runs:
+        fig, paths = _serve_family(name, cfg, B, S, G)
+        record(paths)
+        if name in FAMILIES:
+            twin, paths = _f32_twin(name, FAMILIES[name][4], S)
+            fig.update(twin)
+            record(paths)
+            if cfg.attention != "mla" and "attn" in cfg.mixer_kinds:
+                body, row = _family_attention(name, cfg, B, S,
+                                              fig.get("device_b8_ms"))
+                rows[body][name] = row
+        figures[name] = fig
+        torch.cuda.empty_cache()
+    for arch in FAMILY_LAUNCHES:
+        figures[f"launcher_{arch}_smoke_s"] = _launcher_subprocess(arch)
+    return launches, rows, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4574,6 +5138,7 @@ def main() -> int:
         planned["open_plans"] = phase_open_plans()
         dense_paths, dense_figures = phase_dense_rows()
         sync_paths, probe_err, probe_rows, sync_figures = phase_zero_sync()
+        family_paths, family_rows, family_figures = phase_lm_families()
         check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
@@ -4597,7 +5162,8 @@ def main() -> int:
     by_path = {"B1": b1, "B2": b2, "B3": b3, **delayed, **sharded,
                **served, "H1": {}, "H2": {}}
     for k, paths in (list(snp_paths.items()) + list(dense_paths.items())
-                     + list(sync_paths.items())):
+                     + list(sync_paths.items())
+                     + list(family_paths.items())):
         by_path[k].update(paths)
     waves = {"B1": rows["scaled_pi(682) wave"],
              "B2": sparse_rows["scaled_pi(682) wave"],
@@ -4645,16 +5211,19 @@ def main() -> int:
             **({"device_ms": w["device_ms"]} if "device_ms" in w else {}),
             **({"block": w["block"]} if "block" in w else {}),
             **({"shapes_checked": shapes[k]} if k in shapes else {}),
+            **({"other_launches": family_rows[k]} if family_rows.get(k)
+               else {}),
             **extras.get(k, {})))
-        log(f"[22] {k} {meta['name']} ({meta['route']}): "
+        log(f"[23] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[22] SNP service figures: {json.dumps(snp_figures)}")
-    log(f"[22] planner figures: {json.dumps(planned)}")
-    log(f"[22] dense-row and distributed-trace figures: "
+    log(f"[23] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[23] planner figures: {json.dumps(planned)}")
+    log(f"[23] dense-row and distributed-trace figures: "
         f"{json.dumps(dense_figures)}")
-    log(f"[22] zero-host-sync explore figures: {json.dumps(sync_figures)}")
-    log(f"[22] card: {card}")
+    log(f"[23] zero-host-sync explore figures: {json.dumps(sync_figures)}")
+    log(f"[23] LM family figures: {json.dumps(family_figures)}")
+    log(f"[23] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,7 +68,9 @@ tiled ``all_to_all``), the uint32 ``psum`` a sum of int64 lanes masked to
 32 bits.  ``mesh=None`` holds every rank on ``device`` (``None`` = the
 card): one rank for the dense-row scheme, ``plan.num_shards`` for the
 sharded one.  Replicated bookkeeping lives on the first device of the
-mesh.  A ``torch.distributed`` transport is ROADMAP item 7.
+mesh.  The reference has no multi-process path either (its ``shard_map``
+runs over the devices of one process), so the port has no
+``torch.distributed`` transport.
 
 Host reads.  As in :func:`~.engine.explore`, a level reads nothing: the
 ranks' counts are an (R,) tensor, the owner of the initial configuration
@@ -79,8 +81,7 @@ card (``mesh=None``, or the card repeated) all of them run in one CUDA
 graph with the loop's predicate on the device (:mod:`.graph_loop`): a
 run reads its counts and flags once at the end.  A mesh over several
 cards keeps the read-free level but drives it from the host, with one
-counted read of the predicate a level, until the ``torch.distributed``
-transport carries the loop (ROADMAP item 7).
+counted read of the predicate a level.
 
 Archives, flags and counts equal the reference's distributed runs row for
 row, in discovery order, through all four backends.

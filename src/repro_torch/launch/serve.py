@@ -10,13 +10,19 @@ a trace mesh, every visible card or ``[cpu]``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --device cpu                        # reduced, on the CPU
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch musicgen-medium --smoke --device cpu   # any of the ten
+
     PYTHONPATH=src python -m repro_torch.launch.serve --snp \
         --batch 64 --requests 256 --gen 32 --max-delay-ms 5 \
         --inject 'fail=2 poison=17' --max-retries 1  # on the card
 
-The weights are random, drawn from ``PRNGKey(--seed)`` at the published
-shapes, and sampled tokens from the same key split once a step, as the
-reference's launcher draws them (the same values, through
+Every arch of the reference serves: MoE, MLA, Mamba hybrids, RWKV6 and
+musicgen's parallel codebooks (its generations are (B, C, gen); the
+printout shows codebook 0, as the reference's does).  The weights are
+random, drawn from ``PRNGKey(--seed)`` at the published shapes, and
+sampled tokens from the same key split once a step, as the reference's
+launcher draws them (the same values, through
 :mod:`repro_torch.core.prng`).  Prefill runs its attention through
 kernel B8 (``attn_impl="cuda"``; on the CPU its plain version); the
 reference's launcher leaves its prefill at the plain ``"xla"``.
@@ -155,8 +161,10 @@ def serve_snp(args) -> dict:
 
 
 def serve_lm(args) -> np.ndarray:
-    """Serve one batch: prefill ``--prompt-len`` tokens, decode ``--gen``.
-    Returns the generated token ids (B, gen)."""
+    """Serve one batch of any of the ten archs: prefill ``--prompt-len``
+    tokens (the batch of :func:`~repro_torch.data.make_batch`, codebook
+    streams and frontend stubs included), decode ``--gen``.  Returns the
+    generated token ids (B, gen), or (B, C, gen) with codebooks."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -181,7 +189,8 @@ def serve_lm(args) -> np.ndarray:
     print(f"[serve] prefill {B}x{S}: {t_prefill*1e3:.1f} ms "
           f"({B*S/t_prefill:.0f} tok/s)")
 
-    tok = logits[:, -1, :].argmax(dim=-1).to(torch.int32)[..., None]
+    last = logits[:, :, -1, :] if cfg.codebooks else logits[:, -1, :]
+    tok = last.argmax(dim=-1).to(torch.int32)[..., None]
     key = prng.PRNGKey(args.seed).to(dev)
     outs = []
     t0 = time.perf_counter()
@@ -191,16 +200,17 @@ def serve_lm(args) -> np.ndarray:
             pos = pos[None].expand(3, B, 1)
         key, sub = prng.split(key)
         tok, logits, cache = decode(params, cache, tok, pos, sub)
-        outs.append(tok[:, 0])
+        outs.append(tok[..., 0])
     _sync(dev)
     dt = time.perf_counter() - t0
     print(f"[serve] decode {G} steps: {dt/max(G, 1)*1e3:.2f} ms/step "
           f"({B*G/dt if dt > 0 else 0.0:.0f} tok/s)")
     gen = torch.stack(outs, -1).cpu().numpy() if outs else \
-        np.zeros((B, 0), np.int32)
+        np.zeros(tuple(tok.shape[:-1]) + (0,), np.int32)
     print("[serve] sample generations (first 16 token ids/request):")
     for b in range(min(B, 4)):
-        print(f"  req{b}: {gen[b][:16].tolist()}")
+        row = gen[b] if not cfg.codebooks else gen[b, 0]
+        print(f"  req{b}: {row[:16].tolist()}")
     return gen
 
 

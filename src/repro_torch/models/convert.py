@@ -5,9 +5,11 @@
 returns the port's :class:`~repro_torch.models.model.LM` holding the same
 weights, so both packages compute the same function.  The reference
 stacks each pattern position's layers along a leading period axis
-(``stack/pos0/attn/wq`` is ``(num_periods, d, H, hd)``); layer ``l`` of the
-port is period ``l // P``, position ``l % P`` of a pattern of length ``P``.
-The port keeps the reference's layouts, so no tensor is transposed.
+(``stack/pos0/attn/wq`` is ``(num_periods, d, H, hd)``, a MoE's shared
+expert ``stack/pos0/moe/shared/wg``); layer ``l`` of the port is period
+``l // P``, position ``l % P`` of a pattern of length ``P``, and its
+parameter ``moe.shared.wg`` that path.  The port keeps the reference's
+layouts, so no tensor is transposed.
 """
 
 from __future__ import annotations
@@ -35,9 +37,17 @@ def _put(param: torch.Tensor, arr, where: str) -> None:
         param.copy_(t.to(device=param.device, dtype=param.dtype))
 
 
+def _leaf(tree: Mapping, path: str):
+    """The tree's entry at a dotted parameter name (``moe.shared.wg``)."""
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
+
+
 def params_from_jax(tree: Mapping, cfg: ArchConfig, *, device=None) -> LM:
     """The port's parameters holding the weights of the reference's tree
-    (numpy arrays, f32 or bf16).  ``device=None`` is the card."""
+    (numpy arrays, f32 or bf16): every family's, the codebook tables
+    too.  ``device=None`` is the card."""
     params = LM(None, cfg, resolve_device(device))
     used = 0
     _put(params.embed, tree["embed"], "embed")
@@ -49,12 +59,14 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig, *, device=None) -> LM:
     P = len(cfg.layer_pattern)
     for i, block in enumerate(params.blocks):
         period, pos = divmod(i, P)
-        for sub, pset in block.named_children():
-            src = tree["stack"][f"pos{pos}"][sub]
-            for name, param in pset.named_parameters():
-                _put(param, np.asarray(src[name])[period],
-                     f"stack/pos{pos}/{sub}/{name}[{period}]")
-                used += 1 if period == 0 else 0
+        for name, param in block.named_parameters():
+            where = f"stack/pos{pos}/{name.replace('.', '/')}[{period}]"
+            try:
+                src = _leaf(tree["stack"][f"pos{pos}"], name)
+            except KeyError:
+                raise ValueError(f"{where}: not in the tree") from None
+            _put(param, np.asarray(src)[period], where)
+            used += 1 if period == 0 else 0
     leaves = _count_leaves(tree)
     if used != leaves:
         raise ValueError(f"the tree has {leaves} tensors, the port's "

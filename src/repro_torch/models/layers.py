@@ -1,11 +1,12 @@
-"""Core neural layers: norms, RoPE/M-RoPE, GQA attention, SwiGLU/GELU MLPs
-(the port of the JAX package's ``repro.models.layers``).
+"""Core neural layers: norms, RoPE/M-RoPE, GQA and MLA attention,
+SwiGLU/GELU MLPs (the port of the JAX package's ``repro.models.layers``).
 
 Parameters keep the reference's layouts, so weights carry across tensor
 for tensor (:mod:`.convert`): ``dense`` weights are ``(d_in, d_out)`` (the
 transpose of ``nn.Linear``'s), ``wq``/``wk``/``wv`` are ``(d, H, hd)`` and
 ``wo`` is ``(H, hd, d)``.  Each layer's parameters are a :class:`Params`
-module (the counterpart of the reference's param dict); the functions
+module (the counterpart of the reference's param dict, nested where the
+reference nests one, e.g. the MoE's ``shared`` expert); the functions
 here apply them.  Matmuls run in the config dtype; ``rms_norm``, ``rope``
 and the decode attention compute in f32 and cast back at the points the
 reference does.
@@ -14,8 +15,11 @@ reference does.
 through :func:`repro_torch.kernels.flash_attn.flash_attention` (on a CPU
 tensor, its plain version), ``"ref"`` the plain
 :func:`~repro_torch.kernels.flash_attn.attention_ref`: the counterparts of
-the reference's ``"pallas"`` and ``"xla"``.  Decode attention
-(:func:`_decode_attend`) is plain torch in both packages.
+the reference's ``"pallas"`` and ``"xla"``.  MLA routes as the reference
+does: B8 only in the cache-free prefill and only where the query/key head
+(``dn + dr``) equals the value head; its prefill with a cache is always
+plain.  Decode attention (:func:`_decode_attend`) is plain torch in both
+packages.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from ..kernels.flash_attn import attention_ref, flash_attention
 __all__ = [
     "Params", "rms_norm", "init_rms_norm", "init_dense", "dense",
     "rope", "mrope", "init_attention", "attention",
-    "init_mlp", "mlp", "ATTN_IMPLS",
+    "init_mla", "mla", "init_mlp", "mlp", "ATTN_IMPLS",
 ]
 
 #: prefill attention implementations (reference names: "pallas", "xla")
@@ -48,15 +52,20 @@ def _identity(t, kind):
 
 class Params(nn.Module):
     """A named set of parameters: the port's counterpart of one of the
-    reference's param dicts (``p.wq`` for ``p["wq"]``, ``"b" in p``)."""
+    reference's param dicts (``p.wq`` for ``p["wq"]``, ``"b" in p``).  A
+    value that is itself a :class:`Params` is a nested dict (the MoE's
+    ``shared`` expert)."""
 
-    def __init__(self, **tensors: torch.Tensor):
+    def __init__(self, **tensors):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t))
+            if isinstance(t, Params):
+                self.add_module(name, t)
+            else:
+                self.register_parameter(name, nn.Parameter(t))
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
 
 
 # -- initializers ------------------------------------------------------------
@@ -83,10 +92,16 @@ def init_rms_norm(d: int, dtype, device=None) -> Params:
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    return _rms(x, p.scale, eps)
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`rms_norm` by a bare ``scale`` tensor (the reference's
+    ``rms_norm({"scale": ...}, ...)``)."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * p.scale.float()).to(x.dtype)
+    return (out * scale.float()).to(x.dtype)
 
 
 def init_dense(key, d_in: int, d_out: int, dtype, bias: bool = False,
@@ -223,10 +238,8 @@ def attention(
     elif S == 1:   # decode: append and attend over the whole cache
         idx = cache["len"]                                  # (B,)
         ck, cv = cache["k"], cache["v"]
-        at = idx.clamp(0, ck.shape[1] - 1).long()
-        rows = torch.arange(B, device=x.device)
-        ck[rows, at] = k[:, 0]
-        cv[rows, at] = v[:, 0]
+        _append(ck, k[:, 0], idx)
+        _append(cv, v[:, 0], idx)
         new_cache = {"k": ck, "v": cv, "len": idx + 1}
         out = _decode_attend(q, ck, cv, idx + 1, constrain)
     else:          # prefill: a zero cache holding [0, S)
@@ -268,6 +281,100 @@ def _decode_attend(q, ck, cv, kv_len, constrain: Constrain = _identity):
     den = e.sum(dim=-1)[..., None].permute(0, 3, 1, 2, 4)
     out = num / den.clamp_min(1e-30)
     return out.reshape(B, 1, H, cv.shape[-1]).to(q.dtype)
+
+
+def _append(cache_t: torch.Tensor, row: torch.Tensor,
+            idx: torch.Tensor) -> None:
+    """Write ``row`` (B, ...) at slot ``idx`` (B,) of ``cache_t`` (B, Smax,
+    ...), in place, the slot clamped to ``Smax - 1`` as the reference's
+    ``dynamic_update_slice`` clamps."""
+    at = idx.clamp(0, cache_t.shape[1] - 1).long()
+    cache_t[torch.arange(cache_t.shape[0], device=cache_t.device), at] = row
+
+
+# -- multi-head latent attention (MiniCPM3 / DeepSeek-style MLA) -------------
+
+def init_mla(key, cfg: ArchConfig, dtype, device=None) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    ks = _split(key, 6)
+    return Params(
+        wdq=_normal(ks[0], (d, cfg.q_lora_rank), dtype, device),
+        wuq=_normal(ks[1], (cfg.q_lora_rank, h, qk_head), dtype, device),
+        wdkv=_normal(ks[2], (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                     dtype, device),
+        wuk=_normal(ks[3], (cfg.kv_lora_rank, h, cfg.qk_nope_head_dim),
+                    dtype, device),
+        wuv=_normal(ks[4], (cfg.kv_lora_rank, h, cfg.v_head_dim), dtype,
+                    device),
+        wo=_normal(ks[5], (h, cfg.v_head_dim, d), dtype, device),
+        q_norm=torch.ones((cfg.q_lora_rank,), dtype=dtype, device=device),
+        kv_norm=torch.ones((cfg.kv_lora_rank,), dtype=dtype, device=device))
+
+
+def mla(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, positions,
+    cache: Optional[Dict] = None, *, attn_impl: str = "ref",
+    constrain: Constrain = _identity,
+):
+    """MLA: queries and keys split into nope and rope parts, K/V compressed
+    into a ``kv_lora_rank`` latent.  The cache holds the latent ``ckv``
+    (B, Smax, rank) and the shared rope key ``k_rope`` (B, Smax, 1, dr)
+    with ``len`` (B,); decode writes both at ``len`` in place and expands
+    the whole cache into keys and values every step.  Returns (out,
+    new_cache)."""
+    B, S, D = x.shape
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rank, eps = cfg.kv_lora_rank, cfg.norm_eps
+
+    cq = _rms(x @ p.wdq, p.q_norm, eps)
+    q = _project(cq, p.wuq)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = _apply_rope(cfg, q_rope, positions)
+
+    ckv_full = x @ p.wdkv                                 # (B, S, rank+dr)
+    ckv = _rms(ckv_full[..., :rank], p.kv_norm, eps)
+    k_rope = _apply_rope(cfg, ckv_full[..., rank:][:, :, None, :],
+                         positions)                       # (B, S, 1, dr)
+
+    def expand(ckv, k_rope):
+        k_nope = _project(ckv, p.wuk)
+        v = _project(ckv, p.wuv)
+        k = torch.cat([k_nope, k_rope.expand(k_nope.shape[:3] + (dr,))],
+                      dim=-1)
+        return k, v
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    new_cache = None
+    if cache is None:
+        k, v = expand(ckv, k_rope)
+        # B8 takes one head dim for q, k and v
+        out = _attend(q_full, k, v, "ref" if attn_impl == "cuda"
+                      and dn + dr != dv else attn_impl)
+    elif S == 1:
+        idx = cache["len"]
+        cc, cr = cache["ckv"], cache["k_rope"]
+        _append(cc, ckv[:, 0], idx)
+        _append(cr, k_rope[:, 0], idx)
+        new_cache = {"ckv": cc, "k_rope": cr, "len": idx + 1}
+        k, v = expand(cc, cr)
+        out = _decode_attend(q_full, k, v, idx + 1)
+    else:
+        cc, cr = cache["ckv"], cache["k_rope"]
+        cc.zero_()
+        cr.zero_()
+        cc[:, :S] = ckv
+        cr[:, :S] = k_rope
+        new_cache = {"ckv": cc, "k_rope": cr,
+                     "len": torch.full((B,), S, dtype=torch.int32,
+                                       device=x.device)}
+        k, v = expand(ckv, k_rope)
+        # the reference's prefill with a cache is always the plain one
+        out = _attend(q_full, k, v,
+                      "ref" if attn_impl in ATTN_IMPLS else attn_impl)
+    out = constrain(out, "heads_v")
+    h, hv, d = p.wo.shape
+    return out.reshape(B, S, h * hv) @ p.wo.reshape(h * hv, d), new_cache
 
 
 # -- MLPs ---------------------------------------------------------------------

@@ -4,15 +4,18 @@ and decode entry points (the port of the JAX package's
 
 Batch dict conventions (tensors on the model's device):
 
-* ``tokens``          (B, S) int
+* ``tokens``          (B, S) int, or (B, C, S) for parallel codebooks
+                      (musicgen: C EnCodec streams, embeddings summed)
 * ``positions``       (B, S) int, or (3, B, S) for M-RoPE (qwen2-vl)
 * ``frontend_embeds`` (B, S, D) optional: precomputed patch/frame
                       embeddings (the modality frontend is a stub, as in
                       the reference), substituted where ``embed_mask``
 * ``embed_mask``      (B, S) bool optional
 
-Training (``mode="train"``, ``loss_fn``) and parallel codebooks
-(musicgen) wait for later slices (ROADMAP item 9).
+Every family of the reference serves: dense, MoE, MLA, Mamba hybrids,
+RWKV6 and parallel codebooks, whose logits are (B, C, S, V), one head
+per codebook.  Training (``mode="train"``, ``loss_fn``) waits for the
+training slice (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -34,24 +37,22 @@ _MODES = ("prefill", "decode")
 
 class LM(nn.Module):
     """Parameters of one language model: ``embed`` (V, d), ``blocks`` (one
-    per layer), ``ln_f`` and, for untied embeddings, ``head`` (d, V).
+    per layer), ``ln_f`` and, for untied embeddings, ``head`` (d, V); with
+    ``cfg.codebooks`` = C, ``embed`` (C, V, d) and ``head`` (C, d, V).
     ``key=None`` leaves the weights unset (see :func:`init_params`)."""
 
     def __init__(self, key, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.codebooks:
-            raise NotImplementedError(
-                f"{cfg.name}: parallel codebooks are not ported yet "
-                f"(ROADMAP item 9)")
         dt = dtype_of(cfg)
         self.cfg = cfg
         k_embed, k_stack, k_head = L._split(key, 3)
-        self.embed = nn.Parameter(
-            L._normal(k_embed, (cfg.vocab_size, cfg.d_model), dt, device))
+        books = (cfg.codebooks,) if cfg.codebooks else ()
+        self.embed = nn.Parameter(L._normal(
+            k_embed, books + (cfg.vocab_size, cfg.d_model), dt, device))
         self.blocks = init_stack(k_stack, cfg, device)
         self.ln_f = L.init_rms_norm(cfg.d_model, dt, device)
-        self.head = None if cfg.tie_embeddings else nn.Parameter(
-            L._normal(k_head, (cfg.d_model, cfg.vocab_size), dt, device))
+        self.head = None if cfg.tie_embeddings else nn.Parameter(L._normal(
+            k_head, books + (cfg.d_model, cfg.vocab_size), dt, device))
 
     def forward(self, batch: Dict, **kw):
         return forward(self, self.cfg, batch, **kw)
@@ -69,12 +70,18 @@ def init_params(key: torch.Tensor, cfg: ArchConfig, *,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
-    """One zero KV cache per layer (``device=None`` is the card)."""
+    """One zero cache per layer, of its mixer's kind (``device=None`` is
+    the card)."""
     return init_stack_cache(cfg, batch, max_len, resolve_device(device))
 
 
 def _embed(params: LM, cfg: ArchConfig, batch, constrain):
-    x = params.embed[batch["tokens"].long()]              # (B, S, D)
+    tokens = batch["tokens"].long()
+    if cfg.codebooks:   # (B, C, S): the codebooks' embeddings summed
+        books = torch.arange(cfg.codebooks, device=tokens.device)
+        x = params.embed[books[None, :, None], tokens].sum(dim=1)
+    else:
+        x = params.embed[tokens]                          # (B, S, D)
     if "frontend_embeds" in batch:
         mask = batch["embed_mask"][..., None]
         x = torch.where(mask, batch["frontend_embeds"].to(x.dtype), x)
@@ -82,7 +89,9 @@ def _embed(params: LM, cfg: ArchConfig, batch, constrain):
 
 
 def _head(params: LM, cfg: ArchConfig, x, constrain):
-    if cfg.tie_embeddings:
+    if cfg.codebooks:   # (B, C, S, V)
+        logits = x[:, None] @ params.head
+    elif cfg.tie_embeddings:
         logits = x @ params.embed.t()
     else:
         logits = x @ params.head
@@ -95,7 +104,8 @@ def forward(
     constrain=L._identity, logits_slice: Optional[str] = None,
 ):
     """mode: prefill | decode (with ``cache``, prefill fills it and decode
-    appends one token; without, a plain causal forward).
+    appends one token; without, a plain causal forward).  Returns logits
+    (B, S, V), or (B, C, S, V) with codebooks.
 
     ``logits_slice='last'`` returns logits only for the final position
     (serving: avoids materialising (B, S, V)).  The cache's tensors are

@@ -2,11 +2,14 @@
 (the port of the JAX package's ``repro.models.transformer``, which scans
 one compiled period body over stacked parameters).
 
-Layer ``l`` is position ``l % len(cfg.layer_pattern)`` of the pattern.
-The port builds the ``"attn:dense"`` kind: GQA attention and a dense
-SwiGLU/GELU MLP, with the cheap flags ``attn_bias``, ``parallel_block``
-and ``mlp_act``.  Mamba, RWKV6, MoE and MLA layers raise
-``NotImplementedError`` naming ROADMAP item 9.
+Layer ``l`` is position ``l % P`` of the pattern (``P =
+len(cfg.layer_pattern)``), period ``l // P``.  Its kind ``"mixer:mlp"``
+names the mixer (``"attn"``: GQA or, under ``cfg.attention == "mla"``,
+MLA; ``"mamba"``; ``"rwkv6"``, which owns its whole block) and the MLP
+(``"dense"``: SwiGLU/GELU; ``"moe"``: routed experts and an optional
+shared one; ``"none"``).  A layer's cache is its mixer's: the KV cache
+(``k``, ``v``, ``len``), MLA's latent cache (``ckv``, ``k_rope``,
+``len``), Mamba's ``(conv, ssm)`` or RWKV's shifts and state.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..core import prng
 from . import layers as L
+from .mamba import init_mamba, init_mamba_cache, mamba
+from .moe import init_moe, mean, moe_layer
+from .rwkv import init_rwkv_block, init_rwkv_cache, rwkv_block
 
 __all__ = ["Block", "init_stack", "apply_stack", "init_stack_cache",
            "dtype_of"]
@@ -28,54 +34,79 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_kind(cfg: ArchConfig, kind: str) -> None:
-    mixer, mlp_kind = kind.split(":")
-    if mixer != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: {mixer!r} layers are not ported yet (ROADMAP "
-            f"item 9); the port builds 'attn:dense' stacks")
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention (MLA) is not ported "
-            f"yet (ROADMAP item 9)")
-    if mlp_kind != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: {mlp_kind!r} MLP layers are not ported yet "
-            f"(ROADMAP item 9); the port builds 'attn:dense' stacks")
-
-
 class Block(nn.Module):
-    """One ``"attn:dense"`` layer: pre-norm attention and MLP, sequential or
-    (``cfg.parallel_block``, command-r) both reading the same normed
-    input."""
+    """One layer of kind ``"mixer:mlp"`` (the reference's
+    ``_init_position``/``_apply_position``): pre-norm mixer and MLP,
+    sequential or (``cfg.parallel_block``, command-r) both reading the same
+    normed input.  Its children carry the reference's names (``ln_attn``,
+    ``attn``/``mamba``/``rwkv``, ``ln_mlp``, ``mlp``/``moe``)."""
 
     def __init__(self, key, cfg: ArchConfig, kind: str, device=None):
         super().__init__()
-        _check_kind(cfg, kind)
+        mixer, mlp_kind = kind.split(":")
         dt = dtype_of(cfg)
-        self.cfg = cfg
+        self.cfg, self.mixer, self.mlp_kind = cfg, mixer, mlp_kind
         ks = L._split(key, 4)          # as the reference's _init_position
-        self.ln_attn = L.init_rms_norm(cfg.d_model, dt, device)
-        self.attn = L.init_attention(ks[0], cfg, dt, device)
-        self.ln_mlp = L.init_rms_norm(cfg.d_model, dt, device)
-        self.mlp = L.init_mlp(ks[1], cfg.d_model, cfg.d_ff, dt, cfg.mlp_act,
-                              device)
+        if mixer == "attn":
+            self.ln_attn = L.init_rms_norm(cfg.d_model, dt, device)
+            self.attn = (L.init_mla(ks[0], cfg, dt, device)
+                         if cfg.attention == "mla"
+                         else L.init_attention(ks[0], cfg, dt, device))
+        elif mixer == "mamba":
+            self.ln_attn = L.init_rms_norm(cfg.d_model, dt, device)
+            self.mamba = init_mamba(ks[0], cfg, dt, device)
+        elif mixer == "rwkv6":
+            self.rwkv = init_rwkv_block(ks[0], cfg, dt, device)
+        else:
+            raise ValueError(f"unknown mixer {mixer!r}")
+        if mlp_kind == "dense":
+            self.ln_mlp = L.init_rms_norm(cfg.d_model, dt, device)
+            self.mlp = L.init_mlp(ks[1], cfg.d_model, cfg.d_ff, dt,
+                                  cfg.mlp_act, device)
+        elif mlp_kind == "moe":
+            self.ln_mlp = L.init_rms_norm(cfg.d_model, dt, device)
+            self.moe = init_moe(ks[1], cfg, dt, device)
+        elif mlp_kind != "none":
+            raise ValueError(f"unknown mlp kind {mlp_kind!r}")
+
+    def _mlp(self, cfg, h, exact: bool, constrain):
+        if self.mlp_kind == "dense":
+            return L.mlp(self.mlp, h, cfg.mlp_act), None
+        return moe_layer(self.moe, cfg, h, constrain=constrain, exact=exact)
 
     def forward(self, x, positions, cache: Optional[Dict] = None, *,
-                attn_impl: str = "ref", constrain=L._identity):
-        """Returns (x, new_cache)."""
-        cfg = self.cfg
+                cfg: Optional[ArchConfig] = None, attn_impl: str = "ref",
+                constrain=L._identity):
+        """Returns (x, new_cache, aux); ``aux`` is the MoE statistics, or
+        ``None`` for a layer without experts.  ``cfg`` (default: the one
+        the block was built with) is the config the caller runs, as the
+        reference's functions take it: e.g. another capacity factor."""
+        cfg = self.cfg if cfg is None else cfg
+        if self.mixer == "rwkv6":
+            x, new_cache = rwkv_block(self.rwkv, cfg, x, cache,
+                                      constrain=constrain)
+            return constrain(x, "hidden"), new_cache, None
         h = L.rms_norm(self.ln_attn, x, cfg.norm_eps)
-        mix_out, new_cache = L.attention(self.attn, cfg, h, positions, cache,
-                                         attn_impl=attn_impl,
-                                         constrain=constrain)
-        if cfg.parallel_block:
-            x = x + mix_out + L.mlp(self.mlp, h, cfg.mlp_act)
-            return constrain(x, "hidden"), new_cache
+        if self.mixer == "attn":
+            fn = L.mla if cfg.attention == "mla" else L.attention
+            mix_out, new_cache = fn(self.attn, cfg, h, positions, cache,
+                                    attn_impl=attn_impl, constrain=constrain)
+        else:
+            mix_out, new_cache = mamba(self.mamba, cfg, h, cache,
+                                       constrain=constrain)
+        # MoE decode routes at exact capacity (no drops)
+        exact = cache is not None and x.shape[1] == 1
+        aux = None
+        if cfg.parallel_block and self.mlp_kind != "none":
+            mlp_out, aux = self._mlp(cfg, h, exact, constrain)
+            x = constrain(x + mix_out + mlp_out, "hidden")
+            return x, new_cache, aux
         x = constrain(x + mix_out, "hidden")
-        h2 = L.rms_norm(self.ln_mlp, x, cfg.norm_eps)
-        x = constrain(x + L.mlp(self.mlp, h2, cfg.mlp_act), "hidden")
-        return x, new_cache
+        if self.mlp_kind != "none":
+            h2 = L.rms_norm(self.ln_mlp, x, cfg.norm_eps)
+            out, aux = self._mlp(cfg, h2, exact, constrain)
+            x = constrain(x + out, "hidden")
+        return x, new_cache, aux
 
 
 def init_stack(key, cfg: ArchConfig, device=None) -> nn.ModuleList:
@@ -91,30 +122,60 @@ def init_stack(key, cfg: ArchConfig, device=None) -> nn.ModuleList:
         for i in range(cfg.num_layers))
 
 
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """One zero cache of a layer of ``kind`` (the reference's
+    ``_position_cache``)."""
+    mixer = kind.split(":")[0]
+    dt = dtype_of(cfg)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if mixer == "attn":
+        if cfg.attention == "mla":
+            return {"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
+                    "k_rope": zeros(batch, max_len, 1, cfg.qk_rope_head_dim),
+                    "len": zeros(batch, dtype=torch.int32)}
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape),
+                "len": zeros(batch, dtype=torch.int32)}
+    if mixer == "mamba":
+        return init_mamba_cache(cfg, batch, dt, device)
+    if mixer == "rwkv6":
+        return init_rwkv_cache(cfg, batch, dt, device)
+    raise ValueError(f"unknown mixer {mixer!r}")
+
+
 def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int,
                      device=None) -> List[Dict[str, torch.Tensor]]:
-    """One zero KV cache per layer: {"k", "v": (batch, max_len, Hk, hd),
-    "len": (batch,) int32}."""
-    for kind in cfg.layer_pattern:
-        _check_kind(cfg, kind)
-    dt = dtype_of(cfg)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device),
-             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-            for _ in range(cfg.num_layers)]
+    """One zero cache per layer, of its mixer's kind."""
+    P = len(cfg.layer_pattern)
+    return [_layer_cache(cfg, cfg.layer_pattern[i % P], batch, max_len,
+                         device) for i in range(cfg.num_layers)]
 
 
 def apply_stack(blocks: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor,
                 positions, cache=None, *, attn_impl: str = "ref",
                 constrain=L._identity):
-    """Run the whole stack.  Returns (x, new_cache, aux); ``aux`` holds the
-    reference's MoE statistics, zero for dense stacks."""
+    """Run the whole stack.  Returns (x, new_cache, aux): ``aux`` holds the
+    MoE statistics as the reference reduces them, the mean over a period's
+    positions (a layer without experts counts as 0), then over periods."""
+    P = len(cfg.layer_pattern)
     new_cache = None if cache is None else []
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = {"load_balance_loss": z, "drop_frac": z}
+    per_period = []
     for i, block in enumerate(blocks):
-        x, c = block(x, positions, None if cache is None else cache[i],
-                     attn_impl=attn_impl, constrain=constrain)
+        if i % P == 0:
+            auxes = []
+        x, c, aux = block(x, positions, None if cache is None else cache[i],
+                          cfg=cfg, attn_impl=attn_impl, constrain=constrain)
+        auxes.append(zero if aux is None else aux)
         if cache is not None:
             new_cache.append(c)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, new_cache, {"load_balance_loss": zero, "drop_frac": zero}
+        if i % P == P - 1:
+            per_period.append({k: mean(torch.stack([a[k] for a in auxes]))
+                               for k in zero})
+    aux = {k: mean(torch.stack([a[k] for a in per_period])) for k in zero}
+    return x, new_cache, aux

@@ -1,9 +1,9 @@
 """Serving steps: LM prefill/decode factories and the SNP trace runner (the
 port of the JAX package's ``repro.serve.serve_step``).
 
-``prefill_step`` consumes a (B, S) request batch and returns the
-last-position logits and a filled KV cache; ``decode_step`` advances every
-sequence one token (greedy, or sampled with a threefry key as the
+``prefill_step`` consumes a (B, S) request batch ((B, C, S) with parallel
+codebooks) and returns the last-position logits and the filled caches;
+``decode_step`` advances every sequence one token (greedy, or sampled with a threefry key as the
 reference samples).  Both run without
 autograd.  ``make_trace_runner`` is the SNP counterpart: the device call
 of each :class:`~repro_torch.serve.SNPTraceService` flush, the
@@ -89,14 +89,16 @@ def make_decode_step(cfg: ArchConfig, *, temperature: float = 0.0,
     @torch.no_grad()
     def decode_step(params, cache, tokens, positions,
                     key: Optional[torch.Tensor] = None):
-        """tokens (B, 1); ``key`` a threefry key (for temperature > 0);
-        returns (next_tokens (B, 1), logits, cache).  The cache's tensors
-        are written in place."""
+        """tokens (B, 1), or (B, C, 1) with codebooks; ``key`` a threefry
+        key (for temperature > 0); returns (next_tokens of the tokens'
+        shape, logits, cache).  The KV caches' tensors are written in
+        place."""
         batch = {"tokens": tokens, "positions": positions}
         logits, cache, _ = forward(
             params, cfg, batch, cache=cache, mode="decode",
             constrain=constrain)
-        nxt = sample_token(logits[:, -1, :], key, temperature)
+        last = logits[:, :, -1, :] if cfg.codebooks else logits[:, -1, :]
+        nxt = sample_token(last, key, temperature)
         return nxt[..., None], logits, cache
 
     return decode_step

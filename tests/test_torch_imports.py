@@ -49,6 +49,9 @@ def test_port_has_modules():
                  "repro_torch/models/transformer.py",
                  "repro_torch/models/model.py",
                  "repro_torch/models/convert.py",
+                 "repro_torch/models/moe.py",
+                 "repro_torch/models/mamba.py",
+                 "repro_torch/models/rwkv.py",
                  "repro_torch/serve/serve_step.py",
                  "repro_torch/serve/snp_service.py",
                  "repro_torch/runtime/faults.py",
@@ -106,6 +109,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "from repro_torch.sharding import neuron_axis, trace_mesh\n"
         "from repro_torch.serve import make_trace_runner\n"
         "import repro_torch.configs, repro_torch.data, repro_torch.models\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba\n"
+        "import repro_torch.models.rwkv\n"
         "import repro_torch.kernels.flash_attn.ops, repro_torch.serve\n"
         "import repro_torch.launch.serve, repro_torch.runtime\n"
         "import repro_torch.checkpoint, repro_torch.core.failover\n"

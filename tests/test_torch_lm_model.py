@@ -259,14 +259,20 @@ def test_init_params_distribution():
     ("smollm-360m", 0), ("smollm-360m", 3), ("smollm-360m", 2 ** 32 - 1),
     ("qwen2-vl-7b", 1),        # attention biases (zeros), untied head
     ("command-r-35b", 2),      # parallel block
-    ("musicgen-medium", 5)])   # GELU MLP (keys 1 and 2 of its split)
+    ("minicpm-2b", 4),         # MHA
+    ("musicgen-medium", 5),    # GELU MLP (keys 1 and 2), codebook tables
+    ("qwen2-moe-a2.7b", 6),    # MoE with the shared expert
+    ("grok-1-314b", 7),        # MoE without one
+    ("jamba-1.5-large-398b", 8),   # Mamba, MoE on odd positions
+    ("minicpm3-4b", 9),        # MLA, tied embeddings
+    ("rwkv6-7b", 10)])         # RWKV6, f32 decay and bonus
 def test_init_params_equal_the_reference(arch, seed):
     """Every weight of ``init_params(PRNGKey(s), cfg)`` against the
-    reference's ``init_params(jax.random.PRNGKey(s), cfg)`` at f32: the
-    same tree of split keys, normals to a few ulps."""
+    reference's ``init_params(jax.random.PRNGKey(s), cfg)`` at f32, for
+    each of the ten archs: the same tree of split keys, normals to a few
+    ulps, the same constants (norm scales, biases, Mamba's ``a_log``,
+    RWKV's ``decay``)."""
     jc, pc = _cfgs(arch)
-    if pc.codebooks:     # the GELU MLP without the unported codebooks
-        jc, pc = (dataclasses.replace(c, codebooks=0) for c in (jc, pc))
     jk = jax.random.wrap_key_data(jnp.asarray([0, seed], jnp.uint32))
     tree = jax.tree.map(np.asarray, jax_init(jk, jc))
     p = init_params(prng.PRNGKey(seed), pc, device="cpu")
@@ -276,13 +282,17 @@ def test_init_params_equal_the_reference(arch, seed):
     P = len(pc.layer_pattern)
     for i, block in enumerate(p.blocks):
         period, pos = divmod(i, P)
-        for sub, pset in block.named_children():
-            for name, t in pset.named_parameters():
-                pairs.append((t, tree["stack"][f"pos{pos}"][sub][name]
-                              [period]))
+        for name, t in block.named_parameters():
+            want = tree["stack"][f"pos{pos}"]
+            for part in name.split("."):
+                want = want[part]
+            pairs.append((t, want[period]))
     assert len(pairs) == sum(1 for _ in p.parameters())
+    assert len(pairs) == len(jax.tree.leaves(tree)) + (
+        sum(a.shape[0] - 1 for a in jax.tree.leaves(tree["stack"])))
     for got, want in pairs:
         assert tuple(got.shape) == want.shape
+        assert got.dtype == torch.float32
         np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
                                    atol=1e-7)
 
@@ -414,15 +424,6 @@ def test_decode_clamps_the_write_at_max_len():
                 np.testing.assert_array_equal(
                     pcache[i]["len"].numpy(), np.asarray(jcache["pos0"]["len"][i]))
         assert int(pcache[0]["len"][0]) == S + 2
-
-
-@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-moe-a2.7b",
-                                  "jamba-1.5-large-398b", "rwkv6-7b",
-                                  "minicpm3-4b", "grok-1-314b"])
-def test_unported_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        init_params(prng.PRNGKey(0), cfg, device="cpu")
 
 
 def test_train_mode_and_chunked_raise():
