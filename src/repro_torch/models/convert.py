@@ -1,4 +1,5 @@
-"""Carry a language model's weights across from the JAX package.
+"""Carry a language model's weights and training state across from the JAX
+package, and back to its layout.
 
 :func:`params_from_jax` takes the reference's parameter tree (from its
 ``init_params`` or a checkpoint) as nested dicts of numpy arrays and
@@ -10,11 +11,19 @@ expert ``stack/pos0/moe/shared/wg``); layer ``l`` of the port is period
 ``l // P``, position ``l % P`` of a pattern of length ``P``, and its
 parameter ``moe.shared.wg`` that path.  The port keeps the reference's
 layouts, so no tensor is transposed.
+
+A tree congruent with the parameters (AdamW's moments, the error-feedback
+residual, gradients) comes across as a list of tensors in the order of
+``LM.parameters()`` (:func:`tensors_from_jax`); :func:`params_tree` goes
+the other way, from such a list (or the LM) to the reference's layout,
+which is what the port's checkpoints hold (:mod:`repro_torch.train`), so
+each package restores the other's.  :func:`train_state_from_jax` carries
+a whole reference ``TrainState`` across.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Iterable, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +32,8 @@ from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from .model import LM
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "tensors_from_jax", "params_tree",
+           "train_state_from_jax", "reference_ndims"]
 
 
 def _put(param: torch.Tensor, arr, where: str) -> None:
@@ -37,11 +47,41 @@ def _put(param: torch.Tensor, arr, where: str) -> None:
         param.copy_(t.to(device=param.device, dtype=param.dtype))
 
 
-def _leaf(tree: Mapping, path: str):
-    """The tree's entry at a dotted parameter name (``moe.shared.wg``)."""
-    for part in path.split("."):
+def _leaf(tree: Mapping, path: Sequence[str]):
+    for part in path:
         tree = tree[part]
     return tree
+
+
+def _path(name: str, P: int) -> Tuple[List[str], int]:
+    """The reference's tree path of the port's parameter ``name`` and its
+    period (``-1``: not stacked)."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return parts, -1
+    period, pos = divmod(int(parts[1]), P)
+    return ["stack", f"pos{pos}"] + parts[2:], period
+
+
+def _arrays(tree: Mapping, cfg: ArchConfig,
+            names: Iterable[str]) -> Iterator[Tuple[str, np.ndarray]]:
+    """``(where, array)`` for each parameter name in turn, from the
+    reference's tree; raises if the tree has tensors the port lacks."""
+    P = len(cfg.layer_pattern)
+    used = 0
+    for name in names:
+        path, period = _path(name, P)
+        where = "/".join(path) + (f"[{period}]" if period >= 0 else "")
+        try:
+            src = _leaf(tree, path)
+        except (KeyError, TypeError):
+            raise ValueError(f"{where}: not in the tree") from None
+        used += period <= 0
+        yield where, np.asarray(src)[period] if period >= 0 else src
+    leaves = _count_leaves(tree)
+    if used != leaves:
+        raise ValueError(f"the tree has {leaves} tensors, the port's "
+                         f"{cfg.name} takes {used}")
 
 
 def params_from_jax(tree: Mapping, cfg: ArchConfig, *, device=None) -> LM:
@@ -49,29 +89,88 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig, *, device=None) -> LM:
     (numpy arrays, f32 or bf16): every family's, the codebook tables
     too.  ``device=None`` is the card."""
     params = LM(None, cfg, resolve_device(device))
-    used = 0
-    _put(params.embed, tree["embed"], "embed")
-    _put(params.ln_f.scale, tree["ln_f"]["scale"], "ln_f/scale")
-    used += 2
-    if params.head is not None:
-        _put(params.head, tree["head"], "head")
-        used += 1
-    P = len(cfg.layer_pattern)
-    for i, block in enumerate(params.blocks):
-        period, pos = divmod(i, P)
-        for name, param in block.named_parameters():
-            where = f"stack/pos{pos}/{name.replace('.', '/')}[{period}]"
-            try:
-                src = _leaf(tree["stack"][f"pos{pos}"], name)
-            except KeyError:
-                raise ValueError(f"{where}: not in the tree") from None
-            _put(param, np.asarray(src)[period], where)
-            used += 1 if period == 0 else 0
-    leaves = _count_leaves(tree)
-    if used != leaves:
-        raise ValueError(f"the tree has {leaves} tensors, the port's "
-                         f"{cfg.name} takes {used}")
+    named = dict(params.named_parameters())
+    for (where, arr), param in zip(list(_arrays(tree, cfg, named)),
+                                   named.values()):
+        _put(param, arr, where)
     return params
+
+
+def tensors_from_jax(tree: Mapping, cfg: ArchConfig, *,
+                     device=None) -> List[torch.Tensor]:
+    """A tree congruent with the reference's parameters (AdamW's ``m`` or
+    ``v``, the error-feedback residual, gradients) as one f32 tensor a
+    parameter, in the order of ``LM.parameters()``."""
+    dev = resolve_device(device)
+    names = [n for n, _ in LM(None, cfg, "meta").named_parameters()]
+    return [torch.from_numpy(np.array(a, np.float32)).to(dev)
+            for _, a in _arrays(tree, cfg, names)]
+
+
+def params_tree(params, cfg: ArchConfig, *,
+                names: Sequence[str] = None) -> dict:
+    """The reference's layout of ``params`` (an :class:`LM`, or a list of
+    tensors in the order of its parameters, with their ``names`` or the
+    config's): nested dicts of host f32 tensors, each position's layers
+    stacked along a leading period axis."""
+    if isinstance(params, torch.nn.Module):
+        named = list(params.named_parameters())
+    else:
+        if names is None:
+            names = [n for n, _ in LM(None, cfg, "meta").named_parameters()]
+        named = list(zip(names, params))
+    P = len(cfg.layer_pattern)
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in named:
+        path, period = _path(name, P)
+        host = t.detach().float().cpu()
+        if period < 0:
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = host
+        else:
+            stacked.setdefault(tuple(path), []).append((period, host))
+    for path, rows in stacked.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.stack([t for _, t in sorted(
+            rows, key=lambda r: r[0])])
+    return tree
+
+
+def reference_ndims(params: LM) -> List[int]:
+    """Each parameter's dims as the reference holds it, in order: a
+    layer's parameters carry the leading period axis there."""
+    return [p.dim() + (n.startswith("blocks.")) for n, p in
+            params.named_parameters()]
+
+
+def train_state_from_jax(state, cfg: ArchConfig, *, device=None):
+    """The port's :class:`~repro_torch.train.TrainState` holding the
+    reference's ``TrainState`` (or a checkpoint of one restored into the
+    layout :func:`params_tree` gives): the parameters by
+    :func:`params_from_jax`, ``opt.m``, ``opt.v`` and ``ef`` (when not
+    None) by :func:`tensors_from_jax`, ``opt.count`` and ``step`` as
+    int32 scalars.  ``device=None`` is the card."""
+    from ..train import AdamWState, TrainState
+    dev = resolve_device(device)
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=dev)
+
+    def tensors(tree):
+        return tensors_from_jax(tree, cfg, device=dev)
+
+    return TrainState(
+        params=params_from_jax(state.params, cfg, device=dev),
+        opt=AdamWState(tensors(state.opt.m), tensors(state.opt.v),
+                       scalar(state.opt.count)),
+        ef=None if state.ef is None else tensors(state.ef),
+        step=scalar(state.step))
 
 
 def _count_leaves(tree) -> int:

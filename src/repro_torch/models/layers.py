@@ -11,15 +11,20 @@ here apply them.  Matmuls run in the config dtype; ``rms_norm``, ``rope``
 and the decode attention compute in f32 and cast back at the points the
 reference does.
 
-``attn_impl`` selects the prefill attention: ``"cuda"`` runs kernel B8
-through :func:`repro_torch.kernels.flash_attn.flash_attention` (on a CPU
-tensor, its plain version), ``"ref"`` the plain
-:func:`~repro_torch.kernels.flash_attn.attention_ref`: the counterparts of
-the reference's ``"pallas"`` and ``"xla"``.  MLA routes as the reference
-does: B8 only in the cache-free prefill and only where the query/key head
-(``dn + dr``) equals the value head; its prefill with a cache is always
-plain.  Decode attention (:func:`_decode_attend`) is plain torch in both
-packages.
+``attn_impl`` selects the training and prefill attention: ``"cuda"``
+runs kernel B8 through
+:func:`repro_torch.kernels.flash_attn.flash_attention` (on a CPU tensor,
+its plain version), ``"ref"`` the plain
+:func:`~repro_torch.kernels.flash_attn.attention_ref`, ``"chunked"`` the
+memory-light :func:`~repro_torch.kernels.flash_attn.chunked_attention`:
+the counterparts of the reference's ``"pallas"``, ``"xla"`` and
+``"chunked"``.  MLA routes as the reference does: B8 only in the
+cache-free forward and only where the query/key head (``dn + dr``) equals
+the value head, the chunked attention in the cache-free forward; its
+prefill with a cache is always plain.  Decode attention
+(:func:`_decode_attend`) is plain torch in both packages.  Every layer
+is differentiable (training, :func:`repro_torch.models.loss_fn`); the
+caches' in-place writes happen only when serving.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..core import prng
-from ..kernels.flash_attn import attention_ref, flash_attention
+from ..kernels.flash_attn import (attention_ref, chunked_attention,
+                                   flash_attention)
 
 __all__ = [
     "Params", "rms_norm", "init_rms_norm", "init_dense", "dense",
@@ -40,8 +46,9 @@ __all__ = [
     "init_mla", "mla", "init_mlp", "mlp", "ATTN_IMPLS",
 ]
 
-#: prefill attention implementations (reference names: "pallas", "xla")
-ATTN_IMPLS = ("cuda", "ref")
+#: attention implementations (reference names: "pallas", "xla",
+#: "chunked")
+ATTN_IMPLS = ("cuda", "ref", "chunked")
 
 Constrain = Callable[[torch.Tensor, str], torch.Tensor]
 
@@ -198,9 +205,7 @@ def _attend(q, k, v, attn_impl: str) -> torch.Tensor:
     elif attn_impl == "ref":
         out = attention_ref(qh, kh, vh, causal=True)
     elif attn_impl == "chunked":
-        raise NotImplementedError(
-            "the chunked attention fallback is not ported yet (ROADMAP "
-            "item 9, with the training slice)")
+        out = chunked_attention(qh, kh, vh, causal=True)
     else:
         raise ValueError(f"unknown attention impl {attn_impl!r}; the port "
                          f"takes {ATTN_IMPLS}")
@@ -370,8 +375,7 @@ def mla(
                                        device=x.device)}
         k, v = expand(ckv, k_rope)
         # the reference's prefill with a cache is always the plain one
-        out = _attend(q_full, k, v,
-                      "ref" if attn_impl in ATTN_IMPLS else attn_impl)
+        out = _attend(q_full, k, v, "ref")
     out = constrain(out, "heads_v")
     h, hv, d = p.wo.shape
     return out.reshape(B, S, h * hv) @ p.wo.reshape(h * hv, d), new_cache

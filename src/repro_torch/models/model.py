@@ -11,11 +11,13 @@ Batch dict conventions (tensors on the model's device):
                       embeddings (the modality frontend is a stub, as in
                       the reference), substituted where ``embed_mask``
 * ``embed_mask``      (B, S) bool optional
+* ``labels``          like tokens (training); a label below 0 has no
+                      target
 
-Every family of the reference serves: dense, MoE, MLA, Mamba hybrids,
-RWKV6 and parallel codebooks, whose logits are (B, C, S, V), one head
-per codebook.  Training (``mode="train"``, ``loss_fn``) waits for the
-training slice (ROADMAP item 9).
+Every family of the reference serves and trains: dense, MoE, MLA, Mamba
+hybrids, RWKV6 and parallel codebooks, whose logits are (B, C, S, V),
+one head per codebook.  :func:`loss_fn` is the training objective; its
+gradients reach every parameter through autograd.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from ..core.device import resolve_device
 from . import layers as L
 from .transformer import apply_stack, dtype_of, init_stack, init_stack_cache
 
-__all__ = ["LM", "init_params", "forward", "init_cache", "param_count"]
+__all__ = ["LM", "init_params", "forward", "init_cache", "loss_fn",
+           "param_count"]
 
-_MODES = ("prefill", "decode")
+_MODES = ("train", "prefill", "decode")
 
 
 class LM(nn.Module):
@@ -101,30 +104,56 @@ def _head(params: LM, cfg: ArchConfig, x, constrain):
 def forward(
     params: LM, cfg: ArchConfig, batch: Dict, *,
     cache=None, mode: str = "prefill", attn_impl: str = "ref",
-    constrain=L._identity, logits_slice: Optional[str] = None,
+    constrain=L._identity, remat: str = "full",
+    logits_slice: Optional[str] = None,
 ):
-    """mode: prefill | decode (with ``cache``, prefill fills it and decode
-    appends one token; without, a plain causal forward).  Returns logits
-    (B, S, V), or (B, C, S, V) with codebooks.
+    """mode: train | prefill | decode.  ``train`` runs without a cache
+    under ``remat`` (:func:`~.transformer.apply_stack`; the other modes
+    ignore it, as the reference does); prefill and decode with ``cache``
+    fill it and append one token; without, a plain causal forward.
+    Returns logits (B, S, V), or (B, C, S, V) with codebooks.
 
     ``logits_slice='last'`` returns logits only for the final position
     (serving: avoids materialising (B, S, V)).  The cache's tensors are
     written in place.  Returns (logits, new_cache, aux).
     """
-    if mode == "train":
-        raise NotImplementedError(
-            "training (mode='train', loss_fn) is not ported yet (ROADMAP "
-            "item 9, the training slice)")
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}; the port takes {_MODES}")
+    if mode == "train" and cache is not None:
+        raise ValueError("mode='train' runs without a cache")
     x = _embed(params, cfg, batch, constrain)
     x, new_cache, aux = apply_stack(
         params.blocks, cfg, x, batch["positions"], cache,
-        attn_impl=attn_impl, constrain=constrain)
+        attn_impl=attn_impl, constrain=constrain,
+        remat=remat if mode == "train" else "none")
     x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]
     return _head(params, cfg, x, constrain), new_cache, aux
+
+
+def loss_fn(
+    params: LM, cfg: ArchConfig, batch: Dict, *,
+    attn_impl: str = "ref", constrain=L._identity, remat: str = "full",
+    aux_loss_weight: float = 0.01,
+):
+    """Next-token cross-entropy over f32 logits, averaged over the
+    positions whose label is at least 0 (codebooks: over every codebook's
+    positions), plus ``aux_loss_weight`` times the MoE load-balance loss.
+    Returns (loss, {"ce", "load_balance_loss", "drop_frac"}), 0-dim f32
+    tensors; ``loss.backward()`` fills every parameter's gradient."""
+    logits, _, aux = forward(params, cfg, batch, mode="train",
+                             attn_impl=attn_impl, constrain=constrain,
+                             remat=remat)
+    labels = batch["labels"].long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    # a label below 0 gathers a real entry and is masked out after
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = ce + aux_loss_weight * aux["load_balance_loss"]
+    return loss, {"ce": ce, **aux}
 
 
 def param_count(params: nn.Module) -> int:

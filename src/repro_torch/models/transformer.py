@@ -18,6 +18,8 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..core import prng
@@ -27,7 +29,7 @@ from .moe import init_moe, mean, moe_layer
 from .rwkv import init_rwkv_block, init_rwkv_cache, rwkv_block
 
 __all__ = ["Block", "init_stack", "apply_stack", "init_stack_cache",
-           "dtype_of"]
+           "dtype_of", "REMATS"]
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -155,27 +157,66 @@ def init_stack_cache(cfg: ArchConfig, batch: int, max_len: int,
                          device) for i in range(cfg.num_layers)]
 
 
+#: activation recomputation of the training stack (the reference's names)
+REMATS = ("none", "full", "dots")
+
+# The matmuls without batch dims: the weight GEMMs (``x @ w``, which torch
+# lowers to ``mm``/``addmm`` on the flattened rows), the outputs the
+# reference's ``dots_with_no_batch_dims_saveable`` keeps.
+_SAVEABLE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVEABLE
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def apply_stack(blocks: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor,
                 positions, cache=None, *, attn_impl: str = "ref",
-                constrain=L._identity):
+                constrain=L._identity, remat: str = "none"):
     """Run the whole stack.  Returns (x, new_cache, aux): ``aux`` holds the
     MoE statistics as the reference reduces them, the mean over a period's
-    positions (a layer without experts counts as 0), then over periods."""
+    positions (a layer without experts counts as 0), then over periods.
+
+    ``remat`` (training, without a cache, as the reference applies it):
+    ``"full"`` checkpoints each period (its ``P`` layers; only its input
+    is kept and the period runs again in the backward), ``"dots"`` keeps
+    the weight GEMMs' outputs of a period and recomputes the rest,
+    ``"none"`` keeps everything.  Gradients are the same under each.
+    """
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; the port takes {REMATS}")
     P = len(cfg.layer_pattern)
-    new_cache = None if cache is None else []
     z = torch.zeros((), dtype=torch.float32, device=x.device)
     zero = {"load_balance_loss": z, "drop_frac": z}
+
+    def period(x, first):
+        auxes, caches = [], []
+        for i in range(first, first + P):
+            x, c, aux = blocks[i](
+                x, positions, None if cache is None else cache[i], cfg=cfg,
+                attn_impl=attn_impl, constrain=constrain)
+            auxes.append(zero if aux is None else aux)
+            caches.append(c)
+        return x, caches, {k: mean(torch.stack([a[k] for a in auxes]))
+                           for k in zero}
+
+    new_cache = None if cache is None else []
     per_period = []
-    for i, block in enumerate(blocks):
-        if i % P == 0:
-            auxes = []
-        x, c, aux = block(x, positions, None if cache is None else cache[i],
-                          cfg=cfg, attn_impl=attn_impl, constrain=constrain)
-        auxes.append(zero if aux is None else aux)
+    for first in range(0, len(blocks), P):
+        if remat == "none" or cache is not None:
+            x, caches, aux = period(x, first)
+        else:
+            x, caches, aux = checkpoint(
+                period, x, first, use_reentrant=False,
+                **({"context_fn": _dots_context} if remat == "dots"
+                   else {}))
         if cache is not None:
-            new_cache.append(c)
-        if i % P == P - 1:
-            per_period.append({k: mean(torch.stack([a[k] for a in auxes]))
-                               for k in zero})
+            new_cache.extend(caches)
+        per_period.append(aux)
     aux = {k: mean(torch.stack([a[k] for a in per_period])) for k in zero}
     return x, new_cache, aux

@@ -58,7 +58,14 @@ def test_port_has_modules():
                  "repro_torch/checkpoint/checkpoint.py",
                  "repro_torch/core/failover.py",
                  "repro_torch/core/autotune.py",
-                 "repro_torch/launch/serve.py"):
+                 "repro_torch/launch/serve.py",
+                 "repro_torch/kernels/flash_attn/chunked.py",
+                 "repro_torch/train/optimizer.py",
+                 "repro_torch/train/compression.py",
+                 "repro_torch/train/train_step.py",
+                 "repro_torch/runtime/fault_tolerance.py",
+                 "repro_torch/runtime/straggler.py",
+                 "repro_torch/launch/train.py"):
         assert want in names
     kernels = SRC / "repro_torch/kernels"
     for want in ("snp_step/csrc/snp_step_dense.cu",
@@ -80,6 +87,24 @@ def test_port_exports_the_distributed_entry_points():
         assert getattr(core, name) is getattr(distributed, name)
     assert set(sharding.__all__) >= {"neuron_axis", "trace_mesh"}
     assert "make_trace_runner" in serve.__all__
+
+
+def test_port_exports_the_training_names():
+    """The reference's training names under the same packages."""
+    import repro_torch.models as models
+    import repro_torch.runtime as runtime
+    import repro_torch.train as train
+    from repro_torch.kernels import flash_attn
+    for name in ("AdamWConfig", "adamw_init", "adamw_update",
+                 "make_schedule", "TrainState", "init_train_state",
+                 "make_train_step"):
+        assert name in train.__all__ and hasattr(train, name)
+    for name in ("FailureInjector", "Supervisor", "SupervisorConfig",
+                 "StragglerConfig", "StragglerDetector",
+                 "rebalance_shares"):
+        assert name in runtime.__all__ and hasattr(runtime, name)
+    assert "loss_fn" in models.__all__
+    assert "chunked_attention" in flash_attn.__all__
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
@@ -114,6 +139,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.flash_attn.ops, repro_torch.serve\n"
         "import repro_torch.launch.serve, repro_torch.runtime\n"
         "import repro_torch.checkpoint, repro_torch.core.failover\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.kernels.flash_attn.chunked\n"
+        "from repro_torch.models import loss_fn, train_state_from_jax\n"
+        "from repro_torch.runtime import (Supervisor, SupervisorConfig,\n"
+        "    FailureInjector, StragglerDetector, rebalance_shares)\n"
         "repro_torch.configs.get_config('smollm-360m')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"

@@ -427,11 +427,19 @@ def test_decode_clamps_the_write_at_max_len():
 
 
 def test_train_mode_and_chunked_raise():
+    """Since the training slice ``mode="train"`` and ``attn_impl=
+    "chunked"`` run (equal to the cache-free plain forward); what still
+    raises is a cache in train mode and an unknown impl."""
     _, pc, _, pp, _ = _setup()
     _, tb = _batch(pc, 1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        forward(pp, pc, tb, mode="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        forward(pp, pc, tb, attn_impl="chunked")
+    with torch.no_grad():
+        want, _, _ = forward(pp, pc, tb)
+        got, _, _ = forward(pp, pc, tb, mode="train", remat="none")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got, _, _ = forward(pp, pc, tb, attn_impl="chunked")
+        _close(got, want, 1e-5)
+    with pytest.raises(ValueError, match="without a cache"):
+        forward(pp, pc, tb, mode="train",
+                cache=init_cache(pc, 1, 5, device="cpu"))
     with pytest.raises(ValueError):
         forward(pp, pc, tb, attn_impl="pallas")
