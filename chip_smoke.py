@@ -297,8 +297,28 @@ result line):
    --fail-at 6 --steps 10``, depth cut to 8 layers for time): one
    restart, steps 7-10's losses against an uninterrupted run, snapshot
    MB and save/restore ms; (f) every family's reduced f32 sibling, one
-   step through ``"cuda"`` against ``"ref"`` within 1e-4;
-24. summary — the kernels with their launch counts, then one JSON line of
+   step through ``"cuda"`` against ``"ref"`` within 1e-4 (phases 17, 22
+   and 23 run the launchers as a user does on one card: a world of one,
+   on the one device without a process group or DTensors);
+24. the meshed launchers — SmolLM-360M at full width and depth on the
+   reference's mesh for the one card, ``(data, model) = (1, 1)``: an NCCL
+   group of one, the sharding plan's DTensors (the launchers given the
+   plan, ``plan=``: a world of one runs them without a mesh), B8 on each
+   rank's shard through ``local_map``; (a) ``serve_lm`` on the mesh, 8 x
+   1960 prompts
+   and 8 greedy decode steps, its tokens equal to the unmeshed ones, B8-TC
+   once a layer, then the prefill and decode steps timed on and off the
+   mesh from the same weights (device split of one prefill each); (b)
+   ``train()`` on the mesh, the first 5 steps of phase 23's main path
+   (same seed, batches and schedule), loss and ``grad_norm`` within 1e-4
+   relative of phase 23's, 64 B8-TC launches a step, step ms, peak, one
+   more meshed step timed and profiled; (c) the 4-layer f32 twin, 5 steps
+   on and off the mesh from the same weights, within 1e-5; (d) a drill: 7
+   steps on the mesh at 8 layers with a checkpoint at step 4, which a
+   fresh process restores into a fresh mesh and trains on to step 7, its
+   steps 5-7's loss and ``grad_norm`` equal to the uninterrupted run's
+   (world 1 is deterministic: a lost moment would show);
+25. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -318,7 +338,10 @@ kernels line's ``launches``.  Phase 22's family prefills are B8's paths
 too: their counts are in ``launches_by_path``, and B8-TC's figures at
 the qwen2-moe and musicgen launches in its ``other_launches``; so are
 phase 23's training paths (``train``: the launcher's 20 steps), with
-both bodies' figures at the training launch.
+both bodies' figures at the training launch, and phase 24's meshed
+paths (``meshed_serve_lm``, ``meshed_train``, ``meshed_train_f32_twin``,
+``meshed_train_drill``, and the drill's fresh process,
+``meshed_train_drill_resumed``, counted there).
 Phase 18's service, fault, checkpoint and launcher paths, and phase 20's
 dense-row explores, distributed traces, trace-mesh services, launcher and
 checkpointed explore (B1, B2, B3), are counted the same way and listed
@@ -2905,6 +2928,7 @@ def phase_serving():
     del p32, l32, c32, r32, d32, t32
     torch.cuda.empty_cache()
 
+    # the launcher without its mesh (phase 24 serves on it)
     argv = ["--arch", SERVE["arch"], "--gen", "32"]
     if CARD != "cuda":
         argv += ["--device", CARD]
@@ -5417,6 +5441,8 @@ def _train_main_path(tag="23"):
     return ({body: {"train": counts[body]}},
             dict(step_ms=step_ms, median_step_ms=med,
                  tokens_per_s=tokens / med * 1e3, losses=losses,
+                 grad_norms=[report["grad_norm"][s]
+                             for s in range(1, steps + 1)],
                  first_batch_after=after, peak_gib=peak / 2**30,
                  launches_per_step=counts[body] / steps, wall_s=wall,
                  profiled_walls_ms=walls, **(split or {})))
@@ -5632,6 +5658,404 @@ def phase_training():
     return launches, rows, figures
 
 
+# The meshed launchers (phase 24): SmolLM-360M at full width and depth on
+# the reference's mesh for the one card, (1, 1): one rank, an NCCL group
+# of one, parameters and state as DTensors placed by the sharding plan, B8
+# on each rank's shard through local_map.
+MESHED = dict(serve_gen=8, steps=5, drill_layers=8, drill_steps=7,
+              drill_ckpt=4)
+# bounds (relative) against the unmeshed runs: the bf16 main path, the f32
+# twin (the drill's resumed steps must equal the uninterrupted run's)
+MESHED_BF16, MESHED_F32 = 1e-4, 1e-5
+
+DRILL_CHILD = """
+import json, sys
+import torch
+from repro_torch.kernels.flash_attn import ops
+from repro_torch.launch.train import build_mesh_for_available, main
+from repro_torch.runtime import join_group
+from repro_torch.sharding import make_plan
+kind = torch.device(sys.argv[2]).type
+with join_group(kind):
+    _, report = main(sys.argv[3:],
+                     plan=make_plan(build_mesh_for_available(kind)))
+json.dump({"loss": report["loss"], "grad_norm": report["grad_norm"],
+           "restarts": report["restarts"], "mesh": report["mesh"],
+           "b8_tc": ops.kernel_launches_tc, "plain": ops.plain_calls},
+          open(sys.argv[1], "w"))
+"""
+
+
+def _parse_serve(text):
+    """The launcher's prefill ms and decode ms a step, from its lines."""
+    import re
+    pre = re.search(r"prefill \d+x\d+: ([\d.]+) ms", text)
+    dec = re.search(r"decode \d+ steps: ([\d.]+) ms/step", text)
+    return (float(pre.group(1)) if pre else None,
+            float(dec.group(1)) if dec else None)
+
+
+def _meshed_serve(plan, tag="24"):
+    """(a) ``serve_lm`` on the mesh (``plan=``) and without: 8 x 1960
+    prompts, 8 greedy decode steps, the same tokens, B8-TC once a layer
+    on the meshed prefill; then the prefill and decode steps timed on the
+    mesh and off it from the same weights (host clock, the device split
+    of one prefill each)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import place
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    cfg = get_config(SERVE["arch"])
+    L = cfg.num_layers
+    B, S, G = SERVE["batch"], SERVE["prompt"], MESHED["serve_gen"]
+    argv = ["--arch", SERVE["arch"], "--batch", str(B), "--prompt-len",
+            str(S), "--gen", str(G)]
+    if CARD != "cuda":
+        argv += ["--device", CARD]
+    gens, figs, launches = {}, {}, {}
+    for path, on in (("meshed_serve_lm", plan),
+                     ("unmeshed_serve_lm", None)):
+        out = io.StringIO()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        plain = attn_ops_plain_calls()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            gens[path] = serve_main(argv, plan=on)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(f"[{tag}] (a) {path}", counts, **{"B8-TC": L})
+        check(attn_ops_plain_calls() == plain, f"[{tag}] (a) {path}: plain "
+              f"attention calls through B8's wrapper")
+        launches[path] = counts["B8-TC"]
+        pre, dec = _parse_serve(out.getvalue())
+        figs[path] = dict(launcher_s=wall, prefill_ms=pre,
+                          decode_ms_per_step=dec,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        for line in out.getvalue().splitlines():
+            log(f"[{tag}] (a) {path} | {line}")
+    a, b = gens["meshed_serve_lm"], gens["unmeshed_serve_lm"]
+    check(a.shape == (B, G) and np.array_equal(a, b), f"[{tag}] (a) the "
+          f"meshed launcher's tokens differ from the unmeshed one's: "
+          f"{a[:2].tolist()} vs {b[:2].tolist()}")
+    # the steps timed off the mesh, then on it, from the same weights
+    # (placed on the mesh in place after the unmeshed timings)
+    batch = _serve_batch(cfg, B, S, CARD)
+    p = init_params(prng.PRNGKey(SERVE["seed"]), cfg, device=CARD)
+    timed = {}
+    for label, kw in (("unmeshed", {}),
+                      ("meshed", dict(constrain=plan.constrain, plan=plan))):
+        if kw:
+            place(p, cfg, plan, replicate=True)
+        prefill = make_prefill_step(cfg, max_len=S + G + 1, attn_impl="cuda",
+                                    **kw)
+        decode = make_decode_step(cfg, **({"constrain": plan.constrain}
+                                          if kw else {}))
+        row = time_prefill(prefill, p, batch, f"(a) {label} prefill "
+                           f"{B}x{S}", tag=tag)
+        logits, cache = prefill(p, batch)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in range(G):
+            pos = torch.full((B, 1), S + g, dtype=torch.int32, device=CARD)
+            tok, _, cache = decode(p, cache, tok, pos)
+        torch.cuda.synchronize()
+        row["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / G
+        timed[label] = row
+        del logits, cache
+    log(f"[{tag}] (a) {cfg.name} served on the mesh "
+        f"{_mesh_shape(plan)} and off it, {B} x {S} prompts, {G} greedy "
+        f"steps: tokens equal; B8-TC {launches['meshed_serve_lm']} launches "
+        f"on the meshed prefill (one a layer, on the rank's shard), 0 plain "
+        f"calls; prefill wall (warm, min of 3) meshed "
+        f"{min(timed['meshed']['wall_runs_ms']):.3f} ms vs unmeshed "
+        f"{min(timed['unmeshed']['wall_runs_ms']):.3f} ms; decode "
+        f"{timed['meshed']['decode_ms_per_step']:.3f} vs "
+        f"{timed['unmeshed']['decode_ms_per_step']:.3f} ms a step; "
+        f"launcher peaks {figs['meshed_serve_lm']['peak_gib']:.3f} / "
+        f"{figs['unmeshed_serve_lm']['peak_gib']:.3f} GiB")
+    del p
+    torch.cuda.empty_cache()
+    return ({"B8-TC": {"meshed_serve_lm": launches["meshed_serve_lm"]}},
+            dict(figs, timed=timed))
+
+
+def attn_ops_plain_calls():
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    return attn_ops.plain_calls
+
+
+def _mesh_shape(plan):
+    return dict(zip(plan.mesh.mesh_dim_names, plan.mesh.shape))
+
+
+def _meshed_train(plan, main_path, tag="24"):
+    """(b) ``train()`` on the mesh: the first 5 of phase 23's main-path
+    steps (same seed, batches and schedule: the warm-up covers them),
+    loss and ``grad_norm`` each within 1e-4 relative of phase 23's, B8-TC
+    twice a layer a step; step ms, peak; one more meshed step profiled."""
+    import statistics
+
+    import torch
+    from repro_torch.launch.train import main as train_main, place_batch
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    cfg = _train_cfg()
+    body, per_fwd = next(iter(_b8_launches(cfg).items()))
+    steps = MESHED["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    plain = attn_ops_plain_calls()
+    t0 = time.perf_counter()
+    state, report = train_main(_train_args(
+        ["--steps", str(steps), "--remat", TRAIN["remat"], "--log-every",
+         "1"]), plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(f"[{tag}] (b) meshed train", counts,
+                 **{body: 2 * per_fwd * steps})
+    check(attn_ops_plain_calls() == plain, f"[{tag}] (b) plain attention "
+          f"calls through B8's wrapper")
+    check(report["mesh"] == _mesh_shape(plan), f"[{tag}] (b) the launcher's "
+          f"mesh {report['mesh']}")
+    rel = {}
+    for k, want in (("loss", main_path["losses"]),
+                    ("grad_norm", main_path["grad_norms"])):
+        rel[k] = max(_rel(report[k][s], want[s - 1])
+                     for s in range(1, steps + 1))
+        check(rel[k] <= MESHED_BF16, f"[{tag}] (b) meshed {k} against phase "
+              f"23's beyond {MESHED_BF16}: "
+              f"{[report[k][s] for s in range(1, steps + 1)]} vs "
+              f"{want[:steps]}")
+    step_ms = report["step_ms"]
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    losses = [report["loss"][s] for s in range(1, steps + 1)]
+    # one more step on the mesh from the launcher's state (its mesh lives
+    # on in this phase's group), timed, then profiled
+    opt = AdamWConfig(lr=float(TRAIN["lr"]), warmup_steps=int(
+        TRAIN["warmup"]), total_steps=steps)
+    step = make_train_step(cfg, opt, remat=TRAIN["remat"], attn_impl="cuda",
+                           constrain=plan.constrain)
+    holder = [state]
+    batch = place_batch(_train_batch(cfg, TRAIN["batch"], TRAIN["seq"],
+                                     step=steps), cfg, plan)
+    del state
+
+    def one():
+        holder[0], m = step(holder[0], batch)
+        float(m["loss"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    walls = [(time.perf_counter() - t0) * 1e3]
+    split = _device_time(one, min(walls), "(b) one meshed training step",
+                         tag=tag)
+    log(f"[{tag}] (b) {cfg.name} trained {steps} steps on the mesh "
+        f"{_mesh_shape(plan)} through train() (bf16, {cfg.num_layers} "
+        f"layers, batch {TRAIN['batch']} x {TRAIN['seq']}, remat "
+        f"{TRAIN['remat']}) in {wall:.1f} s: {body} {counts[body]} launches "
+        f"({counts[body] // steps} a step), 0 plain calls; loss "
+        f"{' '.join(f'{x:.6f}' for x in losses)}"
+        f" (max rel {rel['loss']:.3g} against phase 23's, bound "
+        f"{MESHED_BF16}), grad_norm max rel {rel['grad_norm']:.3g}; step ms "
+        f"(host clock) first {step_ms[0]:.1f}, median of the rest "
+        f"{med:.1f} ({tokens / med * 1e3:.0f} tokens/s) against phase 23's "
+        f"{main_path['median_step_ms']:.1f}; peak {peak / 2**30:.3f} GiB "
+        f"against {main_path['peak_gib']:.3f}")
+    del holder, step, batch
+    torch.cuda.empty_cache()
+    return ({body: {"meshed_train": counts[body]}},
+            dict(losses=losses,
+                 grad_norms=[report["grad_norm"][s]
+                             for s in range(1, steps + 1)],
+                 rel=rel, step_ms=step_ms, median_step_ms=med,
+                 tokens_per_s=tokens / med * 1e3, peak_gib=peak / 2**30,
+                 wall_s=wall, profiled_walls_ms=walls, **(split or {})))
+
+
+def _meshed_twin(plan, tag="24"):
+    """(c) The 4-layer f32 twin (batch 2 x 2048), 5 steps on the mesh and
+    off it from the same weights and batches: loss and ``grad_norm``
+    within 1e-5 relative, B8-TF32 twice a layer a step on the mesh."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.launch.train import place_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import place
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+
+    cfg = _train_cfg(layers=TRAIN_TWIN["layers"], dtype="float32")
+    body, per_fwd = next(iter(_b8_launches(cfg).items()))
+    steps, B, S = MESHED["steps"], TRAIN_TWIN["batch"], TRAIN["seq"]
+    opt = AdamWConfig(lr=float(TRAIN["lr"]), warmup_steps=int(
+        TRAIN["warmup"]), total_steps=TRAIN["steps"])
+    runs, counts = {}, None
+    for label in ("unmeshed", "meshed"):
+        on = label == "meshed"
+        params = init_params(prng.PRNGKey(0), cfg, device=CARD)
+        state = init_train_state(place(params, cfg, plan) if on else params,
+                                 opt)
+        step = make_train_step(cfg, opt, remat=TRAIN["remat"],
+                               attn_impl="cuda",
+                               **({"constrain": plan.constrain} if on else {}))
+        reset_counts()
+        out = []
+        for s in range(steps):
+            batch = _train_batch(cfg, B, S, step=s)
+            state, m = step(state, place_batch(batch, cfg, plan) if on
+                            else batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[label] = out
+        if on:
+            counts = read_counts()
+        del state, step, params
+        torch.cuda.empty_cache()
+    check_counts(f"[{tag}] (c) meshed f32 twin", counts,
+                 **{body: 2 * per_fwd * steps})
+    rel = max(_rel(a, b) for x, y in zip(runs["meshed"], runs["unmeshed"])
+              for a, b in zip(x, y))
+    check(rel <= MESHED_F32, f"[{tag}] (c) meshed f32 twin beyond "
+          f"{MESHED_F32}: {runs}")
+    log(f"[{tag}] (c) f32 twin ({cfg.num_layers} layers, batch {B} x {S}, "
+        f"{body} {counts[body]} launches on the mesh): {steps} steps, loss "
+        f"and grad_norm on the mesh vs off it max rel {rel:.3g} (bound "
+        f"{MESHED_F32}); losses {[round(x[0], 6) for x in runs['meshed']]}")
+    return {body: {"meshed_train_f32_twin": counts[body]}}, dict(
+        rel=rel, runs=runs)
+
+
+def _meshed_drill(plan, tag="24"):
+    """(d) Train on the mesh with a checkpoint (8 layers, 7 steps, one at
+    step 4), then restore step 4 into a fresh mesh in a fresh process
+    (the launcher through ``python -c``, given the plan of its own group
+    of one) and continue to step 7: steps 5-7's loss and ``grad_norm``
+    equal to the uninterrupted run's."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch.train import main as train_main
+
+    d = MESHED
+    cfg = _train_cfg(layers=d["drill_layers"])
+    body, per_fwd = next(iter(_b8_launches(cfg).items()))
+    common = ["--steps", str(d["drill_steps"]), "--remat", TRAIN["remat"],
+              "--log-every", "1", "--ckpt-every", str(d["drill_ckpt"])]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        first = os.path.join(tmp, "first")
+        resumed = os.path.join(tmp, "resumed")
+        reset_counts()
+        _, whole = train_main(_train_args(
+            common + ["--ckpt-dir", first], d["drill_layers"]), plan=plan)
+        counts = read_counts()
+        check_counts(f"[{tag}] (d) meshed run with checkpoints", counts,
+                     **{body: 2 * per_fwd * d["drill_steps"]})
+        step_dir = f"step_{d['drill_ckpt']:08d}"
+        shutil.copytree(os.path.join(first, step_dir),
+                        os.path.join(resumed, step_dir))
+        out = os.path.join(tmp, "resumed.json")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", DRILL_CHILD, out, CARD] + _train_args(
+                common + ["--ckpt-dir", resumed], d["drill_layers"]),
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[{tag}] (d) fresh process | {line}")
+        check(proc.returncode == 0, f"[{tag}] (d) the fresh process exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        child = json.load(open(out))
+    replay = range(d["drill_ckpt"] + 1, d["drill_steps"] + 1)
+    check(sorted(map(int, child["loss"])) == list(replay)
+          and child["restarts"] == 0, f"[{tag}] (d) the fresh process ran "
+          f"steps {sorted(child['loss'])}, {child['restarts']} restarts")
+    check(child["b8_tc"] == 2 * per_fwd * len(replay) and child["plain"] == 0,
+          f"[{tag}] (d) the fresh process: {child['b8_tc']} B8-TC launches, "
+          f"{child['plain']} plain calls")
+    diffs = {s: max(_rel(child["loss"][str(s)], whole["loss"][s]),
+                    _rel(child["grad_norm"][str(s)], whole["grad_norm"][s]))
+             for s in replay}
+    exact = all(child[k][str(s)] == whole[k][s] for s in replay
+                for k in ("loss", "grad_norm"))
+    check(exact, f"[{tag}] (d) steps {replay.start}-{replay.stop - 1} after "
+          f"the restore differ from the uninterrupted run's: {diffs}")
+    log(f"[{tag}] (d) drill on the mesh (depth cut to {d['drill_layers']} "
+        f"layers): checkpoint at step {d['drill_ckpt']}, restored into a "
+        f"fresh mesh {child['mesh']} in a fresh process ({child_s:.1f} s), "
+        f"steps {replay.start}-{replay.stop - 1}: "
+        + ", ".join(f"{child['loss'][str(s)]:.6f}/{whole['loss'][s]:.6f}"
+                    for s in replay)
+        + f" (max rel {max(diffs.values()):.3g}, bit for bit)")
+    torch.cuda.empty_cache()
+    return ({body: {"meshed_train_drill": counts[body],
+                    "meshed_train_drill_resumed": child["b8_tc"]}},
+            dict(replay_max_rel=max(diffs.values()), exact=exact,
+                 child_s=child_s))
+
+
+def phase_meshed(train_figures,
+                 parts=("serve", "train", "twin", "drill")):
+    """Phase 24: the meshed launchers (module docstring; ``parts`` picks
+    (a)-(d), all of them in the smoke).  Returns (B8's launches by body
+    and path, the figures)."""
+    import torch
+    from repro_torch.launch.train import build_mesh_for_available
+    from repro_torch.runtime import join_group
+    from repro_torch.sharding import make_plan
+
+    t0 = time.perf_counter()
+    launches = {"B8-TC": {}, "B8-TF32": {}}
+    figures = {}
+
+    def record(paths):
+        for body, by_path in paths.items():
+            launches[body].update(by_path)
+
+    # one group for the phase: the launchers run on its plan (a world of
+    # one would run them without a mesh), which lives across them
+    with join_group(torch.device(CARD).type) as (rank, world):
+        plan = make_plan(build_mesh_for_available(torch.device(CARD).type))
+        check(world == 1 and _mesh_shape(plan) == {"data": 1, "model": 1},
+              f"[24] mesh {_mesh_shape(plan)} over {world} ranks")
+        if "serve" in parts:
+            paths, figures["serve"] = _meshed_serve(plan)
+            record(paths)
+        if "train" in parts:
+            paths, figures["train"] = _meshed_train(
+                plan, train_figures["main_path"])
+            record(paths)
+        if "twin" in parts:
+            paths, figures["f32_twin"] = _meshed_twin(plan)
+            record(paths)
+        if "drill" in parts:
+            paths, figures["drill"] = _meshed_drill(plan)
+            record(paths)
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"[24] phase 24 in {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5681,6 +6105,7 @@ def main() -> int:
         sync_paths, probe_err, probe_rows, sync_figures = phase_zero_sync()
         family_paths, family_rows, family_figures = phase_lm_families()
         train_paths, train_rows, train_figures = phase_training()
+        mesh_paths, mesh_figures = phase_meshed(train_figures)
         check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
@@ -5706,7 +6131,8 @@ def main() -> int:
     for k, paths in (list(snp_paths.items()) + list(dense_paths.items())
                      + list(sync_paths.items())
                      + list(family_paths.items())
-                     + list(train_paths.items())):
+                     + list(train_paths.items())
+                     + list(mesh_paths.items())):
         by_path[k].update(paths)
     # B8 at the training launch (phase 23) beside the families' launches
     for k, row in train_rows.items():
@@ -5760,17 +6186,18 @@ def main() -> int:
             **({"other_launches": family_rows[k]} if family_rows.get(k)
                else {}),
             **extras.get(k, {})))
-        log(f"[24] {k} {meta['name']} ({meta['route']}): "
+        log(f"[25] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[24] SNP service figures: {json.dumps(snp_figures)}")
-    log(f"[24] planner figures: {json.dumps(planned)}")
-    log(f"[24] dense-row and distributed-trace figures: "
+    log(f"[25] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[25] planner figures: {json.dumps(planned)}")
+    log(f"[25] dense-row and distributed-trace figures: "
         f"{json.dumps(dense_figures)}")
-    log(f"[24] zero-host-sync explore figures: {json.dumps(sync_figures)}")
-    log(f"[24] LM family figures: {json.dumps(family_figures)}")
-    log(f"[24] training figures: {json.dumps(train_figures)}")
-    log(f"[24] card: {card}")
+    log(f"[25] zero-host-sync explore figures: {json.dumps(sync_figures)}")
+    log(f"[25] LM family figures: {json.dumps(family_figures)}")
+    log(f"[25] training figures: {json.dumps(train_figures)}")
+    log(f"[25] meshed launcher figures: {json.dumps(mesh_figures)}")
+    log(f"[25] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,3 @@
-"""Launchers of the port: :mod:`.serve` (LM serving)."""
+"""Launchers of the port: :mod:`.serve` (LM serving and SNP trace
+serving), :mod:`.train` (training) and :mod:`.mesh` (the production
+mesh)."""

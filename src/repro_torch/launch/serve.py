@@ -17,6 +17,21 @@ a trace mesh, every visible card or ``[cpu]``).
         --batch 64 --requests 256 --gen 32 --max-delay-ms 5 \
         --inject 'fail=2 poison=17' --max-retries 1  # on the card
 
+Under ``torchrun`` with more than one rank the LM path runs on the
+reference's mesh
+(:func:`~repro_torch.launch.train.build_mesh_for_available`, one rank of
+the process group a device) under :func:`~repro_torch.sharding.make_plan`:
+the weights replicated on it, as the reference leaves them, the KV
+caches laid out by the plan's ``cache_specs``, the plan's ``constrain``
+in both steps, prefill attention through B8 on each rank's shard, and
+decode attention split over the cache's sequence shards.  A world of one
+serves on its one device without a process group or DTensors (a (1, 1)
+mesh gives the same tokens, at DTensor's host cost); ``serve_lm(args,
+plan=)`` serves on a given plan's mesh whatever the world.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch smollm-360m --smoke --device cpu       # (2, 2), gloo
+
 Every arch of the reference serves: MoE, MLA, Mamba hybrids, RWKV6 and
 musicgen's parallel codebooks (its generations are (B, C, gen); the
 printout shows codebook 0, as the reference's does).  The weights are
@@ -160,12 +175,24 @@ def serve_snp(args) -> dict:
             "stats": stats, "mesh": [str(d) for d in mesh]}
 
 
-def serve_lm(args) -> np.ndarray:
+def serve_lm(args, plan=None) -> np.ndarray:
     """Serve one batch of any of the ten archs: prefill ``--prompt-len``
     tokens (the batch of :func:`~repro_torch.data.make_batch`, codebook
-    streams and frontend stubs included), decode ``--gen``.  Returns the
-    generated token ids (B, gen), or (B, C, gen) with codebooks."""
+    streams and frontend stubs included), decode ``--gen``, on ``plan``'s
+    mesh if given, else as
+    :func:`~repro_torch.launch.train.launch_plan` decides (module
+    docstring).  Returns the generated token ids (B, gen), or (B, C, gen)
+    with codebooks, on every rank."""
+    from .train import launch_plan
     dev = resolve_device(args.device)
+    with launch_plan(dev, plan) as (plan, rank):
+        return _serve_lm(args, dev, plan, rank)
+
+
+def _serve_lm(args, dev, plan, rank) -> np.ndarray:
+    from ..models.convert import place
+    from ..models.layers import _identity
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
@@ -173,8 +200,17 @@ def serve_lm(args) -> np.ndarray:
     max_len = S + G + 1
 
     params = init_params(prng.PRNGKey(args.seed), cfg, device=dev)
-    prefill = make_prefill_step(cfg, max_len=max_len, attn_impl="cuda")
-    decode = make_decode_step(cfg, temperature=args.temperature)
+    constrain = _identity
+    if plan is not None:
+        # the weights replicated on the mesh, as the reference leaves them
+        place(params, cfg, plan, replicate=True)
+        constrain = plan.constrain
+        say(f"[serve] mesh "
+            f"{dict(zip(plan.mesh.mesh_dim_names, plan.mesh.shape))}")
+    prefill = make_prefill_step(cfg, max_len=max_len, attn_impl="cuda",
+                                constrain=constrain, plan=plan)
+    decode = make_decode_step(cfg, temperature=args.temperature,
+                              constrain=constrain)
 
     batch = make_batch(cfg, DataConfig(seed=args.seed), step=0, shard=0,
                        batch=B, seq_len=S)
@@ -186,8 +222,8 @@ def serve_lm(args) -> np.ndarray:
     logits, cache = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    print(f"[serve] prefill {B}x{S}: {t_prefill*1e3:.1f} ms "
-          f"({B*S/t_prefill:.0f} tok/s)")
+    say(f"[serve] prefill {B}x{S}: {t_prefill*1e3:.1f} ms "
+        f"({B*S/t_prefill:.0f} tok/s)")
 
     last = logits[:, :, -1, :] if cfg.codebooks else logits[:, -1, :]
     tok = last.argmax(dim=-1).to(torch.int32)[..., None]
@@ -203,18 +239,23 @@ def serve_lm(args) -> np.ndarray:
         outs.append(tok[..., 0])
     _sync(dev)
     dt = time.perf_counter() - t0
-    print(f"[serve] decode {G} steps: {dt/max(G, 1)*1e3:.2f} ms/step "
-          f"({B*G/dt if dt > 0 else 0.0:.0f} tok/s)")
-    gen = torch.stack(outs, -1).cpu().numpy() if outs else \
-        np.zeros(tuple(tok.shape[:-1]) + (0,), np.int32)
-    print("[serve] sample generations (first 16 token ids/request):")
+    say(f"[serve] decode {G} steps: {dt/max(G, 1)*1e3:.2f} ms/step "
+        f"({B*G/dt if dt > 0 else 0.0:.0f} tok/s)")
+    gen = torch.stack([_whole(t) for t in outs], -1).cpu().numpy() \
+        if outs else np.zeros(tuple(tok.shape[:-1]) + (0,), np.int32)
+    say("[serve] sample generations (first 16 token ids/request):")
     for b in range(min(B, 4)):
         row = gen[b] if not cfg.codebooks else gen[b, 0]
-        print(f"  req{b}: {row[:16].tolist()}")
+        say(f"  req{b}: {row[:16].tolist()}")
     return gen
 
 
-def main(argv=None):
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A result read out: a DTensor gathered whole (every rank calls it)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def main(argv=None, *, plan=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--snp", action="store_true",
                     help="serve SNP traces (the async trace service) "
@@ -260,7 +301,7 @@ def main(argv=None):
         return serve_snp(args)
     if args.arch is None:
         ap.error("--arch is required without --snp")
-    return serve_lm(args)
+    return serve_lm(args, plan)
 
 
 if __name__ == "__main__":

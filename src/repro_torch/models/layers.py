@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -39,6 +40,7 @@ from ..configs.base import ArchConfig
 from ..core import prng
 from ..kernels.flash_attn import (attention_ref, chunked_attention,
                                    flash_attention)
+from ..sharding.placement import on_mesh
 
 __all__ = [
     "Params", "rms_norm", "init_rms_norm", "init_dense", "dense",
@@ -198,7 +200,11 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(q, k, v, attn_impl: str) -> torch.Tensor:
-    """Causal attention over (B, S, H, hd) q and (B, S, Hk, hd) k/v."""
+    """Causal attention over (B, S, H, hd) q and (B, S, Hk, hd) k/v; on
+    DTensors, on each rank's shard (:func:`_attend_sharded`)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _attend_sharded(q, k, v, attn_impl)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, hd)
     if attn_impl == "cuda":
         out = flash_attention(qh, kh, vh, causal=True)
@@ -210,6 +216,58 @@ def _attend(q, k, v, attn_impl: str) -> torch.Tensor:
         raise ValueError(f"unknown attention impl {attn_impl!r}; the port "
                          f"takes {ATTN_IMPLS}")
     return out.transpose(1, 2)                            # (B, S, H, hd)
+
+
+def _attend_sharded(q, k, v, attn_impl: str):
+    """:func:`_attend` on DTensors: the attention runs on each rank's
+    local shard through ``local_map`` (so B8 launches unchanged on a
+    card's shard), which attention allows since it is independent over
+    batch and heads.  q keeps its batch shards and its head shards on one
+    mesh dim, k/v the same batch shards; the sequence and head dim are
+    whole on every rank (an all-gather where they were not).  Where q's
+    heads are sharded and k/v's cannot be (fewer kv heads than ranks), k/v
+    are whole on that mesh dim and each rank takes the kv heads of its q
+    heads from its global head offset (GQA: q head h reads kv head h //
+    group), their gradients summed over the dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    H, Hk = q.shape[2], k.shape[2]
+    group = H // Hk
+    qp, kp, kgrad = [], [], []
+    head_dim = None          # the mesh dim sharding q's heads
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            qp.append(p)
+            kp.append(p)
+            kgrad.append(p)
+        elif isinstance(p, Shard) and p.dim == 2 and head_dim is None:
+            head_dim = i
+            qp.append(p)
+            whole = Hk % mesh.size(i) != 0
+            kp.append(Replicate() if whole else p)
+            kgrad.append(Partial() if whole else p)
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+            kgrad.append(Replicate())
+    offset = None
+    if head_dim is not None and isinstance(kp[head_dim], Replicate):
+        offset = mesh.get_local_rank(head_dim) * (H // mesh.size(head_dim))
+
+    def local(ql, kl, vl):
+        if offset is not None:       # a kv head for each local q head
+            idx = (offset + torch.arange(ql.shape[2], device=kl.device)) \
+                // group
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return _attend(ql, kl, vl, attn_impl)
+
+    q = q.redistribute(mesh, qp)
+    k = k.redistribute(mesh, kp)
+    v = v.redistribute(mesh, kp)
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kgrad, kgrad),
+                     device_mesh=mesh)(q, k, v)
 
 
 def attention(
@@ -249,43 +307,88 @@ def attention(
         out = _decode_attend(q, ck, cv, idx + 1, constrain)
     else:          # prefill: a zero cache holding [0, S)
         ck, cv = cache["k"], cache["v"]
-        ck.zero_()
-        cv.zero_()
-        ck[:, :S] = k
-        cv[:, :S] = v
+        _fill(ck, k)
+        _fill(cv, v)
         new_cache = {"k": ck, "v": cv,
-                     "len": torch.full((B,), S, dtype=torch.int32,
-                                       device=x.device)}
+                     "len": torch.full_like(cache["len"], S)}
         out = _attend(q, k, v, attn_impl)
     out = constrain(out, "heads")
     h, hd, d = p.wo.shape
     return out.reshape(B, S, h * hd) @ p.wo.reshape(h * hd, d), new_cache
 
 
-def _decode_attend(q, ck, cv, kv_len, constrain: Constrain = _identity):
+def _decode_attend(q, ck, cv, kv_len, constrain: Constrain = _identity,
+                   *, lo: int = 0, groups=()):
     """Single-token attention over the KV cache, as the reference's
     ``_decode_attend``: f32 scores from the cache's dtype (exact products,
     f32 sums), masked softmax numerators rounded to the cache's dtype before
-    the ``P·V`` product, f32 accumulation.
+    the ``P·V`` product, f32 accumulation.  On a DTensor cache, on each
+    rank's shard (:func:`_decode_attend_sharded`).
 
-    q (B, 1, H, hd); ck/cv (B, Smax, Hk, hd); kv_len (B,).
+    q (B, 1, H, hd); ck/cv (B, Smax, Hk, hd); kv_len (B,).  ``ck``/``cv``
+    may be a slice of the sequence starting at slot ``lo``, the rest held
+    by the ranks of ``groups`` (process groups): the softmax's max, then
+    its numerator and denominator, are all-reduced over them, so every
+    slot's numerator is the one the whole cache gives.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(ck, DTensor):
+        return _decode_attend_sharded(q, ck, cv, kv_len)
     B, Smax, Hk, hd = ck.shape
     H = q.shape[2]
     group = H // Hk
     qg = q.reshape(B, 1, Hk, group, hd)
     s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
                      ck.float()) / (hd ** 0.5)
-    mask = (torch.arange(Smax, device=ck.device)
+    mask = (lo + torch.arange(Smax, device=ck.device)
             < kv_len[:, None])[:, None, None, None, :]
     s = torch.where(mask, s, -1e30)
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True) if Smax else \
+        s.new_full(s.shape[:-1] + (1,), -1e30)
+    for g in groups:
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
     e = torch.where(mask, torch.exp(s - m), 0.0)
     num = torch.einsum("bhgqs,bshd->bqhgd", e.to(cv.dtype).float(),
                        cv.float())
     den = e.sum(dim=-1)[..., None].permute(0, 3, 1, 2, 4)
+    if groups:                  # one all-reduce of [num | den] a group
+        both = torch.cat([num, den], -1)
+        for g in groups:
+            dist.all_reduce(both, group=g)
+        num, den = both[..., :-1], both[..., -1:]
     out = num / den.clamp_min(1e-30)
     return out.reshape(B, 1, H, cv.shape[-1]).to(q.dtype)
+
+
+def _decode_attend_sharded(q, ck, cv, kv_len):
+    """:func:`_decode_attend` on DTensors through ``local_map``, as GSPMD
+    splits the softmax over a sharded sequence: the cache keeps its batch
+    shards and its sequence shards (the plan's ``cache_specs`` put the
+    sequence over ``model``), q and ``kv_len`` come to the same batch
+    shards whole along the rest, and each rank attends over the slots it
+    holds, the softmax's statistics all-reduced over the mesh dims that
+    shard the sequence (the cache itself never moves).  Any other shard
+    of the cache (its heads) is gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ck.device_mesh
+    cp = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+          for p in ck.placements]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cp]
+    groups = [mesh.get_group(i) for i, p in enumerate(cp)
+              if isinstance(p, Shard) and p.dim == 1]
+    _, offset = compute_local_shape_and_global_offset(ck.shape, mesh, cp)
+
+    def local(ql, kl, vl, nl):
+        return _decode_attend(ql, kl, vl, nl, lo=offset[1], groups=groups)
+
+    return local_map(local, out_placements=rows,
+                     in_placements=(rows, cp, cp, rows), device_mesh=mesh)(
+        on_mesh(q, mesh, rows), on_mesh(ck, mesh, cp), on_mesh(cv, mesh, cp),
+        on_mesh(kv_len, mesh, rows))
 
 
 def _append(cache_t: torch.Tensor, row: torch.Tensor,
@@ -293,8 +396,54 @@ def _append(cache_t: torch.Tensor, row: torch.Tensor,
     """Write ``row`` (B, ...) at slot ``idx`` (B,) of ``cache_t`` (B, Smax,
     ...), in place, the slot clamped to ``Smax - 1`` as the reference's
     ``dynamic_update_slice`` clamps."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache_t, DTensor):
+        return _write_sharded(cache_t, row[:, None], idx)
     at = idx.clamp(0, cache_t.shape[1] - 1).long()
     cache_t[torch.arange(cache_t.shape[0], device=cache_t.device), at] = row
+
+
+def _fill(cache_t: torch.Tensor, rows: torch.Tensor) -> None:
+    """A prefill's write: ``cache_t`` (B, Smax, ...) zeroed, ``rows`` (B,
+    S, ...) in its slots [0, S), in place."""
+    from torch.distributed.tensor import DTensor
+    cache_t.zero_()
+    if isinstance(cache_t, DTensor):
+        return _write_sharded(cache_t, rows, None)
+    cache_t[:, :rows.shape[1]] = rows
+
+
+def _write_sharded(cache_t, rows, idx) -> None:
+    """:func:`_fill` (``idx`` None: slots [0, n)) or :func:`_append`
+    (slot ``idx`` (B,), n = 1) into a DTensor cache, in place on each
+    rank's shard, as GSPMD writes a ``dynamic_update_slice`` into a
+    sharded operand: ``rows`` (B, n, ...) and ``idx`` are brought to the
+    cache's batch placements, whole along the sequence, and each rank
+    writes the slots its shard of the sequence holds."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache_t.device_mesh
+    cp = list(cache_t.placements)
+    rows = on_mesh(rows, mesh, [Replicate() if isinstance(p, Shard)
+                                and p.dim == 1 else p
+                                for p in cp]).to_local()
+    local = cache_t.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        cache_t.shape, mesh, cp)
+    lo, n = offset[1], local.shape[1]
+    if idx is None:
+        a, b = max(lo, 0), min(lo + n, rows.shape[1])
+        if a < b:
+            local[:, a - lo:b - lo] = rows[:, a:b]
+        return
+    at = on_mesh(idx, mesh, [p if isinstance(p, Shard) and p.dim == 0
+                             else Replicate() for p in cp]).to_local()
+    at = at.clamp(0, cache_t.shape[1] - 1).long() - lo
+    mine = ((at >= 0) & (at < n)).reshape((-1,) + (1,) * (local.dim() - 2))
+    slot = at.clamp(0, n - 1)
+    rows_b = torch.arange(local.shape[0], device=local.device)
+    local[rows_b, slot] = torch.where(mine, rows[:, 0], local[rows_b, slot])
 
 
 # -- multi-head latent attention (MiniCPM3 / DeepSeek-style MLA) -------------
@@ -366,13 +515,10 @@ def mla(
         out = _decode_attend(q_full, k, v, idx + 1)
     else:
         cc, cr = cache["ckv"], cache["k_rope"]
-        cc.zero_()
-        cr.zero_()
-        cc[:, :S] = ckv
-        cr[:, :S] = k_rope
+        _fill(cc, ckv)
+        _fill(cr, k_rope)
         new_cache = {"ckv": cc, "k_rope": cr,
-                     "len": torch.full((B,), S, dtype=torch.int32,
-                                       device=x.device)}
+                     "len": torch.full_like(cache["len"], S)}
         k, v = expand(ckv, k_rope)
         # the reference's prefill with a cache is always the plain one
         out = _attend(q_full, k, v, "ref")

@@ -25,10 +25,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..sharding.placement import meshed, replicated, unsharded
 from . import layers as L
 from .transformer import apply_stack, dtype_of, init_stack, init_stack_cache
 
@@ -72,10 +74,19 @@ def init_params(key: torch.Tensor, cfg: ArchConfig, *,
     return LM(key, cfg, resolve_device(device))
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None,
+               plan=None):
     """One zero cache per layer, of its mixer's kind (``device=None`` is
-    the card)."""
-    return init_stack_cache(cfg, batch, max_len, resolve_device(device))
+    the card); with a :class:`~repro_torch.sharding.ShardingPlan`,
+    DTensors on its mesh laid out by ``plan.cache_specs`` (the KV
+    sequence over ``model`` by default)."""
+    cache = init_stack_cache(cfg, batch, max_len, resolve_device(device))
+    if plan is None:
+        return cache
+    from torch.distributed.tensor import distribute_tensor
+    return [{name: distribute_tensor(t, plan.mesh, plan.named(spec))
+             for (name, t), spec in zip(layer.items(), specs.values())}
+            for layer, specs in zip(cache, plan.cache_specs(cfg, cache))]
 
 
 def _embed(params: LM, cfg: ArchConfig, batch, constrain):
@@ -84,7 +95,11 @@ def _embed(params: LM, cfg: ArchConfig, batch, constrain):
         books = torch.arange(cfg.codebooks, device=tokens.device)
         x = params.embed[books[None, :, None], tokens].sum(dim=1)
     else:
-        x = params.embed[tokens]                          # (B, S, D)
+        # F.embedding's rows and gradient are the indexing's; on a mesh the
+        # table is gathered whole first (DTensor's lookups on a
+        # vocab-sharded table leave a masked partial sum that its
+        # redistributions mishandle, and indexing's backward has no rule)
+        x = F.embedding(tokens, replicated(params.embed))   # (B, S, D)
     if "frontend_embeds" in batch:
         mask = batch["embed_mask"][..., None]
         x = torch.where(mask, batch["frontend_embeds"].to(x.dtype), x)
@@ -121,15 +136,16 @@ def forward(
         raise ValueError(f"unknown mode {mode!r}; the port takes {_MODES}")
     if mode == "train" and cache is not None:
         raise ValueError("mode='train' runs without a cache")
-    x = _embed(params, cfg, batch, constrain)
-    x, new_cache, aux = apply_stack(
-        params.blocks, cfg, x, batch["positions"], cache,
-        attn_impl=attn_impl, constrain=constrain,
-        remat=remat if mode == "train" else "none")
-    x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
-    if logits_slice == "last":
-        x = x[:, -1:]
-    return _head(params, cfg, x, constrain), new_cache, aux
+    with meshed(params.embed):
+        x = _embed(params, cfg, batch, constrain)
+        x, new_cache, aux = apply_stack(
+            params.blocks, cfg, x, batch["positions"], cache,
+            attn_impl=attn_impl, constrain=constrain,
+            remat=remat if mode == "train" else "none")
+        x = L.rms_norm(params.ln_f, x, cfg.norm_eps)
+        if logits_slice == "last":
+            x = x[:, -1:]
+        return _head(params, cfg, x, constrain), new_cache, aux
 
 
 def loss_fn(
@@ -145,14 +161,16 @@ def loss_fn(
     logits, _, aux = forward(params, cfg, batch, mode="train",
                              attn_impl=attn_impl, constrain=constrain,
                              remat=remat)
-    labels = batch["labels"].long()
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    # a label below 0 gathers a real entry and is masked out after
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
-    loss = ce + aux_loss_weight * aux["load_balance_loss"]
+    with meshed(params.embed):
+        labels = batch["labels"].long()
+        # the gather below reads any vocab entry: the vocab dim whole
+        logits = unsharded(logits.float(), -1)
+        logz = torch.logsumexp(logits, dim=-1)
+        # a label below 0 gathers a real entry and is masked out after
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+        loss = ce + aux_loss_weight * aux["load_balance_loss"]
     return loss, {"ce": ce, **aux}
 
 

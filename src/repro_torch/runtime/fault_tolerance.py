@@ -19,7 +19,11 @@ The recovery contract is the reference's:
 The port's train state holds its parameters in an ``nn.Module``, so the
 supervisor saves ``snapshot(state)`` (default: the state itself): the
 train launcher passes :func:`repro_torch.train.train_state_tree`, the
-reference's layout.
+reference's layout.  On a mesh every rank runs a supervisor: each takes
+the snapshot (gathering a sharded state is a collective), only the
+writer (``write=True``, rank 0) saves it, and ``barrier`` (called once
+the writer's saves are on disk, before any rank reads the directory)
+keeps the ranks' restores on the same checkpoint.
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ class Supervisor:
     ``make_step``: restore step or None -> (state, step_fn, start_step),
     called at the start and after every failure.  ``data_for``: step ->
     batch (pure).  ``snapshot``: state -> the tree a checkpoint holds.
+    ``write``: whether this process saves checkpoints; ``barrier``: the
+    ranks' meeting point after the saves are on disk (module docstring).
     """
 
     def __init__(self, cfg: SupervisorConfig,
@@ -67,12 +73,16 @@ class Supervisor:
                                      Tuple[Any, Callable, int]],
                  data_for: Callable[[int], Any],
                  injector: Optional[FailureInjector] = None,
-                 snapshot: Callable[[Any], Any] = lambda state: state):
+                 snapshot: Callable[[Any], Any] = lambda state: state,
+                 write: bool = True,
+                 barrier: Callable[[], None] = lambda: None):
         self.cfg = cfg
         self.make_step = make_step
         self.data_for = data_for
         self.injector = injector
         self.snapshot = snapshot
+        self.write = write
+        self.barrier = barrier
         self.ckpt = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
         self.restarts = 0
         self.step_times: list[float] = []
@@ -92,7 +102,9 @@ class Supervisor:
                     self.step_times.append(time.monotonic() - t0)
                     step += 1
                     if step % self.cfg.ckpt_every == 0:
-                        self.ckpt.save(step, self.snapshot(state))
+                        tree = self.snapshot(state)
+                        if self.write:
+                            self.ckpt.save(step, tree)
             except RuntimeError as e:
                 self.restarts += 1
                 if self.restarts > self.cfg.max_restarts:
@@ -100,9 +112,11 @@ class Supervisor:
                         f"exceeded max_restarts={self.cfg.max_restarts}"
                     ) from e
                 self.ckpt.wait()
+                self.barrier()
                 restored = latest_step(self.cfg.ckpt_dir)
                 state, step_fn, _ = self.make_step(restored)
                 step = restored if restored is not None else start
         self.ckpt.wait()
+        self.barrier()
         return state, {"final_step": step, "restarts": self.restarts,
                        **{k: float(v) for k, v in metrics.items()}}

@@ -9,8 +9,9 @@ autograd.  ``make_trace_runner`` is the SNP counterpart: the device call
 of each :class:`~repro_torch.serve.SNPTraceService` flush, the
 single-device :func:`~repro_torch.core.engine.run_traces` or, given a
 mesh, :func:`~repro_torch.core.distributed.run_traces_distributed` over
-its devices.  ``constrain`` and ``activation_stationary`` are kept for the
-reference's signatures: on one card they are the identity.
+its devices.  ``constrain`` is a plan's activation constraint
+(:meth:`~repro_torch.sharding.ShardingPlan.constrain`: parameters and
+caches that are DTensors on its mesh), the identity without one.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..configs.base import ArchConfig
 from ..core import prng
 from ..models import forward, init_cache
 from ..models.layers import _identity
+from ..sharding.placement import meshed, replicated
 
 __all__ = ["make_prefill_step", "make_decode_step", "sample_token",
            "make_trace_runner"]
@@ -63,16 +65,20 @@ def sample_token(logits: torch.Tensor, key: Optional[torch.Tensor] = None,
 
 def make_prefill_step(cfg: ArchConfig, *, max_len: int,
                       attn_impl: str = "ref",
-                      constrain: Callable = _identity):
+                      constrain: Callable = _identity, plan=None):
+    """``prefill_step(params, batch) -> (last logits, cache)``; with a
+    :class:`~repro_torch.sharding.ShardingPlan` the new cache is laid out
+    on its mesh by ``plan.cache_specs`` (the reference leaves the layout
+    to its compiler)."""
     @torch.no_grad()
     def prefill_step(params, batch: Dict):
         tokens = batch["tokens"]
         cache = init_cache(cfg, tokens.shape[0], max_len=max_len,
-                           device=tokens.device)
+                           device=tokens.device, plan=plan)
         logits, cache, _ = forward(
             params, cfg, batch, cache=cache, mode="prefill",
             attn_impl=attn_impl, constrain=constrain, logits_slice="last")
-        return logits, cache
+        return replicated(logits), cache
 
     return prefill_step
 
@@ -97,8 +103,12 @@ def make_decode_step(cfg: ArchConfig, *, temperature: float = 0.0,
         logits, cache, _ = forward(
             params, cfg, batch, cache=cache, mode="decode",
             constrain=constrain)
+        # on a mesh: the logits whole on every rank, so every rank draws
+        # the same token
+        logits = replicated(logits)
         last = logits[:, :, -1, :] if cfg.codebooks else logits[:, -1, :]
-        nxt = sample_token(last, key, temperature)
+        with meshed(logits):
+            nxt = sample_token(last, key, temperature)
         return nxt[..., None], logits, cache
 
     return decode_step

@@ -12,6 +12,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.placement import replicated
+
 __all__ = ["ef_init", "compress_grads", "quantize_int8", "dequantize_int8"]
 
 _BLOCK = 256
@@ -19,8 +21,9 @@ _BLOCK = 256
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-wise symmetric int8 quantization.  Returns (q (N, 256) int8,
-    scales (N,) f32)."""
-    flat = x.float().reshape(-1)
+    scales (N,) f32).  A DTensor is quantized whole (its blocks run across
+    the shards), so the result is replicated."""
+    flat = replicated(x).float().reshape(-1)
     flat = F.pad(flat, (0, (-flat.numel()) % _BLOCK))
     blocks = flat.view(-1, _BLOCK)
     scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
@@ -42,7 +45,8 @@ def ef_init(params) -> List[torch.Tensor]:
     """A zero f32 residual a parameter (a module's, in order)."""
     ps = params.parameters() if isinstance(params, torch.nn.Module) \
         else params
-    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return [torch.zeros_like(p, dtype=torch.float32,
+                             memory_format=torch.contiguous_format)
             for p in ps]
 
 

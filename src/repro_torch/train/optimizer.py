@@ -62,7 +62,8 @@ def _tensors(params: Params) -> List[torch.Tensor]:
 
 def adamw_init(params: Params) -> AdamWState:
     ps = _tensors(params)
-    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = [torch.zeros_like(p, dtype=torch.float32,
+                              memory_format=torch.contiguous_format)
              for p in ps]
     return AdamWState(
         m=zeros, v=[torch.zeros_like(z) for z in zeros],

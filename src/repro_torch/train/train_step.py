@@ -30,6 +30,7 @@ from ..configs.base import ArchConfig
 from ..models.convert import (params_tree, reference_ndims,
                               train_state_from_jax)
 from ..models.layers import _identity
+from ..sharding.placement import meshed, replicated, unsharded
 from ..models.model import loss_fn
 
 from .compression import compress_grads, ef_init
@@ -57,12 +58,16 @@ def init_train_state(params: nn.Module, opt_cfg: AdamWConfig,
 
 def _split_microbatches(batch: Dict, k: int) -> List[Dict]:
     """(B, ...) -> k dicts of (B/k, ...) slices; positions with a leading
-    plane dim (3, B, S) split along their batch axis."""
+    plane dim (3, B, S) split along their batch axis.  A DTensor's batch
+    dim is gathered whole first (a slice need not divide over the data
+    axes; the plan's constraints shard each microbatch again)."""
 
     def split(name, x):
         if name == "positions" and x.dim() == 3 and x.shape[0] == 3:
+            x = unsharded(x, 1)
             return x.reshape(3, k, x.shape[1] // k,
                              *x.shape[2:]).movedim(1, 0)
+        x = unsharded(x, 0)
         return x.reshape(k, x.shape[0] // k, *x.shape[1:])
 
     parts = {name: split(name, x) for name, x in batch.items()}
@@ -74,8 +79,7 @@ def _f32_grads(ps: List[torch.Tensor]) -> List[torch.Tensor]:
     the ``.grad`` fields cleared."""
     out = []
     for p in ps:
-        out.append(torch.zeros(p.shape, dtype=torch.float32,
-                               device=p.device)
+        out.append(torch.zeros_like(p, dtype=torch.float32)
                    if p.grad is None else p.grad.float())
         p.grad = None
     return out
@@ -104,9 +108,16 @@ def make_train_step(
                              constrain=constrain, remat=remat,
                              aux_loss_weight=aux_loss_weight)
         l.backward()
-        return l.detach(), {k: v.detach() for k, v in metrics.items()}
+        # on a mesh a loss can be a partial sum: the metrics read whole
+        return replicated(l.detach()), {k: replicated(v.detach())
+                                        for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Dict):
+        # on a mesh: the plain tensors the step makes join as replicated
+        with meshed(state.params.embed):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Dict):
         params = state.params
         ps = list(params.parameters())
         for p in ps:
@@ -115,8 +126,7 @@ def make_train_step(
             l, metrics = loss(params, batch)
             grads = _f32_grads(ps)
         else:
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in ps]
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
             lsum = torch.zeros((), device=ps[0].device)
             ms = []
             for mb in _split_microbatches(batch, microbatches):
@@ -160,11 +170,30 @@ def train_state_tree(state: TrainState, cfg: ArchConfig) -> TrainState:
 
 
 def restore_train_state(directory: str, like: TrainState, cfg: ArchConfig,
-                        *, step: Optional[int] = None,
-                        device=None) -> Tuple[TrainState, int]:
+                        *, step: Optional[int] = None, device=None,
+                        plan=None) -> Tuple[TrainState, int]:
     """The checkpoint at ``step`` (the latest if None) of ``directory``,
     written by either package, as a new state shaped like ``like`` on
-    ``device`` (``None``: the card).  Returns (state, step)."""
-    tree, s, _ = restore_checkpoint(directory, train_state_tree(like, cfg),
+    ``device`` (``None``: the card); with ``plan``, placed on its mesh by
+    ``plan.param_specs`` whatever mesh wrote it (every rank reads the
+    checkpoint).  Returns (state, step)."""
+    tree, s, _ = restore_checkpoint(directory, _template(like, cfg),
                                     step=step)
-    return train_state_from_jax(tree, cfg, device=device), s
+    return train_state_from_jax(tree, cfg, device=device, plan=plan), s
+
+
+def _template(state: TrainState, cfg: ArchConfig) -> TrainState:
+    """The layout of :func:`train_state_tree` without gathering: each
+    leaf a zero host tensor of its global shape (a restore's template)."""
+    names = [n for n, _ in state.params.named_parameters()]
+
+    def zeros(ts):
+        return params_tree([torch.zeros(t.shape) for t in ts], cfg,
+                           names=names)
+
+    return TrainState(
+        params=zeros(list(state.params.parameters())),
+        opt=AdamWState(zeros(state.opt.m), zeros(state.opt.v),
+                       torch.zeros((), dtype=torch.int32)),
+        ef=None if state.ef is None else zeros(state.ef),
+        step=torch.zeros((), dtype=torch.int32))
