@@ -318,7 +318,27 @@ result line):
    fresh process restores into a fresh mesh and trains on to step 7, its
    steps 5-7's loss and ``grad_norm`` equal to the uninterrupted run's
    (world 1 is deterministic: a lost moment would show);
-25. summary — the kernels with their launch counts, then one JSON line of
+25. every LM family under the plan — the reduced f32 siblings of the
+   eight archs beyond the dense GQA family (minicpm-2b, qwen2-vl-7b,
+   qwen2-moe-a2.7b, grok-1-314b, minicpm3-4b, jamba-1.5-large-398b,
+   rwkv6-7b, musicgen-medium) on the card's ``(1, 1)`` plan: one train
+   step, a prefill and 4 greedy decode steps each, bit for bit equal to
+   the same steps unmeshed (loss, ``grad_norm``, ``drop_frac``, the
+   updated embedding, logits, caches, tokens, every MoE routing call's
+   picks and kept mask), B8-TF32 as often on the mesh as off it;
+26. the roofline on the card — SmolLM-360M at full width and depth
+   (bf16) under ``repro_torch.roofline.StepCounter``: (a) the 8 x 1960
+   prefill, (b) one decode step at batch 8 over a 2,048-slot cache, (c)
+   one 8 x 2048 train step, each through B8-TC: FLOPs by dtype, B8's
+   FLOPs through its custom operator's formula (``4·B·Hq·Sq²·D/2`` a
+   launch), the count equal to the same step's on meta tensors at the
+   same shapes, ``compute_s`` and ``memory_s`` at H100 rates beside the
+   profiler's device-busy ms and the roofline share, with the card's name
+   and power limit; (d) one dry-run cell (``python -m
+   repro_torch.launch.dryrun --arch smollm-360m --shape train_4k --mesh
+   both``) in a subprocess of this machine's torch, started with phase 25
+   (per-card FLOPs on (2, 16, 16) half those on (16, 16));
+27. summary — the kernels with their launch counts, then one JSON line of
    per-kernel figures, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -341,7 +361,9 @@ phase 23's training paths (``train``: the launcher's 20 steps), with
 both bodies' figures at the training launch, and phase 24's meshed
 paths (``meshed_serve_lm``, ``meshed_train``, ``meshed_train_f32_twin``,
 ``meshed_train_drill``, and the drill's fresh process,
-``meshed_train_drill_resumed``, counted there).
+``meshed_train_drill_resumed``, counted there), phase 25's
+(``meshed_families_train``, ``meshed_families_serve``: B8-TF32) and
+phase 26's (``roofline_prefill``, ``roofline_train``: B8-TC).
 Phase 18's service, fault, checkpoint and launcher paths, and phase 20's
 dense-row explores, distributed traces, trace-mesh services, launcher and
 checkpointed explore (B1, B2, B3), are counted the same way and listed
@@ -4708,8 +4730,8 @@ def _last_tokens(logits, cfg):
 
 class RoutingTap:
     """Records the experts each MoE routing call picks
-    (``repro_torch.models.moe.route``, one call a layer and token chunk, in
-    order), or, given ``replay``, makes each call pick the recorded
+    (``repro_torch.models.moe.route``, one call a layer for all its token
+    chunks, in order), or, given ``replay``, makes each call pick the recorded
     experts instead, its gates taken from its own probabilities at those
     experts and its buffer positions and capacity from those picks (the
     port's own ``moe.positions``).  ``changed`` counts the (token, k)
@@ -4728,13 +4750,15 @@ class RoutingTap:
         self._moe, self._route = moe, moe.route
 
         def route(p, cfg, xt, C):
+            # a call routes every chunk of a layer: idx (chunks, T, K),
+            # kept as (chunks·T, K) rows in token order
             gates, idx, pos, keep, probs = self._route(p, cfg, xt, C)
             if self.replay is None:
-                self.picks.append(idx.clone())
+                self.picks.append(idx.reshape(-1, idx.shape[-1]).clone())
                 return gates, idx, pos, keep, probs
-            want = self.replay.pop(0).to(idx.device)
+            want = self.replay.pop(0).to(idx.device).reshape(idx.shape)
             self.changed += int((want != idx).sum())
-            g = probs.gather(1, want)
+            g = probs.gather(-1, want)
             g = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
             pos = moe.positions(want, probs.shape[-1])
             return g, want, pos, pos < C, probs
@@ -4786,7 +4810,6 @@ def teacher_forcing(params, cfg, batch, first, max_len):
     import dataclasses
 
     import torch
-    from repro_torch.models import moe
     from repro_torch.serve import make_decode_step, make_prefill_step
     B, S = batch["positions"].shape
     tcfg = cfg if not cfg.num_experts else dataclasses.replace(
@@ -4800,12 +4823,10 @@ def teacher_forcing(params, cfg, batch, first, max_len):
     _, free, _ = decode(params, cache, first, pos)
     pinned, changed = free, 0
     if cfg.num_experts:
-        # each MoE layer routed the S+1 prefill in chunks of TOKEN_CHUNK
-        T = B * (S + 1)
-        n = -(-T // min(moe.TOKEN_CHUNK, T))
+        # each MoE layer routed the S+1 prefill in one call, its chunks
+        # of TOKEN_CHUNK tokens in order (the last one padded at its end)
         last = torch.arange(B, device=first.device) * (S + 1) + S
-        replay = [torch.cat(tap.picks[i:i + n])[last]
-                  for i in range(0, len(tap.picks), n)]
+        replay = [picks[last] for picks in tap.picks]
         # the decode writes its cache slot S in place: a second decode
         # from the same prefill cache rewrites it
         with RoutingTap(replay=replay) as rt:
@@ -6056,6 +6077,388 @@ def phase_meshed(train_figures,
     return launches, figures
 
 
+# -- phase 25: every LM family under the plan on the card's mesh -----------
+
+MESHED_FAMILIES = ("minicpm-2b", "qwen2-vl-7b", "qwen2-moe-a2.7b",
+                   "grok-1-314b", "minicpm3-4b", "jamba-1.5-large-398b",
+                   "rwkv6-7b", "musicgen-medium")
+FAMILY_MESH = dict(batch=4, seq=16, prompt=12, gen=4)
+
+
+class _Routing:
+    """Records every MoE routing call's expert ids and kept mask, whole
+    (``moe.route``, in order)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route, self.picks = moe, moe.route, []
+
+        def route(p, cfg, xt, C):
+            got = self._route(p, cfg, xt, C)
+            self.picks += [_whole(got[1]).cpu(), _whole(got[3]).cpu()]
+            return got
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _family_steps(arch, plan):
+    """One train step, a prefill and 4 greedy decode steps of ``arch``'s
+    reduced f32 sibling on ``plan``'s mesh (None: unmeshed), the weights
+    and batches of a seed: (host tensors of every value, B8 launches of
+    the train step and of the serving steps)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.smoke import reduced
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.train import place_batch
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import place
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    cfg = reduced(get_config(arch))
+    B, S, P, G = (FAMILY_MESH[k] for k in ("batch", "seq", "prompt", "gen"))
+    c = {} if plan is None else {"constrain": plan.constrain}
+    out, launches = {}, {}
+
+    def batch(seed, seq, labels):
+        b = make_batch(cfg, DataConfig(seed=seed), step=0, shard=0,
+                       batch=B, seq_len=seq)
+        b = {k: torch.from_numpy(v).to(CARD) for k, v in b.items()
+             if labels or k != "labels"}
+        return b if plan is None else place_batch(b, cfg, plan)
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = init_params(prng.PRNGKey(1), cfg, device=CARD)
+    state = init_train_state(params if plan is None
+                             else place(params, cfg, plan), opt)
+    step = make_train_step(cfg, opt, attn_impl="cuda", **c)
+    reset_counts()
+    with _Routing() as r:
+        state, m = step(state, batch(3, S, True))
+    torch.cuda.synchronize()
+    launches["train"] = read_counts()
+    for k in ("loss", "grad_norm", "drop_frac"):
+        out[k] = _whole(m[k]).cpu()
+    out["embed"] = _whole(state.params.embed.detach()).cpu()
+    out["train_picks"] = r.picks
+    del state, params
+
+    params = init_params(prng.PRNGKey(2), cfg, device=CARD)
+    if plan is not None:
+        place(params, cfg, plan)
+    prefill = make_prefill_step(cfg, max_len=P + G, attn_impl="cuda",
+                                plan=plan, **c)
+    decode = make_decode_step(cfg, **c)
+    reset_counts()
+    with _Routing() as r:
+        logits, cache = prefill(params, batch(0, P, False))
+        out["prefill"] = _whole(logits).cpu()
+        tok = _whole(logits)[..., -1, :].argmax(-1).to(torch.int32)[..., None]
+        toks = []
+        for g in range(G):
+            pos = torch.full((3, B, 1) if cfg.mrope_sections else (B, 1),
+                             P + g, dtype=torch.int32, device=CARD)
+            tok, lg, cache = decode(params, cache, tok, pos)
+            tok = _whole(tok)
+            toks.append(tok.cpu())
+    torch.cuda.synchronize()
+    launches["serve"] = read_counts()
+    out["tokens"] = torch.stack(toks)
+    out["decode"] = _whole(lg).cpu()
+    out["cache"] = [_whole(t).cpu() for layer in cache for t in layer.values()]
+    out["serve_picks"] = r.picks
+    return out, launches
+
+
+def _same_values(a, b):
+    """Whether two trees of host tensors are equal bit for bit."""
+    import torch
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_values(x, y)
+                                        for x, y in zip(a, b))
+    def bits(t):
+        t = t.reshape(-1)
+        return t.view(torch.uint8) if t.is_floating_point() else t
+
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(bits(a), bits(b)))
+
+
+def phase_meshed_families(tag="25"):
+    """Phase 25: each of the eight families' reduced f32 siblings on the
+    card's (1, 1) plan, one train step, a prefill and 4 greedy decode
+    steps (parameters by ``plan.param_specs``, caches by
+    ``plan.cache_specs``), bit for bit equal to the same steps unmeshed:
+    loss, ``grad_norm``, ``drop_frac``, the updated embedding, logits,
+    caches, tokens and every MoE routing call's picks and kept mask.
+    B8-TF32 runs where the family's attention reaches it (the reduced
+    siblings are f32 at D 16), as many launches on the mesh as off it.
+    Returns (B8's launches by path, the figures)."""
+    import torch
+    from repro_torch.launch.train import build_mesh_for_available
+    from repro_torch.runtime import join_group
+    from repro_torch.sharding import make_plan
+
+    t0 = time.perf_counter()
+    kind = torch.device(CARD).type
+    figures, totals = {}, {"train": 0, "serve": 0}
+    with join_group(kind) as (rank, world):
+        plan = make_plan(build_mesh_for_available(kind))
+        check(world == 1 and _mesh_shape(plan) == {"data": 1, "model": 1},
+              f"[{tag}] mesh {_mesh_shape(plan)} over {world} ranks")
+        failed = []
+        for arch in MESHED_FAMILIES:
+            # a family that fails is reported and the next one runs; the
+            # phase fails after the last
+            try:
+                figures[arch] = _meshed_family(arch, plan, totals, tag)
+            except Exception as e:
+                traceback.print_exc()
+                log(f"[{tag}] {arch}: FAILED ({type(e).__name__}: {e})")
+                failed.append(arch)
+        check(not failed, f"[{tag}] failed families: {failed}")
+    check(totals["train"] > 0 and totals["serve"] > 0,
+          f"[{tag}] B8-TF32 never ran: {totals}")
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase 25 in {figures['phase_s']:.1f} s")
+    return {"B8-TF32": {"meshed_families_train": totals["train"],
+                        "meshed_families_serve": totals["serve"]}}, figures
+
+
+def _meshed_family(arch, plan, totals, tag):
+    """Phase 25 for one family (its docstring): the checks, the family's
+    figures; ``totals`` gains its B8-TF32 launches."""
+    t1 = time.perf_counter()
+    want, off = _family_steps(arch, None)
+    t2 = time.perf_counter()
+    got, on = _family_steps(arch, plan)
+    t3 = time.perf_counter()
+    bad = [k for k in want if not _same_values(got[k], want[k])]
+    check(not bad, f"[{tag}] {arch}: the meshed steps differ from the "
+          f"unmeshed ones in {bad}")
+    for part in ("train", "serve"):
+        check(on[part] == off[part], f"[{tag}] {arch} {part}: launches "
+              f"{on[part]} on the mesh, {off[part]} off")
+        check_counts(f"[{tag}] {arch} {part}", on[part],
+                     **{"B8-TF32": on[part]["B8-TF32"]})
+        totals[part] += on[part]["B8-TF32"]
+    picks = len(want["train_picks"]) // 2
+    log(f"[{tag}] {arch} (reduced, f32) on {_mesh_shape(plan)}: train "
+        f"step, prefill {FAMILY_MESH['batch']}x{FAMILY_MESH['prompt']} and "
+        f"{FAMILY_MESH['gen']} decode steps bit for bit equal to the "
+        f"unmeshed ones (loss {float(got['loss']):.6f}, grad_norm "
+        f"{float(got['grad_norm']):.6f}, drop_frac "
+        f"{float(got['drop_frac']):.6f}, {picks} routing calls equal); "
+        f"B8-TF32 {on['train']['B8-TF32']} + {on['serve']['B8-TF32']} "
+        f"launches; {t2 - t1:.2f} s unmeshed, {t3 - t2:.2f} s meshed")
+    return dict(loss=float(got["loss"]), grad_norm=float(got["grad_norm"]),
+                drop_frac=float(got["drop_frac"]), routing_calls=picks,
+                b8_tf32_train=on["train"]["B8-TF32"],
+                b8_tf32_serve=on["serve"]["B8-TF32"],
+                unmeshed_s=t2 - t1, meshed_s=t3 - t2)
+
+
+# -- phase 26: the roofline on the card -------------------------------------
+
+ROOFLINE = dict(arch="smollm-360m", batch=8, prompt=1960, decode_len=2048,
+                train_seq=2048)
+
+
+def _start_dryrun_cell(out_dir):
+    """One dry-run cell (smollm-360m train_4k on both production meshes)
+    in a subprocess of this machine's torch: (process, its output
+    file)."""
+    import os
+    log_f = open(Path(out_dir) / "dryrun.log", "w+")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-360m", "--shape", "train_4k", "--mesh", "both", "--out",
+         str(out_dir)], cwd=str(ROOT), env=env, stdout=log_f,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, log_f, out_dir
+
+
+def _finish_dryrun_cell(proc, log_f, out_dir, tag="26"):
+    try:
+        rc = proc.wait(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log_f.seek(0)
+    text = log_f.read()
+    log_f.close()
+    for line in text.splitlines():
+        if line.startswith("[dryrun]"):
+            log(f"[{tag}] (d) {line}")
+    check(rc == 0, f"[{tag}] (d) the dry run exited {rc}: {text[-2000:]}")
+    recs = {}
+    for mesh in ("16x16", "2x16x16"):
+        with open(Path(out_dir) / f"smollm-360m__train_4k__{mesh}.json") as f:
+            recs[mesh] = json.load(f)
+    ratio = recs["2x16x16"]["flops_per_chip"] / \
+        recs["16x16"]["flops_per_chip"]
+    check(0.45 <= ratio <= 0.55, f"[{tag}] (d) per-card FLOPs on "
+          f"(2, 16, 16) over (16, 16): {ratio}")
+    check(all(r["replication"] >= 1 and r["compute_s"] > 0
+              for r in recs.values()), f"[{tag}] (d) records: {recs}")
+    log(f"[{tag}] (d) the dry-run cell on this machine's torch: per-card "
+        f"FLOPs (2,16,16)/(16,16) = {ratio:.4f}, replication "
+        f"{recs['16x16']['replication']:.3f}")
+    return {m: {k: r[k] for k in ("flops_per_chip", "hbm_bytes_per_chip",
+                                  "collective_link_bytes", "compute_s",
+                                  "memory_s", "collective_s", "bound",
+                                  "replication", "run_seconds")}
+            for m, r in recs.items()}
+
+
+def _roofline_step(label, run, counter_args, card, tag="26"):
+    """Count ``run`` on the card and the same step on meta tensors at the
+    same shapes; check the counts equal; time ``run`` again with the
+    profiler.  Returns the figures."""
+    import torch
+    from repro_torch.launch.dryrun import _step_args
+    from repro_torch.roofline import StepCounter, analyze_step
+    reset_counts()
+    with StepCounter() as c:
+        run()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    step, args = _step_args(*counter_args)
+    with StepCounter() as meta:
+        step(*args)
+    del step, args
+    check(dict(c.flops_by_dtype) == dict(meta.flops_by_dtype),
+          f"[{tag}] {label}: FLOPs on the card {dict(c.flops_by_dtype)} "
+          f"vs on meta tensors {dict(meta.flops_by_dtype)}")
+    check(c.bytes == meta.bytes, f"[{tag}] {label}: bytes on the card "
+          f"{c.bytes} vs on meta tensors {meta.bytes}")
+    rec = analyze_step(c, chips=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    split = _device_time(run, wall, label, tag=tag) or {}
+    busy = split.get("busy_ms")
+    bound_ms = max(rec["compute_s"], rec["memory_s"]) * 1e3
+    b8 = [r for (op, _, _), r in c.records.items() if op == "flash_attn_fwd"]
+    fig = dict(flops_by_dtype=dict(c.flops_by_dtype), hbm_bytes=c.bytes,
+               compute_s=rec["compute_s"], memory_s=rec["memory_s"],
+               bound=rec["bound"], wall_ms=wall, device_busy_ms=busy,
+               roofline_share=None if not busy else bound_ms / busy,
+               b8_calls=sum(r.calls for r in b8),
+               b8_flops=sum(r.flops for r in b8), launches=counts,
+               card=card)
+    log(f"[{tag}] {label}: FLOPs by dtype "
+        f"{ {d: f'{f:.6e}' for d, f in c.flops_by_dtype.items()} }, "
+        f"{c.bytes:.6e} HBM bytes, equal on meta tensors; compute_s "
+        f"{rec['compute_s'] * 1e3:.3f} ms, memory_s "
+        f"{rec['memory_s'] * 1e3:.3f} ms ({rec['bound']}-bound) against "
+        f"{'not measured' if not busy else f'{busy:.3f} ms'} device busy "
+        f"and {wall:.3f} ms wall: roofline share "
+        f"{'not measured' if not busy else f'{bound_ms / busy:.4f}'} | "
+        f"{card}")
+    return fig
+
+
+def phase_roofline(dryrun, card, tag="26"):
+    """Phase 26: SmolLM-360M at full width and depth (bf16) under the
+    step counter on the card: (a) the 8 x 1960 prefill, (b) one decode
+    step at batch 8 over a 2,048-slot cache, (c) one 8 x 2048 train step
+    (remat ``"full"``), each through B8-TC: FLOPs by dtype, B8's FLOPs
+    through its custom operator's formula (``4·B·Hq·Sq²·D/2`` at each of
+    its launches), the count equal to the same step counted on meta
+    tensors at the same shapes, ``compute_s``/``memory_s`` at H100 rates
+    beside the profiler's device-busy ms, and the roofline share (the
+    larger term over the busy time); then (d) the dry-run cell started
+    with phase 25 (smollm-360m train_4k on both production meshes, in a
+    subprocess of this machine's torch).  ``card`` is ``nvidia-smi``'s
+    name and power limit.  Returns (B8's launches by path, the
+    figures)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(ROOFLINE["arch"])
+    B, S, D = ROOFLINE["batch"], ROOFLINE["prompt"], cfg.head_dim
+    L, Hq = cfg.num_layers, cfg.num_heads
+    figures = {}
+    params = init_params(prng.PRNGKey(0), cfg, device=CARD)
+
+    prefill = make_prefill_step(cfg, max_len=S, attn_impl="cuda")
+    batch = _serve_batch(cfg, B, S, CARD)
+    figures["prefill"] = _roofline_step(
+        f"(a) prefill {B}x{S}", lambda: prefill(params, batch),
+        (cfg, ShapeSpec("prefill", S, B, "prefill"), None, {},
+               "full", "cuda"), card, tag)
+    per_launch = 4 * B * Hq * S * S * D // 2
+    f = figures["prefill"]
+    check(f["b8_calls"] == L and f["b8_flops"] == L * per_launch and
+          f["launches"]["B8-TC"] == L, f"[{tag}] (a) B8: {f['b8_calls']} "
+          f"calls, {f['b8_flops']} FLOPs, {f['launches']['B8-TC']} "
+          f"launches; expected {L} x {per_launch}")
+    check_counts(f"[{tag}] (a) prefill", f["launches"], **{"B8-TC": L})
+
+    decode = make_decode_step(cfg)
+    T = ROOFLINE["decode_len"]
+    cache = init_cache(cfg, B, T, device=CARD)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=CARD)
+    pos = torch.full((B, 1), S, dtype=torch.int32, device=CARD)
+    figures["decode"] = _roofline_step(
+        f"(b) decode step, batch {B}, {T}-slot cache",
+        lambda: decode(params, cache, tok, pos),
+        (cfg, ShapeSpec("decode", T, B, "decode"), None, {}, "full",
+         "cuda"), card, tag)
+    check_counts(f"[{tag}] (b) decode", figures["decode"]["launches"])
+    del cache
+
+    Tt = ROOFLINE["train_seq"]
+    opt = AdamWConfig()
+    state = init_train_state(params, opt)
+    step = make_train_step(cfg, opt, remat="full", attn_impl="cuda")
+    b = make_batch(cfg, DataConfig(seed=0), step=0, shard=0, batch=B,
+                   seq_len=Tt)
+    b = {k: torch.from_numpy(v).to(CARD) for k, v in b.items()}
+    figures["train"] = _roofline_step(
+        f"(c) train step {B}x{Tt}", lambda: step(state, b),
+        (cfg, ShapeSpec("train", Tt, B, "train"), None, {}, "full",
+         "cuda"), card, tag)
+    per_launch = 4 * B * Hq * Tt * Tt * D // 2
+    f = figures["train"]
+    # the forward, then its recomputation under remat "full"
+    check(f["b8_calls"] == 2 * L and f["b8_flops"] == 2 * L * per_launch,
+          f"[{tag}] (c) B8: {f['b8_calls']} calls, {f['b8_flops']} FLOPs")
+    check_counts(f"[{tag}] (c) train", f["launches"], **{"B8-TC": 2 * L})
+    del state, step, params
+    torch.cuda.empty_cache()
+
+    figures["dryrun"] = _finish_dryrun_cell(*dryrun)
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase 26 in {figures['phase_s']:.1f} s")
+    return {"B8-TC": {"roofline_prefill": figures["prefill"]["launches"][
+        "B8-TC"], "roofline_train": figures["train"]["launches"]["B8-TC"]}
+    }, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6106,6 +6509,17 @@ def main() -> int:
         family_paths, family_rows, family_figures = phase_lm_families()
         train_paths, train_rows, train_figures = phase_training()
         mesh_paths, mesh_figures = phase_meshed(train_figures)
+        # phase 26's dry-run cell runs in a subprocess beside phase 25
+        dry_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+        dry = _start_dryrun_cell(dry_dir.name)
+        try:
+            family_mesh_paths, family_mesh_figures = phase_meshed_families()
+            roof_paths, roof_figures = phase_roofline(dry, card)
+        finally:
+            if dry[0].poll() is None:
+                dry[0].kill()
+                dry[0].wait()
+            dry_dir.cleanup()
         check(DEGRADES == [], f"degradations recorded: {DEGRADES}")
     except Exception:
         traceback.print_exc()
@@ -6132,7 +6546,9 @@ def main() -> int:
                      + list(sync_paths.items())
                      + list(family_paths.items())
                      + list(train_paths.items())
-                     + list(mesh_paths.items())):
+                     + list(mesh_paths.items())
+                     + list(family_mesh_paths.items())
+                     + list(roof_paths.items())):
         by_path[k].update(paths)
     # B8 at the training launch (phase 23) beside the families' launches
     for k, row in train_rows.items():
@@ -6186,18 +6602,20 @@ def main() -> int:
             **({"other_launches": family_rows[k]} if family_rows.get(k)
                else {}),
             **extras.get(k, {})))
-        log(f"[25] {k} {meta['name']} ({meta['route']}): "
+        log(f"[27] {k} {meta['name']} ({meta['route']}): "
             f"{figures[-1]['launches']} launches on its main path "
             f"({main_path[k]}); per path {json.dumps(by_path[k])}")
-    log(f"[25] SNP service figures: {json.dumps(snp_figures)}")
-    log(f"[25] planner figures: {json.dumps(planned)}")
-    log(f"[25] dense-row and distributed-trace figures: "
+    log(f"[27] SNP service figures: {json.dumps(snp_figures)}")
+    log(f"[27] planner figures: {json.dumps(planned)}")
+    log(f"[27] dense-row and distributed-trace figures: "
         f"{json.dumps(dense_figures)}")
-    log(f"[25] zero-host-sync explore figures: {json.dumps(sync_figures)}")
-    log(f"[25] LM family figures: {json.dumps(family_figures)}")
-    log(f"[25] training figures: {json.dumps(train_figures)}")
-    log(f"[25] meshed launcher figures: {json.dumps(mesh_figures)}")
-    log(f"[25] card: {card}")
+    log(f"[27] zero-host-sync explore figures: {json.dumps(sync_figures)}")
+    log(f"[27] LM family figures: {json.dumps(family_figures)}")
+    log(f"[27] training figures: {json.dumps(train_figures)}")
+    log(f"[27] meshed launcher figures: {json.dumps(mesh_figures)}")
+    log(f"[27] meshed family figures: {json.dumps(family_mesh_figures)}")
+    log(f"[27] roofline figures: {json.dumps(roof_figures)}")
+    log(f"[27] card: {card}")
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,7 @@ from typing import Callable, List
 
 import torch
 
+from ..kernels.real import require_real
 from .device import host_read
 
 __all__ = ["FusedLoop", "GraphLoopError", "SOURCE", "load_library",
@@ -134,6 +135,8 @@ class FusedLoop:
             while host_read((s.step < bound) & (s.total_new > 0)):
                 self.level(s)
         else:
+            # the graph's WHILE node reads and writes these on the card
+            require_real("graph_loop_launch", s.step, s.total_new)
             if self._exec is None:
                 if not (step < bound and go):
                     return

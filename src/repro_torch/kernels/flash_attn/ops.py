@@ -12,9 +12,14 @@
   queries sliced off) and runs the plain version
   (:func:`.ref.attention_ref`); the two agree, since padding keys are
   masked and padding queries are dropped.  There is no fallback;
-* it is a :class:`torch.autograd.Function` whose backward recomputes the
-  plain attention, as the reference's ``custom_vjp`` does (there is no
-  backward kernel in either package).
+* it is the custom operator ``torch.ops.repro_torch.flash_attn_fwd``
+  (``torch.library.custom_op``), whose backward recomputes the plain
+  attention, as the reference's ``custom_vjp`` does (there is no
+  backward kernel in either package); its fake implementation gives the
+  output's shape without a launch (the dry run's fake tensors), and its
+  FLOP formula (``torch.utils.flop_counter``, causal: half of
+  ``4·B·Hq·Sq·Skv·D``) lets ``FlopCounterMode`` and the roofline's
+  counter count it on the card.
 
 B8 has two bodies, picked by type and head dim inside the kernel's entry
 point (:func:`uses_tensor_cores`), both on the tensor cores: bf16 at D in
@@ -35,7 +40,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
+from ..real import require_real
 from ..snp_step._build import load_library
 from .ref import attention_ref
 
@@ -86,6 +93,7 @@ def flash_attention_cuda(q, k, v, kv_len, *, causal: bool = True):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {dev}")
+    require_real("flash_attention_cuda", q, k, v, kv_len)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     for name, x, shape in (("q", q, (B, Hq, Sq, D)),
@@ -152,24 +160,52 @@ def _forward(q, k, v, kv_len, causal, block_q, block_k):
     return attention_ref(qp, kp, vp, kl, causal=causal)[:, :, :Sq]
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: B8 (or its plain version on the CPU); backward: the
-    gradient of the plain attention, recomputed."""
+@torch.library.custom_op("repro_torch::flash_attn_fwd", mutates_args=())
+def _flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: torch.Tensor, causal: bool, block_q: int,
+                    block_k: int) -> torch.Tensor:
+    """B8 as a custom operator (so dispatch modes see one op, not a ctypes
+    call): on a CUDA tensor the kernel, on a CPU tensor its plain
+    version (:func:`_forward`)."""
+    return _forward(q, k, v, kv_len, causal, block_q, block_k)
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_len, causal, block_q, block_k):
-        ctx.save_for_backward(q, k, v, kv_len)
-        ctx.causal = causal
-        return _forward(q, k, v, kv_len, causal, block_q, block_k)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, kv_len = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = attention_ref(*qkv, kv_len, causal=ctx.causal)
-            dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None, None, None
+@_flash_attn_fwd.register_fake
+def _(q, k, v, kv_len, causal, block_q, block_k):
+    # shapes only (the dry run's tensors launch nothing), contiguous as
+    # both routes return it
+    return q.new_empty(q.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, kv_len, causal, _, _ = inputs
+    ctx.save_for_backward(q, k, v, kv_len)
+    ctx.causal = causal
+
+
+def _backward(ctx, g):
+    """The gradient of the plain attention, recomputed (neither package
+    has a backward kernel)."""
+    q, k, v, kv_len = ctx.saved_tensors
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*qkv, kv_len, causal=ctx.causal)
+        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_attn_fwd.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn_fwd)
+def _flash_attn_flop(q_shape, k_shape, v_shape, kv_len_shape, causal,
+                     block_q, block_k, out_shape=None, **kwargs) -> int:
+    """B8's FLOPs: the two products ``Q·Kᵀ`` and ``P·V``, 2 each a
+    multiply-add, ``4·B·Hq·Sq·Skv·D``; half of it under the causal mask,
+    whose upper triangle the kernel skips."""
+    B, Hq, Sq, D = q_shape
+    flops = 4 * B * Hq * Sq * k_shape[2] * D
+    return flops // 2 if causal else flops
 
 
 def flash_attention(
@@ -196,4 +232,4 @@ def flash_attention(
                          f"{Hq} and {Hkv}")
     if kv_len is None:
         kv_len = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
-    return _FlashAttention.apply(q, k, v, kv_len, causal, block_q, block_k)
+    return _flash_attn_fwd(q, k, v, kv_len, causal, block_q, block_k)

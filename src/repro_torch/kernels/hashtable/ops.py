@@ -5,7 +5,8 @@ slot tensors (``s_hi``, ``s_lo`` (S,) int64 holding uint32 lanes, ``s_pay``
 (S,) int32; ``S`` a power of two) and canonical keys
 (:func:`repro_torch.core.hashtable._canonical`):
 
-* on CPU tensors they run the plain versions (:mod:`.ref`);
+* on CPU tensors they run the plain versions (:mod:`.ref`), as on meta
+  tensors, which carry shapes only (the dry run's SNP cell);
 * on CUDA tensors they launch ``csrc/hashtable.cu`` on the current stream
   and read nothing back, or raise.  There is no fallback.
 
@@ -29,6 +30,7 @@ from pathlib import Path
 import torch
 
 from ..launch_counts import slot
+from ..real import require_real
 from ..snp_step._build import load_library
 from .ref import claim_ref, lookup_ref
 
@@ -101,11 +103,12 @@ def lookup(s_hi, s_lo, s_pay, hi, lo, valid, max_probes: int):
     dev, K = s_hi.device, hi.shape[0]
     _check_keys(dev, K, hi=(hi, torch.int64), lo=(lo, torch.int64),
                 valid=(valid, torch.bool))
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         lookup_plain_calls += 1
         return lookup_ref(s_hi, s_lo, s_pay, hi, lo, valid, max_probes)
     if dev.type != "cuda":
         raise ValueError(f"H1 runs on a CUDA tensor, got {dev}")
+    require_real("lookup (H1)", s_hi, s_lo, s_pay, hi, lo, valid)
     found = torch.empty((K,), dtype=torch.bool, device=dev)
     payload = torch.empty((K,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -129,7 +132,7 @@ def claim_(s_hi, s_lo, s_pay, hi, lo, pending, payload, max_probes: int):
     _check_keys(dev, K, hi=(hi, torch.int64), lo=(lo, torch.int64),
                 pending=(pending, torch.bool),
                 payload=(payload, torch.int32))
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         claim_plain_calls += 1
         n_hi, n_lo, n_pay, won, dup, ovf = claim_ref(
             s_hi, s_lo, s_pay, hi, lo, pending, payload, max_probes)
@@ -139,6 +142,7 @@ def claim_(s_hi, s_lo, s_pay, hi, lo, pending, payload, max_probes: int):
         return won, dup, ovf
     if dev.type != "cuda":
         raise ValueError(f"H2 runs on a CUDA tensor, got {dev}")
+    require_real("claim_ (H2)", s_hi, s_lo, s_pay, hi, lo, pending, payload)
     won = torch.empty((K,), dtype=torch.bool, device=dev)
     dup = torch.empty((K,), dtype=torch.bool, device=dev)
     ovf = torch.empty((), dtype=torch.bool, device=dev)

@@ -71,6 +71,7 @@ from ...core.matrix import CompiledSNP, is_delayed
 from ...core.semantics import (branch_info, clamp_stride,
                                delayed_branch_info, split_state)
 from ..launch_counts import slot
+from ..real import require_real
 from ._build import load_library
 from .ref import (snp_step_dense_delay_ref, snp_step_dense_ref,
                   snp_step_dense_shard_ref)
@@ -252,6 +253,7 @@ def snp_step_dense(configs, rank, app, stride, choices, psi, rule_neuron,
                              f"expected {want}")
     if T < 1:
         raise ValueError(f"max_branches must be >= 1, got {T}")
+    require_real("snp_step_dense (B1)", *args, *cols)
     rows, threads = dense_block_shape(rows, threads)
     fn = load_kernel().snp_step_dense
     out = torch.empty((B, T, m), dtype=torch.int32, device=dev)
@@ -302,6 +304,9 @@ def snp_step_dense_delay(spikes, cd, pd, rank, app, stride, choices, psi,
         _check(name, x, dtype, shape, dev)
     if T < 1:
         raise ValueError(f"max_branches must be >= 1, got {T}")
+    require_real("snp_step_dense_delay (B4)", spikes, cd, pd, rank, app,
+                 stride, choices, psi, rule_bounds, consume, produce, delay,
+                 sell_start, sell_src, out_neuron)
     lib = load_delay_kernel()
     if m > delay_max_neurons():
         raise ValueError(
@@ -357,6 +362,8 @@ def snp_step_dense_shard_cuda(configs, rank, app, stride, choices, psi,
         _check(name, x, dtype, shape, dev)
     if T < 1:
         raise ValueError(f"max_branches must be >= 1, got {T}")
+    require_real("snp_step_dense_shard_cuda (B6)", configs, rank, app,
+                 stride, choices, psi, rule_neuron, *cols, halo)
     rows, threads = shard_block_shape(n, H, T, rows, threads)
     fn = load_kernel().snp_step_dense_shard
     out = torch.empty((B, T, m), dtype=i32, device=dev)

@@ -56,6 +56,7 @@ import torch
 
 from ...core.matrix import CompiledSparseSNP
 from ..launch_counts import slot
+from ..real import require_real
 from ._build import load_library
 from .sparse_ref import kernel_inputs, snp_step_sparse_ref, sparse_step
 
@@ -260,6 +261,8 @@ def snp_step_sparse_cuda(configs, stride, choices, psi, tab, sell_start,
     for name, x, dtype, shape in checks:
         _check(name, x, dtype, shape, dev)
     _check_branches(T)
+    require_real("snp_step_sparse_cuda (B2, B3, B5, B7)",
+                 *(x for _, x, _, _ in checks))
     lib = load_kernel()
     if m + H > max_neurons():
         raise ValueError(

@@ -40,7 +40,7 @@ from ..configs.base import ArchConfig
 from ..core import prng
 from ..kernels.flash_attn import (attention_ref, chunked_attention,
                                    flash_attention)
-from ..sharding.placement import on_mesh
+from ..sharding.placement import matmul, on_mesh, reshape, shard_offset
 
 __all__ = [
     "Params", "rms_norm", "init_rms_norm", "init_dense", "dense",
@@ -122,7 +122,7 @@ def init_dense(key, d_in: int, d_out: int, dtype, bias: bool = False,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+    y = matmul(x, p.w)
     if "b" in p:
         y = y + p.b
     return y
@@ -196,7 +196,8 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)``: one matmul over the flattened
     heads."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    y = matmul(x, reshape(w, (d, h * k)))
+    return reshape(y, tuple(y.shape[:-1]) + (h, k))
 
 
 def _attend(q, k, v, attn_impl: str) -> torch.Tensor:
@@ -314,7 +315,8 @@ def attention(
         out = _attend(q, k, v, attn_impl)
     out = constrain(out, "heads")
     h, hd, d = p.wo.shape
-    return out.reshape(B, S, h * hd) @ p.wo.reshape(h * hd, d), new_cache
+    return matmul(reshape(out, (B, S, h * hd)),
+                  reshape(p.wo, (h * hd, d))), new_cache
 
 
 def _decode_attend(q, ck, cv, kv_len, constrain: Constrain = _identity,
@@ -370,8 +372,6 @@ def _decode_attend_sharded(q, ck, cv, kv_len):
     shard the sequence (the cache itself never moves).  Any other shard
     of the cache (its heads) is gathered first."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
     mesh = ck.device_mesh
     cp = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
@@ -380,10 +380,10 @@ def _decode_attend_sharded(q, ck, cv, kv_len):
             for p in cp]
     groups = [mesh.get_group(i) for i, p in enumerate(cp)
               if isinstance(p, Shard) and p.dim == 1]
-    _, offset = compute_local_shape_and_global_offset(ck.shape, mesh, cp)
+    lo = shard_offset(ck.shape, mesh, cp, 1)
 
     def local(ql, kl, vl, nl):
-        return _decode_attend(ql, kl, vl, nl, lo=offset[1], groups=groups)
+        return _decode_attend(ql, kl, vl, nl, lo=lo, groups=groups)
 
     return local_map(local, out_placements=rows,
                      in_placements=(rows, cp, cp, rows), device_mesh=mesh)(
@@ -421,17 +421,13 @@ def _write_sharded(cache_t, rows, idx) -> None:
     cache's batch placements, whole along the sequence, and each rank
     writes the slots its shard of the sequence holds."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     mesh = cache_t.device_mesh
     cp = list(cache_t.placements)
     rows = on_mesh(rows, mesh, [Replicate() if isinstance(p, Shard)
                                 and p.dim == 1 else p
                                 for p in cp]).to_local()
     local = cache_t.to_local()
-    _, offset = compute_local_shape_and_global_offset(
-        cache_t.shape, mesh, cp)
-    lo, n = offset[1], local.shape[1]
+    lo, n = shard_offset(cache_t.shape, mesh, cp, 1), local.shape[1]
     if idx is None:
         a, b = max(lo, 0), min(lo + n, rows.shape[1])
         if a < b:
@@ -481,12 +477,12 @@ def mla(
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rank, eps = cfg.kv_lora_rank, cfg.norm_eps
 
-    cq = _rms(x @ p.wdq, p.q_norm, eps)
+    cq = _rms(matmul(x, p.wdq), p.q_norm, eps)
     q = _project(cq, p.wuq)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = _apply_rope(cfg, q_rope, positions)
 
-    ckv_full = x @ p.wdkv                                 # (B, S, rank+dr)
+    ckv_full = matmul(x, p.wdkv)                          # (B, S, rank+dr)
     ckv = _rms(ckv_full[..., :rank], p.kv_norm, eps)
     k_rope = _apply_rope(cfg, ckv_full[..., rank:][:, :, None, :],
                          positions)                       # (B, S, 1, dr)
@@ -524,7 +520,8 @@ def mla(
         out = _attend(q_full, k, v, "ref")
     out = constrain(out, "heads_v")
     h, hv, d = p.wo.shape
-    return out.reshape(B, S, h * hv) @ p.wo.reshape(h * hv, d), new_cache
+    return matmul(reshape(out, (B, S, h * hv)),
+                  reshape(p.wo, (h * hv, d))), new_cache
 
 
 # -- MLPs ---------------------------------------------------------------------
@@ -542,6 +539,6 @@ def init_mlp(key, d: int, ff: int, dtype, act: str = "silu",
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     if act == "silu":
-        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+        return matmul(F.silu(matmul(x, p.wg)) * matmul(x, p.wu), p.wd)
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ p.wu, approximate="tanh") @ p.wd
+    return matmul(F.gelu(matmul(x, p.wu), approximate="tanh"), p.wd)

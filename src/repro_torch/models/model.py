@@ -30,7 +30,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from ..sharding.placement import meshed, replicated, unsharded
+from ..sharding.placement import matmul, meshed, replicated, unsharded
 from . import layers as L
 from .transformer import apply_stack, dtype_of, init_stack, init_stack_cache
 
@@ -91,15 +91,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None,
 
 def _embed(params: LM, cfg: ArchConfig, batch, constrain):
     tokens = batch["tokens"].long()
+    # F.embedding's rows and gradient are the indexing's; on a mesh the
+    # table is gathered whole first (DTensor's lookups on a vocab-sharded
+    # table leave a masked partial sum that its redistributions mishandle,
+    # and indexing's backward has no rule on torch 2.11)
+    table = replicated(params.embed)
     if cfg.codebooks:   # (B, C, S): the codebooks' embeddings summed
-        books = torch.arange(cfg.codebooks, device=tokens.device)
-        x = params.embed[books[None, :, None], tokens].sum(dim=1)
+        x = torch.stack([F.embedding(tokens[:, c], table[c])
+                         for c in range(cfg.codebooks)], 1).sum(dim=1)
     else:
-        # F.embedding's rows and gradient are the indexing's; on a mesh the
-        # table is gathered whole first (DTensor's lookups on a
-        # vocab-sharded table leave a masked partial sum that its
-        # redistributions mishandle, and indexing's backward has no rule)
-        x = F.embedding(tokens, replicated(params.embed))   # (B, S, D)
+        x = F.embedding(tokens, table)                        # (B, S, D)
     if "frontend_embeds" in batch:
         mask = batch["embed_mask"][..., None]
         x = torch.where(mask, batch["frontend_embeds"].to(x.dtype), x)
@@ -110,9 +111,9 @@ def _head(params: LM, cfg: ArchConfig, x, constrain):
     if cfg.codebooks:   # (B, C, S, V)
         logits = x[:, None] @ params.head
     elif cfg.tie_embeddings:
-        logits = x @ params.embed.t()
+        logits = matmul(x, params.embed.t())
     else:
-        logits = x @ params.head
+        logits = matmul(x, params.head)
     return constrain(logits, "logits")
 
 

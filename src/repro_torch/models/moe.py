@@ -4,8 +4,11 @@ port of the JAX package's ``repro.models.moe``).
 The reference dispatches through one-hot ``(tokens, experts, capacity)``
 tensors and einsums.  The port computes the same function with gathers and
 scatters: each kept (token, k) pair owns one slot ``expert · C + position``
-of a ``(E·C, D)`` buffer, the experts run as one ``torch.bmm`` over the
-expert axis, and each token gathers its K outputs back.  What is kept is
+of its chunk's ``(E·C, D)`` buffer, the experts run as one ``torch.bmm``
+over the expert axis (every chunk's buffer at once: the reference scans
+the chunks one by one, which bounds its dispatch memory by a chunk; the
+port's is the tokens', as an activation's), and each token gathers its K
+outputs back.  What is kept is
 the reference's:
 
 * router logits in the model dtype, probabilities and top-k in f32, ties
@@ -28,12 +31,14 @@ the reference's:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.placement import matmul, on_mesh, reshape
 from .layers import Params, _identity, _normal, _split, init_mlp, mlp
 
 __all__ = ["init_moe", "moe_layer", "route", "positions", "padded_experts",
@@ -73,55 +78,110 @@ def init_moe(key, cfg: ArchConfig, dtype, device=None) -> Params:
 def positions(idx: torch.Tensor, num_experts: int) -> torch.Tensor:
     """Each (token, k) pair's position in its expert's buffer: the number
     of pairs before it, token-major then k, that picked the same expert.
-    idx (T, K) -> (T, K) int32."""
-    flat = idx.reshape(1, -1)
-    # (E, T·K): the scan runs along each expert's row
-    onehot = F.one_hot(flat[0], num_experts).to(torch.int32).t().contiguous()
-    return (onehot.cumsum(1, dtype=torch.int32) - onehot).gather(
-        0, flat).reshape(idx.shape)
+    idx (..., T, K) -> (..., T, K) int32, each leading index a chunk of
+    its own."""
+    flat = idx.reshape(*idx.shape[:-2], -1)                  # (..., T·K)
+    # (..., E, T·K): the scan runs along each expert's row, contiguous
+    onehot = F.one_hot(flat, num_experts).to(torch.int32).transpose(
+        -1, -2).contiguous()
+    before = onehot.cumsum(-1, dtype=torch.int32) - onehot
+    return before.gather(-2, flat[..., None, :]).reshape(idx.shape)
 
 
 def route(p: Params, cfg: ArchConfig, xt: torch.Tensor, C: int):
-    """The routing of one chunk ``xt`` (T, D) at capacity ``C``: (gates
-    (T, K) f32, expert ids (T, K), buffer positions (T, K), kept (T, K)
-    bool, probabilities (T, E) f32)."""
-    K = cfg.num_experts_per_tok
-    probs = torch.softmax((xt @ p.router).float(), dim=-1)    # (T, E)
+    """The routing of chunks ``xt`` (..., T, D) at capacity ``C``: (gates
+    (..., T, K) f32, expert ids (..., T, K), buffer positions (..., T, K),
+    kept (..., T, K) bool, probabilities (..., T, E) f32)."""
+    return _on_chunks(functools.partial(
+        _pick, K=cfg.num_experts_per_tok, C=C), matmul(xt, p.router),
+        outs=5)
+
+
+def _pick(logits: torch.Tensor, K: int, C: int):
+    """:func:`route` from the router logits of whole chunks."""
+    probs = torch.softmax(logits.float(), dim=-1)             # (..., T, E)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = vals[:, :K], idx[:, :K]
+    gates, idx = vals[..., :K], idx[..., :K]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     pos = positions(idx, probs.shape[-1])
     return gates, idx, pos, pos < C, probs
 
 
-def _route_chunk(p: Params, cfg: ArchConfig, xt: torch.Tensor, C: int,
-                 constrain):
-    """Dispatch, compute and combine one chunk ``xt`` (T, D).  Returns
-    (out (T, D), load-balance loss, drop fraction)."""
-    T, D = xt.shape
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
-    dt = xt.dtype
-    gates, idx, pos, keep, probs = route(p, cfg, xt, C)
-    dropped = 1.0 - mean(keep)
+def _chunk_index(slot: torch.Tensor) -> torch.Tensor:
+    n, T, K = slot.shape
+    return torch.arange(n, device=slot.device)[:, None, None].expand(n, T,
+                                                                      K)
 
-    # slot of each kept pair; dropped pairs go to the spare row E·C (no
-    # expert reads it; on the way back it is a zero row)
-    slot = torch.where(keep, idx * C + pos, E * C)            # (T, K)
-    xin = xt.new_zeros((E * C + 1, D))
-    xin[slot] = xt[:, None].expand(T, K, D)
-    xin = constrain(xin[:E * C].view(E, C, D), "expert_in")
+
+def _dispatch(xc: torch.Tensor, slot: torch.Tensor, slots: int
+              ) -> torch.Tensor:
+    """Each chunk's buffer (n, slots, D): token ``t``'s row at every slot
+    its kept pairs own, zeros elsewhere."""
+    n, T, D = xc.shape
+    xin = xc.new_zeros((n, slots, D))
+    xin[_chunk_index(slot), slot] = xc[:, :, None].expand(n, T,
+                                                          slot.shape[-1], D)
+    return xin
+
+
+def _combine(rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Each pair's expert output row (n, T, K, D) from its chunk's rows."""
+    return rows[_chunk_index(slot), slot]
+
+
+def _on_chunks(fn, *xs: torch.Tensor, outs: int = 1):
+    """``fn(*xs)`` of tensors whose dim 0 is the chunk (``outs``
+    outputs, each chunk-major too); on DTensors, on each rank's chunks
+    through ``local_map``: the chunk dim keeps the first input's shards,
+    every other dim is whole.  A chunk's routing, dispatch and combine
+    read its own tokens and slots only; DTensor's ``cumsum`` over a
+    sharded dim scans each shard alone (the buffer positions), and torch
+    2.11's has no rule for ``index_put_`` (the dispatch)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xs[0].device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in xs[0].placements]
+    return local_map(fn, out_placements=pl if outs == 1 else (pl,) * outs,
+                     in_placements=(pl,) * len(xs), device_mesh=mesh)(
+        *(on_mesh(x, mesh, pl) for x in xs))
+
+
+def _route_chunks(p: Params, cfg: ArchConfig, xc: torch.Tensor, C: int,
+                  constrain):
+    """Dispatch, compute and combine the chunks ``xc`` (n, T, D), each
+    routed on its own at capacity ``C``, all at once: the experts run as
+    one ``bmm`` over every chunk's buffer.  Returns (out (n, T, D), each
+    chunk's load-balance loss (n,), each chunk's drop fraction (n,))."""
+    n, T, D = xc.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    dt = xc.dtype
+    gates, idx, pos, keep, probs = route(p, cfg, xc, C)
+    dropped = 1.0 - mean(keep.reshape(n, T * K), 1)
+
+    # slot of each kept pair in its chunk's buffer; dropped pairs go to the
+    # spare row E·C (no expert reads it; on the way back it is a zero row)
+    slot = torch.where(keep, idx * C + pos, E * C)            # (n, T, K)
+    xin = _on_chunks(functools.partial(_dispatch, slots=E * C + 1), xc,
+                     slot)                                    # (n, E·C+1, D)
+    # (E, n·C, D): each expert's rows of every chunk
+    xin = xin[:, :E * C].reshape(n, E, C, D).transpose(0, 1)
+    xin = constrain(xin.reshape(E, n * C, D), "expert_in")
     hg = torch.bmm(xin.float(), p.wg[:E].float())
     hu = torch.bmm(xin.float(), p.wu[:E].float())
     h = (F.silu(hg) * hu).to(dt)
-    xout = torch.bmm(h.float(), p.wd[:E].float()).to(dt)     # (E, C, D)
+    xout = torch.bmm(h.float(), p.wd[:E].float()).to(dt)     # (E, n·C, D)
     xout = constrain(xout, "expert_in")
-    rows = torch.cat([xout.reshape(E * C, D), xout.new_zeros((1, D))])
-    picked = rows[slot]                                       # (T, K, D)
+    xout = xout.reshape(E, n, C, D).transpose(0, 1).reshape(n, E * C, D)
+    rows = torch.cat([xout, xout.new_zeros((n, 1, D))], 1)
+    picked = _on_chunks(_combine, rows, slot)                 # (n, T, K, D)
     g = torch.where(keep, gates.to(dt), 0).float()
-    out = (g[..., None] * picked.float()).sum(1).to(dt)
+    out = (g[..., None] * picked.float()).sum(2).to(dt)
 
-    f = mean(F.one_hot(idx, probs.shape[-1]).sum(1), 0)
-    lb = cfg.num_experts * (f * mean(probs, 0)).sum()
+    f = mean(_on_chunks(lambda i: F.one_hot(i, E).sum(2), idx), 1)  # (n, E)
+    lb = cfg.num_experts * (f * mean(probs, 1)).sum(-1)
     return out, lb, dropped
 
 
@@ -147,17 +207,20 @@ def moe_layer(
     C = min(C, Tc)
 
     if n_chunks == 1:
-        out, lb, drop = _route_chunk(p, cfg, xt, C, constrain)
+        out, lb, drop = _route_chunks(p, cfg, xt[None], C, constrain)
+        out, lb, drop = out[0], lb[0], drop[0]
     else:
-        chunks = F.pad(xt, (0, 0, 0, n_chunks * Tc - T)).view(n_chunks, Tc,
-                                                                D)
-        chunks = constrain(chunks, "moe_chunks")
-        outs, lbs, drops = zip(*(_route_chunk(p, cfg, c, C, constrain)
-                                 for c in chunks))
-        out = constrain(torch.cat(outs)[:T], "moe_tokens")
-        lb, drop = mean(torch.stack(lbs)), mean(torch.stack(drops))
+        # the chunks keep the tokens' sharding on their chunk axis (the
+        # reference pins it within a chunk, whose axis it scans; the port
+        # runs every chunk at once, and a sharded within-chunk axis would
+        # merge into a strided shard in the router's matmul)
+        chunks = reshape(F.pad(xt, (0, 0, 0, n_chunks * Tc - T)),
+                         (n_chunks, Tc, D))
+        out, lbs, drops = _route_chunks(p, cfg, chunks, C, constrain)
+        out = constrain(out.reshape(n_chunks * Tc, D)[:T], "moe_tokens")
+        lb, drop = mean(lbs), mean(drops)
 
     if "shared" in p:
         out = out + mlp(p.shared, xt, cfg.mlp_act)
     aux = {"load_balance_loss": lb, "drop_frac": drop}
-    return out.reshape(B, S, D), aux
+    return reshape(out, (B, S, D)), aux

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.placement import matmul, on_mesh, reshape
 from .layers import Params, _identity, _normal, _rms, _split
 
 __all__ = ["init_rwkv_block", "rwkv_block", "init_rwkv_cache"]
@@ -84,7 +85,11 @@ def _token_shift(x: torch.Tensor, shift: Optional[torch.Tensor]):
 def _wkv_chunked(r, k, v, w, u, chunk: int):
     """WKV6 over whole sequences from a zero state.  r, k, v (B, S, H, hs);
     w (B, S, H, hs) in (0, 1); u (H, hs).  Returns y (B, S, H, hs) f32 and
-    the final state (B, H, hs, hs)."""
+    the final state (B, H, hs, hs).  On DTensors, on each rank's shard
+    (:func:`_wkv_sharded`)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(r, DTensor):
+        return _wkv_sharded(r, k, v, w, u, chunk)
     B, S, H, hs = r.shape
     c = min(chunk, S)
     S_pad = -(-S // c) * c
@@ -122,9 +127,66 @@ def _wkv_chunked(r, k, v, w, u, chunk: int):
     return y[:, :S], state
 
 
+def _head_placements(r):
+    """The placements of :func:`_wkv_sharded` and of the recurrent step's
+    local map, from r's (B, S, H, hs): (r/k/v/w's, u's, u's gradient's,
+    the state's)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    xp, up, ug, sp = [], [], [], []
+    for p in r.placements:
+        if isinstance(p, Shard) and p.dim == 0:          # batch
+            xp.append(p), up.append(Replicate()), ug.append(Partial())
+            sp.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2:        # heads
+            xp.append(p), up.append(Shard(0)), ug.append(Shard(0))
+            sp.append(Shard(1))
+        else:
+            xp.append(Replicate()), up.append(Replicate())
+            ug.append(Replicate()), sp.append(Replicate())
+    return xp, up, ug, sp
+
+
+def _wkv_sharded(r, k, v, w, u, chunk: int):
+    """:func:`_wkv_chunked` on DTensors through ``local_map``: the WKV is
+    independent over batch and heads, so each rank runs it on its batch
+    and head shards, the sequence and head size whole (DTensor's einsums
+    over the chunks would merge the batch and head shards into a strided
+    shard, whose offsets it reads from a tensor: no value on the dry
+    run's fake tensors).  ``u``'s gradient is summed over the batch
+    shards."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    xp, up, ug, sp = _head_placements(r)
+
+    def local(rl, kl, vl, wl, ul):
+        return _wkv_chunked(rl, kl, vl, wl, ul, chunk)
+
+    return local_map(local, out_placements=(xp, sp),
+                     in_placements=(xp, xp, xp, xp, up),
+                     in_grad_placements=(xp, xp, xp, xp, ug),
+                     device_mesh=mesh)(
+        *(on_mesh(t, mesh, xp) for t in (r, k, v, w)), on_mesh(u, mesh, up))
+
+
 def _wkv_recurrent(r, k, v, w, u, state):
     """One decode step.  r, k, v, w (B, 1, H, hs); state (B, H, hs, hs)
-    f32."""
+    f32.  On DTensors, on each rank's batch and head shards through
+    ``local_map`` (torch 2.11's DTensor cannot flatten the batch and head
+    shards its einsum merges)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(r, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        mesh = r.device_mesh
+        xp, up, _, sp = _head_placements(r)
+        return local_map(_wkv_step, out_placements=(xp, sp),
+                         in_placements=(xp, xp, xp, xp, up, sp),
+                         device_mesh=mesh)(
+            *(on_mesh(t, mesh, xp) for t in (r, k, v, w)),
+            on_mesh(u, mesh, up), on_mesh(state, mesh, sp))
+    return _wkv_step(r, k, v, w, u, state)
+
+
+def _wkv_step(r, k, v, w, u, state):
     rf, kf, vf, wf = (t[:, 0].float() for t in (r, k, v, w))
     at = kf[..., :, None] * vf[..., None, :]             # (B, H, hs, hs)
     y = torch.einsum("bhi,bhij->bhj", rf, state + u[..., None] * at)
@@ -149,16 +211,19 @@ def rwkv_block(
     xn = _rms(x, p.ln1, eps)
     xx = _token_shift(xn, None if cache is None else cache["tm_shift"]) - xn
     mix = xn + xx * p.maa_x
-    lora = torch.tanh(mix @ p.maa_w1).view(B, S, 5, _LORA)
+    # on a mesh the LoRA dim is made whole where DTensor cannot split its
+    # shards in five (and its gradient where it cannot merge them back)
+    lora = reshape(torch.tanh(matmul(mix, p.maa_w1)), (B, S, 5, _LORA))
     deltas = torch.einsum("bsfl,fld->fbsd", lora, p.maa_w2)
     xr, xk, xv, xw, xg = (xn + xx * (p.maa_rkvwg[i] + deltas[i])
                           for i in range(5))
 
-    r = constrain((xr @ p.wr).view(B, S, H, hs), "heads")
-    k = (xk @ p.wk).view(B, S, H, hs)
-    v = (xv @ p.wv).view(B, S, H, hs)
-    g = F.silu(xg @ p.wg)
-    dlog = p.decay + (torch.tanh(xw @ p.decay_w1) @ p.decay_w2).float()
+    r = constrain(matmul(xr, p.wr).view(B, S, H, hs), "heads")
+    k = matmul(xk, p.wk).view(B, S, H, hs)
+    v = matmul(xv, p.wv).view(B, S, H, hs)
+    g = F.silu(matmul(xg, p.wg))
+    dlog = p.decay + matmul(torch.tanh(matmul(xw, p.decay_w1)),
+                            p.decay_w2).float()
     w = torch.exp(-torch.exp(dlog)).view(B, S, H, hs)    # in (0, 1)
 
     new_cache = None
@@ -169,7 +234,7 @@ def rwkv_block(
 
     y = y.reshape(B, S, D).to(x.dtype)
     y = _rms(y, p.ln_x, eps) * g
-    x = x + y @ p.wo
+    x = x + matmul(y, p.wo)
 
     # ---- channel mixing ----
     xn2 = _rms(x, p.ln2, eps)
@@ -177,8 +242,8 @@ def rwkv_block(
                        else cache["cm_shift"]) - xn2
     xk2 = xn2 + xx2 * p.cm_maa_k
     xr2 = xn2 + xx2 * p.cm_maa_r
-    kk = torch.square(torch.relu(xk2 @ p.cm_wk))
-    out = x + torch.sigmoid(xr2 @ p.cm_wr) * (kk @ p.cm_wv)
+    kk = torch.square(torch.relu(matmul(xk2, p.cm_wk)))
+    out = x + torch.sigmoid(matmul(xr2, p.cm_wr)) * matmul(kk, p.cm_wv)
 
     if cache is not None:
         new_cache = {"state": state, "tm_shift": xn[:, -1],

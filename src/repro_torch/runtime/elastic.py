@@ -68,7 +68,9 @@ def build_mesh(shape: Sequence[int], devices: Optional[Sequence[int]] = None,
     if not dist.is_initialized():
         raise RuntimeError("no process group: start one first (join_group, "
                            "or torch.distributed.init_process_group)")
-    if device_type == "cuda" and not torch.cuda.is_available():
+    # the "fake" group (the dry run) places nothing, so it needs no card
+    if device_type == "cuda" and not torch.cuda.is_available() \
+            and dist.get_backend() != "fake":
         raise RuntimeError("no CUDA device is available; pass "
                            "device_type='cpu' for a CPU mesh")
     ranks = np.asarray(list(range(dist.get_world_size()))

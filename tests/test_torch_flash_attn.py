@@ -139,15 +139,23 @@ def test_plain_version_matches_reference_oracle():
 
 
 def test_wrapper_refuses_without_fallback():
-    """A tensor on neither the card nor the CPU raises; the CUDA launcher
-    refuses CPU tensors (it never runs the plain version)."""
+    """The CUDA launcher refuses CPU and meta tensors (it never runs the
+    plain version); a meta tensor (shapes only: the dry run) gets its
+    output's shape from B8's custom operator, neither a launch nor the
+    plain version."""
     q = torch.zeros((1, 2, 4, 16))
     with pytest.raises(ValueError):
         ops.flash_attention_cuda(q, q, q, torch.zeros(1, dtype=torch.int32))
     meta = torch.zeros((1, 2, 4, 16), device="meta")
     with pytest.raises(ValueError):
-        flash_attention(meta, meta, meta,
-                        torch.zeros(1, dtype=torch.int32, device="meta"))
+        ops.flash_attention_cuda(meta, meta, meta, torch.zeros(
+            1, dtype=torch.int32, device="meta"))
+    counts = (ops.kernel_launches, ops.kernel_launches_tc, ops.plain_calls)
+    out = flash_attention(meta, meta, meta,
+                          torch.zeros(1, dtype=torch.int32, device="meta"))
+    assert out.is_meta and out.shape == meta.shape
+    assert (ops.kernel_launches, ops.kernel_launches_tc,
+            ops.plain_calls) == counts
     with pytest.raises(ValueError):
         flash_attention(torch.zeros((1, 3, 4, 16)), q, q)   # 3 % 2 != 0
 

@@ -65,7 +65,14 @@ def test_port_has_modules():
                  "repro_torch/train/train_step.py",
                  "repro_torch/runtime/fault_tolerance.py",
                  "repro_torch/runtime/straggler.py",
-                 "repro_torch/launch/train.py"):
+                 "repro_torch/launch/train.py",
+                 "repro_torch/launch/specs.py",
+                 "repro_torch/launch/dryrun.py",
+                 "repro_torch/roofline/analysis.py",
+                 "repro_torch/roofline/counter.py",
+                 "repro_torch/roofline/attribution.py",
+                 "repro_torch/roofline/report.py",
+                 "repro_torch/kernels/real.py"):
         assert want in names
     kernels = SRC / "repro_torch/kernels"
     for want in ("snp_step/csrc/snp_step_dense.cu",
@@ -107,6 +114,22 @@ def test_port_exports_the_training_names():
     assert "chunked_attention" in flash_attn.__all__
 
 
+def test_port_exports_the_roofline_names():
+    """The reference's roofline and dry-run names (``analyze_step`` in
+    ``analyze_compiled``'s place, the counter in the HLO analyzer's)."""
+    import repro_torch.launch.dryrun as dryrun
+    import repro_torch.launch.specs as specs
+    import repro_torch.roofline as roofline
+    for name in ("HW", "CollectiveStats", "roofline_terms", "analyze_step",
+                 "StepCounter"):
+        assert name in roofline.__all__ and hasattr(roofline, name)
+    for name in ("input_specs", "decode_input_specs", "abstract_params",
+                 "abstract_train_state", "abstract_cache"):
+        assert name in specs.__all__ and hasattr(specs, name)
+    for name in ("TRAIN_KNOBS", "run_cell", "run_snp_cell", "main"):
+        assert name in dryrun.__all__ and hasattr(dryrun, name)
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
                          .as_posix())
 def test_no_jax_repro_or_module_level_triton(path):
@@ -144,6 +167,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "from repro_torch.models import loss_fn, train_state_from_jax\n"
         "from repro_torch.runtime import (Supervisor, SupervisorConfig,\n"
         "    FailureInjector, StragglerDetector, rebalance_shares)\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.roofline, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.attribution, repro_torch.kernels.real\n"
         "repro_torch.configs.get_config('smollm-360m')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
