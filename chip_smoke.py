@@ -48,7 +48,12 @@ result line):
    emission-gap result;
 5. full width, dense — ``explore(scaled_pi(682))`` (m=2046, n=3410,
    512 x 64 candidates per wave, a 262,144-row archive) through ``"cuda"``
-   and ``"ref"``, archives and flags identical;
+   and ``"ref"``, archives and flags identical; one wave's stage split
+   beside the eager ``config_hash``'s figures and the profiler's split of
+   one level, and at the wave's candidate block H1's three bodies and
+   H2's route for its first occurrence bit for bit against their plain
+   versions, with device times and byte bounds (so for phases 7, 10 and
+   11's waves);
 6. full width, ELL (B2) — the same explore through ``"sparse_cuda"``,
    archive and flags identical to both runs of phase 5;
 7. full width, hybrid (B3), the slice's main path —
@@ -235,16 +240,25 @@ result line):
    B1 run: each archive identical to its earlier phase's, at most 2 host
    reads a run, with waves/s, wall ms and the profiler's device ms a
    level, peak allocation, and the launches of the step kernel and of H1
-   and H2 (the hash-table probe kernels, ``kernels/hashtable/csrc/
-   hashtable.cu``) exact, read from the kernels' own counters; (b) a tree
-   that drains before ``max_steps``: its steps and every launch count
-   equal the CPU run's; (c) H1 and H2
-   against their plain versions bit for bit: the full-width wave (32,768
-   candidates against a table of 262,144 keys, 100,000 of them present),
+   and H2 (the hash-table kernels, ``kernels/hashtable/csrc/
+   hashtable.cu``) exact, H1's bodies and H2's routes key by key, read
+   from the kernels' own counters; (b) a tree that drains before
+   ``max_steps``: its steps and every launch count, key by key, equal the
+   CPU run's plain calls; (c) H1's three bodies (rows: hash and lookup in
+   one launch; hash: ``config_hash``; keys: ``lookup``) and H2's three
+   routes (cta, cluster of 16, grid) against their plain
+   versions bit for bit, tables and overflow flags included: a synthetic
+   full-width wave (32,768 candidates against a table of 262,144 keys,
+   100,000 of them present: lookup, first occurrence fresh and into a
+   table, insert), an F = 512 insert, ``max_probes`` 2 on every route,
    forged keys that share one base slot (past the 64-probe bound: the
-   overflow), and equal keys in one batch (the lowest index wins), with
-   times, plain times and bounds; (d) a checkpointed explore, one read a
-   chunk;
+   overflow), equal keys in one batch (the lowest index wins), and forged
+   row blocks (widths 1, 31, 2,046 and 6,138, negative entries, invalid
+   rows, every alignment, ``max_probes`` 1, 2 and 64), with device times,
+   plain times and bounds (the four waves' real candidate blocks are
+   checked and timed in phases 5-11, beside each wave's stage split and
+   the eager ``config_hash``'s figures); (d) a checkpointed explore, one
+   read a chunk;
 22. every LM family served — the MoE, MLA, codebook, RWKV6 and hybrid
    families, each with weights drawn on the card from ``PRNGKey(0)``, a
    counted prefill through ``attn_impl="cuda"``, ``drop_frac`` and the
@@ -465,17 +479,28 @@ KERNELS = {
                         "mma.sync m16n8k8 TF32, three products a step for "
                         "f32), tf32::flash_attn_fwd_tf32_kernel; wrapper "
                         "ops.py:75"},
-    "H1": {"name": "hashtable_lookup", "route": "cuda",
+    "H1": {"name": "hashtable_rows", "route": "cuda",
            "source": "src/repro_torch/kernels/hashtable/csrc/hashtable.cu",
            "replaces": "src/repro/core/hashtable.py:153",
-           "body": "the probe lax.while_loop of lookup (no Pallas kernel); "
-                   "lookup_kernel, wrapper kernels/hashtable/ops.py"},
+           "body": "no Pallas kernel: lookup's probe lax.while_loop and "
+                   "config_hash (src/repro/core/hashing.py:46); "
+                   "h1_kernel<BODY, L>: the rows body (the level's rows "
+                   "hashed and looked up in one launch; the figures), the "
+                   "hash body (config_hash) and the keys body (lookup); "
+                   "wrapper kernels/hashtable/ops.py"},
     "H2": {"name": "hashtable_claim", "route": "cuda",
            "source": "src/repro_torch/kernels/hashtable/csrc/hashtable.cu",
            "replaces": "src/repro/core/hashtable.py:215",
-           "body": "the claim lax.while_loop of _claim_loop (no Pallas "
-                   "kernel), one cooperative launch, two grid syncs a "
-                   "round; claim_kernel, wrapper kernels/hashtable/ops.py"},
+           "body": "no Pallas kernel: the claim lax.while_loop of "
+                   "_claim_loop; three routes by (K, S, D) and a fresh "
+                   "table or a given one, ops.claim_route: "
+                   "claim_cta_kernel (one block, __syncthreads), "
+                   "claim_cluster_kernel (fresh tables: one cluster, the "
+                   "claim words in distributed shared memory, cluster "
+                   "barriers; the "
+                   "figures: the level's first occurrence), "
+                   "claim_grid_kernel (cooperative, grid syncs); wrapper "
+                   "kernels/hashtable/ops.py"},
 }
 
 # What each kernel's library_ms times (one PyTorch call, never used by the
@@ -1363,18 +1388,39 @@ def phase_full_width_hybrid():
     return launches
 
 
+# The full-width waves by the phase that runs them, and the eager
+# config_hash's and the expand's ms a level there (host clock, this
+# phase's stage split before H1 hashed the rows; NVIDIA H100 80GB HBM3,
+# 700 W).
+WAVE_OF_TAG = {"5": "scaled_pi(682)", "6": "scaled_pi(682)",
+               "7": "power_law(8192) hybrid",
+               "10": "scaled_pi(682) delayed",
+               "11": "power_law(8192) delayed hybrid"}
+EAGER_HASH_MS = {"scaled_pi(682)": (10.078, 1.059),
+                "power_law(8192) hybrid": (40.166, 2.420),
+                "scaled_pi(682) delayed": (30.202, 1.206),
+                "power_law(8192) delayed hybrid": (120.428, 4.719)}
+# H1's and H2's checks and figures at each wave's real candidate block
+# (phase 21 (a) sums them up)
+WAVE_PROBES = {}
+
+
 def _wave_breakdown(tag, comp, archive, backends):
     """Host-clock milliseconds (synchronised) of each stage of one hash
     wave at the full-width shape, from a frontier of archived states (for
     a sparse encoding, the expand's bookkeeping ops and kernel launch
-    too, marked ·)."""
+    too, marked ·), beside the eager config_hash's figures, and the
+    profiler's split of the level's stages by kernel; then, once a wave,
+    H1 and H2 at its candidate block (:func:`_probe_wave`)."""
     import torch
     from repro_torch.core import (CompiledSparseSNP, applicability,
                                   get_backend, is_delayed, packed_rule_table,
-                                  sparse_branch_info)
+                                  sparse_branch_info, table_slots)
     from repro_torch.core.hashing import SENTINEL, config_hash
-    from repro_torch.core.hashtable import (first_occurrence, insert_unique,
+    from repro_torch.core.hashtable import (_hash_lookup, first_occurrence,
+                                            insert_unique, insert_unique_,
                                             lookup, make_table)
+    from repro_torch.kernels.hashtable import ops as ht_ops
     from repro_torch.kernels.snp_step import ops, sparse_ops
     from repro_torch.kernels.snp_step.sparse_ref import kernel_inputs
 
@@ -1419,21 +1465,205 @@ def _wave_breakdown(tag, comp, archive, backends):
             lambda: ops.snp_step_dense_delay(*args, T))
     cand = out.configs.reshape(F * T, -1)
     valid = out.valid.reshape(-1)
-    stages["config_hash"], (hi, lo) = timed(lambda: config_hash(cand))
+    K = F * T
+    stages["config_hash (H1 hash body)"], (hi, lo) = timed(
+        lambda: config_hash(cand))
     hi = torch.where(valid, hi, SENTINEL)
     lo = torch.where(valid, lo, SENTINEL)
-    stages["table lookup"], _ = timed(lambda: lookup(table, hi, lo, valid))
-    stages["first_occurrence"], (first, _) = timed(
+    stages["table lookup (H1 keys body)"], _ = timed(
+        lambda: lookup(table, hi, lo, valid))
+    stages["hash + lookup (H1 rows body, the level's)"], _ = timed(
+        lambda: _hash_lookup(table, cand, valid))
+    route = ht_ops.claim_route(K, table_slots(K), PROBE_D, True).name
+    stages[f"first_occurrence (H2 {route})"], (first, _) = timed(
         lambda: first_occurrence(hi, lo, valid))
     stages["compaction sort"], sel = timed(
         lambda: torch.sort((~first).to(torch.uint8),
                            stable=True).indices[:F])
+    stages["gather cand[sel]"], _ = timed(lambda: cand[sel])
     ins = torch.arange(F, device=dev) < int(first.sum().clamp(max=F))
-    stages["table insert"], _ = timed(
-        lambda: insert_unique(table, hi[sel], lo[sel], ins))
+    ins_route = ht_ops.claim_route(F, table.num_slots, PROBE_D, False).name
+    stages[f"table insert (H2 {ins_route})"], _ = timed(lambda: insert_unique(table, hi[sel], lo[sel], ins))
     log(f"[{tag}] one full-width hash wave by stage (ms, host clock, "
         "synchronised): " + ", ".join(f"{k} {v:.3f}"
                                       for k, v in stages.items()))
+    wave = WAVE_OF_TAG[tag]
+    was_hash, was_expand = EAGER_HASH_MS[wave]
+    now = [stages[k] for k in ("config_hash (H1 hash body)",
+                               "table lookup (H1 keys body)",
+                               "hash + lookup (H1 rows body, the level's)")]
+    log(f"[{tag}] {wave}: the eager config_hash took {was_hash:.3f} ms and "
+        f"the expand {was_expand:.3f} ms a level; now config_hash "
+        f"{now[0]:.3f} + table lookup {now[1]:.3f}, the level's hash + "
+        f"lookup {now[2]:.3f}")
+
+    def level():
+        o = get_backend(kern).expand(frontier, comp, T)
+        c = o.configs.reshape(K, -1)
+        v = o.valid.reshape(-1)
+        h, lw, found = _hash_lookup(table, c, v)
+        f, _ = first_occurrence(h, lw, v)
+        new = v & f & ~found
+        s_ = torch.sort((~new).to(torch.uint8), stable=True).indices[:F]
+        c[s_]
+        insert_unique_(scratch, h[s_], lw[s_], ins)
+
+    scratch = make_table(FULL_WIDTH["visited_cap"], dev)
+    _level_split(tag, wave, level)
+    del scratch
+    _probe_wave(tag, cand, valid)
+
+
+def _level_split(tag, wave, fn):
+    """One hash level's device time by kernel (``torch.profiler`` over one
+    call after a warm one): the total and the leading kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:60]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{tag}] {wave}: one hash level's device time (profiler, "
+        f"expand to insert) {total / 1e3:.3f} ms over {len(by)} kernel "
+        f"names; leading: " + "; ".join(f"{n} {us / 1e3:.3f}"
+                                        for n, us in top))
+    WAVE_PROBES.setdefault(("split", wave), dict(
+        device_ms=total / 1e3, leading={n: us / 1e3 for n, us in top}))
+
+
+def _same_bits(errs, kernel, label, got, want):
+    """Every tensor of ``got`` equal to ``want``'s (dtype aside); the
+    largest difference goes into ``errs[kernel]``."""
+    import torch
+    for g, w in zip(got, want):
+        w = w.to(g.device, g.dtype)
+        if g.numel():
+            errs[kernel] = max(errs[kernel], int(
+                (g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+        check(torch.equal(g, w), f"{kernel} {label}: the kernel differs from "
+              "its plain version")
+
+
+def _probe_wave(tag, cand, valid):
+    """At one wave's candidate block (K = F·T rows): H1's rows, hash and
+    keys bodies bit for bit against ``config_hash_ref``, the canonical
+    lanes and ``lookup_ref`` (a visited table holding every third valid
+    row's key; max_probes 64, 1 and 2), and H2 at the wave's first
+    occurrence (its route into a fresh table, and the grid route into a
+    given empty one) and at the held keys' insert against ``claim_ref``,
+    tables included; with each
+    body's device time (20 calls in a graph, replayed), CUDA-event time,
+    plain time and byte bound.  Once a wave."""
+    import torch
+    from repro_torch.core import table_slots
+    from repro_torch.core.hashing import config_hash_ref
+    from repro_torch.core.hashtable import _canonical, _empty, make_table
+    from repro_torch.kernels.hashtable import ops as ht_ops
+    from repro_torch.kernels.hashtable.ref import claim_ref, lookup_ref
+
+    wave = WAVE_OF_TAG[tag]
+    if wave in WAVE_PROBES:
+        return
+    t0 = time.perf_counter()
+    dev = cand.device
+    cand = cand.contiguous()
+    K, w = cand.shape
+    D = PROBE_D
+    errs = {"H1": 0, "H2": 0}
+    raw = config_hash_ref(cand)
+    hi, lo = _canonical(*raw, valid)
+    held_mask = valid & (torch.arange(K, device=dev) % 3 == 0)
+    held = make_table(FULL_WIDTH["visited_cap"], dev)
+    tab = (held.slots_hi, held.slots_lo, held.slot_payload)
+    pay = torch.arange(K, dtype=torch.int32, device=dev)
+    want = claim_ref(*tab, hi, lo, held_mask, pay, D)
+    ins_route = ht_ops.claim_route(K, tab[0].shape[0], D, False).name
+    got = ht_ops.claim_(*tab, hi, lo, held_mask, pay, D)
+    _same_bits(errs, "H2", f"{wave}: its held keys into the visited table "
+               f"({ins_route})", (*tab, *got), want)
+    _same_bits(errs, "H1", f"{wave}: the hash body", ht_ops.config_hash(cand),
+               raw)
+    for d in (D, 1, 2):
+        found_ref, _ = lookup_ref(*tab, hi, lo, valid, d)
+        _same_bits(errs, "H1", f"{wave}: the rows body, max_probes {d}",
+                   ht_ops.hash_lookup(*tab, cand, valid, d),
+                   (hi, lo, found_ref))
+    found, _ = ht_ops.lookup(*tab, hi, lo, valid, D)
+    _same_bits(errs, "H1", f"{wave}: the keys body",
+               (found,), lookup_ref(*tab, hi, lo, valid, D)[:1])
+    check(bool(found[held_mask].all()), f"H1 {wave}: a held key not found")
+    S = table_slots(K)
+    route = ht_ops.claim_route(K, S, D, True)
+    given = ht_ops.claim_route(K, S, D, False).name
+    zero = torch.zeros(K, dtype=torch.int32, device=dev)
+    want = claim_ref(*_empty(S, 0, dev), hi, lo, valid, zero, D)
+    _same_bits(errs, "H2", f"{wave}: first occurrence ({route.name}, fresh)",
+               ht_ops.first_claim(hi, lo, valid, S, D), want[3:])
+    k_tab = _empty(S, 0, dev)
+    _same_bits(errs, "H2", f"{wave}: first occurrence ({given}, into a "
+               "given empty table)",
+               (*k_tab, *ht_ops.claim_(*k_tab, hi, lo, valid, zero, D)), want)
+
+    # figures: device ms (graph replay), event ms, plain ms, byte bound
+    n_valid = int(valid.sum())
+    reads = _probe_reads(tab[0], tab[1], hi, lo, valid, D, False)[0]
+    first_reads = _probe_reads(*_empty(S, 0, dev)[:2], hi, lo, valid, D,
+                               True)[0]
+
+    def plain_rows():
+        h, lw = _canonical(*config_hash_ref(cand), valid)
+        return h, lw, lookup_ref(*tab, h, lw, valid, D)[0]
+
+    def fig(fn, plain, nbytes, **extra):
+        return dict(ms=time_ms(fn, 20), device_ms=_replay_ms(fn),
+                    plain_ms=time_ms(plain, 2),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", library_ms=None, bytes=nbytes, **extra)
+
+    rec = dict(K=K, w=w, valid_rows=n_valid, errs=errs)
+    rec["rows"] = fig(
+        lambda: ht_ops.hash_lookup(*tab, cand, valid, D), plain_rows,
+        n_valid * w * 4 + K * (1 + 16 + 1) + reads * 16,
+        slot_reads=reads, threads_a_row=ht_ops.row_threads(K))
+    rec["hash"] = fig(lambda: ht_ops.config_hash(cand),
+                      lambda: config_hash_ref(cand), K * w * 4 + K * 16,
+                      threads_a_row=ht_ops.row_threads(K))
+    rec["keys"] = fig(lambda: ht_ops.lookup(*tab, hi, lo, valid, D),
+                      lambda: lookup_ref(*tab, hi, lo, valid, D),
+                      K * (16 + 1) + reads * 16 + K * 5, slot_reads=reads)
+    # the first occurrence needs the keys and mask in, won and dup out:
+    # its table is the kernel's own (the cluster's shared memory)
+    rec["first"] = fig(
+        lambda: ht_ops.first_claim(hi, lo, valid, S, D),
+        lambda: claim_ref(*_empty(S, 0, dev), hi, lo, valid, zero, D),
+        K * (16 + 1) + K * 2, claim_route=route.name, ctas=route.ctas,
+        slots=S,
+        slot_reads=first_reads,
+        bound_ms_table_in_memory=(K * (16 + 1) + K * 2 + first_reads * 16)
+        / HBM_BYTES_PER_S * 1e3)
+    WAVE_PROBES[wave] = rec
+    for body in ("rows", "hash", "keys", "first"):
+        r = rec[body]
+        log(f"[{tag}] {wave} (K={K}, w={w}, {n_valid} valid): "
+            f"{'H2 ' + route.name if body == 'first' else 'H1 ' + body} "
+            f"{r['device_ms']:.4f} ms on the card (20 calls in a graph, "
+            f"replayed), {r['ms']:.4f} ms by events, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bytes']} bytes; {r['device_ms'] / r['bound_ms']:.1f}x)")
+    log(f"[{tag}] {wave}: H1's three bodies and H2's {ins_route} and "
+        f"{route.name} routes bit-identical to their plain versions "
+        f"(max_abs_err {json.dumps(errs)}), checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _traces(tag, label, system, policy, backends, kernel, plan=None,
@@ -4104,21 +4334,73 @@ PROBE_PRESENT = 100_000
 PROBE_D = 64
 
 
-def _probe_launches(units=1):
-    """H1 and H2 launches of a hash-dedup run over ``units`` tables (ranks
-    or shards), as functions of its levels: a lookup and two claim rounds
-    (first occurrence, insert) a table a level, and a table's initial
-    insert."""
-    return {"H1": lambda w: units * w, "H2": lambda w: units * (2 * w + 1)}
+def _probe_launches(scheme, F, T, V, units=1, send_cap=None):
+    """H1's bodies' and H2's routes' launches in a hash-dedup run, by
+    launch-count key, as a function of its levels ``w``.  ``scheme``:
+    ``"explore"`` (the level's rows hashed and looked up in one H1 launch,
+    the initial config's hash), ``"sort"`` (its hashes only),
+    ``"sharded"`` over ``units`` shards (Zobrist keys from the shards'
+    slices, looked up by keys), ``"dense"`` over ``units`` ranks (each
+    rank's rows hashed, then its received keys looked up).  A table a
+    unit: a first occurrence a level (H2's route for its candidates, F·T
+    or the ranks' ``units·send_cap``), an insert of up to F keys a level
+    and one at the start."""
+    from collections import Counter
+
+    from repro_torch.core import table_slots
+    from repro_torch.core.hashtable import _probes
+    from repro_torch.kernels.hashtable.ops import claim_route
+
+    if scheme == "sort":
+        return lambda w: Counter({("H1", "hash"): w + 1})
+    K = units * send_cap if scheme == "dense" else F * T
+    S, S_v = table_slots(K), table_slots(V)
+    first = ("H2", claim_route(K, S, _probes(S, None), True).name)
+    insert = ("H2", claim_route(F, S_v, _probes(S_v, None), False).name)
+    look = {"explore": {("H1", "rows"): 1}, "sharded": {("H1",): units},
+            "dense": {("H1", "hash"): units, ("H1",): units}}[scheme]
+    once = {("H1", "hash"): 1} if scheme != "sharded" else {}
+
+    def launches(w):
+        n = Counter(once)
+        n.update({k: v * w for k, v in look.items()})
+        n.update({first: units * w})
+        n.update({insert: units * (w + 1)})
+        return n
+    return launches
 
 
-def _synced_run(label, run, want, archive):
+def _send_cap(caps, R):
+    """The dense-row scheme's send slots a rank for ``caps`` over ``R``
+    ranks (``core/distributed.py``'s default)."""
+    return caps.get("send_cap") or max(
+        16, caps["frontier_cap"] * caps["max_branches"] // R)
+
+
+def probe_counts():
+    """Launches of H1's bodies and H2's routes since :func:`reset_counts`,
+    by launch-count key (every key, 0 where none ran)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.hashtable.ops import KEYS
+    ran = launch_counts.read()
+    return {k: ran.get(k, 0) for k in KEYS}
+
+
+def _keyed(counts):
+    """A counter of launch-count keys as ``"H1/rows"``-style names."""
+    return {"/".join(k): n for k, n in counts.items() if n}
+
+
+def _synced_run(label, run, want, archive, probes=None):
     """``run()``, one un-checkpointed explore, inside ``sync_check()``: its
-    launches (``want``: kernel -> launches, or a function of the levels),
-    at most 2 host reads, its archive that of ``ARCHIVES[archive]``; then
-    the profiler's device time of another run.  Returns its figures."""
+    launches (``want``: kernel -> launches, or a function of the levels;
+    ``probes``: H1's bodies and H2's routes by key, a function of the
+    levels), at most 2 host reads, its archive that of
+    ``ARCHIVES[archive]``; then the profiler's device time of another run.
+    Returns its figures."""
     import torch
     from repro_torch.core import device as devmod
+    from repro_torch.kernels.launch_counts import by_kernel
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4129,10 +4411,16 @@ def _synced_run(label, run, want, archive):
         res = run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts, reads = read_counts(), devmod.host_reads
+    counts, reads, keyed = read_counts(), devmod.host_reads, probe_counts()
     peak = torch.cuda.max_memory_allocated()
     waves = res.steps
     expect = {k: (v(waves) if callable(v) else v) for k, v in want.items()}
+    if probes is not None:
+        wkeys = probes(waves)
+        check(all(keyed[k] == wkeys.get(k, 0) for k in keyed),
+              f"[21] {label}: H1/H2 launches by body {_keyed(keyed)}, "
+              f"expected {_keyed(wkeys)}")
+        expect.update({k: by_kernel(wkeys).get(k, 0) for k in PROBE_KERNELS})
     check_counts(f"[21] {label}", counts, **expect)
     check(reads <= 2, f"[21] {label}: {reads} host reads, expected <= 2")
     check(_digest(res) == ARCHIVES[archive],
@@ -4146,7 +4434,8 @@ def _synced_run(label, run, want, archive):
                device_ms_per_level=dev_ms / waves,
                device_busy_share=dev_ms / (secs * 1e3),
                peak_gib=peak / 2**30,
-               launches={k: counts[k] for k in expect})
+               launches={k: counts[k] for k in expect},
+               launches_by_body=_keyed(keyed))
     log(f"[21] {label}: sync check passed, {reads} host reads in {waves} "
         f"waves (phase 5-20 figure: 16-77.75 a wave), {secs:.3f} s = "
         f"{fig['waves_per_s']:.3f} waves/s, wall "
@@ -4155,7 +4444,8 @@ def _synced_run(label, run, want, archive):
         f"{fig['device_ms_per_level']:.3f} device ms a level (profiler, "
         f"{dev_ms:.3f} ms over {waves} levels), "
         f"archive identical to {archive!r} ({res.num_discovered} rows), "
-        f"launches {json.dumps(fig['launches'])}, max_memory_allocated "
+        f"launches {json.dumps(fig['launches'])}, H1/H2 by body "
+        f"{json.dumps(fig['launches_by_body'])}, max_memory_allocated "
         f"{fig['peak_gib']:.3f} GiB")
     return fig
 
@@ -4190,7 +4480,6 @@ def _zero_sync_explores():
         "delayed_hybrid": lambda: compile_system_sparse(
             dhub, hub_threshold=dplan.hub_threshold, semantics="delays",
             device="cuda")}
-    single = _probe_launches()
     # (path, compiled, backend, step kernel, caps, archive key)
     runs = [
         ("zero_sync_full_width_explore", "dense", "cuda", "B1", FULL_WIDTH,
@@ -4225,15 +4514,17 @@ def _zero_sync_explores():
             built[key] = comps[key]()
         comp = built[key]
         # the delayed hybrid's 65,536-row archive resolves to sort dedup:
-        # no table, so no probe kernel
+        # no table, so no probe but H1's hash body
         sort = resolve_dedup("auto", frontier_cap=caps["frontier_cap"],
                              visited_cap=caps["visited_cap"],
                              max_branches=caps["max_branches"]) == "sort"
-        want = dict({"H1": 0, "H2": 0} if sort else single,
-                    **({kernel: lambda w: w} if kernel else {}))
+        probes = _probe_launches("sort" if sort else "explore",
+                                 caps["frontier_cap"], caps["max_branches"],
+                                 caps["visited_cap"])
         note(path, _synced_run(
             f"{path}: explore({archive}) via {backend!r}",
-            lambda: explore(comp, backend=backend, **caps), want, archive))
+            lambda: explore(comp, backend=backend, **caps),
+            {kernel: lambda w: w} if kernel else {}, archive, probes))
     built.clear()
     torch.cuda.empty_cache()
 
@@ -4245,12 +4536,15 @@ def _zero_sync_explores():
         for backend, kernel, c in (("cuda", "B6", lowered),
                                    ("sparse_cuda", "B7", comp)):
             path = f"zero_sync_sharded_{part}_explore"
-            want = dict(_probe_launches(S), **{kernel: lambda w: S * w})
             note(f"{path}_{kernel}", _synced_run(
                 f"{path}: explore_distributed(scaled_pi(682), "
                 f"neuron_axis(4, {part})) via {backend!r}",
                 lambda: explore_distributed(c, backend=backend, **SHARDED),
-                want, f"scaled_pi(682) neuron_axis(4, {part})"))
+                {kernel: lambda w: S * w},
+                f"scaled_pi(682) neuron_axis(4, {part})",
+                _probe_launches("sharded", SHARDED["frontier_cap"],
+                                SHARDED["max_branches"],
+                                SHARDED["visited_cap"], S)))
         del comp, lowered
         torch.cuda.empty_cache()
 
@@ -4261,8 +4555,10 @@ def _zero_sync_explores():
         f"dense rows, {R} ranks via 'cuda'",
         lambda: explore_distributed(dense, mesh=["cuda"] * R,
                                     backend="cuda", **DENSE_ROWS),
-        dict(_probe_launches(R), B1=lambda w: R * w),
-        "scaled_pi(682) dense rows R=4"))
+        {"B1": lambda w: R * w}, "scaled_pi(682) dense rows R=4",
+        _probe_launches("dense", DENSE_ROWS["frontier_cap"],
+                        DENSE_ROWS["max_branches"], DENSE_ROWS["visited_cap"],
+                        R, _send_cap(DENSE_ROWS, R))))
     del dense
     torch.cuda.empty_cache()
     return launches, figures
@@ -4271,26 +4567,28 @@ def _zero_sync_explores():
 def _drained_tree():
     """(b): a tree that drains before ``max_steps``, on the card (inside
     the sync check) and on the CPU: the same archive and steps, and each
-    kernel's launches equal to its plain version's calls."""
+    kernel's launches equal to its plain version's calls (H1's bodies
+    and H2's routes key by key)."""
     import numpy as np
     from repro_torch.core import compile_system, explore
     from repro_torch.core.device import sync_check
     from repro_torch.core.generators import random_system
     from repro_torch.kernels.hashtable import ops as ht_ops
+    from repro_torch.kernels.launch_counts import by_kernel
     from repro_torch.kernels.snp_step import ops
 
     system = random_system(9, 2, 0.3, seed=9)
-    ops.plain_calls = ht_ops.lookup_plain_calls = 0
-    ht_ops.claim_plain_calls = 0
+    ops.plain_calls = 0
+    ht_ops.plain_calls.clear()
     cpu = explore(compile_system(system, device="cpu"), backend="cuda",
                   device="cpu", dedup="hash", **DRAIN)
-    plain = {"B1": ops.plain_calls, "H1": ht_ops.lookup_plain_calls,
-             "H2": ht_ops.claim_plain_calls}
+    plain_keyed = {k: ht_ops.plain_calls[k] for k in ht_ops.KEYS}
+    plain = dict(B1=ops.plain_calls, **by_kernel(plain_keyed))
     comp = compile_system(system, device="cuda")
     reset_counts()
     with sync_check():
         card = explore(comp, backend="cuda", dedup="hash", **DRAIN)
-    counts = read_counts()
+    counts, keyed = read_counts(), probe_counts()
     check(card.steps == cpu.steps < DRAIN["max_steps"] and card.exhausted
           and cpu.exhausted, f"[21] (b) the tree did not drain alike: "
           f"{card.steps}/{cpu.steps} steps, exhausted {card.exhausted}/"
@@ -4298,11 +4596,14 @@ def _drained_tree():
     check(np.array_equal(card.configs, cpu.configs),
           "[21] (b) the drained tree's archive differs from the CPU's")
     check_counts("[21] (b) drained tree", counts, **plain)
+    check(keyed == plain_keyed, f"[21] (b) H1/H2 launches by body "
+          f"{_keyed(keyed)}, the CPU run's plain calls {_keyed(plain_keyed)}")
     log(f"[21] (b) random_system(9, 2, 0.3, seed=9) drains at level "
         f"{card.steps} of {DRAIN['max_steps']} on the card as on the CPU "
         f"({card.num_discovered} configs); launches "
         f"{json.dumps({k: counts[k] for k in plain})} "
-        f"equal the CPU run's plain calls {json.dumps(plain)}")
+        f"(H1/H2 by body {json.dumps(_keyed(keyed))}) equal the CPU run's "
+        f"plain calls")
     return {k: counts[k] for k in plain}
 
 
@@ -4331,15 +4632,15 @@ def _forged_keys(rng, S, slot, n):
 
 
 def _probe_reads(s_hi, s_lo, hi, lo, pending, D, claim):
-    """The slots H1 (``claim`` False) or H2 reads for these keys, one a
-    pending candidate a probe or a round, counted by the plain versions'
-    loops (for the bound)."""
+    """``(reads, rounds)``: the slots H1 (``claim`` False) or H2 reads for
+    these keys, one a pending candidate a probe or a round, and the probes
+    or rounds run, counted by the plain versions' loops (for the bound)."""
     import torch
     from repro_torch.kernels.hashtable.ref import base_slot
     S, K = s_hi.shape[0], hi.shape[0]
     SENT = 0xFFFFFFFF
     base = base_slot(hi, lo, S)
-    pending, reads = pending.clone(), 0
+    pending, reads, rounds = pending.clone(), 0, 0
     probe = torch.zeros_like(hi)
     idx = torch.arange(K, device=hi.device)
     s_hi, s_lo = s_hi.clone(), s_lo.clone()
@@ -4347,6 +4648,7 @@ def _probe_reads(s_hi, s_lo, hi, lo, pending, D, claim):
         if not bool(pending.any()):
             break
         reads += int(pending.sum())
+        rounds += 1
         slot = (base + probe) & (S - 1)
         ch, cl = s_hi[slot], s_lo[slot]
         match = pending & (ch == hi) & (cl == lo)
@@ -4364,7 +4666,7 @@ def _probe_reads(s_hi, s_lo, hi, lo, pending, D, claim):
         s_lo = torch.where(cw < K, lo[w], s_lo)
         probe = probe + (pending & ~match & ~empty)
         pending = pending & ~match & ~win & ~(probe >= D)
-    return reads
+    return reads, rounds
 
 
 def _probe_bound_ms(K, reads, won, claim):
@@ -4379,24 +4681,6 @@ def _probe_bound_ms(K, reads, won, claim):
     else:
         nbytes = K * (16 + 1) + reads * 16 + won * 4 + K * 5
     return nbytes / 3.35e12 * 1e3, nbytes
-
-
-def _profiler_events(label, fn):
-    """Log the device events ``torch.profiler`` records for one ``fn()``:
-    their count and names (an open question of phase 21's H1/H2 times)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = sorted({e.name[:60] for e in prof.events()
-                    if e.device_type == DeviceType.CUDA})
-    log(f"[21] (c) the profiler over {label}: {len(names)} device event "
-        f"name(s) {names}")
 
 
 def _replay_ms(fn, reps=20, iters=10):
@@ -4422,61 +4706,83 @@ def _replay_ms(fn, reps=20, iters=10):
     return ms
 
 
+# (c): H1's forged rows: (K, w) at odd and wide widths, each row at its own
+# alignment (w odd) or a buffer offset of 1-3 entries; K=9000 gives a warp
+# a row, the others a block
+H1_FORGED = [(24, 1), (24, 31), (9000, 31), (24, 2046), (24, 6138)]
+
+
 def _probe_kernels():
-    """(c): H1 and H2 against their plain versions, bit for bit.  Returns
-    ({kernel: max_abs_err over every case}, {kernel: wave figures})."""
+    """(c): H1's bodies and H2's routes against their plain versions, bit
+    for bit, on forged and synthetic inputs (the waves' real blocks are
+    checked in phases 5-11, :func:`_probe_wave`).  Returns ({kernel:
+    max_abs_err over every case}, {kernel: wave figures})."""
+    from collections import Counter
+
     import numpy as np
     import torch
     from repro_torch.core import make_table, table_slots
+    from repro_torch.core.hashing import config_hash_ref
+    from repro_torch.core.hashtable import _canonical, _empty
     from repro_torch.kernels.hashtable import ops as ht_ops
     from repro_torch.kernels.hashtable.ref import claim_ref, lookup_ref
 
-    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    dev = torch.device(CARD)
     rng = np.random.default_rng(21)
-    SENT = 0xFFFFFFFF
     D = PROBE_D
     cases = 0
     errs = {"H1": 0, "H2": 0}
+    routes = Counter()
 
     def t(x, dtype=torch.int64):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
 
     def same(kernel, label, got, want):
-        for g, w in zip(got, want):
-            w = w.to(g.dtype)
-            if g.numel():
-                errs[kernel] = max(errs[kernel], int(
-                    (g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-            check(torch.equal(g, w),
-                  f"[21] (c) {kernel} {label}: the kernel differs from its "
-                  "plain version")
+        _same_bits(errs, kernel, f"[21] (c) {label}", got, want)
 
-    def scratch(S):
-        return (torch.full((S,), SENT, dtype=torch.int64, device=dev),
-                torch.full((S,), SENT, dtype=torch.int64, device=dev),
-                torch.zeros((S,), dtype=torch.int32, device=dev))
+    def route_of(K, S, d, fresh):
+        r = ht_ops.claim_route(K, S, d, fresh)
+        routes[f"{r.name}{r.ctas if r.name == 'cluster' else ''}"] += 1
+        return r.name
 
-    def claim_both(label, table, hi, lo, pend, pay):
-        """H2 on a copy of ``table`` against the plain version; returns
-        the kernel's table and outputs."""
+    def claim_both(label, table, hi, lo, pend, pay, d=D):
+        """H2 on a copy of ``table`` against the plain version, the
+        table's three tensors included; returns the kernel's table and
+        outputs."""
         nonlocal cases
+        name = route_of(hi.shape[0], table[0].shape[0], d, False)
         k_tab = tuple(x.clone() for x in table)
-        won, dup, ovf = ht_ops.claim_(*k_tab, hi, lo, pend, pay, D)
-        p_hi, p_lo, p_pay, p_won, p_dup, p_ovf = claim_ref(
-            *table, hi, lo, pend, pay, D)
-        same("H2", label, (*k_tab, won, dup, ovf),
-             (p_hi, p_lo, p_pay, p_won, p_dup, p_ovf))
+        won, dup, ovf = ht_ops.claim_(*k_tab, hi, lo, pend, pay, d)
+        same("H2", f"{label} ({name})", (*k_tab, won, dup, ovf),
+             claim_ref(*table, hi, lo, pend, pay, d))
         cases += 1
         return k_tab, won, dup, ovf
+
+    def first_both(label, hi, lo, pend, d=D):
+        """H2 into a fresh table of its own against the plain version on
+        an empty one."""
+        nonlocal cases
+        K = hi.shape[0]
+        S = table_slots(max(K, 1))
+        name = route_of(K, S, d, True)
+        got = ht_ops.first_claim(hi, lo, pend, S, d)
+        same("H2", f"{label} ({name}, fresh)", got,
+             claim_ref(*_empty(S, 0, dev), hi, lo, pend,
+                       torch.zeros(K, dtype=torch.int32, device=dev), d)[3:])
+        cases += 1
+        return got
 
     def lookup_both(label, table, hi, lo, valid):
         nonlocal cases
         got = ht_ops.lookup(*table, hi, lo, valid, D)
-        same("H1", label, got, lookup_ref(*table, hi, lo, valid, D))
+        same("H1", f"{label} (keys)", got,
+             lookup_ref(*table, hi, lo, valid, D))
         cases += 1
         return got
 
-    # the full-width wave against a table of 262,144 keys' capacity
+    # the synthetic full-width wave against a table of 262,144 keys'
+    # capacity (the case the grid design was first timed on)
     V = FULL_WIDTH["visited_cap"]
     S = table_slots(V)
     tab = make_table(V, dev)
@@ -4491,6 +4797,7 @@ def _probe_kernels():
         torch.arange(n, dtype=torch.int32, device=dev))
     check(bool(won.all()), "[21] (c) a present key was not inserted")
     K = FULL_WIDTH["frontier_cap"] * FULL_WIDTH["max_branches"]
+    F = FULL_WIDTH["frontier_cap"]
     fresh = rng.integers(0, 2**32, size=(2, K // 4), dtype=np.uint64)
     pick = rng.integers(0, n, size=K // 2)
     wave = np.concatenate([keys[:, pick], fresh.astype(np.int64)], 1)
@@ -4501,60 +4808,53 @@ def _probe_kernels():
     valid = t(rng.random(K) < 0.9, torch.bool)
     found, _ = lookup_both("the full-width wave", filled, hi, lo, valid)
     S2 = table_slots(K)
-    _, first, _, _ = claim_both(
-        "first occurrence at the wave", scratch(S2), hi, lo, valid,
-        torch.zeros(K, dtype=torch.int32, device=dev))
+    zero = torch.zeros(K, dtype=torch.int32, device=dev)
+    _, first, _, _ = claim_both("first occurrence at the wave, into a given "
+                                "table", _empty(S2, 0, dev), hi, lo,
+                                valid, zero)
+    first_both("first occurrence at the wave", hi, lo, valid)
     ins = valid & first & ~found
     pay = torch.arange(n, n + K, dtype=torch.int32, device=dev)
-    claim_both("insert at the wave", filled, hi, lo, ins, pay)
-
-    # figures at the wave: H1 against the filled table, H2 the first
-    # occurrence on a fresh scratch table (its fills timed apart)
-    rows = {}
-    h1_ms = time_ms(lambda: ht_ops.lookup(*filled, hi, lo, valid, D), 50)
-    h1_plain = time_ms(lambda: lookup_ref(*filled, hi, lo, valid, D), 3)
-    sc = scratch(S2)
-    zero = torch.zeros(K, dtype=torch.int32, device=dev)
-
-    def refill():
-        sc[0].fill_(SENT)
-        sc[1].fill_(SENT)
-        sc[2].zero_()
-
-    fill_ms = time_ms(refill, 50)
-    h2_ms = time_ms(lambda: (refill(), ht_ops.claim_(*sc, hi, lo, valid,
-                                                      zero, D)), 50)
-    h2_plain = time_ms(lambda: claim_ref(*scratch(S2), hi, lo, valid, zero,
-                                         D), 3)
-    r1 = _probe_reads(*filled[:2], hi, lo, valid, D, False)
-    r2 = _probe_reads(*scratch(S2)[:2], hi, lo, valid, D, True)
-    b1, n1 = _probe_bound_ms(K, r1, int(found.sum()), False)
-    b2, n2 = _probe_bound_ms(K, r2, int(first.sum()), True)
-    blocks, threads = ht_ops.claim_block_shape(K, S2)
-    # the card's own time of each kernel (events around single calls time
-    # the launcher too): calls captured in a graph, the replay timed
-    _profiler_events("H1's launch alone",
-                     lambda: ht_ops.lookup(*filled, hi, lo, valid, D))
-    h1_dev = _replay_ms(lambda: ht_ops.lookup(*filled, hi, lo, valid, D))
-    h2_dev = _replay_ms(lambda: (refill(), ht_ops.claim_(
-        *sc, hi, lo, valid, zero, D))) - _replay_ms(refill)
-    rows["H1"] = dict(ms=h1_ms, device_ms=h1_dev, plain_ms=h1_plain,
-                      bound_ms=b1, bound_by="bytes", library_ms=None,
-                      bytes=n1, slot_reads=r1, K=K, slots=S)
-    rows["H2"] = dict(ms=h2_ms - fill_ms, device_ms=h2_dev,
-                      plain_ms=h2_plain, bound_ms=b2, bound_by="bytes",
-                      library_ms=None, bytes=n2, slot_reads=r2, K=K,
-                      slots=S2, ms_with_fill=h2_ms, fill_ms=fill_ms,
-                      grid=[blocks, threads])
-    for k, r in rows.items():
-        log(f"[21] (c) {k} at the full-width wave (K={K}, {r['slots']} "
-            f"slots): {r['ms']:.4f} ms (CUDA events), {r['device_ms']:.4f} "
-            f"ms on the card (20 calls in a graph, replayed), plain version "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bytes']} bytes, {r['slot_reads']} slot reads)"
-            + (f"; H2's grid {blocks} x {threads} (cooperative), the "
-               f"scratch fills {fill_ms:.4f} ms of {h2_ms:.4f}"
-               if k == "H2" else ""))
+    claim_both("insert of the wave", filled, hi, lo, ins, pay)
+    # the level's insert: the first F new keys into the held table
+    sel = torch.sort((~ins).to(torch.uint8), stable=True).indices[:F]
+    f_hi, f_lo, f_ins = hi[sel], lo[sel], ins[sel]
+    f_pay = torch.arange(F, dtype=torch.int32, device=dev)
+    claim_both(f"an F = {F} insert into {n} keys' table", filled, f_hi,
+               f_lo, f_ins, f_pay)
+    # max_probes 2: each route overflows
+    _, _, _, o1 = claim_both("the wave's first occurrence, max_probes 2",
+                             _empty(S2, 0, dev), hi, lo, valid, zero, 2)
+    _, _, o2 = first_both("the wave's first occurrence, max_probes 2", hi,
+                          lo, valid, 2)
+    _, _, _, o3 = claim_both(f"{n} keys, max_probes 2", base, *present,
+                             torch.ones(n, dtype=torch.bool, device=dev),
+                             torch.arange(n, dtype=torch.int32, device=dev),
+                             2)
+    # the cluster at its most: 131,072 keys (a quarter repeated) into
+    # 262,144 slots, 8,192 a block; their first 65,536, and those into a
+    # given table of 131,072 slots on the grid
+    big = rng.integers(0, 2**32, size=(2, 1 << 17), dtype=np.uint64)
+    big[:, 3::4] = big[:, rng.integers(0, 1 << 17, size=(1 << 17) // 4)]
+    b_hi, b_lo = t(big[0].astype(np.int64)), t(big[1].astype(np.int64))
+    b_pend = t(rng.random(1 << 17) < 0.95, torch.bool)
+    first_both("131,072 keys' first occurrence", b_hi, b_lo, b_pend)
+    h_hi, h_lo, h_pend = (x[:1 << 16].contiguous()
+                          for x in (b_hi, b_lo, b_pend))
+    first_both("65,536 keys' first occurrence", h_hi, h_lo, h_pend)
+    claim_both("65,536 keys into 131,072 slots",
+               _empty(1 << 17, 0, dev), h_hi, h_lo, h_pend,
+               torch.arange(1 << 16, dtype=torch.int32, device=dev))
+    # a probe bound past the cluster's claim words: the grid
+    first_both("16,384 keys' first occurrence, max_probes 16,384",
+               h_hi[:1 << 14].contiguous(), h_lo[:1 << 14].contiguous(),
+               h_pend[:1 << 14].contiguous(), 1 << 14)
+    # the grid route's fresh table: 262,144 keys' first occurrence
+    g = rng.integers(0, 2**32, size=(2, 1 << 18), dtype=np.uint64)
+    g[:, 1::2] = g[:, rng.integers(0, 1 << 18, size=1 << 17)]
+    first_both("262,144 keys' first occurrence", t(g[0].astype(np.int64)),
+               t(g[1].astype(np.int64)),
+               torch.ones(1 << 18, dtype=torch.bool, device=dev))
 
     # forged keys on one base slot of a 1,024-slot table: 100 chains past
     # the 64-probe bound
@@ -4563,34 +4863,137 @@ def _probe_kernels():
     fh, fl = t(forged[0]), t(forged[1])
     ones = torch.ones(100, dtype=torch.bool, device=dev)
     ftab, fwon, _, fovf = claim_both(
-        "100 forged keys on one base slot", scratch(Sf), fh, fl, ones,
-        torch.arange(100, dtype=torch.int32, device=dev))
+        "100 forged keys on one base slot", _empty(Sf, 0, dev), fh, fl,
+        ones, torch.arange(100, dtype=torch.int32, device=dev))
     check(bool(fovf) and int(fwon.sum()) == D,
           f"[21] (c) forged chain: {int(fwon.sum())} inserted, overflow "
           f"{bool(fovf)}; expected {D} and an overflow")
     lookup_both("the forged keys", ftab, fh, fl, ones)
     claim_both("the forged keys again (duplicates)", ftab, fh, fl, ones,
                torch.zeros(100, dtype=torch.int32, device=dev))
+    _, _, o4 = first_both("the forged keys, max_probes 2", fh, fl, ones, 2)
+    check(all(bool(o) for o in (o1, o2, o3, o4)),
+          "[21] (c) max_probes 2 did not overflow on every route")
 
     # equal keys in one batch: the lowest index of each group wins
     groups = rng.integers(0, 2**32, size=(2, 300), dtype=np.uint64)
     which = rng.integers(0, 300, size=4096)
     eq = groups[:, which].astype(np.int64)
     eh, el = t(eq[0]), t(eq[1])
+    e_all = torch.ones(4096, dtype=torch.bool, device=dev)
     _, ewon, _, _ = claim_both(
-        "4,096 keys of 300 distinct", scratch(table_slots(4096)), eh, el,
-        torch.ones(4096, dtype=torch.bool, device=dev),
-        torch.zeros(4096, dtype=torch.int32, device=dev))
+        "4,096 keys of 300 distinct", _empty(table_slots(4096), 0, dev),
+        eh, el, e_all, torch.zeros(4096, dtype=torch.int32, device=dev))
     lowest = np.unique(which, return_index=True)[1]
     check(np.array_equal(np.flatnonzero(ewon.cpu().numpy()), np.sort(lowest)),
           "[21] (c) equal keys: the winners are not each group's lowest "
           "index")
-    log(f"[21] (c) H1 and H2 bit-identical to their plain versions in "
-        f"{cases} cases: {n} keys into {S} slots, the full-width wave "
-        f"(lookup, first occurrence, insert), 100 forged keys on one base "
-        f"slot of {Sf} ({D} inserted, the rest past the {D}-probe bound), "
-        f"their lookup and duplicates, and 4,096 keys of 300 (each group's "
-        f"lowest index wins); max_abs_err {json.dumps(errs)}")
+    first_both("4,096 keys of 300 distinct", eh, el, e_all)
+    check(set(routes) >= {"cta", "cluster16", "grid"},
+          f"[21] (c) not every H2 route ran: {dict(routes)}")
+
+    # H1's bodies on forged rows: negative entries, invalid rows, rows at
+    # every alignment, a table holding every other valid row's key, at
+    # max_probes 64, 1 and 2
+    rows_cases = 0
+    for K_f, w in H1_FORGED:
+        for off in (0, 1, 3):
+            buf = rng.integers(-2**31, 2**31, size=K_f * w + off,
+                               dtype=np.int64).astype(np.int32)
+            rows = t(buf, torch.int32)[off:].view(K_f, w)
+            fvalid = t(rng.random(K_f) < 0.8, torch.bool)
+            raw = config_hash_ref(rows)
+            same("H1", f"hash body, {K_f} x {w} at offset {off}",
+                 ht_ops.config_hash(rows), raw)
+            h, lw = _canonical(*raw, fvalid)
+            ftab = make_table(16 if K_f < 100 else 4096, dev)
+            held = fvalid & (torch.arange(K_f, device=dev) % 2 == 0)
+            ht_ops.claim_(ftab.slots_hi, ftab.slots_lo, ftab.slot_payload,
+                          h, lw, held, torch.arange(K_f, dtype=torch.int32,
+                                                    device=dev), D)
+            ft = (ftab.slots_hi, ftab.slots_lo, ftab.slot_payload)
+            for d in (D, 1, 2):
+                same("H1", f"rows body, {K_f} x {w} at offset {off}, "
+                     f"max_probes {d}", ht_ops.hash_lookup(*ft, rows, fvalid,
+                                                           d),
+                     (h, lw, lookup_ref(*ft, h, lw, fvalid, d)[0]))
+                rows_cases += 1
+    cases += rows_cases
+
+    # figures: H1 at the scaled_pi(682) wave's real block (phase 5), H2's
+    # cluster route at its first occurrence; H2's cta route at the level's
+    # insert and its grid route at the synthetic wave's
+    rows = {}
+    main = WAVE_PROBES["scaled_pi(682)"]
+    others = {wv: {b: WAVE_PROBES[wv][b] for b in ("rows", "hash", "keys",
+                                                   "first")}
+              for wv in EAGER_HASH_MS if wv in WAVE_PROBES}
+    rows["H1"] = dict(main["rows"], K=main["K"], w=main["w"],
+                      hash_body=main["hash"], keys_body=main["keys"],
+                      waves=others)
+    copy = tuple(x.clone() for x in filled)
+
+    def restore():
+        for a, b in zip(copy, filled):
+            a.copy_(b)
+
+    def cta():
+        restore()
+        ht_ops.claim_(*copy, f_hi, f_lo, f_ins, f_pay, D)
+
+    def grid():
+        restore()
+        ht_ops.claim_(*copy, hi, lo, ins, pay, D)
+
+    restore_ms = _replay_ms(restore)
+    f_reads = _probe_reads(*filled[:2], f_hi, f_lo, f_ins, D, True)[0]
+    g_reads = _probe_reads(*filled[:2], hi, lo, ins, D, True)[0]
+    cta_fig = dict(
+        device_ms=_replay_ms(cta) - restore_ms,
+        bound_ms=_probe_bound_ms(F, f_reads, int(f_ins.sum()), True)[0],
+        K=F, slots=S, slot_reads=f_reads)
+    grid_fig = dict(
+        device_ms=_replay_ms(grid) - restore_ms,
+        bound_ms=_probe_bound_ms(K, g_reads, int(ins.sum()), True)[0],
+        K=K, slots=S, slot_reads=g_reads,
+        grid=list(ht_ops.claim_block_shape(K, S, D, False)))
+    synth_fig = dict(
+        device_ms=_replay_ms(lambda: ht_ops.first_claim(hi, lo, valid, S2,
+                                                        D)),
+        ms=time_ms(lambda: ht_ops.first_claim(hi, lo, valid, S2, D), 50),
+        K=K, slots=S2)
+    rows["H2"] = dict(main["first"], K=main["K"],
+                      routes={"cta (the level's insert)": cta_fig,
+                              "grid (the synthetic wave's insert)": grid_fig,
+                              "cluster (the synthetic wave's first "
+                              "occurrence)": synth_fig},
+                      waves={wv: r["first"] for wv, r in others.items()})
+    for k, r in rows.items():
+        log(f"[21] (c) {k} at the scaled_pi(682) wave (K={r['K']}): "
+            f"{r['device_ms']:.4f} ms on the card (20 calls in a graph, "
+            f"replayed), {r['ms']:.4f} ms by events, plain version "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bytes']} bytes)")
+    for name, r in rows["H2"]["routes"].items():
+        log(f"[21] (c) H2 {name}: {r['device_ms']:.4f} ms on the card"
+            + (f", bound {r['bound_ms']:.5f} ms" if "bound_ms" in r else ""))
+    for wv in EAGER_HASH_MS:
+        if wv in WAVE_PROBES:
+            for k in ("H1", "H2"):
+                errs[k] = max(errs[k], WAVE_PROBES[wv]["errs"][k])
+    log(f"[21] (c) H1's three bodies and H2's routes bit-identical to their "
+        f"plain versions in {cases} cases (and at the four waves' blocks, "
+        f"phases 5-11): {n} keys into {S} slots, the synthetic full-width "
+        f"wave (lookup, first occurrence fresh and into a table, insert), "
+        f"an F = {F} insert, max_probes 2 on every route (each overflows), "
+        f"131,072 and 65,536 keys on a cluster of 16, 65,536 into a table "
+        f"on the grid, 16,384 at max_probes 16,384 and 262,144 keys' first "
+        f"occurrence on the grid, 100 forged keys on one base slot of "
+        f"{Sf}, 4,096 keys "
+        f"of 300 (each group's lowest index wins), {rows_cases} forged row "
+        f"blocks (widths {sorted({w for _, w in H1_FORGED})}, negative "
+        f"entries, invalid rows, offsets 0/1/3); routes {dict(routes)}; "
+        f"max_abs_err {json.dumps(errs)}; {time.perf_counter() - t0:.1f} s")
     return errs, rows
 
 
@@ -4605,6 +5008,7 @@ def _checkpointed():
     from repro_torch.core import compile_system, explore
     from repro_torch.core import device as devmod
     from repro_torch.core.generators import scaled_pi
+    from repro_torch.kernels.launch_counts import by_kernel
 
     comp = compile_system(scaled_pi(682), device="cuda")
     d = tempfile.mkdtemp(prefix="snp-zero-sync-")
@@ -4625,7 +5029,14 @@ def _checkpointed():
           "chunks; expected one a chunk and two at the end")
     check(_digest(res) == ARCHIVES["scaled_pi(682)"],
           "[21] (d) the checkpointed archive differs from phase 5's")
-    want = {"B1": res.steps, "H1": res.steps, "H2": 2 * res.steps + 1}
+    keyed = probe_counts()
+    wkeys = _probe_launches("explore", FULL_WIDTH["frontier_cap"],
+                            FULL_WIDTH["max_branches"],
+                            FULL_WIDTH["visited_cap"])(res.steps)
+    check(all(keyed[k] == wkeys.get(k, 0) for k in keyed),
+          f"[21] (d) H1/H2 launches by body {_keyed(keyed)}, expected "
+          f"{_keyed(wkeys)}")
+    want = dict(B1=res.steps, **by_kernel(wkeys))
     check_counts("[21] (d) checkpointed explore", counts, **want)
     log(f"[21] (d) explore(scaled_pi(682)) via 'cuda' checkpointed every "
         f"{CKPT_EVERY} levels: {res.steps} levels in {chunks} chunks, "
@@ -6584,6 +6995,16 @@ def main() -> int:
                       launch={f: row[f] for f in (
                           "B", "Hq", "Hkv", "Sq", "D", "dtype", "gflop")})
               for k, row in attn_rows.items()}
+    # H1's bodies and H2's routes: their launches by body on the main path,
+    # the other bodies', routes' and waves' figures
+    for k in PROBE_KERNELS:
+        extras[k] = dict(
+            {f: v for f, v in probe_rows[k].items()
+             if f in ("hash_body", "keys_body", "waves", "routes",
+                      "claim_route",
+                      "ctas", "slots", "K", "w", "bytes", "threads_a_row",
+                      "bound_ms_table_in_memory")},
+            launches_by_body=sync_figures[main_path[k]]["launches_by_body"])
     figures = []
     for k, meta in KERNELS.items():
         w = waves[k]
@@ -6616,6 +7037,9 @@ def main() -> int:
     log(f"[27] meshed family figures: {json.dumps(family_mesh_figures)}")
     log(f"[27] roofline figures: {json.dumps(roof_figures)}")
     log(f"[27] card: {card}")
+    check(all(f["route"] in ("cuda", "triton") for f in figures),
+          "a kernel's route on the kernels line is not cuda or triton: "
+          + json.dumps({f["id"]: f["route"] for f in figures}))
     print(json.dumps({"kernels": figures}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,8 +62,8 @@ from .device import DeviceLike, host_copy, host_read_all, resolve_device
 from .failover import run_with_failover
 from .graph_loop import FusedLoop, tree_tensors
 from .hashing import M32, SENTINEL, config_hash
-from .hashtable import (HashTable, first_occurrence, insert_unique_, lookup,
-                        make_table)
+from .hashtable import (HashTable, _hash_lookup, first_occurrence,
+                        insert_unique_, make_table)
 from .matrix import CompiledAny, is_compiled, is_delayed
 from .plan import SystemPlan
 
@@ -239,14 +239,15 @@ def _explore_level(s: ExploreState, comp: CompiledAny, be: StepBackend,
     cand_valid = (out.valid & live[:, None]).reshape(F * T)
     s.branch_overflow.logical_or_((out.overflow & live).any())
 
-    hi, lo = config_hash(cand)
-    hi = torch.where(cand_valid, hi, SENTINEL)
-    lo = torch.where(cand_valid, lo, SENTINEL)
     if dedup == "hash":
-        found, _ = lookup(s.visited, hi, lo, cand_valid)
+        # hashed and looked up in one pass over the rows (H1 on the card)
+        hi, lo, found = _hash_lookup(s.visited, cand, cand_valid)
         first, probe_ovf = first_occurrence(hi, lo, cand_valid)
         new_mask = cand_valid & first & ~found
     else:
+        hi, lo = config_hash(cand)
+        hi = torch.where(cand_valid, hi, SENTINEL)
+        lo = torch.where(cand_valid, lo, SENTINEL)
         new_mask = _sort_dedup_verdict(s.visited, _sort_key(hi, lo),
                                        cand_valid)
 

@@ -4,7 +4,8 @@ The port of ``repro.core.hashing``, bit for bit:
 
 * :func:`config_hash` — a per-element multiply and shift-xor folded by two
   position-salted polynomial accumulators, then a murmur3 finalizer per
-  lane (the single-device engine's key);
+  lane (the single-device engine's key); on the card kernel H1's hash
+  body, elsewhere its plain version :func:`config_hash_ref`;
 * :func:`zobrist_hash` — each (global position, value) pair finalized on
   its own and the lanes summed mod 2^32, so the hashes of disjoint column
   slices add up to the hash of the whole row (the neuron-sharded
@@ -24,7 +25,8 @@ import functools
 
 import torch
 
-__all__ = ["config_hash", "zobrist_hash", "SENTINEL", "fmix32", "mul32"]
+__all__ = ["config_hash", "config_hash_ref", "zobrist_hash", "SENTINEL",
+           "fmix32", "mul32"]
 
 M32 = 0xFFFFFFFF
 # Sorts after every real hash; used for invalid / empty slots.
@@ -98,7 +100,18 @@ def _config_consts(m: int, dev: torch.device):
 def config_hash(configs: torch.Tensor):
     """Hash int32 configs (..., m) to two lanes ``(hi, lo)``: int64 tensors
     holding the reference's uint32 values (negative entries wrap mod 2^32
-    as the reference's cast does)."""
+    as the reference's cast does).  On a CUDA tensor kernel H1's hash body
+    (:func:`repro_torch.kernels.hashtable.ops.config_hash`) runs, one launch
+    that reads each row once, or the call raises; on a CPU or meta tensor
+    its plain version :func:`config_hash_ref`."""
+    # imported here: the kernels package imports core modules
+    from ..kernels.hashtable import ops
+    return ops.config_hash(configs)
+
+
+def config_hash_ref(configs: torch.Tensor):
+    """:func:`config_hash`'s plain version: eager int64 passes over row
+    blocks (a dozen temporaries the size of a block)."""
     m = configs.shape[-1]
     pos, p1, p2 = _config_consts(m, configs.device)
 

@@ -15,12 +15,14 @@ in (a plain atomic compare-and-swap would let any racer win); a claim
 loser re-checks the slot it lost before probing on.
 
 The probes.  The reference's probe ``while_loop``s are the hand-written
-kernels of :mod:`repro_torch.kernels.hashtable`: H1 (lookup) and H2 (the
-claim rounds, shared by :func:`first_occurrence` and the inserts), each a
-launch with no host read, so a BFS level that dedups through this table
-runs on the card without reading anything back.  On CPU tensors the same
-functions run the kernels' plain versions (PyTorch loops over the same
-rounds).
+kernels of :mod:`repro_torch.kernels.hashtable`: H1 (lookup; for the BFS
+level, :func:`_hash_lookup`, the candidate rows hashed and looked up in
+one launch) and H2 (the claim rounds, shared by :func:`first_occurrence`
+and the inserts, by the route :func:`~repro_torch.kernels.hashtable.ops.
+claim_route` picks from the sizes), each a launch with no host read, so a
+BFS level that dedups through this table runs on the card without reading
+anything back.  On CPU tensors the same functions run the kernels' plain
+versions (PyTorch loops over the same rounds).
 """
 
 from __future__ import annotations
@@ -125,20 +127,32 @@ def lookup(table: HashTable, hi, lo, valid,
                          hi, lo, valid, _probes(table.num_slots, max_probes))
 
 
+def _hash_lookup(table: HashTable, rows: torch.Tensor, valid,
+                 max_probes: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The BFS level's hash and lookup of its candidate rows (K, m):
+    ``(hi, lo, found)``, the lanes :func:`~.hashing.config_hash` gives,
+    canonical under ``valid``, and :func:`lookup`'s verdict.  H1's rows
+    body on the card (one launch, each row read once); on the CPU
+    ``config_hash``, the canonical lanes and :func:`lookup`'s plain
+    version."""
+    dev = table.slots_hi.device
+    return _ops().hash_lookup(table.slots_hi, table.slots_lo,
+                              table.slot_payload, rows,
+                              _mask(valid, dev).contiguous(),
+                              _probes(table.num_slots, max_probes))
+
+
 def first_occurrence(hi, lo, valid, max_probes: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``first[i]`` iff candidate ``i`` is the lowest-indexed holder of its
-    key within the batch, from the claim rounds (H2) on a scratch table of
-    ``table_slots(K)`` slots.  Returns ``(first, overflow)``."""
+    key within the batch, from the claim rounds (H2) on a fresh table of
+    ``table_slots(K)`` slots, the kernel's own (at the BFS wave it lives in
+    one cluster's shared memory).  Returns ``(first, overflow)``."""
     dev = hi.device if isinstance(hi, torch.Tensor) else None
     hi, lo, valid = _keys(hi, lo, valid, dev)
-    K = int(hi.shape[0])
-    S = table_slots(max(K, 1))
-    s_hi, s_lo, s_pay = _empty(S, 0, hi.device)
-    won, _, ovf = _ops().claim_(
-        s_hi, s_lo, s_pay, hi, lo, valid,
-        torch.zeros(K, dtype=torch.int32, device=hi.device),
-        _probes(S, max_probes))
+    S = table_slots(max(int(hi.shape[0]), 1))
+    won, _, ovf = _ops().first_claim(hi, lo, valid, S, _probes(S, max_probes))
     return won, ovf
 
 

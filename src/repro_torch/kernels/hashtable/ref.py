@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the hash-table probe kernels H1 and H2.
+"""Plain PyTorch versions of the hash-table kernels H1 and H2.
 
 The reference's probe ``while_loop``s (``repro.core.hashtable``) as
-PyTorch loops over the same rounds; ``csrc/hashtable.cu`` equals them bit
-for bit.  They run on CPU tensors (the wrappers in :mod:`.ops` call them
-there); on the card only a check of the kernels calls them, since each
-round's test of the pending mask is a host read.  Keys arrive canonical
+PyTorch loops over the same rounds, and its ``config_hash``
+(:func:`config_hash_ref`, the plain version of H1's rows and hash bodies,
+which lives in :mod:`repro_torch.core.hashing`); ``csrc/hashtable.cu``
+equals them bit for bit.  They run on CPU tensors (the wrappers in
+:mod:`.ops` call them there); on the card only a check of the kernels
+calls them, since each round's test of the pending mask is a host read.  Keys arrive canonical
 (:func:`repro_torch.core.hashtable._canonical`): int64 tensors holding
 uint32 lanes, the empty marker ``SENTINEL`` in both lanes only for
 invalid ones.
@@ -16,9 +18,9 @@ from typing import Tuple
 
 import torch
 
-from ...core.hashing import SENTINEL, fmix32, mul32
+from ...core.hashing import SENTINEL, config_hash_ref, fmix32, mul32
 
-__all__ = ["base_slot", "lookup_ref", "claim_ref"]
+__all__ = ["base_slot", "lookup_ref", "claim_ref", "config_hash_ref"]
 
 _MIX = 0x9E3779B1
 

@@ -6,8 +6,10 @@ card ran: a launch made from Python and one replayed from a CUDA graph
 (:mod:`repro_torch.core.graph_loop`) count alike, and no count is derived
 from another.  A wrapper passes :func:`slot` for its key: ``(kernel, rows,
 threads)`` for a step kernel (``"B1"`` ... ``"B7"``; B5's two bodies
-``"B5-ELL"`` and ``"B5-COO"``), the block shape that ran, and ``("H1",)``
-or ``("H2",)`` for a hash-table kernel.
+``"B5-ELL"`` and ``"B5-COO"``), the block shape that ran, and for a
+hash-table kernel its body or route: ``("H1",)``, ``("H1", "rows")``,
+``("H1", "hash")``, ``("H2", "cta")``, ``("H2", "cluster")``, ``("H2",
+"grid")`` (:data:`repro_torch.kernels.hashtable.ops.KEYS`).
 
 The counters live in one int64 tensor a card, made at that card's first
 launch, which must not be inside a graph capture (a capture would record

@@ -11,13 +11,13 @@
 from .ops import (snp_step, snp_step_dense, snp_step_dense_delay,
                   snp_step_dense_shard)
 from .ref import (snp_step_dense_delay_ref, snp_step_dense_ref,
-                  snp_step_dense_shard_ref)
+                  snp_step_dense_shard_ref, snp_step_ref)
 from .sparse_ops import (snp_step_sparse, snp_step_sparse_cuda,
                          snp_step_sparse_shard)
 from .sparse_ref import snp_step_sparse_ref
 
 __all__ = ["snp_step", "snp_step_dense", "snp_step_dense_ref",
            "snp_step_dense_delay", "snp_step_dense_delay_ref",
-           "snp_step_dense_shard", "snp_step_dense_shard_ref",
+           "snp_step_dense_shard", "snp_step_dense_shard_ref", "snp_step_ref",
            "snp_step_sparse", "snp_step_sparse_cuda", "snp_step_sparse_ref",
            "snp_step_sparse_shard"]

@@ -8,7 +8,11 @@ the math the rest of the port runs on:
 * :func:`snp_step_dense_ref` — B1, ``C + S·M``;
 * :func:`snp_step_dense_delay_ref` — B4, the delayed step;
 * :func:`snp_step_dense_shard_ref` — B6, ``C + halo·hadj + S·M_local``
-  for one neuron shard.
+  for one neuron shard;
+* :func:`snp_step_ref` — the whole step's oracle, the reference's
+  ``repro.kernels.snp_step.snp_step_ref``: it takes what
+  :func:`~.ops.snp_step` takes and delegates to
+  :func:`repro_torch.core.semantics.next_configs`.
 
 The wrapper uses them for tensors on the CPU; ``chip_smoke.py`` compares
 the kernels with them on the card.
@@ -18,10 +22,18 @@ from __future__ import annotations
 
 import torch
 
-from ...core.semantics import decode_spiking, transition
+from ...core.semantics import decode_spiking, next_configs, transition
 
-__all__ = ["snp_step_dense_ref", "snp_step_dense_delay_ref",
+__all__ = ["snp_step_ref", "snp_step_dense_ref", "snp_step_dense_delay_ref",
            "snp_step_dense_shard_ref"]
+
+
+def snp_step_ref(configs, comp, max_branches: int):
+    """``(successors (B,T,m) int32, valid (B,T) bool, emissions (B,T)
+    int32, overflow (B,) bool)`` of the dense encoding ``comp``, from the
+    semantics the rest of the port runs on."""
+    out = next_configs(configs, comp, max_branches)
+    return out.configs, out.valid, out.emissions, out.overflow
 
 
 def snp_step_dense_ref(configs, rank, app, stride, choices, psi,

@@ -2,7 +2,8 @@
 (``FakeTensorMode``: the dry run's tensors, which have no device memory)
 with a clear error instead of launching on pointers to nothing: B1, B4,
 B6 (``kernels/snp_step/ops.py``), the sliced-list kernel of B2, B3, B5
-and B7 (``sparse_ops.py``), H1 and H2 (``kernels/hashtable/ops.py``),
+and B7 (``sparse_ops.py``), H1's three bodies and H2 into a given or a
+fresh table (``kernels/hashtable/ops.py``),
 the level loop's graph (``core/graph_loop.py``) and B8
 (``flash_attention_cuda``).  B8's custom operator, run on fake tensors,
 gives its output's shape without a launch."""
@@ -65,6 +66,20 @@ def _h2():
                  t(4, dtype=i64), t(4, dtype=i64), t(4, dtype=b8), t(4), 8)
 
 
+def _h1_rows():
+    table.hash_lookup(t(16, dtype=i64), t(16, dtype=i64), t(16), t(4, 7),
+                      t(4, dtype=b8), 8)
+
+
+def _h1_hash():
+    table.config_hash(t(4, 7))
+
+
+def _h2_first():
+    table.first_claim(t(4, dtype=i64), t(4, dtype=i64), t(4, dtype=b8), 16,
+                      8)
+
+
 def _graph_loop():
     state = types.SimpleNamespace(step=t(), total_new=t())
     FusedLoop(lambda s: None, state, [torch.device("cuda", 0)]).run(
@@ -79,6 +94,9 @@ def _b8():
 WRAPPERS = {"B1": (_b1, "B1"), "B4": (_b4, "B4"), "B6": (_b6, "B6"),
             "B2-B3-B5-B7": (_sparse, "B2, B3, B5, B7"),
             "H1": (_h1, "H1"), "H2": (_h2, "H2"),
+            "H1-rows": (_h1_rows, "hash_lookup (H1)"),
+            "H1-hash": (_h1_hash, "config_hash (H1)"),
+            "H2-first": (_h2_first, "first_claim (H2)"),
             "graph_loop": (_graph_loop, "graph_loop_launch"),
             "B8": (_b8, "flash_attention_cuda")}
 

@@ -130,6 +130,38 @@ def test_port_exports_the_roofline_names():
         assert name in dryrun.__all__ and hasattr(dryrun, name)
 
 
+# The reference's subpackages, and the public names of theirs the port
+# has no counterpart for: Pallas kernels and backends (CUDA sources and
+# backends take their places) and the HLO analyzer's (the step counter
+# takes its place).
+PACKAGES = sorted(p.parent.relative_to(SRC).as_posix().replace("/", ".")
+                  for p in (SRC / "repro").rglob("__init__.py"))
+NOT_PORTED = {"PallasBackend", "SparsePallasBackend", "snp_step_pallas",
+              "snp_step_sparse_pallas", "flash_attention_pallas",
+              "analyze_compiled", "parse_collectives"}
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_port_exports_every_reference_name(package):
+    """Each name in a reference subpackage's ``__all__`` is in the port's
+    subpackage of the same path, and bound there."""
+    import importlib
+
+    ref = importlib.import_module(package)
+    port = importlib.import_module("repro_torch" + package[len("repro"):])
+    want = set(getattr(ref, "__all__", ())) - NOT_PORTED
+    have = set(getattr(port, "__all__", ()))
+    assert want <= have, sorted(want - have)
+    for name in want:
+        assert hasattr(port, name), name
+
+
+def test_launch_exports_make_production_mesh():
+    from repro_torch.launch import make_production_mesh
+    from repro_torch.launch.mesh import make_production_mesh as defined
+    assert make_production_mesh is defined
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(SRC)
                          .as_posix())
 def test_no_jax_repro_or_module_level_triton(path):
